@@ -1,0 +1,3 @@
+from repro_torch.configs.registry import ARCH_IDS, get_config
+
+__all__ = ["ARCH_IDS", "get_config"]

@@ -10,6 +10,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips on a host without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -3,41 +3,36 @@
 
     python3 chip_profile.py
 
-Serves ``chip_smoke.py``'s engine trace (``llama-paper-1b`` at full width,
-bf16, 16 requests of 16-1024 prompt tokens, 64 new tokens each) three
-times on one model: cold (first use of every shape), warm, and warm under
-``torch.profiler``. Prints the three wall times, the device's busy time
-and idle share in the profiled run, the warm wall per decode micro-step,
-and the kernels and host ops that take the most time. Needs one NVIDIA
-card.
+Serves ``chip_smoke.py``'s engine traces (``llama-paper-1b`` at full
+width, bf16, 16 requests of 64 new tokens each) four times per path on
+one model: cold (first use of every shape), warm, warm under
+``torch.profiler``, and warm with CUDA's sync debug mode on, which
+counts every point where the host waits for the device. The contiguous
+path serves 16-1024-token prompts on the default engine; the paged path
+serves the shared-system-prompt trace with the paged pool, chunked
+prefill (256, pack 2) and prefix sharing. Prints the three timed walls,
+the device's busy time and idle share in the profiled run, the host's
+waits (by source line) beside the engine's ``host_syncs``, the warm
+wall per decode micro-step, and the kernels and host ops that take the
+most time. Needs one NVIDIA card.
 """
+import collections
 import sys
 import time
+import traceback
+import warnings
 
 import torch
 
 import chip_smoke
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device", file=sys.stderr)
-        return 2
-    from repro_torch.configs import get_config
-    from repro_torch.models import Model
-    from repro_torch.serving import EngineConfig, ServingEngine
-    card = chip_smoke.card_line()
-    cfg = get_config("llama-paper-1b")
-    model = Model(cfg, "cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = model.init(gen)
-    ecfg = EngineConfig(max_batch=8, max_len=2048, profile="h100_sxm",
-                        region="QC")
+def profile(card, label, model, params, ecfg, requests) -> None:
+    from repro_torch.serving import ServingEngine
 
     def serve():
         engine = ServingEngine(model, params, ecfg)
-        for r in chip_smoke.engine_requests(cfg.vocab):
+        for r in requests():
             engine.submit(r)
         t0 = time.perf_counter()
         engine.run()
@@ -56,13 +51,43 @@ def main() -> int:
         raise RuntimeError("the profiler recorded no device events")
     busy_us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
     st = engine.stats()
-    print(f"[profile] {card}")
+    # every synchronizing call warns once under the sync debug mode; each
+    # wait is keyed by the innermost frame outside torch, and by the
+    # frame inside torch that waited, if any
+    waits = []
+
+    def record(message, *_):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack if "/torch/" not in f.filename]
+        key = f"{ours[-1].filename}:{ours[-1].lineno}"
+        if stack[-1] is not ours[-1]:
+            key += (f" <- {stack[-1].filename}:{stack[-1].lineno} "
+                    f"{stack[-1].name}")
+        waits.append(key)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            waiter, _ = serve()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    print(f"\n[profile] {label} ({card})")
     print(f"  wall: cold {cold_wall:.3f} s, warm {warm_wall:.3f} s, warm "
           f"under the profiler {wall:.3f} s")
     print(f"  device busy {busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.1%}"
           f" of the profiled wall; idle share {1 - busy_us / 1e6 / wall:.1%}")
-    print(f"  prefill batches {engine.prefill_batches}, decode micro-steps "
-          f"{st['steps']}, warm wall per micro-step (prefill included) "
+    print(f"  host waits for the device (sync debug mode) {len(waits)}; "
+          f"engine host_syncs {waiter.host_syncs}")
+    for line, n in collections.Counter(waits).most_common(8):
+        print(f"    {n:6d}  {line}")
+    print(f"  prefill batches {engine.prefill_batches}, prefill chunks "
+          f"{engine.prefill_chunks}, decode micro-steps {st['steps']}, warm "
+          f"wall per micro-step (prefill included) "
           f"{warm_wall / max(st['steps'], 1) * 1e3:.2f} ms")
     print("  top kernels by device time (self, total over the run):")
     top = sorted(rows, key=lambda e: -getattr(e, "self_device_time_total", 0))
@@ -74,6 +99,28 @@ def main() -> int:
     for e in host[:10]:
         print(f"    {e.self_cpu_time_total / 1e3:10.2f} ms  x{e.count:6d}  "
               f"{e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig
+    card = chip_smoke.card_line()
+    cfg = get_config("llama-paper-1b")
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
+    profile(card, "contiguous", model, params, EngineConfig(**base),
+            lambda: chip_smoke.engine_requests(cfg.vocab))
+    profile(card, "paged", model, params,
+            EngineConfig(**base, paged=True, page_size=16, prefill_chunk=256,
+                         prefill_pack=2, prefix_sharing=True),
+            lambda: chip_smoke.paged_requests(cfg.vocab))
     return 0
 
 

@@ -11,13 +11,24 @@ Phases (any failure raises and the script exits non-zero):
    registers / shared memory / spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main path's shapes, bf16 (atol 2e-2, rtol 2e-2) and float32
-   (1e-4), on valid query rows; kernel, plain-version and library
-   (``scaled_dot_product_attention``) times from CUDA events;
-4. engine: ``llama-paper-1b`` at full width in bf16, random weights from a
-   seed, serving 16 requests through ``ServingEngine``; the kernels' launch
-   counts show every layer of every prefill and decode step went through
-   them. A small float32 config is also served on the card and on the CPU
-   (the plain path) and must agree token for token;
+   (1e-4), on valid query rows; each bf16 kernel also against the plain
+   version run in float32 on the same bf16 inputs (atol 2e-3, rtol
+   1e-2: the kernels accumulate in float32 and round once at the store,
+   while a dropped or doubled key page moves an output by more); kernel, plain-version and library
+   (``scaled_dot_product_attention``; for the paged kernels over the
+   logical view gathered beforehand, the gather not timed) times from
+   CUDA events, beside the least time the card could take (valid keys
+   only);
+4. engine: ``llama-paper-1b`` at full width and depth in bf16, random
+   weights from a seed, served twice through ``ServingEngine`` with the
+   launch counts set to 0 just before each run and read just after: the
+   contiguous default path (16 requests; flash + decode kernels), then the
+   paged pool with chunked prefill and prefix sharing (16 requests, eight
+   sharing a 512-token system prompt; chunked-prefill + paged-decode
+   kernels, every layer of every chunk and micro-step). A small float32
+   config is also served on the card and on the CPU (the plain path), on
+   the contiguous path and on the paged + chunked + sharing rung, and
+   must agree token for token;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -41,11 +52,21 @@ PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # H100 SXM float32 outside the tensor cores
 HBM_BPS = 3.35e12         # H100 SXM device memory bytes/s
 TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+TOL_WIDE = (2e-3, 1e-2)   # bf16 kernel vs the float32 plain version
 N_LAYERS = 22             # llama-paper-1b
-FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
-DECODE_SRC = "src/repro_torch/kernels/csrc/decode_attention.cu"
-FLASH_TPU = "src/repro/kernels/flash_attention.py:77"
-DECODE_TPU = "src/repro/kernels/decode_attention.py:130"
+CSRC = "src/repro_torch/kernels/csrc/"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "flash_attention": (CSRC + "flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:77"),
+    "decode_attention": (CSRC + "decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:130"),
+    "paged_decode_attention": (CSRC + "paged_decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:184"),
+    "chunked_prefill_attention": (CSRC + "chunked_prefill_attention.cu",
+                                  "src/repro/kernels/chunked_prefill.py:117"),
+}
+SYSTEM_PROMPT = 512       # shared prefix of the paged run's traffic
 
 
 def card_line() -> str:
@@ -77,19 +98,33 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_close(name, got, want, rows, dtype) -> float:
-    """Max abs error over valid rows; raise past atol + rtol * |want|."""
-    atol, rtol = TOL[dtype]
+def past_tol(got, want, rows, atol, rtol) -> tuple:
+    """(max abs error over valid rows, elements past atol + rtol*|want|)."""
     g, w = got.float()[rows], want.float()[rows]
+    err = (g - w).abs()
+    return err.max().item(), int((err > atol + rtol * w.abs()).sum())
+
+
+def check_close(name, got, want, rows, dtype) -> float:
+    """Max abs error over valid rows; raise past TOL[dtype]."""
+    atol, rtol = TOL[dtype]
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite output")
-    err = (g - w).abs()
-    bad = err > atol + rtol * w.abs()
-    if bad.any():
-        raise AssertionError(
-            f"{name}: {int(bad.sum())} elements past atol {atol} rtol {rtol}"
-            f" (max abs err {err.max().item():.3e})")
-    return err.max().item()
+    err, bad = past_tol(got, want, rows, atol, rtol)
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements past atol {atol} rtol "
+                             f"{rtol} (max abs err {err:.3e})")
+    return err
+
+
+def check_wide(got, plain, args, rows, dtype):
+    """bf16 only: max abs error of ``got`` against ``plain`` run in float32
+    on the same inputs, and the elements past TOL_WIDE (phase 3 raises
+    after printing every case)."""
+    if dtype != torch.bfloat16:
+        return None, 0
+    wide = [a.float() if a.is_floating_point() else a for a in args]
+    return past_tol(got, plain(*wide), rows, *TOL_WIDE)
 
 
 # --------------------------------------------------------------------------
@@ -116,6 +151,8 @@ def flash_case(FA, REF, B, Hq, Hkv, S, dtype, gen):
     rows = (pos >= 0)[:, None, :, None].expand_as(want)
     err = check_close(f"flash B{B} H{Hq}/{Hkv} S{S} {dtype}", got, want,
                       rows, dtype)
+    wide = check_wide(got, REF.flash_attention, (qt, kt, vt, pos, pos),
+                      rows, dtype)
     mask = (pos[:, None, :, None] >= 0) & (pos[:, None, None, :] >= 0) & \
         (pos[:, None, None, :] <= pos[:, None, :, None])
     pairs = float(mask.sum().item()) * Hq
@@ -128,7 +165,7 @@ def flash_case(FA, REF, B, Hq, Hkv, S, dtype, gen):
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, wide=wide)
 
 
 def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen):
@@ -155,6 +192,8 @@ def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen):
     rows = torch.ones_like(want, dtype=torch.bool)
     err = check_close(f"decode B{B} H{Hq}/{Hkv} W{W} {dtype}", got, want,
                       rows, dtype)
+    wide = check_wide(got, REF.decode_attention, (q, kt, vt, q_pos, k_pos),
+                      rows, dtype)
     valid = float(((k_pos >= 0) & (k_pos <= q_pos[:, None])).sum().item())
     e = q.element_size()
     flops = valid * Hq * 4.0 * hd
@@ -167,7 +206,123 @@ def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen):
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, wide=wide)
+
+
+def paged_pool(B, Hkv, ps, M, hd, lens, dtype, gen, S=None, shared=True):
+    """A (Hkv, P+1, ps, hd) pool with P = B*M pages, block tables taking
+    pages from a shuffled permutation, slot b holding lens[b] tokens, one
+    unmapped (-1) logical page inside slot 0 and one physical page mapped
+    by two slots. With ``S``: the last min(S, len) tokens of each slot are
+    its chunk (q_pos (B, S), pads -1); else q_pos is the last token."""
+    dev = "cuda"
+    P = B * M
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(
+        int(sum(lens)))).tolist()
+    tbl = torch.full((B, M), -1, dtype=torch.int32)
+    k_pos = torch.full((B, M * ps), -1, dtype=torch.int32)
+    pi = 0
+    for b, L in enumerate(lens):
+        npg = -(-L // ps)
+        tbl[b, :npg] = torch.tensor(perm[pi:pi + npg], dtype=torch.int32)
+        pi += npg
+        k_pos[b, :L] = torch.arange(L, dtype=torch.int32)
+    if B > 1 and lens[0] > 3 * ps:
+        tbl[0, 1] = -1                          # unmapped page in slot 0
+        k_pos[0, ps:2 * ps] = -1
+    if shared and B > 1 and lens[1] > ps:
+        tbl[1, 0] = tbl[0, 0]                   # one page, two slots
+    if S is None:
+        q_pos = torch.tensor([L - 1 for L in lens], dtype=torch.int32)
+    else:
+        q_pos = torch.full((B, S), -1, dtype=torch.int32)
+        for b, L in enumerate(lens):
+            nv = min(S, L)
+            q_pos[b, :nv] = torch.arange(L - nv, L, dtype=torch.int32)
+    kp = torch.randn(Hkv, P + 1, ps, hd, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(Hkv, P + 1, ps, hd, generator=gen, device=dev).to(dtype)
+    return kp, vp, tbl.to(dev), q_pos.to(dev), k_pos.to(dev)
+
+
+def paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd, e, S=None):
+    """(operations, bytes) the paged function must move at least: valid
+    (query, key) pairs for the operations; each valid pool row read once
+    (a page mapped by two slots counted once), q and out once, and the
+    table and positions."""
+    qp = q_pos if S is not None else q_pos[:, None]
+    ok = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= qp[:, :, None])
+    pairs = float(ok.sum().item())
+    key_valid = ok.any(dim=1)                       # (B, M*ps)
+    M = tbl.shape[1]
+    lp = torch.arange(M * ps, device=tbl.device) // ps
+    phys = tbl[:, lp].long() * ps + torch.arange(
+        M * ps, device=tbl.device) % ps
+    rows = float(phys[key_valid & (tbl[:, lp] >= 0)].unique().numel())
+    n_q = q_pos.numel()
+    flops = 4.0 * hd * pairs * Hq
+    nbytes = (rows * Hkv * 2 * hd * e + 2 * n_q * Hq * hd * e
+              + (tbl.numel() + k_pos.numel() + q_pos.numel()) * 4)
+    return flops, nbytes
+
+
+def paged_case(PD, REF, B, Hq, Hkv, lens, dtype, gen, ps=16, M=128):
+    hd = 64
+    kp, vp, tbl, q_pos, k_pos = paged_pool(B, Hkv, ps, M, hd, lens, dtype,
+                                           gen)
+    q = torch.randn(B, Hq, hd, generator=gen, device="cuda").to(dtype)
+    got = PD.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
+    want = REF.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
+    rows = torch.ones_like(want, dtype=torch.bool)
+    err = check_close(f"paged B{B} H{Hq}/{Hkv} M{M} {dtype}", got, want,
+                      rows, dtype)
+    wide = check_wide(got, REF.paged_decode_attention,
+                      (q, kp, vp, tbl, q_pos, k_pos), rows, dtype)
+    flops, nbytes = paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd,
+                                  q.element_size())
+    bms, by = bound_ms(flops, nbytes, dtype)
+    ms = time_ms(lambda: PD.paged_decode_attention(q, kp, vp, tbl, q_pos,
+                                                   k_pos))
+    plain = time_ms(lambda: REF.paged_decode_attention(q, kp, vp, tbl, q_pos,
+                                                       k_pos))
+    kk, vv = REF.logical_view(kp, tbl), REF.logical_view(vp, tbl)
+    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kk, vv, attn_mask=mask, enable_gqa=Hq != Hkv))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, wide=wide)
+
+
+def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128):
+    """One chunked-prefill launch: slot b holds lens[b] tokens, of which
+    the last min(S, len) are its chunk (the history before them)."""
+    hd = 64
+    B = len(lens)
+    kp, vp, tbl, q_pos, k_pos = paged_pool(B, Hkv, ps, M, hd, lens, dtype,
+                                           gen, S=S, shared=False)
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    qt = q.transpose(1, 2)                  # the model's (B,S,H,hd) layout
+    got = CP.chunked_prefill_attention(qt, kp, vp, tbl, q_pos, k_pos)
+    want = REF.chunked_prefill_attention(qt, kp, vp, tbl, q_pos, k_pos)
+    rows = (q_pos >= 0)[:, None, :, None].expand_as(want)
+    err = check_close(f"chunk B{B} H{Hq}/{Hkv} S{S} {dtype}", got, want,
+                      rows, dtype)
+    wide = check_wide(got, REF.chunked_prefill_attention,
+                      (qt, kp, vp, tbl, q_pos, k_pos), rows, dtype)
+    flops, nbytes = paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd,
+                                  q.element_size(), S=S)
+    bms, by = bound_ms(flops, nbytes, dtype)
+    ms = time_ms(lambda: CP.chunked_prefill_attention(qt, kp, vp, tbl, q_pos,
+                                                      k_pos))
+    plain = time_ms(lambda: REF.chunked_prefill_attention(qt, kp, vp, tbl,
+                                                          q_pos, k_pos))
+    kk, vv = REF.logical_view(kp, tbl), REF.logical_view(vp, tbl)
+    mask = ((k_pos[:, None, :] >= 0)
+            & (k_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+    mask = mask | (q_pos < 0)[:, None, :, None]   # pad rows: no NaN
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kk, vv, attn_mask=mask, enable_gqa=Hq != Hkv))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, wide=wide)
 
 
 def phase_kernels(card):
@@ -191,15 +346,57 @@ def phase_kernels(card):
             ("decode B8 H32/16 W2048 bf16", (8, 32, 16, 2048, bf)),
             ("decode B8 H32/32 W2048 f32", (8, 32, 32, 2048, f32))]:
         decode[label] = decode_case(DA, REF, *args[:4], args[4], gen)
+    from repro_torch.kernels import chunked_prefill as CP
+    from repro_torch.kernels import paged_decode_attention as PD
+    # decode fills of 16..2048 tokens per slot; slot 0 full, slot 1 long
+    # enough to share its first page
+    fills = torch.randint(16, 2049, (8,), generator=torch.Generator()
+                          .manual_seed(3)).tolist()
+    fills[0], fills[1] = 2048, max(fills[1], 64)
+    paged = {}
+    for label, args in [
+            ("paged B8 H32/32 ps16 M128 bf16", (8, 32, 32, fills, bf)),
+            ("paged B8 H32/16 ps16 M128 bf16", (8, 32, 16, fills, bf)),
+            ("paged B8 H32/32 ps16 M128 f32", (8, 32, 32, fills, f32))]:
+        paged[label] = paged_case(PD, REF, *args, gen)
+    chunk = {}
+    for label, args in [
+            ("chunk B1 H32/32 S256 hist0 bf16", (32, 32, [256], 256, bf)),
+            ("chunk B1 H32/32 S256 hist256 bf16", (32, 32, [512], 256, bf)),
+            ("chunk B1 H32/32 S256 hist768 bf16", (32, 32, [1024], 256, bf)),
+            ("chunk B2 H32/32 S256 packed bf16",
+             (32, 32, [768, 100], 256, bf)),
+            ("chunk B1 H32/16 S256 hist768 bf16", (32, 16, [1024], 256, bf)),
+            ("chunk B1 H32/32 S256 hist256 f32", (32, 32, [512], 256, f32))]:
+        chunk[label] = chunk_case(CP, REF, *args, gen)
     print(f"\n[kernels] vs plain version on valid rows ({card})")
-    print(f"{'case':34s} {'max_abs_err':>11s} {'ms':>9s} {'plain_ms':>9s} "
-          f"{'sdpa_ms':>9s} {'bound_ms':>9s} bound_by")
-    for label, r in list(flash.items()) + list(decode.items()):
-        print(f"{label:34s} {r['max_abs_err']:11.3e} {r['ms']:9.4f} "
-              f"{r['plain_ms']:9.4f} {r['library_ms']:9.4f} "
+    print(f"{'case':34s} {'max_abs_err':>11s} {'err_vs_f32':>10s} "
+          f"{'ms':>9s} {'plain_ms':>9s} {'sdpa_ms':>9s} {'bound_ms':>9s} "
+          "bound_by")
+    cases = (list(flash.items()) + list(decode.items())
+             + list(paged.items()) + list(chunk.items()))
+    for label, r in cases:
+        wide = "-" if r["wide"][0] is None else f"{r['wide'][0]:.3e}"
+        print(f"{label:34s} {r['max_abs_err']:11.3e} {wide:>10s} "
+              f"{r['ms']:9.4f} {r['plain_ms']:9.4f} {r['library_ms']:9.4f} "
               f"{r['bound_ms']:9.5f} {r['bound_by']}")
-    return (flash["flash B8 H32/32 S512 bf16"],
-            decode["decode B8 H32/32 W2048 bf16"])
+    print("  (err_vs_f32: the bf16 kernel against the plain version in "
+          "float32 on the same inputs; paged and chunk sdpa_ms: over the "
+          "logical view gathered beforehand, the gather not timed)")
+    bad = [f"{label}: {r['wide'][1]} elements" for label, r in cases
+           if r["wide"][1]]
+    if bad:
+        raise AssertionError(f"bf16 kernels past atol {TOL_WIDE[0]} rtol "
+                             f"{TOL_WIDE[1]} of the float32 plain version: "
+                             f"{bad}")
+    for r in (flash, decode, paged, chunk):
+        for case in r.values():
+            del case["wide"]
+    return {"flash_attention": flash["flash B8 H32/32 S512 bf16"],
+            "decode_attention": decode["decode B8 H32/32 W2048 bf16"],
+            "paged_decode_attention": paged["paged B8 H32/32 ps16 M128 bf16"],
+            "chunked_prefill_attention":
+                chunk["chunk B1 H32/32 S256 hist768 bf16"]}
 
 
 # --------------------------------------------------------------------------
@@ -209,7 +406,8 @@ def phase_kernels(card):
 
 def smoke_agreement():
     """A small float32 config served on the card (kernels) and on the CPU
-    (plain versions) from the same weights: identical tokens."""
+    (plain versions) from the same weights, on the contiguous path and on
+    the paged + chunked + prefix-sharing rung: identical tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -217,20 +415,32 @@ def smoke_agreement():
     gen = torch.Generator().manual_seed(1)
     cpu_params = Model(cfg, "cpu").init(gen)
     rng = np.random.default_rng(5)
-    reqs = [(i, rng.integers(2, cfg.vocab, int(n)).tolist())
-            for i, n in enumerate([5, 40, 70, 17, 90, 33])]
-    toks = {}
-    for dev in ("cpu", "cuda"):
-        params = _to(cpu_params, dev)
-        eng = ServingEngine(Model(cfg, dev), params,
-                            EngineConfig(max_batch=4, max_len=64),
-                            device=dev)
-        for rid, prompt in reqs:
-            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=12))
-        toks[dev] = {r.rid: r.tokens for r in eng.run()}
-    if toks["cpu"] != toks["cuda"]:
-        raise AssertionError(f"smoke tokens differ: cpu {toks['cpu']} "
-                             f"cuda {toks['cuda']}")
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    rungs = {
+        "contiguous": (EngineConfig(max_batch=4, max_len=64),
+                       [(i, rng.integers(2, cfg.vocab, int(n)).tolist())
+                        for i, n in enumerate([5, 40, 70, 17, 90, 33])]),
+        "paged+chunk+sharing": (
+            EngineConfig(max_batch=4, max_len=128, paged=True, page_size=16,
+                         prefill_chunk=16, prefill_pack=2,
+                         prefix_sharing=True),
+            [(i, system + rng.integers(2, cfg.vocab, int(n)).tolist())
+             for i, n in enumerate([3, 20, 0, 9, 41, 0, 16])]),
+    }
+    for name, (ecfg, reqs) in rungs.items():
+        toks = {}
+        for dev in ("cpu", "cuda"):
+            params = _to(cpu_params, dev)
+            eng = ServingEngine(Model(cfg, dev), params, ecfg, device=dev)
+            for rid, prompt in reqs:
+                eng.submit(Request(rid=rid, prompt=prompt,
+                                   max_new_tokens=12))
+            toks[dev] = {r.rid: r.tokens for r in eng.run()}
+        if toks["cpu"] != toks["cuda"]:
+            raise AssertionError(f"smoke {name} tokens differ: cpu "
+                                 f"{toks['cpu']} cuda {toks['cuda']}")
+        print(f"[smoke] llama3.2-1b smoke f32, {name}: cuda tokens == cpu "
+              "tokens")
 
 
 def _to(tree, dev):
@@ -253,29 +463,40 @@ def engine_requests(vocab):
             for i, p in enumerate(prompts)]
 
 
-def phase_engine(card):
-    from repro_torch.configs import get_config
+def paged_requests(vocab):
+    """16 requests of 64 new tokens: eight open with one 512-token system
+    prompt (distinct 16-512-token suffixes; one IS the system prompt, the
+    copy-on-write path), the rest are Alpaca-like prompts of 16-1024
+    tokens. The donor follows a short request, so a slot frees while the
+    donor still holds its registered pages, and four sharers wait behind
+    the first wave to adopt them (each adopter keeps them indexed for the
+    next)."""
+    from repro_torch.serving import Request
+    from repro_torch.training.data import alpaca_like_prompts
+    rng = np.random.default_rng(7)
+    system = rng.integers(2, vocab, SYSTEM_PROMPT).tolist()
+    other = [np.resize(p, max(len(p), 16)).tolist()
+             for p in alpaca_like_prompts(seed=1, n=8, vocab=vocab,
+                                          max_len=1024)]
+    other[0] = other[0][:32]            # the short request ahead of the donor
+    shared = [system + rng.integers(2, vocab, int(n)).tolist()
+              for n in rng.integers(16, 513, 7)]
+    shared.insert(5, list(system))      # whole prompt shared
+    order = ([other[0], shared[0], shared[1], other[1], shared[2],
+              other[2], shared[3], other[3]]
+             + shared[4:] + other[4:])
+    return [Request(rid=i, prompt=p, max_new_tokens=64)
+            for i, p in enumerate(order)]
+
+
+def serve(card, label, ecfg, reqs, model, params):
+    """Serve ``reqs`` once, the launch counts set to 0 just before and read
+    just after; returns (engine, responses, counts, wall)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import Model
-    from repro_torch.serving import EngineConfig, Request, ServingEngine
-    cfg = get_config("llama-paper-1b")
-    assert cfg.n_layers == N_LAYERS and cfg.dtype == "bfloat16"
-    model = Model(cfg, "cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = model.init(gen)
-    ecfg = EngineConfig(max_batch=8, max_len=2048, profile="h100_sxm",
-                        region="QC")
-    # warm-up engine (library handles, allocator) — not counted
-    warm = ServingEngine(model, params, ecfg)
-    warm.submit(Request(rid=0, prompt=list(range(2, 40)), max_new_tokens=4))
-    warm.run()
-    del warm
+    from repro_torch.serving import ServingEngine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
     engine = ServingEngine(model, params, ecfg)
-    reqs = engine_requests(cfg.vocab)
     for r in reqs:
         engine.submit(r)
     ops.reset_launches()
@@ -284,15 +505,62 @@ def phase_engine(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-
     st = engine.stats()
     for r in responses:
         if not (r.finished and r.finish_reason == "length"
                 and r.n_tokens == 64):
-            raise AssertionError(f"request {r.rid}: finished={r.finished} "
-                                 f"reason={r.finish_reason} n={r.n_tokens}")
-        if not all(0 <= t < cfg.vocab for t in r.tokens):
-            raise AssertionError(f"request {r.rid}: token out of vocab")
+            raise AssertionError(f"{label} request {r.rid}: finished="
+                                 f"{r.finished} reason={r.finish_reason} "
+                                 f"n={r.n_tokens}")
+        if not all(0 <= t < model.cfg.vocab for t in r.tokens):
+            raise AssertionError(f"{label} request {r.rid}: token out of "
+                                 "vocab")
+    gen_tokens = sum(r.n_tokens for r in responses)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    print(f"\n[engine] {label}: llama-paper-1b full width bf16, "
+          f"{len(reqs)} requests, {prompt_tokens} prompt tokens, "
+          f"{gen_tokens} generated ({card})")
+    print(f"  wall {wall:.3f} s, {gen_tokens / wall:.1f} generated tokens/s "
+          f"({card})")
+    print(f"  max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    print(f"  prefill batches {engine.prefill_batches}, prefill chunks "
+          f"{engine.prefill_chunks}, decode chunks {engine.decode_chunks}, "
+          f"micro-steps with work {st['steps']}, host syncs "
+          f"{engine.host_syncs}")
+    print(f"  launches: {counts}")
+    print(f"  modeled (h100_sxm profile, QC): prefill "
+          f"{st['prefill_j_per_token']:.4e} J/token "
+          f"{st['prefill_g_per_token']:.4e} g/token; decode "
+          f"{st['decode_j_per_token']:.4e} J/token "
+          f"{st['decode_g_per_token']:.4e} g/token ({card})")
+    return engine, st, counts
+
+
+def phase_engine(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("llama-paper-1b")
+    assert cfg.n_layers == N_LAYERS and cfg.dtype == "bfloat16"
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
+    contiguous = EngineConfig(**base)
+    paged = EngineConfig(**base, paged=True, page_size=16, prefill_chunk=256,
+                         prefill_pack=2, prefix_sharing=True)
+    # warm-up engines (library handles, allocator) — not counted
+    for ecfg in (contiguous, paged):
+        warm = ServingEngine(model, params, ecfg)
+        warm.submit(Request(rid=0, prompt=list(range(2, 40)),
+                            max_new_tokens=4))
+        warm.run()
+        del warm
+
+    engine, st, counts = serve(card, "contiguous", contiguous,
+                               engine_requests(cfg.vocab), model, params)
     if counts["flash_attention"] < N_LAYERS * engine.prefill_batches:
         raise AssertionError(f"flash launches {counts['flash_attention']} < "
                              f"{N_LAYERS} x {engine.prefill_batches} batches")
@@ -300,24 +568,40 @@ def phase_engine(card):
             counts["decode_attention"] % N_LAYERS:
         raise AssertionError(f"decode launches {counts['decode_attention']} "
                              f"vs {N_LAYERS} x {st['steps']} micro-steps")
-    gen_tokens = sum(r.n_tokens for r in responses)
-    prompt_tokens = sum(len(r.prompt) for r in reqs)
-    print(f"\n[engine] llama-paper-1b full width bf16, 16 requests, "
-          f"{prompt_tokens} prompt tokens, {gen_tokens} generated ({card})")
-    print(f"  wall {wall:.3f} s, {gen_tokens / wall:.1f} generated tokens/s "
-          f"({card})")
-    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB ({card})")
-    print(f"  prefill batches {engine.prefill_batches}, decode chunks "
-          f"{engine.decode_chunks}, micro-steps with work {st['steps']}, "
-          f"host syncs {engine.host_syncs}")
-    print(f"  launches: {counts}")
-    print(f"  modeled (h100_sxm profile, QC): prefill "
-          f"{st['prefill_j_per_token']:.4e} J/token "
-          f"{st['prefill_g_per_token']:.4e} g/token; decode "
-          f"{st['decode_j_per_token']:.4e} J/token "
-          f"{st['decode_g_per_token']:.4e} g/token")
-    return counts
+    del engine
+
+    engine, st, pcounts = serve(card, "paged + chunked prefill + prefix "
+                                "sharing", paged, paged_requests(cfg.vocab),
+                                model, params)
+    print(f"  pages: total {st['pages_total']}, peak reserved "
+          f"{st['peak_pages_reserved']} ({st['peak_kv_rows_reserved']} KV "
+          f"rows), free at the end {st['free_pages']}; prefix hit tokens "
+          f"{st['prefix_hit_tokens']} over {st['prefix_shared_requests']} "
+          f"requests")
+    checks = [
+        (st["prefix_hit_tokens"] > 0, "no prefix hit"),
+        (st["free_pages"] == st["pages_total"], "pages not returned"),
+        (pcounts["paged_decode_attention"] == N_LAYERS * st["steps"],
+         f"paged decode launches {pcounts['paged_decode_attention']} != "
+         f"{N_LAYERS} x {st['steps']} micro-steps"),
+        (pcounts["chunked_prefill_attention"]
+         == N_LAYERS * st["prefill_chunks"],
+         f"chunked prefill launches {pcounts['chunked_prefill_attention']} "
+         f"!= {N_LAYERS} x {st['prefill_chunks']} chunks"),
+        (pcounts["decode_attention"] == 0 and pcounts["flash_attention"] == 0,
+         f"contiguous kernels ran on the paged path: {pcounts}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"paged run: {what}")
+    alloc = engine.caches["paged"]
+    if int(alloc["top"]) != engine.num_pages or (alloc["ref"] != 0).any():
+        raise AssertionError("paged run: device free stack not whole")
+    return {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["decode_attention"],
+            "paged_decode_attention": pcounts["paged_decode_attention"],
+            "chunked_prefill_attention":
+                pcounts["chunked_prefill_attention"]}
 
 
 def main() -> int:
@@ -344,19 +628,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
 
-    flash, decode = phase_kernels(card)
+    measured = phase_kernels(card)
     smoke_agreement()
-    print("\n[smoke] llama3.2-1b smoke f32: cuda tokens == cpu tokens")
-    counts = phase_engine(card)
+    launches = phase_engine(card)
 
-    kernels = [
-        dict(name="flash_attention", route="cuda", source=FLASH_SRC,
-             replaces=FLASH_TPU, launches=counts["flash_attention"],
-             **flash),
-        dict(name="decode_attention", route="cuda", source=DECODE_SRC,
-             replaces=DECODE_TPU, launches=counts["decode_attention"],
-             **decode),
-    ]
+    kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
+                    launches=launches[name], **measured[name])
+               for name, (src, tpu) in KERNELS.items()]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "library_ms",
                     "bound_ms"):

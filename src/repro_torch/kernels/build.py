@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
+           "chunked_prefill_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,12 @@ ARGTYPES = {
     "decode_attention": ("decode_attention_fwd",
                          [_P, _P, _P, _P, _P, _P, _STRIDES,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "paged_decode_attention": ("paged_decode_attention_fwd",
+                               [_P, _P, _P, _P, _P, _P, _P, _STRIDES]
+                               + [_I] * 12 + [_P]),
+    "chunked_prefill_attention": ("chunked_prefill_attention_fwd",
+                                  [_P, _P, _P, _P, _P, _P, _P, _STRIDES]
+                                  + [_I] * 13 + [_P]),
 }
 
 

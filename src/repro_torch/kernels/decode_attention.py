@@ -22,7 +22,7 @@ GROUPS = (1, 2, 4, 8)
 launches = 0
 
 
-def _row_aligned(t: torch.Tensor) -> bool:
+def row_aligned(t: torch.Tensor) -> bool:
     """Every (b, h, s) row starts on a 16-byte boundary with unit d stride:
     the kernel reads K rows with 16-byte vector loads."""
     e = t.element_size()
@@ -51,7 +51,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel takes hd == hd_v in {HEAD_DIMS}")
     if q_pos.shape != (B,) or k_pos.shape != (B, W):
         raise ValueError("positions must be (B,) and (B, W)")
-    if not (_row_aligned(k) and _row_aligned(v)):
+    if not (row_aligned(k) and row_aligned(v)):
         raise ValueError("k/v rows must be 16-byte aligned with unit d "
                          "stride")
     q = q.contiguous()

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the attention kernels (same layouts, same
-contracts as the JAX oracles in ``repro.kernels.ref``).
+contracts as the JAX oracles in ``repro.kernels.ref``), the paged ones
+included: they gather the logical view through the block table and score
+like the contiguous ones.
 
 They are the CPU execution path of ``kernels/ops.py`` and the yardstick
 the CUDA kernels are held against on the card: mask
@@ -51,3 +53,39 @@ def decode_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     out = flash_attention(q[:, :, None, :], k, v, q_pos[:, None], k_pos,
                           window, chunk)
     return out[:, :, 0, :]
+
+
+def logical_view(pages: torch.Tensor, block_tbl: torch.Tensor) -> torch.Tensor:
+    """(Hkv,P+1,ps,hd) pool -> (B,Hkv,M*ps,hd) per-slot logical cache view
+    through the (B,M) block table. Unmapped pages (-1) read the trash page
+    (the pool's last page) and are masked by their -1 logical positions."""
+    trash = pages.shape[1] - 1
+    safe = torch.where(block_tbl < 0, torch.full_like(block_tbl, trash),
+                       block_tbl).long()
+    g = pages[:, safe]                                 # (Hkv, B, M, ps, hd)
+    H, B, M, ps, hd = g.shape
+    return g.transpose(0, 1).reshape(B, H, M * ps, hd)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
+                           window: Optional[int] = None,
+                           chunk: Optional[int] = None):
+    """q: (B,Hq,hd); k_pages/v_pages: (Hkv,P+1,ps,*); block_tbl: (B,M)
+    int32; q_pos: (B,); k_pos: (B,M*ps) logical. Gather the logical view
+    through the block table, then score exactly like ``decode_attention``."""
+    return decode_attention(q, logical_view(k_pages, block_tbl),
+                            logical_view(v_pages, block_tbl),
+                            q_pos, k_pos, window, chunk)
+
+
+def chunked_prefill_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
+                              window: Optional[int] = None,
+                              chunk: Optional[int] = None):
+    """q: (B,Hq,S,hd); k_pages/v_pages: (Hkv,P+1,ps,*); block_tbl: (B,M);
+    q_pos: (B,S) (-1 = pad query); k_pos: (B,M*ps) logical. The chunk's own
+    keys are already in the pool, so ``k_pos <= q_pos`` gives causality
+    inside the chunk; scored exactly like ``flash_attention`` on the
+    gathered logical view."""
+    return flash_attention(q, logical_view(k_pages, block_tbl),
+                           logical_view(v_pages, block_tbl),
+                           q_pos, k_pos, window, chunk)

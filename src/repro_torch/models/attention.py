@@ -10,10 +10,17 @@ dense part of ``repro.models.attention``).
   ring buffer: ``pos_ids`` (-1 = empty) drives every mask. Keys are stored
   rotated. The reference rebuilds the cache functionally each step; here
   every write goes into the cache tensors in place.
+* Paged KV pool leaf group (the allocator lives in ``serving/paged.py``):
+  ``{"k_pages","v_pages": (Hkv, P+1, ps, hd), "pos_ids": (B, W) LOGICAL
+  (-1 empty), "length": (B,)}``, head-major so every append and gather is
+  one flat-row index. The last page is a TRASH page: writes of slots with
+  no mapped page land there and unmapped logical pages read from there,
+  always masked because the logical ``pos_ids`` entry is -1. PyTorch has
+  no ``mode="drop"`` scatter, so every write the reference drops goes to
+  the trash page (pool rows) or to a scratch column (``pos_ids``) here;
+  nothing raises and nothing wraps. All layout ops write in place.
 * Attention itself goes through ``kernels/ops.py``: the plain PyTorch
   version for a CPU tensor, the hand-written CUDA kernel for a CUDA one.
-  Paged and chunk modes come with the paged KV pool (ROADMAP Queue 1,
-  Paged engine).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels import ref as KREF
 from repro_torch.models import layers as L
 
 
@@ -153,6 +161,123 @@ def decode_write_cache(cache: Dict, k1: torch.Tensor, v1: torch.Tensor) -> Dict:
 
 
 # --------------------------------------------------------------------------
+# paged KV pool: layout ops
+# --------------------------------------------------------------------------
+
+
+def _flat_rows(pages: torch.Tensor):
+    """(Hkv, P+1, ps, hd) -> ((Hkv, (P+1)*ps, hd) view, ps, trash page)."""
+    H, P1, ps, hd = pages.shape
+    return pages.view(H, P1 * ps, hd), ps, P1 - 1
+
+
+def _assert_private_rows(rows: torch.Tensor, trash: int, ps: int) -> None:
+    """Several writes of one call may land on the trash page (its winner
+    is undefined on CUDA, and it is always masked), never on one row of a
+    real page. Checked where it costs no device sync: on the CPU."""
+    if rows.device.type != "cpu":
+        return
+    r = rows.reshape(-1)
+    real = r[(r < trash * ps) | (r >= (trash + 1) * ps)]
+    if real.unique().numel() != real.numel():
+        raise AssertionError("two writes of one call hit one pool row "
+                             "outside the trash page")
+
+
+def paged_decode_write(cache: Dict, tbl: torch.Tensor, k1: torch.Tensor,
+                       v1: torch.Tensor) -> Dict:
+    """Append one token per slot through the (B, max_pages) block table,
+    in place. k1/v1: (B, 1, Hkv, hd). A slot whose page is unmapped, or
+    whose cursor is past the table, writes into the trash page."""
+    t = cache["length"]
+    kf, ps, trash = _flat_rows(cache["k_pages"])
+    vf, _, _ = _flat_rows(cache["v_pages"])
+    B, M = tbl.shape
+    W = cache["pos_ids"].shape[1]
+    bidx = torch.arange(B, device=t.device)
+    lp = torch.div(t, ps, rounding_mode="floor")
+    pg = tbl[bidx, lp.clamp(0, M - 1).long()]
+    pg = torch.where((pg < 0) | (lp >= M), torch.full_like(pg, trash), pg)
+    rows = (pg * ps + torch.remainder(t, ps)).long()   # physical flat rows
+    _assert_private_rows(rows, trash, ps)
+    kf[:, rows] = k1[:, 0].transpose(0, 1).to(kf.dtype)
+    vf[:, rows] = v1[:, 0].transpose(0, 1).to(vf.dtype)
+    cache["pos_ids"][bidx, t.clamp(0, W - 1).long()] = t
+    cache["length"] += 1
+    return cache
+
+
+def paged_chunk_write(cache: Dict, tbl: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, positions: torch.Tensor) -> Dict:
+    """Append one prompt chunk per slot through the block table, in place.
+
+    k/v: (B, S, Hkv, hd); positions: (B, S) LOGICAL (-1 = pad). The pages
+    covering the chunk must already be mapped (``alloc_chunk_pages``). Pad
+    tokens and rows past the table land in the trash page, and ``pos_ids``
+    is written only at valid positions (the others go to a scratch column
+    that is cut off), so pads never unmask."""
+    t = positions
+    kf, ps, trash = _flat_rows(cache["k_pages"])
+    vf, _, _ = _flat_rows(cache["v_pages"])
+    B, S = t.shape
+    M = tbl.shape[1]
+    W = cache["pos_ids"].shape[1]
+    bidx = torch.arange(B, device=t.device)[:, None]
+    valid = t >= 0
+    lp = torch.where(valid, torch.div(t, ps, rounding_mode="floor"),
+                     torch.full_like(t, M))            # pads -> out of range
+    pg = tbl[bidx, lp.clamp(0, M - 1).long()]
+    pg = torch.where(valid & (lp < M) & (pg >= 0), pg,
+                     torch.full_like(pg, trash))
+    rows = (pg * ps + torch.where(valid, torch.remainder(t, ps),
+                                  torch.zeros_like(t))).long()   # (B, S)
+    _assert_private_rows(rows, trash, ps)
+    H = kf.shape[0]
+    kf[:, rows.reshape(-1)] = k.permute(2, 0, 1, 3).reshape(
+        H, B * S, -1).to(kf.dtype)
+    vf[:, rows.reshape(-1)] = v.permute(2, 0, 1, 3).reshape(
+        H, B * S, -1).to(vf.dtype)
+    col = torch.where(valid, t.clamp(0, W - 1), torch.full_like(t, W))
+    pos = cache["pos_ids"]
+    ext = torch.cat([pos, pos.new_zeros((B, 1))], dim=1)   # column W: scratch
+    ext.scatter_(1, col.long(), t)
+    pos.copy_(ext[:, :W])
+    cache["length"] += valid.sum(dim=1).to(torch.int32)
+    return cache
+
+
+def copy_page_rows(pages: torch.Tensor, src_pg: torch.Tensor,
+                   dst_pg: torch.Tensor) -> torch.Tensor:
+    """Copy whole pages ``src_pg[i] -> dst_pg[i]`` inside one pool leaf,
+    in place — the data half of copy-on-write. pages: (Hkv, P+1, ps, hd);
+    src_pg/dst_pg: (n,) physical ids, dst < 0 = skip (the reference drops
+    that write; here it goes to the trash page). The sources are gathered
+    into a copy before the scatter, so a page copied onto a page that is
+    itself a source of this call is read before it is overwritten."""
+    P1 = pages.shape[1]
+    trash = P1 - 1
+    src = pages.index_select(1, src_pg.clamp(0, P1 - 1).long())   # a copy
+    dst = torch.where(dst_pg < 0, torch.full_like(dst_pg, trash),
+                      dst_pg).long()
+    ps = pages.shape[2]
+    _assert_private_rows(dst * ps, trash, ps)
+    pages[:, dst] = src
+    return pages
+
+
+def gather_pages_hb(pages: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """Head-major logical view (Hkv, B, W, hd) of a page pool: one
+    page-granular gather (a copy)."""
+    return KREF.logical_view(pages, tbl).transpose(0, 1)
+
+
+def gather_pages(pages: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """Logical (B, W, Hkv, hd) cache view of a page pool — the layout of
+    the contiguous cache leaf, for reference and equality checks."""
+    return KREF.logical_view(pages, tbl).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
 # GQA self-attention block
 # --------------------------------------------------------------------------
 
@@ -183,27 +308,68 @@ def _expand_kv(cfg, k):
 def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                    layer_window: Optional[int], layer_chunk: Optional[int],
                    cache: Optional[Dict] = None, mode: str = "prefill",
+                   page_tbl: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """mode: 'prefill' (write a fresh cache; ``cache`` may be None for a
-    cache-less forward) | 'decode' (one token against the cache).
+    cache-less forward) | 'decode' (one token against the cache) |
+    'chunk' (an S-token prompt chunk appended to a paged cache).
+
+    A decode cache is either the contiguous per-slot layout or a paged
+    leaf group (``k_pages`` present), read through ``page_tbl``. Chunk
+    mode is paged decode widened to S queries: the chunk's keys are
+    written first, then its queries score the slot's whole logical
+    history, and ``k_pos <= q_pos`` gives causality inside the chunk.
 
     Attention runs in the kernels' (B, H, S, hd) layout through
     ``kernels/ops.py``: transposed views in, no copies. A GQA map that is
     not the uniform divide has no kernel: on CUDA it raises, on the CPU the
-    kv heads are expanded and the plain version runs with group 1.
+    kv heads are expanded (a paged pool gathered first) and the plain
+    version runs with group 1.
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"attention mode {mode!r}: paged/chunk modes arrive with the "
-            "paged KV pool (ROADMAP Queue 1, Paged engine)")
+    if mode not in ("prefill", "decode", "chunk"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     q, k, v = _qkv(p, cfg, x, positions)
     uniform = uniform_gqa_group(cfg) is not None
     if not uniform and q.device.type == "cuda":
         raise NotImplementedError(
             f"{cfg.name}: non-uniform GQA head map has no CUDA kernel")
-    if mode == "decode":
+    paged = cache is not None and "k_pages" in cache
+    if mode in ("decode", "chunk"):
         if cache is None:
-            raise ValueError("decode needs a cache")
+            raise ValueError(f"{mode} needs a cache")
+        if paged and page_tbl is None:
+            raise ValueError("a paged cache needs page_tbl")
+        if mode == "chunk" and not paged:
+            raise ValueError("chunked prefill needs a paged cache")
+    if mode == "chunk":
+        paged_chunk_write(cache, page_tbl, k, v, positions)
+        if uniform:
+            out = KOPS.chunked_prefill_attention(
+                q.transpose(1, 2), cache["k_pages"], cache["v_pages"],
+                page_tbl, positions, cache["pos_ids"], window=layer_window,
+                chunk=layer_chunk).transpose(1, 2)       # (B,S,Hq,hd)
+        else:
+            kk = _expand_kv(cfg, gather_pages(cache["k_pages"], page_tbl))
+            vv = _expand_kv(cfg, gather_pages(cache["v_pages"], page_tbl))
+            out = KOPS.flash_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                positions, cache["pos_ids"], window=layer_window,
+                chunk=layer_chunk).transpose(1, 2)
+    elif mode == "decode" and paged:
+        paged_decode_write(cache, page_tbl, k, v)
+        if uniform:
+            out = KOPS.paged_decode_attention(
+                q[:, 0], cache["k_pages"], cache["v_pages"], page_tbl,
+                positions[:, 0], cache["pos_ids"], window=layer_window,
+                chunk=layer_chunk)[:, None]               # (B,1,Hq,hd)
+        else:
+            kk = _expand_kv(cfg, gather_pages(cache["k_pages"], page_tbl))
+            vv = _expand_kv(cfg, gather_pages(cache["v_pages"], page_tbl))
+            out = KOPS.decode_attention(
+                q[:, 0], kk.transpose(1, 2), vv.transpose(1, 2),
+                positions[:, 0], cache["pos_ids"], window=layer_window,
+                chunk=layer_chunk)[:, None]
+    elif mode == "decode":
         decode_write_cache(cache, k, v)
         ck, cv = cache["k"], cache["v"]
         if not uniform:

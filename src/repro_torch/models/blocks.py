@@ -16,9 +16,10 @@ PORTED_KINDS = ("dense",)
 @dataclasses.dataclass
 class LayerCtx:
     cfg: Any
-    mode: str                           # prefill | decode
+    mode: str                           # prefill | decode | chunk
     positions: torch.Tensor             # (B, S) int32 absolute positions
     layer_idx: int = 0                  # absolute depth (chunk alternation)
+    page_tbl: Optional[torch.Tensor] = None  # (B, max_pages) paged-KV table
 
 
 def _require_ported(kind: str) -> None:
@@ -68,7 +69,8 @@ def block_apply(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
     window, chunk = _layer_window_chunk(cfg, ctx.layer_idx)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, cache = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
-                                chunk, cache, ctx.mode)
+                                chunk, cache, ctx.mode,
+                                page_tbl=ctx.page_tbl)
     x = _res(cfg, x, a)
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return _res(cfg, x, L.swiglu(p["mlp"], h2)), cache

@@ -17,6 +17,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
+
 class Model:
     """A ModelConfig bound to a device. Parameters live outside the object
     (``init`` returns them), as in the reference."""
@@ -30,6 +31,23 @@ class Model:
                 f"{cfg.name}: memory-conditioned models are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+
+    @property
+    def supports_paged_decode(self) -> bool:
+        """True when decode KV state can live in a shared paged pool: no
+        ring eviction to translate. Every block kind the port runs
+        (``dense``) is full attention, so only windowed or chunked
+        attention (ring caches) keeps the contiguous cache."""
+        return (not self.cfg.is_encdec and self.cfg.sliding_window is None
+                and self.cfg.attn_chunk is None)
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """True when prompts can be prefilled in chunks interleaved with
+        decode: every block keeps its KV in the paged pool (chunk i reads
+        chunks 0..i-1 through the block table). The reference excludes
+        recurrent kinds, which the port does not run yet."""
+        return self.supports_paged_decode
 
     # ------------------------------------------------------------------ init
     def init(self, generator: Optional[torch.Generator]) -> Dict:
@@ -67,28 +85,44 @@ class Model:
         """Returns (logits, caches). ``last_index`` (B,) keeps only that
         token's hidden state before the final norm and the vocab product:
         rows are independent there, so the result equals the full logits
-        at those rows without computing the others."""
+        at those rows without computing the others. Chunk mode keeps the
+        last valid token of each row on its own; its block table comes from
+        ``caches["paged"]["tbl"]``."""
         cfg = self.cfg
         Bsz, S = tokens.shape
+        dev = tokens.device
         if mode == "decode":
             positions = caches["t"][:, None]
+        elif mode == "chunk":
+            # positions continue from the slot's token count; pad queries
+            # (a partial last chunk) get -1 like padded prefill
+            positions = caches["t"][:, None] + torch.arange(
+                S, dtype=torch.int32, device=dev)
         elif mode == "prefill":
             positions = torch.arange(S, dtype=torch.int32,
-                                     device=tokens.device)[None].expand(Bsz, S)
-            if mask is not None:
-                # right-padded batched prefill: pad slots get position -1,
-                # so their cache entries are masked and never attended
-                positions = torch.where(mask > 0, positions,
-                                        torch.full_like(positions, -1))
+                                     device=dev)[None].expand(Bsz, S)
         else:
-            raise NotImplementedError(
-                f"forward mode {mode!r} is not ported yet (ROADMAP Queue 1)")
+            raise ValueError(f"unknown forward mode {mode!r}")
+        if mode != "decode" and mask is not None:
+            # right-padded batched prefill / partial chunk: pad slots get
+            # position -1, so their cache entries stay masked
+            positions = torch.where(mask > 0, positions,
+                                    torch.full_like(positions, -1))
+        nv = None
+        if mode == "chunk":
+            nv = (mask.sum(dim=1).to(torch.int32) if mask is not None
+                  else torch.full((Bsz,), S, dtype=torch.int32, device=dev))
+            last_index = torch.clamp(nv - 1, min=0).long()
+        page_tbl = None
+        if mode in ("decode", "chunk") and caches is not None \
+                and "paged" in caches:
+            page_tbl = caches["paged"]["tbl"]
 
         x = L.embed(params["embed"], cfg, tokens)
         layer_caches = caches["layers"] if caches is not None else None
         for i, kind in enumerate(cfg.block_pattern):
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
-                             layer_idx=i)
+                             layer_idx=i, page_tbl=page_tbl)
             c = layer_caches[i] if layer_caches is not None else None
             x, _ = B.block_apply(params["layers"][i], cfg, kind, ctx, x, c)
         if last_index is not None:
@@ -98,10 +132,12 @@ class Model:
         if caches is not None:
             if mode == "decode":
                 caches["t"] += 1
+            elif mode == "chunk":
+                caches["t"] += nv
             else:
                 lengths = (mask.sum(dim=1).to(torch.int32) if mask is not None
                            else torch.full((Bsz,), S, dtype=torch.int32,
-                                           device=tokens.device))
+                                           device=dev))
                 caches["t"].copy_(lengths)
         return logits, caches
 
@@ -118,6 +154,17 @@ class Model:
         last = torch.clamp(lengths - 1, min=0).long()
         logits, caches = self.forward(params, tokens, mask, mode="prefill",
                                       caches=caches, last_index=last)
+        return logits[:, 0], caches
+
+    def prefill_chunk(self, params, caches, tokens: torch.Tensor, mask):
+        """Process one fixed-size prompt chunk against a paged slot view
+        (``serving.paged.gather_slot_view``): the chunk's KV is appended to
+        the slots' pages and its queries attend over each slot's whole
+        logical history. tokens/mask: (n, C); positions continue from
+        ``caches["t"]``. Returns (last-valid-token logits (n, vocab),
+        caches)."""
+        logits, caches = self.forward(params, tokens, mask, mode="chunk",
+                                      caches=caches)
         return logits[:, 0], caches
 
     def decode_step(self, params, caches, tokens: torch.Tensor):

@@ -1,7 +1,7 @@
-"""Serving engine on the default path (the port of
-``repro.serving.engine``): request queue, continuous batching over a
-fixed pool of decode slots, prefill/decode phase split, per-phase carbon
-metering.
+"""Serving engine (the port of ``repro.serving.engine``): request queue,
+continuous batching over a fixed pool of decode slots, prefill/decode
+phase split, per-phase carbon metering — on the contiguous KV cache or on
+the paged KV pool, with chunked prefill and page-level prefix sharing.
 
 The engine runs the model for real on the card while the energy and
 carbon of each step are attributed by the calibrated analytical model
@@ -20,10 +20,31 @@ Hot path, as in the reference:
 
 The meter prices each prefill at its padded launch shape (that is what
 the device ran) and attributes real tokens, exactly as the reference.
+
+The KV memory ladder, each rung requiring the previous, as the reference:
+
+  * ``paged``: slots share one pool of ``num_pages`` pages per layer
+    through block tables (``serving/paged.py``); admission reserves each
+    request's worst case (prompt + decode budget) in pages, so the
+    on-device free stack never underflows, and rejects a request that can
+    never fit; decode runs the paged decode kernel;
+  * ``prefill_chunk``: prompts are split into fixed-size chunks, and each
+    scheduling quantum runs at most one chunk launch (``prefill_pack``
+    requests packed into it) plus one fused decode chunk; the chunk runs
+    the chunked-prefill kernel over the slot's paged history. A request's
+    prefill is metered once, at batch 1 and its true prompt length, when
+    its last chunk completes;
+  * ``prefix_sharing``: a host-side index (SHA-256 chain over page-size
+    token chunks -> resident physical page) maps a new prompt's shared
+    whole pages into its table by refcount; prefill starts at the first
+    unshared token, admission reserves only the unshared worst case, and
+    a chunk writing into a page with refcount > 1 copies it first. The
+    shared tokens' compute is subtracted from the metered prefill.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -37,20 +58,75 @@ from repro_torch.core.meter import CarbonMeter
 from repro_torch.device import resolve_device
 from repro_torch.models.costing import workload_of
 from repro_torch.models.model import Model
+from repro_torch.serving import paged as PG
 from repro_torch.serving import sampling
 from repro_torch.serving.request import Request, Response
+
+
+def pack_chunks(prefilling, chunk: int, pack: int):
+    """Select the prefill work of ONE quantum from the FCFS ``prefilling``
+    deque of (request, slot) pairs: up to ``pack`` requests' next chunks
+    whose combined token count fits the ``chunk`` budget.
+
+    The head always contributes its next chunk (min(remaining, chunk)
+    tokens). Requests behind it join only with their WHOLE remainder, and
+    only while the budget holds, so every request's chunk boundaries are
+    those of the head-only schedule — packing regroups launches, it never
+    re-chunks anyone. FCFS is kept: the scan stops at the first request
+    that does not fit. At most ONE ``cow_pending`` row (a whole-prompt-
+    shared adopter about to recompute its tail token into a still-shared
+    page) rides a launch: ``paged.cow_chunk_pages`` evaluates every row
+    against one pre-launch refcount snapshot, so two such rows adopting
+    the same page would both privatize it while the host mirror decrefs
+    sequentially. Returns [(req, slot, pos0, piece), ...]."""
+    take = []
+    budget = chunk
+    cow_seen = False
+    for req, slot in prefilling:
+        if len(take) >= pack:
+            break
+        rem = len(req.prompt) - req.prefill_pos
+        piece = min(rem, chunk) if not take else rem
+        if piece > budget:
+            break
+        if req.cow_pending and cow_seen:
+            break                      # second CoW row waits its turn
+        take.append((req, slot, req.prefill_pos,
+                     req.prompt[req.prefill_pos:req.prefill_pos + piece]))
+        budget -= piece
+        cow_seen = cow_seen or req.cow_pending
+    return take
+
+
+def _prefill_phase_counts(workload, batch: int, seq: int,
+                          useful_seq: Optional[float] = None, skip: int = 0):
+    """Step counts for one prefill launch of ``batch`` sequences padded to
+    ``seq``, with ``skip`` leading tokens already resident (prefix sharing:
+    prefill(seq) - prefill(skip) is the cost of computing the suffix with
+    attention over the full prefix; the suffix launch still streams the
+    weights once)."""
+    counts = prefill_counts(workload, batch, seq, useful_seq=useful_seq)
+    if skip > 0:
+        base = prefill_counts(workload, batch, skip)
+        counts = dataclasses.replace(
+            counts, flops=counts.flops - base.flops,
+            hbm_bytes=(counts.hbm_bytes - base.hbm_bytes
+                       + workload.params_bytes),
+            kv_bytes=counts.kv_bytes - base.kv_bytes,
+            compute_tokens=counts.compute_tokens - base.compute_tokens)
+    return counts
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """Every serving knob of the reference ``repro.serving.EngineConfig``,
     with the same fields and defaults, so a config written for one engine
-    means the same to the other. This slice of the port serves the default
-    path: contiguous KV cache, monolithic power-of-two-bucketed batched
-    prefill, fused decode. Knobs of later slices (``paged``,
-    ``prefill_chunk``, ``preemption``, ``prefix_sharing``, ``max_queue``,
-    ``shards`` > 1, deferral, ``tenant_quota``) raise NotImplementedError
-    when set away from their defaults; see ``_LATER_SLICES``.
+    means the same to the other. The port serves the contiguous default
+    path and the paged ladder (``paged``, ``prefill_chunk`` with
+    ``prefill_pack``, ``prefix_sharing``). Knobs of later slices
+    (``preemption``, ``max_queue``, ``shards`` > 1, deferral,
+    ``tenant_quota``) raise NotImplementedError when set away from their
+    defaults; see ``_LATER_SLICES``.
     """
     max_batch: int = 8                 # decode slot count
     max_len: int = 512                 # cache allocation per slot
@@ -174,9 +250,6 @@ class EngineConfig:
 # Knobs of later slices of the port: (field, default, ROADMAP Queue 1 item).
 # Any of them set away from its default raises NotImplementedError.
 _LATER_SLICES = (
-    ("paged", False, "Paged engine"),
-    ("prefill_chunk", None, "Paged engine"),
-    ("prefix_sharing", False, "Paged engine"),
     ("preemption", False, "Front door"),
     ("max_queue", None, "Front door"),
     ("tenant_quota", None, "Front door"),
@@ -221,6 +294,8 @@ class ServingEngine:
         self.slot_budget = [0] * B
         self.slot_eos: List[Optional[int]] = [None] * B
         self._slot_ctx = [0.0] * B                     # context length mirror
+        # slots ARMED for decode: in chunked mode a slot is occupied during
+        # its whole prefill but decodes only after its last chunk
         self._slot_armed = [False] * B
         self._req_slo: Dict[int, Optional[float]] = {}
         # sampling noise (temperature > 0 only); draws differ from the
@@ -230,19 +305,88 @@ class ServingEngine:
         self._steps = 0
         self.decode_chunks = 0                         # device->host syncs
         self.prefill_batches = 0
+        self.prefill_chunks = 0                        # chunked-prefill launches
         self.peak_active = 0                           # max concurrent requests
         self._wait_samples: Dict[int, List[float]] = {}  # class -> waits (s)
 
+        self.paged = cfg.paged
+        if cfg.paged:
+            if not model.supports_paged_decode:
+                raise ValueError(
+                    f"{model.cfg.name}: paged KV pool requires full-window "
+                    "attention-family blocks (no ring eviction)")
+            if cfg.max_len % cfg.page_size:
+                raise ValueError("max_len must be a multiple of page_size")
+            self.max_pages_slot = cfg.max_len // cfg.page_size
+            # equal-memory default: the rows the contiguous pool would own
+            self.num_pages = (B * self.max_pages_slot
+                              if cfg.num_pages is None else cfg.num_pages)
+            if self.num_pages < 1:
+                raise ValueError("num_pages must be >= 1")
+            PG.paginate_cache(self.caches, B, cfg.page_size, self.num_pages)
+            # host mirror of worst-case page RESERVATIONS (>= device usage,
+            # so the on-device free stack never underflows mid-flight)
+            self.free_pages = self.num_pages
+            self.peak_pages_reserved = 0
+            self._slot_pages = [0] * B
+            self._resv: Dict[int, int] = {}
+
+        self.chunked = cfg.prefill_chunk is not None
+        if self.chunked:
+            if cfg.prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1")
+            if cfg.prefill_pack < 1:
+                raise ValueError("prefill_pack must be >= 1")
+            if not cfg.paged:
+                raise ValueError("chunked prefill requires the paged KV "
+                                 "pool (chunk i reads chunks 0..i-1 "
+                                 "through the block table)")
+            if not model.supports_chunked_prefill:
+                raise ValueError(
+                    f"{model.cfg.name}: chunked prefill requires all "
+                    "stateful blocks to keep their KV in the paged pool")
+            # FCFS queue of (request, slot) mid-prefill; req.prefill_pos
+            # counts the prompt tokens already in the pool
+            self._prefilling: deque = deque()
+
+        self.sharing = cfg.prefix_sharing
+        if self.sharing:
+            if not self.chunked:
+                raise ValueError(
+                    "prefix_sharing requires chunked prefill (prefill_chunk "
+                    "set): sharing works by starting the chunk schedule at "
+                    "the first unshared token")
+            # host-side prefix index: SHA-256 chain digest of the first
+            # (i+1) page-size token chunks -> physical page holding chunk i.
+            # Weak entries: an index page is always mapped by >= 1 live
+            # slot; _page_ref mirrors the device refcount of indexed pages
+            # and the entry drops at decref-to-zero.
+            self._prefix_index: Dict[bytes, int] = {}
+            self._page_key: Dict[int, bytes] = {}        # reverse map
+            self._page_ref: Dict[int, int] = {}
+            # per-slot indexed pages: adopted from the index at admission
+            # (not in this slot's reservation) vs registered by this slot
+            # (popped under its reservation) — release accounting differs
+            self._slot_shared_in: Dict[int, List[int]] = {}
+            self._slot_own_idx: Dict[int, List[int]] = {}
+            self.prefix_hit_tokens = 0     # prompt tokens never recomputed
+            self.prefix_shared_requests = 0
+            self.peak_shared_mappings = 0  # extra mappings beyond 1st copy
+
     # ------------------------------------------------------------- metering
     def _meter_prefill(self, batch: int, seq: int,
-                       useful_seq: Optional[float] = None):
+                       useful_seq: Optional[float] = None, skip: int = 0,
+                       phase: str = "prefill"):
         """Meter one prefill launch of ``batch`` sequences padded to
         ``seq``; ``useful_seq`` (mean real tokens per row) attributes only
-        the real tokens while the energy covers the whole padded launch."""
-        counts = prefill_counts(self.workload, batch, seq,
-                                useful_seq=useful_seq)
+        the real tokens while the energy covers the whole padded launch.
+        ``skip`` > 0 (prefix sharing, batch 1) removes the cost of the
+        first ``skip`` tokens, whose compute and KV writes never ran.
+        ``phase`` names the meter bucket."""
+        counts = _prefill_phase_counts(self.workload, batch, seq,
+                                       useful_seq=useful_seq, skip=skip)
         rep = step_energy(self.profile, counts)
-        self.meter.record("prefill", rep.tokens, rep.t_total, rep.energy_j)
+        self.meter.record(phase, rep.tokens, rep.t_total, rep.energy_j)
         return rep
 
     def _meter_decode(self, batch: int, context: float):
@@ -261,6 +405,12 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.rid}: max_new_tokens must be >= 1, got "
                 f"{req.max_new_tokens}")
+        if self.cfg.paged and len(req.prompt) > self.cfg.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt length {len(req.prompt)} "
+                f"exceeds max_len={self.cfg.max_len} — the paged block "
+                "table has no ring eviction, so the prompt can never be "
+                "represented (shorten it or raise max_len)")
         if req.rid in self.responses:
             raise ValueError(f"request {req.rid}: duplicate rid")
         if req.deadline_s is not None:
@@ -287,7 +437,7 @@ class ServingEngine:
 
     @property
     def decoding(self) -> int:
-        """Slots armed for decode."""
+        """Slots armed for decode (excludes slots still mid-prefill)."""
         return sum(self._slot_armed)
 
     def _over_budget(self) -> bool:
@@ -308,18 +458,148 @@ class ServingEngine:
         self.responses[req.rid].queue_wait_s = wait
         self._wait_samples.setdefault(req.priority, []).append(wait)
 
+    def _tensor(self, values) -> torch.Tensor:
+        """An int32 tensor on the engine's device. On the card the values
+        are staged in pinned memory and copied without blocking: a copy
+        from pageable memory would wait for the whole stream."""
+        host = torch.from_numpy(np.array(values, np.int32))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------- prefix sharing
+    def _prompt_page_keys(self, req: Request) -> List[bytes]:
+        """Chain digest per full page-size chunk of the prompt: key[i]
+        commits to tokens [0, (i+1)*page_size), so an index hit at i means
+        the whole prefix through page i matches. Cached on the request."""
+        if req.prefix_keys is None:
+            ps = self.cfg.page_size
+            keys: List[bytes] = []
+            h = hashlib.sha256()
+            for i in range(len(req.prompt) // ps):
+                h.update(np.asarray(req.prompt[i * ps:(i + 1) * ps],
+                                    np.int64).tobytes())
+                keys.append(h.digest())
+            req.prefix_keys = keys
+        return req.prefix_keys
+
+    def _match_prefix(self, req: Request) -> Tuple[int, List[int]]:
+        """Longest resident prefix of the prompt: (#shared whole pages,
+        their physical ids, in logical order)."""
+        phys: List[int] = []
+        for k in self._prompt_page_keys(req):
+            p = self._prefix_index.get(k)
+            if p is None:
+                break
+            phys.append(p)
+        return len(phys), phys
+
+    def _drop_index_page(self, p: int) -> None:
+        key = self._page_key.pop(p, None)
+        if key is not None:
+            self._prefix_index.pop(key, None)
+        self._page_ref.pop(p, None)
+
+    def _reject(self, req: Request) -> None:
+        """Fail a request that can never fit the pool without admitting
+        it."""
+        resp = self.responses[req.rid]
+        resp.finished = True
+        resp.rejected = True
+        resp.finish_reason = "rejected"
+
+    def _release_slots(self, slots: List[int]) -> None:
+        """Return finished slots' pages to the pool: device free stack
+        (decref-to-zero of the mapped pages) and host reservation mirror.
+        With prefix sharing every physical page is charged once by the slot
+        that popped it and credited once by its last holder."""
+        if not self.paged or not slots:
+            return
+        mask = np.zeros((self.cfg.max_batch,), bool)
+        mask[slots] = True
+        self.caches["paged"] = PG.release_slots(
+            self.caches["paged"], self._tensor(mask).bool())
+        for s in slots:
+            ret = self._slot_pages[s]
+            if self.sharing:
+                for p in self._slot_own_idx.pop(s, []):
+                    self._page_ref[p] -= 1
+                    if self._page_ref[p] <= 0:
+                        self._drop_index_page(p)
+                    else:
+                        ret -= 1       # survives under someone else's map
+                for p in self._slot_shared_in.pop(s, []):
+                    self._page_ref[p] -= 1
+                    if self._page_ref[p] <= 0:
+                        self._drop_index_page(p)
+                        ret += 1       # last holder frees the original
+            self.free_pages += ret
+            self._slot_pages[s] = 0
+
     # ------------------------------------------------------------ admission
     def _admit(self) -> int:
-        """Batch-prefill waiting requests into free slots (phase 1), FCFS.
-        Returns the number of requests admitted."""
+        """Admit waiting requests into free slots, FCFS. Returns the number
+        admitted.
+
+        Paged mode admits by worst-case page reservation (prompt + full
+        decode budget, or with sharing the unshared worst case): a request
+        that does not fit the REMAINING pool keeps waiting (no overtaking);
+        one that can never fit the table or the TOTAL pool is rejected.
+        Chunked mode only claims the slot and pages here; the prompt runs
+        chunk by chunk in ``_prefill_quantum``."""
         if self._over_budget() and self.active > 0:
             return 0                   # defer admissions; drain active work
         free = self.free_slots()
         take: List[Request] = []
+        share: Dict[int, Tuple[int, List[int], int]] = {}
         while self.queue and len(take) < len(free):
+            req = self.queue[0]
+            if self.paged:
+                L = len(req.prompt)
+                ps = self.cfg.page_size
+                n_total = PG.pages_needed(
+                    L + max(req.max_new_tokens - 1, 0), ps)
+                # no ring eviction: a request whose prompt + decode budget
+                # exceeds the table or the whole pool can never be served
+                if n_total > self.max_pages_slot or n_total > self.num_pages:
+                    self.queue.popleft()
+                    self._reject(req)
+                    continue
+                resv = n_total
+                if self.sharing:
+                    # reserve only the pages this request will pop itself:
+                    # novel prompt pages + decode budget + (whole prompt
+                    # shared) the one copy-on-write pop of the tail page
+                    n_pg, phys = self._match_prefix(req)
+                    first_tok = min(n_pg * ps, L - 1)
+                    resv = n_total - first_tok // ps
+                    share[req.rid] = (n_pg, phys, first_tok)
+                if resv > self.free_pages:
+                    break              # keep waiting (FCFS, no overtaking)
+                self.free_pages -= resv
+                self._resv[req.rid] = resv
             take.append(self.queue.popleft())
+        if self.paged:
+            self.peak_pages_reserved = max(self.peak_pages_reserved,
+                                           self.num_pages - self.free_pages)
         if not take:
             return 0
+        if self.chunked:
+            slots = free[:len(take)]
+            for req, slot in zip(take, slots):
+                self.slot_rid[slot] = req.rid
+                self.slot_budget[slot] = 0           # armed after last chunk
+                self.slot_eos[slot] = req.eos_id
+                self._slot_ctx[slot] = 0.0
+                self._slot_pages[slot] = self._resv.pop(req.rid)
+                self._stamp_admit(req)
+                req.prefill_pos = 0
+                self._prefilling.append((req, slot))
+            PG.begin_chunked_prefill(self.caches, self._tensor(slots))
+            if self.sharing:
+                for req, slot in zip(take, slots):
+                    self._adopt_prefix(req, slot, *share[req.rid])
+            return len(take)
         # bucket prompts into padded power-of-two lengths, clamped to
         # max_len — past that the cache ring must keep the LAST W real
         # tokens, so those prompts prefill at exact length (every ported
@@ -355,19 +635,19 @@ class ServingEngine:
         # run degenerate zero-length sequences through the model
         tokens[n:] = tokens[0]
         mask[n:] = mask[0]
-        dev = self.device
         last, pcache = self.model.prefill(
-            self.params, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(mask).to(dev), max_len=self.cfg.max_len)
+            self.params, self._tensor(tokens), self._tensor(mask),
+            max_len=self.cfg.max_len)
         first = sampling.sample(last[:, :self.model.cfg.vocab], self._gen,
                                 self.cfg.temperature)
-        budgets = torch.tensor([r.max_new_tokens - 1 for r in reqs],
-                               dtype=torch.int32, device=dev)
-        eos_ids = torch.tensor([-1 if r.eos_id is None else r.eos_id
-                                for r in reqs], dtype=torch.int32, device=dev)
-        sampling.insert_prefill(
-            self.caches, pcache, torch.tensor(slots, device=dev),
-            self.cur_tokens, first, self.state, budgets, eos_ids)
+        budgets = self._tensor([r.max_new_tokens - 1 for r in reqs])
+        eos_ids = self._tensor([-1 if r.eos_id is None else r.eos_id
+                                for r in reqs])
+        insert = PG.insert_prefill_paged if self.paged else \
+            sampling.insert_prefill
+        kw = dict(page_size=self.cfg.page_size) if self.paged else {}
+        insert(self.caches, pcache, self._tensor(slots), self.cur_tokens,
+               first, self.state, budgets, eos_ids, **kw)
         first_h = first.cpu().numpy()  # the launch's one host sync
         self.prefill_batches += 1
         # meter the REAL padded launch once — the device ran ONE
@@ -377,6 +657,7 @@ class ServingEngine:
         tot_real = sum(len(r.prompt) for r in reqs)
         rep = self._meter_prefill(n_pad, bucket, useful_seq=tot_real / n_pad)
         now = time.perf_counter()
+        released: List[int] = []
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             self._stamp_admit(req)
             resp = self.responses[req.rid]
@@ -384,20 +665,183 @@ class ServingEngine:
             resp.energy_j += rep.energy_j * (len(req.prompt) / tot_real)
             resp.tokens.append(int(first_h[i]))
             resp.t_emit.append(now)
+            if self.paged:
+                self._slot_pages[slot] = self._resv.pop(req.rid)
             if req.max_new_tokens <= 1:
                 resp.finished = True   # prefill token was the whole budget
                 resp.finish_reason = "length"
+                released.append(slot)  # return its prompt pages right away
                 continue               # slot stays free (device side agrees)
             self.slot_rid[slot] = req.rid
             self.slot_budget[slot] = req.max_new_tokens - 1
             self.slot_eos[slot] = req.eos_id
             self._slot_ctx[slot] = float(len(req.prompt))
             self._slot_armed[slot] = True
+        self._release_slots(released)
+
+    def _adopt_prefix(self, req: Request, slot: int, n_pg: int,
+                      phys: List[int], first_tok: int) -> None:
+        """Map a matched prefix run into the freshly claimed slot (device
+        increfs + logical-history rows) and start its chunk schedule at
+        the first unshared token."""
+        self._slot_shared_in[slot] = []
+        self._slot_own_idx[slot] = []
+        if n_pg == 0:
+            return
+        pages = np.full((self.max_pages_slot,), -1, np.int32)
+        pages[:n_pg] = phys
+        PG.map_shared_prefix(
+            self.caches, self._tensor(slot), self._tensor(pages),
+            self._tensor(n_pg * self.cfg.page_size),
+            self._tensor(first_tok))
+        req.prefill_pos = first_tok
+        req.shared_prefix_tokens = first_tok
+        # whole prompt shared: the first chunk recomputes the tail token
+        # into a still-shared page and must copy-on-write — flag it so the
+        # packer never puts two such rows in one launch
+        req.cow_pending = first_tok < n_pg * self.cfg.page_size
+        for p in phys:
+            self._page_ref[p] += 1
+        self._slot_shared_in[slot] = list(phys)
+        self.prefix_hit_tokens += first_tok
+        self.prefix_shared_requests += 1
+        cur = sum(len(v) for v in self._slot_shared_in.values())
+        self.peak_shared_mappings = max(self.peak_shared_mappings, cur)
+
+    def _register_prefix(self, req: Request, slot: int,
+                         row: np.ndarray) -> None:
+        """After the LAST chunk, publish the prompt's whole pages into the
+        prefix index (``row`` is the slot's block-table row, fetched with
+        the first-token sync). First writer wins: a page already indexed
+        under the same key is not re-registered."""
+        own = self._slot_own_idx.setdefault(slot, [])
+        for i, key in enumerate(self._prompt_page_keys(req)):
+            p = int(row[i])
+            if key not in self._prefix_index:
+                self._prefix_index[key] = p
+                self._page_key[p] = key
+                self._page_ref[p] = self._page_ref.get(p, 0) + 1
+                own.append(p)
+
+    # ------------------------------------------------------ chunked prefill
+    def _chunk_launch(self, tokens: np.ndarray, mask: np.ndarray,
+                      slots: torch.Tensor):
+        """One chunked-prefill launch on the device: allocate the chunk's
+        pages, copy-on-write any shared page it writes (with sharing), run
+        the chunk through the model against a gathered slot view (its KV
+        goes into the pool, its queries see each slot's whole logical
+        history), and sample a candidate next token (meaningful after the
+        LAST chunk only). Returns (tokens (n,), block-table rows (n, M)) on
+        the device; nothing here syncs with the host."""
+        ps = self.cfg.page_size
+        tok, msk = self._tensor(tokens), self._tensor(mask)
+        nv = msk.sum(dim=1).to(torch.int32)              # (n,) valid tokens
+        t0 = self.caches["t"][slots.long()]
+        start_pg = torch.div(t0 + ps - 1, ps, rounding_mode="floor")
+        end_pg = torch.div(t0 + nv + ps - 1, ps, rounding_mode="floor")
+        self.caches["paged"] = PG.alloc_chunk_pages(
+            self.caches["paged"], slots, start_pg, end_pg)
+        if self.sharing:
+            PG.cow_chunk_pages(self.caches, slots, t0, nv, ps,
+                               span=tokens.shape[1] // ps + 1)
+        view = PG.gather_slot_view(self.caches, slots)
+        last, view = self.model.prefill_chunk(self.params, view, tok, msk)
+        PG.scatter_slot_view(self.caches, view, slots)
+        first = sampling.sample(last[:, :self.model.cfg.vocab], self._gen,
+                                self.cfg.temperature)
+        return first, self.caches["paged"]["tbl"][slots.long()]
+
+    def _prefill_quantum(self) -> int:
+        """Run AT MOST ONE prefill launch — the prefill half of a
+        scheduling quantum: the FCFS head's next chunk plus (``prefill_pack``
+        > 1) the whole remainders of requests behind it while the combined
+        token count fits ``prefill_chunk``. Returns the launches (0 or 1)."""
+        if not self._prefilling:
+            return 0
+        C = self.cfg.prefill_chunk
+        packed = pack_chunks(self._prefilling, C, self.cfg.prefill_pack)
+        n = len(packed)
+        tokens = np.zeros((n, C), np.int32)
+        mask = np.zeros((n, C), np.int32)
+        for i, (_, _, _, piece) in enumerate(packed):
+            tokens[i, :len(piece)] = piece
+            mask[i, :len(piece)] = 1
+        first, tbl_rows = self._chunk_launch(
+            tokens, mask, self._tensor([slot for _, slot, _, _ in packed]))
+        self.prefill_chunks += 1
+        finished: List[int] = []
+        for i, (req, slot, pos0, piece) in enumerate(packed):
+            req.prefill_pos += len(piece)
+            if self.sharing and piece:
+                # mirror the device's copy-on-write: a chunk that wrote into
+                # an adopted page still shared (refcount > 1) got a private
+                # copy, so the slot no longer maps the indexed original
+                shared = self._slot_shared_in.get(slot) or []
+                lp = pos0 // self.cfg.page_size
+                if lp < len(shared) and self._page_ref[shared[lp]] > 1:
+                    self._page_ref[shared[lp]] -= 1
+                    self._slot_shared_in[slot] = shared[:lp]
+                req.cow_pending = False    # its CoW (if any) just ran
+            if req.prefill_pos >= len(req.prompt):
+                finished.append(i)
+        if not finished:
+            return 1                   # intermediate chunk: no host sync
+        # only the head can be mid-prompt after a launch (packed tails
+        # carried their whole remainder), so the finished rows are the
+        # first len(finished) entries of the deque
+        assert finished == list(range(n)), "packed tail finished before head"
+        for _ in finished:
+            self._prefilling.popleft()
+        # last chunks: the sampled tokens are the requests' first emissions
+        # — ONE host sync for every request finishing in this launch
+        both = torch.cat([first[:, None], tbl_rows], dim=1).cpu().numpy()
+        first_h, rows_h = both[:, 0], both[:, 1:]
+        self.prefill_batches += 1      # one first-token host sync
+        now = time.perf_counter()
+        released: List[int] = []
+        arm: List[Tuple[int, int, int, int]] = []   # slot, tok, budget, eos
+        for i in finished:
+            req, slot, _, _ = packed[i]
+            if self.sharing:
+                self._register_prefix(req, slot, rows_h[i])
+            # chunking changes the schedule, not the modeled energy: the
+            # request's prefill is attributed once, at its true prompt
+            # length; the shared tokens' compute never ran and is skipped
+            rep = self._meter_prefill(1, len(req.prompt),
+                                      skip=req.shared_prefix_tokens)
+            resp = self.responses[req.rid]
+            resp.prefill_s += rep.t_total
+            resp.energy_j += rep.energy_j
+            tok = int(first_h[i])
+            resp.tokens.append(tok)
+            resp.t_emit.append(now)
+            budget = req.max_new_tokens - 1
+            if budget <= 0:
+                resp.finished = True   # prefill token was the whole budget
+                resp.finish_reason = "length"
+                self.slot_rid[slot] = -1
+                released.append(slot)
+                continue
+            arm.append((slot, tok, budget,
+                        -1 if req.eos_id is None else req.eos_id))
+            self.slot_budget[slot] = budget
+            self._slot_ctx[slot] = float(len(req.prompt))
+            self._slot_armed[slot] = True
+        if arm:
+            # one batched arm for every request finishing in this launch
+            sampling.arm_slots(self.cur_tokens, self.state,
+                               *(self._tensor([a[j] for a in arm])
+                                 for j in range(4)))
+        self._release_slots(released)
+        return 1
 
     # --------------------------------------------------------------- decode
     def _decode_chunk(self, max_steps: int) -> bool:
         """One fused on-device chunk of up to ``sync_every`` decode steps
-        for all armed slots (phase 2); a single host sync at the end."""
+        for all armed slots; a single host sync at the end. Slots still
+        mid-chunked-prefill ride along inert (device ``active`` false,
+        cursors frozen). Finished slots' pages return to the pool at the
+        chunk boundary."""
         budgets = [self.slot_budget[s] for s in range(self.cfg.max_batch)
                    if self._slot_armed[s]]
         n = min(self.cfg.sync_every, max(max(budgets), 1),
@@ -405,13 +849,16 @@ class ServingEngine:
         tok_mat, emit_mat = sampling.fused_decode_steps(
             self.model, self.params, self.caches, self.cur_tokens,
             self.state, self._gen, n_steps=n,
-            temperature=self.cfg.temperature)
+            temperature=self.cfg.temperature,
+            page_size=self.cfg.page_size if self.paged else 0,
+            freeze_inactive=self.chunked)
         # the chunk's one host sync: tokens and emission flags together
         both = torch.stack([tok_mat, emit_mat.to(torch.int32)]).cpu().numpy()
         tok_h, emit_h = both[0], both[1].astype(bool)
         now = time.perf_counter()
         self.decode_chunks += 1
         self.peak_active = max(self.peak_active, self.active)
+        released: List[int] = []
         for i in range(n):
             act = emit_h[i]
             n_active = int(act.sum())
@@ -439,25 +886,42 @@ class ServingEngine:
                     resp.finish_reason = "eos" if eos_hit else "length"
                     self.slot_rid[slot] = -1
                     self._slot_armed[slot] = False
+                    released.append(int(slot))
             self._steps += 1
+        # page reclamation at the chunk boundary (finished slots coasted on
+        # the trash page since their done flag rose mid-chunk)
+        self._release_slots(released)
         return True
 
     def step(self, max_steps: int = 10_000) -> bool:
-        """Run ONE scheduling quantum: admission, then one fused decode
-        chunk. Returns whether anything progressed."""
+        """Run ONE scheduling quantum: admission, at most one prefill chunk
+        (chunked mode), one fused decode chunk. Returns whether anything
+        progressed."""
         admitted = self._admit()
+        chunks = self._prefill_quantum() if self.chunked else 0
         decoded = self._decode_chunk(max_steps) if self.decoding else False
-        return bool(admitted or decoded)
+        return bool(admitted or chunks or decoded)
+
+    def _resolve_stall(self) -> None:
+        """The quantum made no progress, nothing is armed, yet requests
+        wait: with the ENTIRE pool free the head request can never fit and
+        is failed; anything else is a leaked reservation."""
+        if not self.paged or self.free_pages == self.num_pages:
+            self._reject(self.queue.popleft())
+        else:
+            raise RuntimeError(        # unreachable: release returns
+                "admission stalled with no active work — leaked "
+                "page reservation")
 
     def run(self, max_steps: int = 10_000) -> List[Response]:
         """Drive until the queue drains and all slots finish. Exhausting
         ``max_steps`` marks every unfinished response ``"timeout"``
         without finishing it."""
         while (self.queue or self.active) and self._steps < max_steps:
-            if not self.step(max_steps):
-                # waiting work with a free slot is always admitted and an
-                # occupied slot always decodes, so this cannot happen
-                raise RuntimeError("engine made no progress with work queued")
+            if self.step(max_steps) or self.decoding:
+                continue
+            if self.queue:
+                self._resolve_stall()
         if self._steps >= max_steps:
             for r in self.responses.values():
                 if not r.finished:
@@ -471,7 +935,8 @@ class ServingEngine:
     @property
     def host_syncs(self) -> int:
         """Device->host synchronization points (decode chunk fetches plus
-        one first-token fetch per prefill batch)."""
+        one first-token fetch per prefill batch, or per chunk launch that
+        finishes a prompt)."""
         return self.decode_chunks + self.prefill_batches
 
     def stats(self) -> Dict[str, float]:
@@ -493,7 +958,36 @@ class ServingEngine:
             if slo is not None:
                 slo_n += 1
                 slo_ok += (r.prefill_s + r.decode_s) <= slo
-        out: Dict[str, float] = {
+        out: Dict[str, float] = {}
+        if self.paged:
+            out.update({
+                "paged": 1.0,
+                "page_size": self.cfg.page_size,
+                "pages_total": self.num_pages,
+                "peak_pages_reserved": self.peak_pages_reserved,
+                "free_pages": self.free_pages,
+                # provisioned KV rows actually backing peak load — the
+                # embodied-carbon memory model's input
+                "peak_kv_rows_reserved":
+                    self.peak_pages_reserved * self.cfg.page_size,
+            })
+        if self.chunked:
+            out.update({
+                "chunked": 1.0,
+                "prefill_chunk": self.cfg.prefill_chunk,
+                "prefill_chunks": self.prefill_chunks,
+            })
+        if self.sharing:
+            out.update({
+                "prefix_sharing": 1.0,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prefix_shared_requests": self.prefix_shared_requests,
+                # peak EXTRA table mappings of already-provisioned pages...
+                "shared_pages": self.peak_shared_mappings,
+                # ...while the physical footprint counts shared pages once
+                "unique_pages": self.peak_pages_reserved,
+            })
+        out.update({
             "queue_depth": len(self.queue),
             "deferred_depth": 0,
             "deferred_requests": 0,
@@ -509,7 +1003,7 @@ class ServingEngine:
             "timeout_requests": sum(
                 1 for r in self.responses.values()
                 if not r.finished and r.finish_reason == "timeout"),
-        }
+        })
         for p, waits in sorted(self._wait_samples.items()):
             out[f"queue_wait_p50_s_class_{p}"] = float(np.median(waits))
             out[f"queue_wait_p99_s_class_{p}"] = (

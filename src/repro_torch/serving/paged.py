@@ -1,0 +1,427 @@
+"""Paged KV cache pool: one shared page pool per layer, per-slot block
+tables and an on-device free-page stack with refcounts (the port of the
+allocator, layout, insertion and prefix-sharing parts of
+``repro.serving.paged``).
+
+Layout (per layer; head-major so appends and gathers are flat row
+indexing, and one (page, head) pair is one kernel read)::
+
+    k_pages / v_pages : (Hkv, num_pages + 1, page_size, hd)
+    pos_ids           : (B, W) int32  — LOGICAL positions, -1 = empty
+    length            : (B,)  int32
+
+plus ONE shared allocator at ``caches["paged"]`` (every layer of a slot
+has identical occupancy, so one block table serves all layers)::
+
+    tbl  : (B, max_pages) int32 physical page per logical page, -1 = none
+    free : (num_pages,)   int32 stack; free[:top] are free page ids
+    top  : ()             int32 free-page count
+    ref  : (num_pages,)   int32 per-page reference count
+
+Page ``num_pages`` is the TRASH page: writes of slots with no page mapped
+land there and gathers of unmapped logical pages read from there, always
+masked because the logical ``pos_ids`` entry is -1.
+
+Allocator invariants, as in the reference: ``ref[p]`` equals the number
+of block-table entries mapping ``p``; ``top`` + #uniquely-mapped pages ==
+``num_pages``; a page returns to the stack exactly at decref-to-zero.
+
+Every allocator function is a pure function of fixed-shape device tensors
+and returns a new allocator dict, like the reference; none syncs with the
+host (no ``.item()``, no boolean-mask indexing), so they run inside the
+fused decode loop. PyTorch has no ``mode="drop"`` scatter: each dropped
+index of the reference (the one past the end) goes to a scratch element
+that is cut off (``_drop_set``), or to the trash page for pool rows.
+
+Writes to the cache tree itself go in place: ``paginate_cache`` replaces
+each layer's contiguous k/v with zero pools, and ``insert_prefill_paged``,
+``begin_chunked_prefill``, ``map_shared_prefix``, ``cow_chunk_pages``,
+``freeze_inactive_cursors`` and ``scatter_slot_view`` write the pools and
+the per-slot rows of the tree they are given (and return it). Only the
+allocator dict at ``caches["paged"]`` is replaced by a new one.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.attention import copy_page_rows
+from repro_torch.serving import sampling
+
+_I32 = torch.int32
+
+
+def _drop_set(dst: torch.Tensor, idx: torch.Tensor, val,
+              accumulate: bool = False) -> torch.Tensor:
+    """``dst[idx] = val`` (or ``+=`` with ``accumulate``) where an index
+    equal to ``len(dst)`` is dropped, as the reference's ``mode="drop"``
+    drops its one out-of-range index. Returns a new tensor."""
+    ext = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    idx = idx.reshape(-1).long()
+    if not torch.is_tensor(val):
+        val = torch.full(idx.shape, val, dtype=dst.dtype, device=dst.device)
+    ext.index_put_((idx,), val.reshape(-1).to(dst.dtype),
+                   accumulate=accumulate)
+    return ext[:-1]
+
+
+def _cumrank(x: torch.Tensor) -> torch.Tensor:
+    """0-based pop order of the True entries of ``x`` (flattened)."""
+    return torch.cumsum(x.reshape(-1).to(_I32), 0, dtype=_I32) - 1
+
+
+def _count(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_I32).sum().to(_I32)
+
+
+# --------------------------------------------------------------- allocator
+
+
+def init_allocator(max_batch: int, max_pages_per_slot: int, num_pages: int,
+                   device) -> Dict[str, torch.Tensor]:
+    return {
+        "tbl": torch.full((max_batch, max_pages_per_slot), -1, dtype=_I32,
+                          device=device),
+        "free": torch.arange(num_pages, dtype=_I32, device=device),
+        "top": torch.full((), num_pages, dtype=_I32, device=device),
+        "ref": torch.zeros((num_pages,), dtype=_I32, device=device),
+    }
+
+
+def _set_ref(ref: torch.Tensor, pages: torch.Tensor,
+             ok: torch.Tensor) -> torch.Tensor:
+    """Mark freshly popped pages as singly referenced."""
+    P = ref.shape[0]
+    return _drop_set(ref, torch.where(ok, pages, P), 1)
+
+
+def _pop(free: torch.Tensor, top: torch.Tensor, need: torch.Tensor):
+    """LIFO pops for the True entries of ``need`` (any shape): (page ids,
+    ok) of ``need``'s shape, ``ok`` False where the stack would underflow."""
+    P = free.shape[0]
+    take = (top - 1 - _cumrank(need)).reshape(need.shape)
+    pages = free[take.clamp(0, P - 1).long()]
+    return pages, need & (take >= 0)
+
+
+def alloc_decode_pages(alloc: Dict, lengths: torch.Tensor,
+                       active: torch.Tensor, page_size: int) -> Dict:
+    """Pop one page for every ACTIVE slot whose next token starts a new
+    logical page. lengths: (B,) tokens already cached; active: (B,) bool."""
+    tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
+    B, M = tbl.shape
+    lp = torch.div(lengths, page_size, rounding_mode="floor")
+    need = active & (torch.remainder(lengths, page_size) == 0) & (lp < M)
+    pages, ok = _pop(free, top, need)
+    bidx = torch.arange(B, device=tbl.device)
+    lp_c = lp.clamp(0, M - 1).long()
+    tbl = tbl.clone()
+    tbl[bidx, lp_c] = torch.where(ok, pages, tbl[bidx, lp_c])
+    return {"tbl": tbl, "free": free, "top": top - _count(ok),
+            "ref": _set_ref(alloc["ref"], pages, ok)}
+
+
+def alloc_prefill_pages(alloc: Dict, slots: torch.Tensor,
+                        n_pages: torch.Tensor) -> Dict:
+    """Bulk-pop ``n_pages[i]`` pages for slot ``slots[i]`` and rewrite the
+    slot's whole block-table row (stale entries become -1)."""
+    tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
+    M = tbl.shape[1]
+    need = torch.arange(M, device=tbl.device)[None, :] < n_pages[:, None]
+    pages, ok = _pop(free, top, need)
+    tbl = tbl.clone()
+    tbl[slots.long()] = torch.where(ok, pages, torch.full_like(pages, -1))
+    return {"tbl": tbl, "free": free, "top": top - _count(ok),
+            "ref": _set_ref(alloc["ref"], pages, ok)}
+
+
+def alloc_chunk_pages(alloc: Dict, slots: torch.Tensor,
+                      start_pg: torch.Tensor, end_pg: torch.Tensor) -> Dict:
+    """Pop pages for the logical page range [start_pg[i], end_pg[i]) of
+    slot ``slots[i]``, keeping the slot's other entries."""
+    tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
+    M = tbl.shape[1]
+    ar = torch.arange(M, device=tbl.device)[None, :]
+    need = (ar >= start_pg[:, None]) & (ar < end_pg[:, None])    # (n, M)
+    pages, ok = _pop(free, top, need)
+    sl = slots.long()
+    tbl = tbl.clone()
+    tbl[sl] = torch.where(ok, pages, tbl[sl])
+    return {"tbl": tbl, "free": free, "top": top - _count(ok),
+            "ref": _set_ref(alloc["ref"], pages, ok)}
+
+
+def map_shared_pages(alloc: Dict, slot: torch.Tensor,
+                     pages: torch.Tensor) -> Dict:
+    """Map a resident page run (``pages``: (max_pages,), -1 padded) into
+    logical pages 0.. of ``slot``'s table row, increfing each page."""
+    tbl, ref = alloc["tbl"], alloc["ref"]
+    P = ref.shape[0]
+    m = pages >= 0
+    s = slot.long().reshape(1)   # a 0-d index would be read on the host
+    tbl = tbl.clone()
+    tbl[s] = torch.where(m, pages, tbl[s])
+    ref = _drop_set(ref, torch.where(m, pages, P), 1, accumulate=True)
+    return {"tbl": tbl, "free": alloc["free"], "top": alloc["top"],
+            "ref": ref}
+
+
+def _return_pages(free: torch.Tensor, top: torch.Tensor, ref: torch.Tensor,
+                  drops: torch.Tensor):
+    """Apply per-page decref counts ``drops``; pages reaching zero go back
+    on the stack in page order. Returns (free, top, ref)."""
+    P = ref.shape[0]
+    ref = ref - drops
+    freed = (drops > 0) & (ref <= 0)
+    dest = torch.where(freed, top + _cumrank(freed), P)
+    free = _drop_set(free, dest, torch.arange(P, dtype=_I32,
+                                              device=free.device))
+    return free, top + _count(freed), ref.clamp(min=0)
+
+
+def _decrefs(pages: torch.Tensor, P: int) -> torch.Tensor:
+    """Per-page count of the entries of ``pages`` (P = dropped)."""
+    return _drop_set(torch.zeros((P,), dtype=_I32, device=pages.device),
+                     pages, 1, accumulate=True)
+
+
+def release_slots(alloc: Dict, released: torch.Tensor) -> Dict:
+    """Decref every page mapped by the ``released`` (B,) bool slots and
+    clear their table rows; pages reaching refcount zero go back on the
+    free stack (shared prefix pages survive until their last holder)."""
+    tbl = alloc["tbl"]
+    P = alloc["free"].shape[0]
+    rel = released[:, None] & (tbl >= 0)
+    drops = _decrefs(torch.where(rel, tbl, P), P)
+    free, top, ref = _return_pages(alloc["free"], alloc["top"], alloc["ref"],
+                                   drops)
+    tbl = torch.where(released[:, None], torch.full_like(tbl, -1), tbl)
+    return {"tbl": tbl, "free": free, "top": top, "ref": ref}
+
+
+def decref_pages(alloc: Dict, pages: torch.Tensor) -> Dict:
+    """Drop one reference from each physical page in ``pages`` ((K,)
+    int32, -1 padded); pages reaching refcount zero return to the stack."""
+    P = alloc["free"].shape[0]
+    drops = _decrefs(torch.where(pages >= 0, pages, P), P)
+    free, top, ref = _return_pages(alloc["free"], alloc["top"], alloc["ref"],
+                                   drops)
+    return {"tbl": alloc["tbl"], "free": free, "top": top, "ref": ref}
+
+
+def pages_needed(n_tokens: int, page_size: int) -> int:
+    return -(-max(n_tokens, 0) // page_size)
+
+
+# ----------------------------------------------------------- cache layout
+
+
+def paginate_cache(cache: Dict, max_batch: int, page_size: int,
+                   num_pages: int) -> Dict:
+    """Turn a contiguous slot-pool cache (``Model.init_cache``) into the
+    paged layout, in place, and attach the shared allocator at
+    ``cache["paged"]``."""
+    widths = {layer["k"].shape[1] for layer in cache["layers"]}
+    if len(widths) != 1:
+        raise ValueError("the paged pool needs one cache width")
+    W = widths.pop()
+    if W % page_size:
+        raise ValueError("cache width must be a page multiple")
+    for i, layer in enumerate(cache["layers"]):
+        k, v = layer["k"], layer["v"]
+        H = k.shape[2]
+        cache["layers"][i] = {
+            "k_pages": torch.zeros((H, num_pages + 1, page_size,
+                                    k.shape[3]), dtype=k.dtype,
+                                   device=k.device),
+            "v_pages": torch.zeros((H, num_pages + 1, page_size,
+                                    v.shape[3]), dtype=v.dtype,
+                                   device=v.device),
+            "pos_ids": layer["pos_ids"],          # stays LOGICAL: (B, W)
+            "length": layer["length"],
+        }
+    cache["paged"] = init_allocator(max_batch, W // page_size, num_pages,
+                                    cache["t"].device)
+    return cache
+
+
+# --------------------------------------------------------------- insertion
+
+
+def insert_prefill_paged(pool: Dict, src: Dict, slots: torch.Tensor,
+                         cur_tokens: torch.Tensor, first_tokens: torch.Tensor,
+                         state: Dict, budgets: torch.Tensor,
+                         eos_ids: torch.Tensor, page_size: int) -> None:
+    """Paged counterpart of ``sampling.insert_prefill``: bulk-allocate
+    ceil(len/page_size) pages per admitted request, scatter the contiguous
+    prefill cache rows into the pages (one indexed copy per leaf for the
+    whole admission batch), copy the per-slot rows and arm the slots.
+    Logical pages past a request's length scatter into the trash page."""
+    n = slots.shape[0]
+    sl = slots.long()
+    true_len = src["t"][:n]
+    n_pages = torch.div(true_len + page_size - 1, page_size,
+                        rounding_mode="floor")
+    pool["paged"] = alloc_prefill_pages(pool["paged"], slots, n_pages)
+    row_tbl = pool["paged"]["tbl"][sl]                   # (n, M)
+    M = row_tbl.shape[1]
+    for dst, s in zip(pool["layers"], src["layers"]):
+        for name, leaf in (("k_pages", "k"), ("v_pages", "v")):
+            pages = dst[name]                            # (H, P+1, ps, hd)
+            trash = pages.shape[1] - 1
+            pg = torch.where(row_tbl < 0, torch.full_like(row_tbl, trash),
+                             row_tbl).long()
+            sv = s[leaf][:n].permute(2, 0, 1, 3)         # (H, n, W, hd)
+            pages[:, pg] = sv.reshape(sv.shape[0], n, M, page_size,
+                                      sv.shape[-1]).to(pages.dtype)
+        dst["pos_ids"][sl] = s["pos_ids"][:n]
+        dst["length"][sl] = s["length"][:n]
+    pool["t"][sl] = src["t"][:n]
+    sampling.arm_slots(cur_tokens, state, slots, first_tokens, budgets,
+                       eos_ids)
+
+
+# ----------------------------------------------------- chunked prefill view
+
+
+def begin_chunked_prefill(pool: Dict, slots: torch.Tensor) -> Dict:
+    """Reset the admitted slots' per-slot rows for a fresh chunked prefill:
+    logical positions all empty, lengths and counters zero. Pool pages and
+    table rows are untouched — a released tenant already cleared its row,
+    and its stale pool rows are unreachable behind ``pos_ids == -1``."""
+    sl = slots.long()
+    # index_fill_, not ``x[sl] = -1``: a Python scalar assigned through a
+    # tensor index is copied from the host and waits for the stream
+    for layer in pool["layers"]:
+        layer["pos_ids"].index_fill_(0, sl, -1)
+        layer["length"].index_fill_(0, sl, 0)
+    pool["t"].index_fill_(0, sl, 0)
+    return pool
+
+
+def map_shared_prefix(pool: Dict, slot: torch.Tensor, pages: torch.Tensor,
+                      n_shared: torch.Tensor, start_tok: torch.Tensor) -> Dict:
+    """Adopt a resident prefix into a freshly admitted slot: incref the
+    run into its table row, mark logical rows [0, n_shared) as valid
+    history, and set the write cursors to ``start_tok``, the first token
+    the slot will compute (< n_shared only when the whole prompt is
+    shared: the last prompt token is recomputed for first-token logits,
+    into a shared page that ``cow_chunk_pages`` privatizes first)."""
+    pool["paged"] = map_shared_pages(pool["paged"], slot, pages)
+    s = slot.long().reshape(1)   # a 0-d index would be read on the host
+    for layer in pool["layers"]:
+        W = layer["pos_ids"].shape[-1]
+        ar = torch.arange(W, dtype=_I32, device=pages.device)
+        layer["pos_ids"][s] = torch.where(ar < n_shared, ar,
+                                          torch.full_like(ar, -1))
+        layer["length"][s] = start_tok
+    pool["t"][s] = start_tok
+    return pool
+
+
+def cow_chunk_pages(pool: Dict, slots: torch.Tensor, start_tok: torch.Tensor,
+                    n_tok: torch.Tensor, page_size: int, span: int) -> Dict:
+    """Copy-on-write for the logical pages the next chunk write touches.
+
+    slots/start_tok/n_tok: (n,) int32 — the chunk writes tokens
+    [start_tok, start_tok + n_tok) of each slot; ``span`` bounds the pages
+    one chunk can touch. A touched page mapped with refcount > 1 is
+    privatized before the write: pop a fresh page, copy its rows in every
+    layer's pools, swap the table entry, decref the original (returning
+    it to the stack if that was its last reference)."""
+    alloc = pool["paged"]
+    tbl, free, top, ref = (alloc["tbl"], alloc["free"], alloc["top"],
+                           alloc["ref"])
+    B, M = tbl.shape
+    P = free.shape[0]
+    dev = tbl.device
+    lp = (torch.div(start_tok, page_size, rounding_mode="floor")[:, None]
+          + torch.arange(span, dtype=_I32, device=dev)[None, :])
+    last = torch.div(start_tok + n_tok.clamp(min=1) - 1, page_size,
+                     rounding_mode="floor")
+    valid = (n_tok[:, None] > 0) & (lp <= last[:, None]) & (lp < M)
+    sl = slots.long()[:, None]
+    phys = tbl[sl, lp.clamp(0, M - 1).long()]            # (n, span)
+    do = valid & (phys >= 0) & (ref[phys.clamp(0, P - 1).long()] > 1)
+    fresh, ok = _pop(free, top, do)
+    # table swap; entries past the table go to a scratch column, cut off
+    ext = torch.cat([tbl, tbl.new_full((B, 1), -1)], dim=1)
+    col = torch.where(lp < M, lp, torch.full_like(lp, M)).long()
+    ext[sl.expand_as(col), col] = torch.where(ok, fresh, phys)
+    tbl = ext[:, :M].contiguous()
+    dec = _decrefs(torch.where(ok, phys, P), P)
+    new_top = top - _count(ok)
+    free, new_top, ref = _return_pages(free, new_top, ref, dec)
+    ref = _set_ref(ref, fresh, ok)
+    pool["paged"] = {"tbl": tbl, "free": free, "top": new_top, "ref": ref}
+    src_pg = torch.where(ok, phys, 0).reshape(-1)
+    dst_pg = torch.where(ok, fresh, -1).reshape(-1)      # -1 = dropped
+    for layer in pool["layers"]:
+        copy_page_rows(layer["k_pages"], src_pg, dst_pg)
+        copy_page_rows(layer["v_pages"], src_pg, dst_pg)
+    return pool
+
+
+def snapshot_cursors(pool: Dict) -> Dict:
+    """Copies of the per-slot write cursors (``t``, each layer's
+    ``pos_ids`` and ``length``), for ``freeze_inactive_cursors``."""
+    return {"t": pool["t"].clone(),
+            "layers": [{"pos_ids": layer["pos_ids"].clone(),
+                        "length": layer["length"].clone()}
+                       for layer in pool["layers"]]}
+
+
+def freeze_inactive_cursors(old: Dict, pool: Dict,
+                            active: torch.Tensor) -> Dict:
+    """Put INACTIVE slots' write cursors back to their pre-step values
+    (``old``, from ``snapshot_cursors``) after a fused decode micro-step,
+    in place. A slot parked mid-chunked-prefill keeps its logical position
+    exact while decode runs around it."""
+    for o, layer in zip(old["layers"], pool["layers"]):
+        layer["pos_ids"].copy_(torch.where(active[:, None], layer["pos_ids"],
+                                           o["pos_ids"]))
+        layer["length"].copy_(torch.where(active, layer["length"],
+                                          o["length"]))
+    pool["t"].copy_(torch.where(active, pool["t"], old["t"]))
+    return pool
+
+
+def gather_slot_view(pool: Dict, slots: torch.Tensor) -> Dict:
+    """Batch-n view of the paged cache tree for a chunked-prefill step:
+    the per-slot rows (``pos_ids``, ``length``, ``t``) gathered to
+    ``slots`` (copies), the shared page pools riding through whole (the
+    same tensors: the chunk writes them in place), and the allocator
+    reduced to the slots' table rows."""
+    sl = slots.long()
+    return {
+        "t": pool["t"][sl],
+        "layers": [{"k_pages": layer["k_pages"], "v_pages": layer["v_pages"],
+                    "pos_ids": layer["pos_ids"][sl],
+                    "length": layer["length"][sl]}
+                   for layer in pool["layers"]],
+        "paged": {"tbl": pool["paged"]["tbl"][sl]},
+    }
+
+
+def scatter_slot_view(pool: Dict, view: Dict, slots: torch.Tensor) -> Dict:
+    """Write a chunk-updated ``gather_slot_view`` tree's per-slot rows back
+    into ``slots`` of the full tree, in place."""
+    sl = slots.long()
+    for layer, v in zip(pool["layers"], view["layers"]):
+        layer["pos_ids"][sl] = v["pos_ids"]
+        layer["length"][sl] = v["length"]
+    pool["t"][sl] = view["t"]
+    return pool
+
+
+def inactive_table(alloc: Dict, active: torch.Tensor) -> Dict:
+    """The allocator with every INACTIVE slot's table row cleared, for one
+    decode micro-step of a chunked engine: the batch-shape-invariant decode
+    write of a slot parked mid-prefill lands in the trash page instead of
+    its next unwritten row, which may lie in a page it shares with another
+    slot (an adopter of a whole shared prompt, waiting for its
+    copy-on-write chunk). Its attention output is discarded."""
+    tbl = alloc["tbl"]
+    return {**alloc, "tbl": torch.where(active[:, None], tbl,
+                                        torch.full_like(tbl, -1))}

@@ -50,21 +50,46 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
 def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
                        state: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator], n_steps: int,
-                       temperature: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                       temperature: float, page_size: int = 0,
+                       freeze_inactive: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``n_steps`` fused engine micro-steps on the device.
 
     cur_tokens: (B, 1) int32 — last token of every slot. ``caches``,
-    ``cur_tokens`` and ``state`` are updated in place. Returns (tok_mat,
-    emit_mat), both (n_steps, B): the sampled token per step and whether
-    the slot was active (the token is a real emission). Finished and free
-    slots keep re-feeding their last token; their logits are computed but
-    never read.
+    ``cur_tokens`` and ``state`` are updated in place (the allocator at
+    ``caches["paged"]`` is replaced). Returns (tok_mat, emit_mat), both
+    (n_steps, B): the sampled token per step and whether the slot was
+    active (the token is a real emission). Finished and free slots keep
+    re-feeding their last token; their logits are computed but never read.
+
+    ``page_size`` > 0 marks a paged KV pool: before each micro-step,
+    alloc-on-write pops a free page for every ACTIVE slot whose next token
+    starts a new logical page, so finished slots coasting to the chunk
+    boundary write to the trash page instead of draining the pool.
+
+    ``freeze_inactive`` (chunked-prefill engines) keeps inactive slots'
+    write cursors at their pre-step values (``paged.freeze_inactive_
+    cursors``), so a slot parked mid-chunked-prefill keeps its logical
+    position exact while decode runs around it, and routes their garbage
+    writes of the step to the trash page (``paged.inactive_table``).
+    Nothing in the loop syncs with the host.
     """
+    from repro_torch.serving import paged as PG
     vocab = model.cfg.vocab
     active, budget, eos = state["active"], state["budget"], state["eos"]
     toks, emits = [], []
     for _ in range(n_steps):
+        if page_size:
+            caches["paged"] = PG.alloc_decode_pages(
+                caches["paged"], caches["t"], active, page_size)
+        if freeze_inactive:
+            old = PG.snapshot_cursors(caches)
+            alloc = caches["paged"]
+            caches["paged"] = PG.inactive_table(alloc, active)
         logits, caches = model.decode_step(params, caches, cur_tokens)
+        if freeze_inactive:
+            caches["paged"] = alloc
+            PG.freeze_inactive_cursors(old, caches, active)
         nxt = sample(logits[:, :vocab], generator, temperature)
         nxt = torch.where(active, nxt, cur_tokens[:, 0])
         emitted = active.clone()
@@ -87,10 +112,11 @@ def insert_prefill(pool: Dict, src: Dict, slots: torch.Tensor,
     (the engine pads the prefill batch to a power of two); they are
     dropped here. A zero budget arms the slot inactive."""
     n = slots.shape[0]
-    pool["t"][slots] = src["t"][:n]
+    sl = slots.long()
+    pool["t"][sl] = src["t"][:n]
     for dst, s in zip(pool["layers"], src["layers"]):
         for name, leaf in dst.items():
-            leaf[slots] = s[name][:n]
+            leaf[sl] = s[name][:n]
     arm_slots(cur_tokens, state, slots, first_tokens, budgets, eos_ids)
 
 
@@ -100,10 +126,11 @@ def arm_slots(cur_tokens: torch.Tensor, state: Dict[str, torch.Tensor],
     """Set the admitted slots' first decode tokens and arm their device
     state in place. A zero budget arms the slot inactive."""
     n = slots.shape[0]
-    cur_tokens[slots, 0] = first_tokens[:n]
-    state["active"][slots] = budgets > 0
-    state["budget"][slots] = budgets
-    state["eos"][slots] = eos_ids
+    sl = slots.long()
+    cur_tokens[sl, 0] = first_tokens[:n]
+    state["active"][sl] = budgets > 0
+    state["budget"][sl] = budgets
+    state["eos"][sl] = eos_ids
 
 
 def prefill_bucket(length: int, min_bucket: int = 8) -> int:

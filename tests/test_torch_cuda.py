@@ -106,3 +106,194 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     pos = torch.arange(4, dtype=torch.int32, device=cuda_device)[None]
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q, pos, pos)
+
+
+def _paged_case(rng, B, Hkv, ps, M, hd, S=None, shared=True):
+    """A pool with mixed fills, pages from a shuffled permutation, an
+    unmapped (-1) logical page inside one slot, and one physical page
+    mapped by two slots. With ``S``: the last min(S, len) tokens of each
+    slot are its chunk (q_pos, pads -1)."""
+    P = B * M
+    perm = rng.permutation(P)
+    tbl = np.full((B, M), -1, np.int32)
+    k_pos = np.full((B, M * ps), -1, np.int32)
+    lens = rng.integers(1, M * ps + 1, B)
+    lens[0] = M * ps
+    pi = 0
+    for b, L in enumerate(lens):
+        npg = -(-int(L) // ps)
+        tbl[b, :npg] = perm[pi:pi + npg]
+        pi += npg
+        k_pos[b, :L] = np.arange(L)
+    if B > 1 and M > 2:
+        tbl[0, 1] = -1                     # unmapped page inside slot 0
+        k_pos[0, ps:2 * ps] = -1
+        if shared and lens[1] > ps:
+            tbl[1, 0] = tbl[0, 0]          # one page mapped by two slots
+    if S is None:
+        q_pos = (lens - 1).astype(np.int32)
+    else:
+        q_pos = np.full((B, S), -1, np.int32)
+        for b, L in enumerate(lens):
+            nv = min(S, int(L))
+            q_pos[b, :nv] = np.arange(L - nv, L)
+    kp = rng.standard_normal((Hkv, P + 1, ps, hd), dtype=np.float32)
+    vp = rng.standard_normal((Hkv, P + 1, ps, hd), dtype=np.float32)
+    return kp, vp, tbl, q_pos, k_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,ps,M,hd", [
+    (1, 16, 8, 64), (2, 16, 16, 64), (4, 8, 12, 128), (8, 16, 4, 32),
+    (2, 8, 130, 64),
+])
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, group, ps, M,
+                                           hd):
+    rng = np.random.default_rng(group * 100 + ps + M)
+    B, Hkv = 3, 2
+    kp, vp, tbl, q_pos, k_pos = _paged_case(rng, B, Hkv, ps, M, hd)
+    q = rng.standard_normal((B, Hkv * group, hd), dtype=np.float32)
+    dev = cuda_device
+    q, kp, vp = (torch.from_numpy(x).to(dtype).to(dev) for x in (q, kp, vp))
+    tbl, qp, kpos = (torch.from_numpy(x).to(dev)
+                     for x in (tbl, q_pos, k_pos))
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, kp, vp, tbl, qp, kpos)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    want = ref.paged_decode_attention(q, kp, vp, tbl, qp, kpos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,ps,M,S,hd,window", [
+    (1, 16, 8, 64, 64, None), (2, 16, 20, 100, 64, None),
+    (4, 8, 12, 16, 128, None), (8, 16, 6, 33, 32, None),
+    (2, 16, 10, 48, 64, 40),
+])
+def test_chunked_prefill_kernel_matches_plain(cuda_device, dtype, group, ps,
+                                              M, S, hd, window):
+    rng = np.random.default_rng(group * 100 + ps + M + S)
+    B, Hkv = 3, 2
+    kp, vp, tbl, q_pos, k_pos = _paged_case(rng, B, Hkv, ps, M, hd, S=S)
+    # the model's layout: a (B, S, Hq, hd) projection seen as (B, Hq, S, hd)
+    q = rng.standard_normal((B, S, Hkv * group, hd), dtype=np.float32)
+    dev = cuda_device
+    q, kp, vp = (torch.from_numpy(x).to(dtype).to(dev) for x in (q, kp, vp))
+    q = q.transpose(1, 2)
+    tbl, qp, kpos = (torch.from_numpy(x).to(dev)
+                     for x in (tbl, q_pos, k_pos))
+    before = ops.launch_counts()["chunked_prefill_attention"]
+    got = ops.chunked_prefill_attention(q, kp, vp, tbl, qp, kpos,
+                                        window=window)
+    assert ops.launch_counts()["chunked_prefill_attention"] == before + 1
+    want = ref.chunked_prefill_attention(q, kp, vp, tbl, qp, kpos,
+                                         window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    rows = (qp >= 0)[:, None, :, None].expand_as(want)
+    torch.testing.assert_close(got.float()[rows], want.float()[rows],
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    pads = (qp < 0)[:, None, :, None].expand_as(got)
+    assert (got.float()[pads] == 0).all()          # pad queries write 0
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(cuda_device):
+    q = torch.randn(1, 2, 48, device=cuda_device)         # hd 48: no kernel
+    pages = torch.randn(2, 3, 4, 48, device=cuda_device)
+    tbl = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    k_pos = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    q_pos = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.paged_decode_attention(q, pages, pages, tbl, q_pos, k_pos)
+    with pytest.raises(TypeError, match="int32"):
+        ops.paged_decode_attention(q[..., :32], pages[..., :32],
+                                   pages[..., :32], tbl.long(), q_pos, k_pos)
+
+
+def test_paged_engine_on_card_matches_cpu(cuda_device):
+    """The smoke config served on the paged + chunked + prefix-sharing rung
+    on the card (kernels) and on the CPU (plain versions), from the same
+    weights: identical tokens, and the new kernels really ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("llama3.2-1b", "smoke")
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(5)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    prompts = [system + rng.integers(2, cfg.vocab, n).tolist()
+               for n in (3, 20, 0, 9)]
+    prompts += [rng.integers(2, cfg.vocab, n).tolist() for n in (40, 7)]
+    ecfg = EngineConfig(max_batch=4, max_len=128, paged=True, page_size=16,
+                        prefill_chunk=16, prefill_pack=2,
+                        prefix_sharing=True)
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu_params, dev)
+        eng = ServingEngine(Model(cfg, dev), params, ecfg, device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        ops.reset_launches()
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        counts = ops.launch_counts()
+    assert toks["cpu"] == toks[str(cuda_device)]
+    assert counts["paged_decode_attention"] > 0
+    assert counts["chunked_prefill_attention"] > 0
+    assert counts["decode_attention"] == counts["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("rung", ["contiguous", "paged+chunk+sharing"])
+def test_engine_waits_for_the_card_only_at_host_syncs(cuda_device, rung):
+    """Under CUDA's sync debug mode every point where the host waits for
+    the stream warns: a served trace waits exactly ``host_syncs`` times
+    (its token fetches), never for a host-to-device copy or a tensor
+    index read on the host."""
+    import traceback
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("llama3.2-1b", "smoke")
+    model = Model(cfg, cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(1))
+    rng = np.random.default_rng(5)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    prompts = [system + rng.integers(2, cfg.vocab, n).tolist()
+               for n in (3, 20, 0, 9)]
+    prompts += [rng.integers(2, cfg.vocab, n).tolist() for n in (40, 7)]
+    ecfg = (EngineConfig(max_batch=4, max_len=128) if rung == "contiguous"
+            else EngineConfig(max_batch=4, max_len=128, paged=True,
+                              page_size=16, prefill_chunk=16, prefill_pack=2,
+                              prefix_sharing=True))
+    eng = ServingEngine(model, params, ecfg, device=cuda_device)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+    waits = []
+
+    def record(message, *_):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            waits.append("".join(traceback.format_list(stack[-4:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert eng.host_syncs > 0
+    assert len(waits) == eng.host_syncs, "\n".join(waits)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -128,5 +128,13 @@ def test_launch_counts_untouched_on_cpu():
     pos = torch.arange(4, dtype=torch.int32)[None]
     TOPS.flash_attention(q, q, q, pos, pos)
     TOPS.decode_attention(q[:, :, 0], q, q, pos[:, 0], pos)
+    pages = torch.randn(2, 3, 4, 16)                 # 2 pages + trash
+    tbl = torch.tensor([[1, -1]], dtype=torch.int32)
+    k_pos = torch.tensor([[0, 1, 2, 3, -1, -1, -1, -1]], dtype=torch.int32)
+    TOPS.paged_decode_attention(q[:, :, 0], pages, pages, tbl, pos[:, 3],
+                                k_pos)
+    TOPS.chunked_prefill_attention(q, pages, pages, tbl, pos, k_pos)
     assert TOPS.launch_counts() == {"flash_attention": 0,
-                                    "decode_attention": 0}
+                                    "decode_attention": 0,
+                                    "paged_decode_attention": 0,
+                                    "chunked_prefill_attention": 0}

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where a served trace's time goes on the card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [contiguous] [paged] [zamba2]
 
-Serves ``chip_smoke.py``'s engine traces (``llama-paper-1b`` at full
-width, bf16, 16 requests of 64 new tokens each) four times per path on
-one model: cold (first use of every shape), warm, warm under
-``torch.profiler``, and warm with CUDA's sync debug mode on, which
-counts every point where the host waits for the device. The contiguous
-path serves 16-1024-token prompts on the default engine; the paged path
-serves the shared-system-prompt trace with the paged pool, chunked
-prefill (256, pack 2) and prefix sharing. Prints the three timed walls,
+Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
+each, bf16, full width and depth) four times per path: cold (first use
+of every shape), warm, warm under ``torch.profiler``, and warm with
+CUDA's sync debug mode on, which counts every point where the host
+waits for the device. On ``llama-paper-1b``, the contiguous path serves
+16-1024-token prompts on the default engine and the paged path serves
+the shared-system-prompt trace with the paged pool, chunked prefill
+(256, pack 2) and prefix sharing; the zamba2 path serves the contiguous
+path's prompts on ``zamba2-7b`` with the paged pool. With no argument it
+profiles all three. Prints the three timed walls,
 the device's busy time and idle share in the profiled run, the host's
 waits (by source line) beside the engine's ``host_syncs``, the warm
 wall per decode micro-step, and the kernels and host ops that take the
@@ -108,19 +110,39 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
+    paths = sys.argv[1:] or ["contiguous", "paged", "zamba2"]
+    unknown = set(paths) - {"contiguous", "paged", "zamba2"}
+    if unknown:
+        print(f"chip_profile: unknown paths {sorted(unknown)}", file=sys.stderr)
+        return 2
     card = chip_smoke.card_line()
-    cfg = get_config("llama-paper-1b")
-    model = Model(cfg, "cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    params = model.init(gen)
     base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
-    profile(card, "contiguous", model, params, EngineConfig(**base),
-            lambda: chip_smoke.engine_requests(cfg.vocab))
-    profile(card, "paged", model, params,
-            EngineConfig(**base, paged=True, page_size=16, prefill_chunk=256,
-                         prefill_pack=2, prefix_sharing=True),
-            lambda: chip_smoke.paged_requests(cfg.vocab))
+
+    def load(arch):
+        cfg = get_config(arch)
+        model = Model(cfg, "cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return cfg, model, model.init(gen)
+
+    if {"contiguous", "paged"} & set(paths):
+        cfg, model, params = load("llama-paper-1b")
+        if "contiguous" in paths:
+            profile(card, "contiguous", model, params, EngineConfig(**base),
+                    lambda: chip_smoke.engine_requests(cfg.vocab))
+        if "paged" in paths:
+            profile(card, "paged", model, params,
+                    EngineConfig(**base, paged=True, page_size=16,
+                                 prefill_chunk=256, prefill_pack=2,
+                                 prefix_sharing=True),
+                    lambda: chip_smoke.paged_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    if "zamba2" in paths:
+        cfg, model, params = load("zamba2-7b")
+        profile(card, "zamba2 paged", model, params,
+                EngineConfig(**base, paged=True, page_size=16),
+                lambda: chip_smoke.engine_requests(cfg.vocab))
     return 0
 
 

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id, variant)``.
 
-Covers the dense LLaMA configurations the port serves so far: the paper's
-own ``llama-paper-{1b,3b,7b}`` (MHA) and ``llama3.2-1b`` (GQA). Variants
+Covers the configurations the port serves so far: the paper's own dense
+``llama-paper-{1b,3b,7b}`` (MHA), ``llama3.2-1b`` (GQA) and the hybrid
+``zamba2-7b`` (Mamba2 + one weight-shared attention block). Variants
 are the JAX registry's: ``full``, ``smoke`` (a few layers, narrow widths,
 float32; for CPU tests) and ``long`` (full with a sliding window).
 """
@@ -10,13 +11,14 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = ["llama-paper-1b", "llama-paper-3b", "llama-paper-7b",
-            "llama3.2-1b"]
+            "llama3.2-1b", "zamba2-7b"]
 
 _MODULES = {
     "llama-paper-1b": "repro_torch.configs.llama_paper",
     "llama-paper-3b": "repro_torch.configs.llama_paper",
     "llama-paper-7b": "repro_torch.configs.llama_paper",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 VARIANTS = ("full", "smoke", "long")

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "chunked_prefill_attention")
+           "chunked_prefill_attention", "ssd_chunk")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +47,7 @@ ARGTYPES = {
     "chunked_prefill_attention": ("chunked_prefill_attention_fwd",
                                   [_P, _P, _P, _P, _P, _P, _P, _STRIDES]
                                   + [_I] * 13 + [_P]),
+    "ssd_chunk": ("ssd_chunk_fwd", [_P] * 8 + [_STRIDES] + [_I] * 8 + [_P]),
 }
 
 

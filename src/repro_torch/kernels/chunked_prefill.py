@@ -19,6 +19,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES, check_common
 from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
+HEAD_DIMS = (32, 64, 128)
+
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
 
@@ -34,7 +36,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     device. Returns (B,Hq,S,hd) in q.dtype."""
     global launches
     check_common(q, k_pages, v_pages, q_pos, k_pos, window, chunk)
-    check_pool(q, k_pages, v_pages, block_tbl, k_pos)
+    check_pool(q, k_pages, v_pages, block_tbl, k_pos, head_dims=HEAD_DIMS)
     B, Hq, S, hd = q.shape
     Hkv, P1, ps, _ = k_pages.shape
     M = block_tbl.shape[1]

@@ -128,7 +128,11 @@ constexpr size_t decode_smem_bytes() {
 // HD: q/k head dim (= hd_v here); G: GQA group (query heads per kv head)
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
-  constexpr int NSLICE = THREADS / HD;  // key slices in the P.V phase
+  // key slices in the P.V phase: thread (slice, d) sums keys slice,
+  // slice + NSLICE, ... for output dim d. When HD does not divide THREADS
+  // (hd 112: one slice, 16 threads over) the rest score keys but sit out
+  // of the P.V phase.
+  constexpr int NSLICE = THREADS / HD;
   constexpr int VEC = Vec16<T>::N;
   constexpr int CH = HD / VEC;          // 16-byte chunks per K/V row
   constexpr int KROW = HD + VEC;        // K row pitch: +16 bytes, no bank
@@ -145,6 +149,9 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int d = tid % HD, slice = tid / HD;
+  // a compile-time true where HD divides THREADS, so the P.V loop of
+  // those head dims is the same code as without the guard
+  const bool pv = THREADS % HD == 0 || slice < NSLICE;
 
   const T* Q = (const T*)a.q + ((long long)b * a.Hq + (long long)hk * G) * HD;
   const T* K = (const T*)a.k + b * a.sk_b + hk * a.sk_h;
@@ -233,7 +240,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
 
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] *= corr[g];
-    for (int j = slice; j < TK; j += NSLICE) {
+    for (int j = slice; pv && j < TK; j += NSLICE) {
       if (!valid_s[j]) continue;  // uniform across the warp
       const float vv = to_f32(v_s[j * HD + d]);
 #pragma unroll
@@ -246,7 +253,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
   for (int g = 0; g < G; ++g) {
     const float x = warp_sum(lp[g]);
     if (lane == 0) red_s[warp][g] = x;
-    acc_s[(slice * G + g) * HD + d] = acc[g];
+    if (pv) acc_s[(slice * G + g) * HD + d] = acc[g];
   }
   __syncthreads();
   if (slice == 0) {
@@ -328,12 +335,16 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && hd == 32) return (int)launch_group<float, 32>(a, group, st);
   if (dtype == 0 && hd == 64) return (int)launch_group<float, 64>(a, group, st);
+  if (dtype == 0 && hd == 112)
+    return (int)launch_group<float, 112>(a, group, st);
   if (dtype == 0 && hd == 128)
     return (int)launch_group<float, 128>(a, group, st);
   if (dtype == 1 && hd == 32)
     return (int)launch_group<__nv_bfloat16, 32>(a, group, st);
   if (dtype == 1 && hd == 64)
     return (int)launch_group<__nv_bfloat16, 64>(a, group, st);
+  if (dtype == 1 && hd == 112)
+    return (int)launch_group<__nv_bfloat16, 112>(a, group, st);
   if (dtype == 1 && hd == 128)
     return (int)launch_group<__nv_bfloat16, 128>(a, group, st);
   return (int)cudaErrorInvalidValue;

@@ -293,9 +293,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && hd == 32) return (int)launch<float, 32>(a, st);
   if (dtype == 0 && hd == 64) return (int)launch<float, 64>(a, st);
+  if (dtype == 0 && hd == 112) return (int)launch<float, 112>(a, st);
   if (dtype == 0 && hd == 128) return (int)launch<float, 128>(a, st);
   if (dtype == 1 && hd == 32) return (int)launch<__nv_bfloat16, 32>(a, st);
   if (dtype == 1 && hd == 64) return (int)launch<__nv_bfloat16, 64>(a, st);
+  if (dtype == 1 && hd == 112) return (int)launch<__nv_bfloat16, 112>(a, st);
   if (dtype == 1 && hd == 128) return (int)launch<__nv_bfloat16, 128>(a, st);
   return (int)cudaErrorInvalidValue;
 }

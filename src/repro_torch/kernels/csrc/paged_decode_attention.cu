@@ -132,7 +132,11 @@ constexpr size_t paged_smem_bytes() {
 // HD: q/k head dim (= hd_v); G: GQA group (query heads per kv head)
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(PagedArgs a) {
-  constexpr int NSLICE = THREADS / HD;  // key slices in the P.V phase
+  // key slices in the P.V phase: thread (slice, d) sums keys slice,
+  // slice + NSLICE, ... for output dim d. When HD does not divide THREADS
+  // (hd 112: one slice, 16 threads over) the rest score keys but sit out
+  // of the P.V phase.
+  constexpr int NSLICE = THREADS / HD;
   constexpr int VEC = Vec16<T>::N;
   constexpr int CH = HD / VEC;          // 16-byte chunks per K/V row
   constexpr int KROW = HD + VEC;        // K row pitch: +16 bytes, no bank
@@ -152,6 +156,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(PagedArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int d = tid % HD, slice = tid / HD;
+  // a compile-time true where HD divides THREADS, so the P.V loop of
+  // those head dims is the same code as without the guard
+  const bool pv = THREADS % HD == 0 || slice < NSLICE;
   const int W = a.M * a.ps;
 
   const T* Q = (const T*)a.q + ((long long)b * a.Hq + (long long)hk * G) * HD;
@@ -250,7 +257,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(PagedArgs a) {
 
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] *= corr[g];
-    for (int j = slice; j < TK; j += NSLICE) {
+    for (int j = slice; pv && j < TK; j += NSLICE) {
       if (!valid_s[j]) continue;  // uniform across the warp
       const float vv = to_f32(v_s[j * HD + d]);
 #pragma unroll
@@ -263,7 +270,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(PagedArgs a) {
   for (int g = 0; g < G; ++g) {
     const float x = warp_sum(lp[g]);
     if (lane == 0) red_s[warp][g] = x;
-    acc_s[(slice * G + g) * HD + d] = acc[g];
+    if (pv) acc_s[(slice * G + g) * HD + d] = acc[g];
   }
   __syncthreads();
   if (slice == 0) {
@@ -349,12 +356,16 @@ extern "C" int paged_decode_attention_fwd(
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && hd == 32) return (int)launch_group<float, 32>(a, group, st);
   if (dtype == 0 && hd == 64) return (int)launch_group<float, 64>(a, group, st);
+  if (dtype == 0 && hd == 112)
+    return (int)launch_group<float, 112>(a, group, st);
   if (dtype == 0 && hd == 128)
     return (int)launch_group<float, 128>(a, group, st);
   if (dtype == 1 && hd == 32)
     return (int)launch_group<__nv_bfloat16, 32>(a, group, st);
   if (dtype == 1 && hd == 64)
     return (int)launch_group<__nv_bfloat16, 64>(a, group, st);
+  if (dtype == 1 && hd == 112)
+    return (int)launch_group<__nv_bfloat16, 112>(a, group, st);
   if (dtype == 1 && hd == 128)
     return (int)launch_group<__nv_bfloat16, 128>(a, group, st);
   return (int)cudaErrorInvalidValue;

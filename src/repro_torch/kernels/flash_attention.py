@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)    # 112: Zamba2's shared attention
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

@@ -1,6 +1,6 @@
-"""Attention ops with device dispatch: a tensor on the CPU goes to the
-plain PyTorch version (``kernels/ref.py``), a tensor on a CUDA device to
-the hand-written kernel — which launches or raises. There is no fallback
+"""Kernel ops with device dispatch: a tensor on the CPU goes to the plain
+PyTorch version (``kernels/ref.py``), a tensor on a CUDA device to the
+hand-written kernel — which launches or raises. There is no fallback
 from the kernel to the plain version.
 
 Each kernel module keeps a plain-integer launch count (``launches``),
@@ -9,19 +9,21 @@ show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import chunked_prefill as _cp
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 
 _KERNELS = {"flash_attention": _fa, "decode_attention": _dec,
             "paged_decode_attention": _pdec,
-            "chunked_prefill_attention": _cp}
+            "chunked_prefill_attention": _cp, "ssd_chunk": _ssd}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -29,7 +31,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"attention ops run on cpu or cuda, not {t.device}")
+    raise ValueError(f"kernel ops run on cpu or cuda, not {t.device}")
 
 
 def flash_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,
@@ -76,6 +78,49 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
                                              q_pos, k_pos, window, chunk)
     return _ref.chunked_prefill_attention(q, k_pages, v_pages, block_tbl,
                                           q_pos, k_pos, window, chunk)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None,
+             chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full Mamba2 SSD over a sequence (the port of the reference's
+    ``ops.ssd_scan``). x: (B,T,H,P); dt: (B,T,H); A: (H,) float32;
+    Bm/Cm: (B,T,H,N) (a head stride of 0 broadcasts one group); h0:
+    (B,H,P,N) or None. Returns y (B,T,H,P) and the final state (B,H,P,N),
+    float32.
+
+    The chunk length is ``min(chunk, T)``; T is padded to a multiple of it
+    with dt = 0 steps, which change nothing. The within-chunk part runs in
+    the kernel layout (B,H,nc,cl,*) — permuted views, no copies — through
+    ``ssd_chunk``; the cross-chunk recurrence and ``y_cross`` run here."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    cl = min(chunk, T)
+    pad = (-T) % cl
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = (T + pad) // cl
+    xk = x.reshape(B, nc, cl, H, P).permute(0, 3, 1, 2, 4)
+    dtk = dt.reshape(B, nc, cl, H).permute(0, 3, 1, 2)
+    Bk = Bm.reshape(B, nc, cl, H, N).permute(0, 3, 1, 2, 4)
+    Ck = Cm.reshape(B, nc, cl, H, N).permute(0, 3, 1, 2, 4)
+    chunk_op = _ssd.ssd_chunk if _on_cuda(x) else _ref.ssd_chunk
+    y_intra, h_chunk, dec = chunk_op(xk, dtk, A, Bk, Ck)
+
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_in = []
+    for c in range(nc):                 # state entering each chunk
+        h_in.append(h)
+        h = dec[:, :, c, None, None] * h + h_chunk[:, :, c]
+    h_in = torch.stack(h_in, dim=2)                       # (B,H,nc,P,N)
+    cum = torch.cumsum(dtk.float() * A.float()[None, :, None, None], dim=-1)
+    y_cross = (Ck.float() * torch.exp(cum)[..., None]) @ \
+        h_in.transpose(-1, -2)                            # (B,H,nc,cl,P)
+    y = (y_intra + y_cross).permute(0, 2, 3, 1, 4).reshape(B, T + pad, H, P)
+    return y[:, :T], h
 
 
 def reset_launches() -> None:

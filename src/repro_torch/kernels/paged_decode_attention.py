@@ -22,18 +22,20 @@ from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_common
 launches = 0
 
 
-def check_pool(q, k_pages, v_pages, block_tbl, k_pos) -> None:
+def check_pool(q, k_pages, v_pages, block_tbl, k_pos,
+               head_dims=HEAD_DIMS) -> None:
     """Validation shared by both paged wrappers: pool, table and logical
-    positions must agree with each other and with what the kernels take."""
+    positions must agree with each other and with what the kernels take
+    (``head_dims``: the calling kernel's)."""
     Hkv, P1, ps, hd = k_pages.shape
     M = block_tbl.shape[-1]
     if v_pages.shape[:3] != (Hkv, P1, ps):
         raise ValueError(f"k_pages {tuple(k_pages.shape)} / v_pages "
                          f"{tuple(v_pages.shape)} do not match")
-    if hd not in HEAD_DIMS or v_pages.shape[-1] != hd or q.shape[-1] != hd:
+    if hd not in head_dims or v_pages.shape[-1] != hd or q.shape[-1] != hd:
         raise ValueError(f"head dims (q {q.shape[-1]}, k {hd}, v "
                          f"{v_pages.shape[-1]}) not supported; the kernel "
-                         f"takes hd == hd_v in {HEAD_DIMS}")
+                         f"takes hd == hd_v in {head_dims}")
     Hq = q.shape[1]
     if Hq % Hkv or Hq // Hkv not in GROUPS:
         raise ValueError(f"GQA group {Hq}/{Hkv} not in {GROUPS}")

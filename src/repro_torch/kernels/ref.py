@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (same layouts, same
-contracts as the JAX oracles in ``repro.kernels.ref``), the paged ones
-included: they gather the logical view through the block table and score
-like the contiguous ones.
+"""Plain PyTorch versions of the kernels (same layouts, same contracts as
+the JAX oracles in ``repro.kernels.ref``): the attention kernels, the
+paged ones included (they gather the logical view through the block table
+and score like the contiguous ones), and the Mamba2 SSD chunk.
 
 They are the CPU execution path of ``kernels/ops.py`` and the yardstick
-the CUDA kernels are held against on the card: mask
+the CUDA kernels are held against on the card. Attention: mask
 ``0 <= k_pos <= q_pos`` plus an optional ``window``/``chunk``, masked
 scores at the finite ``NEG_INF``, softmax in float32, output in
 ``q.dtype``.
@@ -89,3 +89,23 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
     return flash_attention(q, logical_view(k_pages, block_tbl),
                            logical_view(v_pages, block_tbl),
                            q_pos, k_pos, window, chunk)
+
+
+def ssd_chunk(x, dt, A, Bm, Cm):
+    """x: (B,H,nc,cl,P); dt: (B,H,nc,cl); A: (H,); Bm/Cm: (B,H,nc,cl,N).
+    Returns (y_intra, h_chunk, decay) in float32, as the kernel:
+    y_intra[t] = sum_{s<=t} exp(cum[t]-cum[s]) (C_t.B_s) dt_s x_s,
+    h_chunk = sum_s exp(cum[-1]-cum[s]) dt_s x_s (x) B_s,
+    decay = exp(cum[-1]), with cum the prefix sum of dt*A in the chunk."""
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    cum = torch.cumsum(dtf * A.float()[None, :, None, None], dim=-1)
+    xdt = xf * dtf[..., None]
+    cl = x.shape[3]
+    tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
+    W = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros((), device=x.device))
+    CB = Cf @ Bf.transpose(-1, -2)                      # (B,H,nc,t,s)
+    y = (CB * W) @ xdt
+    emit = torch.exp(cum[..., -1:] - cum)               # (B,H,nc,cl)
+    h = (xdt * emit[..., None]).transpose(-1, -2) @ Bf  # (B,H,nc,P,N)
+    return y, h, torch.exp(cum[..., -1])

@@ -75,9 +75,11 @@ def uniform_gqa_group(cfg) -> Optional[int]:
     return None
 
 
-def attn_init(gen, cfg, device) -> Dict:
+def attn_init(gen, cfg, device, d_in: Optional[int] = None) -> Dict:
+    """``d_in`` overrides the input width (the Zamba2 shared block takes
+    concat(h, emb), 2 * d_model wide)."""
     dt = L.dtype_of(cfg)
-    d = cfg.d_model
+    d = d_in if d_in is not None else cfg.d_model
     hd = cfg.head_dim_
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
     n_qp, n_kvp = cfg.n_heads_padded, cfg.n_kv_heads_padded

@@ -1,5 +1,7 @@
-"""Per-layer blocks (the port of ``repro.models.blocks``, ``dense`` kind):
-pre-norm self-attention + SwiGLU MLP on a sequential residual."""
+"""Per-layer blocks (the port of ``repro.models.blocks``) for the kinds the
+port serves: ``dense`` (pre-norm self-attention + SwiGLU MLP on a
+sequential residual), ``mamba2`` (the Mamba2 SSD block) and ``shared``
+(Zamba2's weight-shared attention + MLP block on concat(h, embedding))."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,8 +11,9 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "mamba2", "shared")
 
 
 @dataclasses.dataclass
@@ -18,6 +21,8 @@ class LayerCtx:
     cfg: Any
     mode: str                           # prefill | decode | chunk
     positions: torch.Tensor             # (B, S) int32 absolute positions
+    mask: Optional[torch.Tensor] = None      # (B, S) 1 = real token
+    emb_orig: Optional[torch.Tensor] = None  # Zamba2 concat input
     layer_idx: int = 0                  # absolute depth (chunk alternation)
     page_tbl: Optional[torch.Tensor] = None  # (B, max_pages) paged-KV table
 
@@ -39,6 +44,18 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
     _require_ported(kind)
     dt = L.dtype_of(cfg)
     d = cfg.d_model
+    if kind == "mamba2":
+        return {"ln1": L.rmsnorm_init(d, dt, device),
+                "ssm": SSM.ssm_init(gen, cfg, device)}
+    if kind == "shared":
+        # Zamba2 weight-shared block on concat(h, emb): width 2d
+        return {"ln1": L.rmsnorm_init(2 * d, dt, device),
+                "attn": A.attn_init(gen, cfg, device, d_in=2 * d),
+                "ln2": L.rmsnorm_init(2 * d, dt, device),
+                "mlp": {"w_gate": L.dense_init(gen, 2 * d, cfg.d_ff, dt,
+                                               device),
+                        "w_up": L.dense_init(gen, 2 * d, cfg.d_ff, dt, device),
+                        "w_down": L.dense_init(gen, cfg.d_ff, d, dt, device)}}
     return {"ln1": L.rmsnorm_init(d, dt, device),
             "attn": A.attn_init(gen, cfg, device),
             "ln2": L.rmsnorm_init(d, dt, device),
@@ -48,6 +65,8 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
                      layer_idx: int = 0) -> Dict:
     _require_ported(kind)
+    if kind == "mamba2":
+        return SSM.init_ssm_state(cfg, batch, device)
     if cfg.layer_uses_chunked_attn(layer_idx):
         # chunked local attention only ever attends within the current
         # chunk: a ring of `attn_chunk` slots suffices
@@ -66,11 +85,23 @@ def block_apply(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
                 cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x, cache); the cache is updated in place."""
     _require_ported(kind)
+    if kind == "mamba2":
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        y = SSM.mamba2_block(p["ssm"], cfg, h, cache, ctx.mode, ctx.mask)
+        return _res(cfg, x, y), cache
     window, chunk = _layer_window_chunk(cfg, ctx.layer_idx)
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "shared":
+        # the residual stream and the embedding output side by side; the
+        # block's attention takes no chunked-local variant
+        h = L.rmsnorm(p["ln1"], torch.cat([x, ctx.emb_orig], dim=-1),
+                      cfg.norm_eps)
+        chunk = None
+    else:
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, cache = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
                                 chunk, cache, ctx.mode,
                                 page_tbl=ctx.page_tbl)
     x = _res(cfg, x, a)
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h2 = x if kind != "shared" else torch.cat([x, ctx.emb_orig], dim=-1)
+    h2 = L.rmsnorm(p["ln2"], h2, cfg.norm_eps)
     return _res(cfg, x, L.swiglu(p["mlp"], h2)), cache

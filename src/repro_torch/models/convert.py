@@ -24,9 +24,13 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     leading axis of length ``repeats`` (``repro/models/model.py``), and
     position ``i`` of the unit is keyed ``str(i)``. Layer ``r * len(unit)
     + i`` of the port is ``unit[str(i)]`` at index ``r``, after the
-    unrolled ``prefix`` layers. Weights keep the reference's (d_in, d_out)
-    orientation; nothing is transposed. Values pass through float32 (numpy
-    has no bfloat16) and land in ``cfg.dtype`` exactly.
+    unrolled ``prefix`` layers. A ``shared`` position of the unit has no
+    ``unit`` entry: it is the reference's one ``shared_block``, converted
+    once and referenced by every such layer (a ``shared`` layer of the
+    prefix keeps its own parameters there). Weights keep the reference's
+    (d_in, d_out) orientation; nothing is transposed. Values pass through
+    float32 (numpy has no bfloat16) and land in ``cfg.dtype`` exactly;
+    the SSM's float32 leaves stay float32.
     """
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
@@ -34,13 +38,16 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     def tree(x):
         if isinstance(x, dict):
             return {k: tree(v) for k, v in x.items()}
-        return _t(x, dt, dev)
+        a = np.asarray(x)
+        return _t(a, torch.float32 if a.dtype == np.float32 else dt, dev)
 
     prefix, unit, repeats = cfg.grouping()
     layers = [tree(p) for p in np_tree["prefix"]]
+    shared = tree(np_tree["shared_block"]) if "shared" in unit else None
     for r in range(repeats):
-        for i in range(len(unit)):
-            layers.append(tree(_index(np_tree["unit"][str(i)], r)))
+        for i, kind in enumerate(unit):
+            layers.append(shared if kind == "shared"
+                          else tree(_index(np_tree["unit"][str(i)], r)))
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: rebuilt {len(layers)} layers, "
                          f"config has {cfg.n_layers}")

@@ -23,11 +23,16 @@ def _leaves(tree):
 
 
 def param_counts(cfg) -> Tuple[float, float]:
-    """(total, active-per-token) parameter counts from the real init shapes
-    (dense kinds only: every parameter is active)."""
+    """(total, active-per-token) parameter counts from the real init shapes.
+    A weight-shared block is one set of tensors referenced at several
+    layers and counts once, as the reference's tree holds it once. Every
+    parameter of the ported kinds is active."""
     total = 0.0
+    seen = set()
     for leaf in _leaves(Model(cfg, "meta").param_shapes()):
-        total += float(leaf.numel())
+        if id(leaf) not in seen:
+            seen.add(id(leaf))
+            total += float(leaf.numel())
     return total, total
 
 
@@ -36,11 +41,16 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
     total, active = param_counts(cfg)
     hd = cfg.head_dim_
     kv_per_tok = 0.0
+    state_bytes = 0.0
     for i, kind in enumerate(cfg.block_pattern):
-        if kind == "dense":
+        if kind in ("dense", "shared"):
             if cfg.layer_uses_chunked_attn(i):
                 continue               # ring cache, O(1) amortized growth
             kv_per_tok += 2 * cfg.n_kv_heads_padded * hd * dtype_bytes
+        elif kind == "mamba2":
+            s = cfg.ssm
+            state_bytes += (s.n_heads(cfg.d_model) * s.head_dim * s.state_dim
+                            * 4 + (s.d_conv - 1) * s.conv_dim(cfg.d_model) * 4)
         else:
             raise NotImplementedError(f"costing of block kind {kind!r}")
     return LLMWorkload(
@@ -48,5 +58,5 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
         n_heads=cfg.n_heads_padded, n_kv_heads=cfg.n_kv_heads_padded,
         head_dim=hd, d_ff=cfg.d_ff, vocab=cfg.padded_vocab,
         params_total=total, params_active=active, dtype_bytes=dtype_bytes,
-        kv_bytes_per_token=kv_per_tok, state_bytes=0.0,
+        kv_bytes_per_token=kv_per_tok, state_bytes=state_bytes,
         sliding_window=cfg.sliding_window)

@@ -4,7 +4,9 @@ blocks -> final norm -> logits, with prefill and decode entry points.
 The reference scans a stacked ``unit`` of layers to keep XLA compile time
 flat in depth; PyTorch runs eagerly, so here the layers are a Python loop
 over a per-layer parameter list (``params["layers"]``) and a per-layer
-cache list (``caches["layers"]``). Caches are written in place.
+cache list (``caches["layers"]``). Caches are written in place. A
+weight-shared block (Zamba2's ``shared``) is one parameter dict that every
+site of the list references, each site with its own cache.
 """
 from __future__ import annotations
 
@@ -16,6 +18,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+
+
+# Block kinds safe under right-padded batched prefill (attention kinds mask
+# pad keys by position -1, mamba2 freezes its state on masked tokens), kinds
+# whose decode state can live in the paged pool (full attention, or
+# fixed-size recurrent state that stays slot-addressed), and kinds whose
+# prompt can be chunked (every stateful block's KV in the pool): the
+# reference's sets (``repro/models/model.py``).
+PADDED_PREFILL_KINDS = {"dense", "parallel", "moe", "mla", "mla_moe",
+                        "shared", "mamba2"}
+PAGED_DECODE_KINDS = {"dense", "parallel", "moe", "shared", "mamba2"}
+CHUNKED_PREFILL_KINDS = {"dense", "parallel", "moe", "shared"}
 
 
 class Model:
@@ -31,38 +45,61 @@ class Model:
                 f"{cfg.name}: memory-conditioned models are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.kinds = set(cfg.block_pattern)
+
+    @property
+    def supports_padded_prefill(self) -> bool:
+        """True when right-padded batched prefill is exact for this model."""
+        return not self.cfg.is_encdec and self.kinds <= PADDED_PREFILL_KINDS
 
     @property
     def supports_paged_decode(self) -> bool:
-        """True when decode KV state can live in a shared paged pool: no
-        ring eviction to translate. Every block kind the port runs
-        (``dense``) is full attention, so only windowed or chunked
-        attention (ring caches) keeps the contiguous cache."""
-        return (not self.cfg.is_encdec and self.cfg.sliding_window is None
+        """True when decode state can live in a shared paged pool: every
+        block is full attention (no ring eviction to translate) or carries
+        fixed-size recurrent state (mamba2, which stays slot-addressed).
+        Windowed or chunked attention keeps the contiguous ring."""
+        return (not self.cfg.is_encdec and self.kinds <= PAGED_DECODE_KINDS
+                and self.cfg.sliding_window is None
                 and self.cfg.attn_chunk is None)
 
     @property
     def supports_chunked_prefill(self) -> bool:
         """True when prompts can be prefilled in chunks interleaved with
-        decode: every block keeps its KV in the paged pool (chunk i reads
-        chunks 0..i-1 through the block table). The reference excludes
-        recurrent kinds, which the port does not run yet."""
-        return self.supports_paged_decode
+        decode: every stateful block keeps its KV in the paged pool (chunk
+        i reads chunks 0..i-1 through the block table). Recurrent blocks
+        (mamba2) would need carried-state chunk resume and keep the
+        monolithic prefill."""
+        return (self.supports_paged_decode
+                and self.kinds <= CHUNKED_PREFILL_KINDS)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: Optional[torch.Generator]) -> Dict:
         """Random parameters from ``generator`` (on ``self.device``). The
         draws differ from the reference's ``jax.random`` ones; to run the
-        reference's weights use ``models.convert.params_from_jax``."""
+        reference's weights use ``models.convert.params_from_jax``.
+
+        Layers follow the reference's grouping (``cfg.grouping()``): every
+        ``shared`` position of the repeated unit is ONE parameter dict (the
+        same object at each site, Zamba2's weight-shared block); a
+        ``shared`` layer of the unrolled prefix has its own."""
         cfg, dev = self.cfg, self.device
         dt = L.dtype_of(cfg)
-        return {
-            "embed": L.embedding_init(generator, cfg, dev),
-            "layers": [B.block_init(generator, cfg, kind, dev)
-                       for kind in cfg.block_pattern],
-            "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "lm_head": L.lm_head_init(generator, cfg, dev),
-        }
+        prefix, unit, repeats = cfg.grouping()
+        params = {"embed": L.embedding_init(generator, cfg, dev)}
+        layers = [B.block_init(generator, cfg, kind, dev) for kind in prefix]
+        shared = None
+        for _ in range(repeats):
+            for kind in unit:
+                if kind == "shared":
+                    if shared is None:
+                        shared = B.block_init(generator, cfg, kind, dev)
+                    layers.append(shared)
+                else:
+                    layers.append(B.block_init(generator, cfg, kind, dev))
+        params["layers"] = layers
+        params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+        params["lm_head"] = L.lm_head_init(generator, cfg, dev)
+        return params
 
     def param_shapes(self) -> Dict:
         """The parameter tree on the ``meta`` device: shapes, no storage."""
@@ -119,10 +156,12 @@ class Model:
             page_tbl = caches["paged"]["tbl"]
 
         x = L.embed(params["embed"], cfg, tokens)
+        emb_orig = x if "shared" in self.kinds else None
         layer_caches = caches["layers"] if caches is not None else None
         for i, kind in enumerate(cfg.block_pattern):
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
-                             layer_idx=i, page_tbl=page_tbl)
+                             mask=mask, emb_orig=emb_orig, layer_idx=i,
+                             page_tbl=page_tbl)
             c = layer_caches[i] if layer_caches is not None else None
             x, _ = B.block_apply(params["layers"][i], cfg, kind, ctx, x, c)
         if last_index is not None:

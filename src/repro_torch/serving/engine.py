@@ -13,8 +13,9 @@ Hot path, as in the reference:
 
   * admissions are batched: every waiting request that fits a free slot
     prefills in one launch per power-of-two length bucket (right padding
-    plus position masking), padded to a power-of-two batch; the new
-    caches enter the pool in one indexed copy per leaf;
+    plus position masking, for models whose blocks mask pads exactly:
+    every ported kind, mamba2 included), padded to a power-of-two batch;
+    the new caches enter the pool in one indexed copy per leaf;
   * decode runs ``sync_every`` fused micro-steps (decode -> sample ->
     EOS/budget masking) on the device per host sync.
 
@@ -27,13 +28,15 @@ The KV memory ladder, each rung requiring the previous, as the reference:
     through block tables (``serving/paged.py``); admission reserves each
     request's worst case (prompt + decode budget) in pages, so the
     on-device free stack never underflows, and rejects a request that can
-    never fit; decode runs the paged decode kernel;
+    never fit; decode runs the paged decode kernel. A hybrid model's
+    recurrent state (mamba2) stays slot-addressed beside the pool;
   * ``prefill_chunk``: prompts are split into fixed-size chunks, and each
     scheduling quantum runs at most one chunk launch (``prefill_pack``
     requests packed into it) plus one fused decode chunk; the chunk runs
     the chunked-prefill kernel over the slot's paged history. A request's
     prefill is metered once, at batch 1 and its true prompt length, when
-    its last chunk completes;
+    its last chunk completes. Recurrent blocks do not chunk: a model with
+    one refuses this rung, and with it ``prefix_sharing``;
   * ``prefix_sharing``: a host-side index (SHA-256 chain over page-size
     token chunks -> resident physical page) maps a new prompt's shared
     whole pages into its table by refcount; prefill starts at the first
@@ -344,7 +347,8 @@ class ServingEngine:
             if not model.supports_chunked_prefill:
                 raise ValueError(
                     f"{model.cfg.name}: chunked prefill requires all "
-                    "stateful blocks to keep their KV in the paged pool")
+                    "stateful blocks to keep their KV in the paged pool "
+                    "(recurrent blocks need carried-state chunk resume)")
             # FCFS queue of (request, slot) mid-prefill; req.prefill_pos
             # counts the prompt tokens already in the pool
             self._prefilling: deque = deque()
@@ -600,14 +604,15 @@ class ServingEngine:
                 for req, slot in zip(take, slots):
                     self._adopt_prefix(req, slot, *share[req.rid])
             return len(take)
-        # bucket prompts into padded power-of-two lengths, clamped to
-        # max_len — past that the cache ring must keep the LAST W real
-        # tokens, so those prompts prefill at exact length (every ported
-        # block kind masks pad keys exactly, so padding is always safe)
+        # bucket prompts: padded power-of-two buckets when the model masks
+        # pad tokens exactly, exact-length groups otherwise. Buckets are
+        # clamped to max_len — past that the cache ring must keep the LAST
+        # W real tokens, so those prompts prefill at exact length
+        padded = self.model.supports_padded_prefill
         groups: Dict[int, List[Request]] = {}
         for req in take:
             L = len(req.prompt)
-            if L <= self.cfg.max_len:
+            if padded and L <= self.cfg.max_len:
                 b = min(sampling.prefill_bucket(L, self.cfg.prefill_min_bucket),
                         self.cfg.max_len)
             else:

@@ -10,6 +10,7 @@ indexing, and one (page, head) pair is one kernel read)::
     pos_ids           : (B, W) int32  — LOGICAL positions, -1 = empty
     length            : (B,)  int32
 
+(a recurrent layer keeps its fixed-size, slot-addressed state instead),
 plus ONE shared allocator at ``caches["paged"]`` (every layer of a slot
 has identical occupancy, so one block table serves all layers)::
 
@@ -221,14 +222,19 @@ def paginate_cache(cache: Dict, max_batch: int, page_size: int,
                    num_pages: int) -> Dict:
     """Turn a contiguous slot-pool cache (``Model.init_cache``) into the
     paged layout, in place, and attach the shared allocator at
-    ``cache["paged"]``."""
-    widths = {layer["k"].shape[1] for layer in cache["layers"]}
+    ``cache["paged"]``. Only attention layers (``k``/``v`` leaves) are
+    paged; a recurrent layer's fixed-size state (mamba2 ``conv``,
+    ``state``, ``length``) stays slot-addressed."""
+    widths = {layer["k"].shape[1] for layer in cache["layers"]
+              if "k" in layer}
     if len(widths) != 1:
         raise ValueError("the paged pool needs one cache width")
     W = widths.pop()
     if W % page_size:
         raise ValueError("cache width must be a page multiple")
     for i, layer in enumerate(cache["layers"]):
+        if "k" not in layer:
+            continue
         k, v = layer["k"], layer["v"]
         H = k.shape[2]
         cache["layers"][i] = {
@@ -257,7 +263,9 @@ def insert_prefill_paged(pool: Dict, src: Dict, slots: torch.Tensor,
     ceil(len/page_size) pages per admitted request, scatter the contiguous
     prefill cache rows into the pages (one indexed copy per leaf for the
     whole admission batch), copy the per-slot rows and arm the slots.
-    Logical pages past a request's length scatter into the trash page."""
+    Logical pages past a request's length scatter into the trash page. A
+    recurrent layer's leaves are copied by slot, as on the contiguous
+    path."""
     n = slots.shape[0]
     sl = slots.long()
     true_len = src["t"][:n]
@@ -267,6 +275,10 @@ def insert_prefill_paged(pool: Dict, src: Dict, slots: torch.Tensor,
     row_tbl = pool["paged"]["tbl"][sl]                   # (n, M)
     M = row_tbl.shape[1]
     for dst, s in zip(pool["layers"], src["layers"]):
+        if "k_pages" not in dst:
+            for name, leaf in dst.items():
+                leaf[sl] = s[name][:n]
+            continue
         for name, leaf in (("k_pages", "k"), ("v_pages", "v")):
             pages = dst[name]                            # (H, P+1, ps, hd)
             trash = pages.shape[1] - 1

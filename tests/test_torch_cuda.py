@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -39,7 +40,8 @@ def _pos(B, S, gen, pad):
     (1, 37, 64, None, None, True), (2, 150, 64, None, None, True),
     (4, 64, 128, None, None, False), (2, 96, 64, 24, None, True),
     (1, 80, 64, None, 32, False), (1, 200, 128, None, None, True),
-    (2, 33, 32, None, None, True),
+    (2, 33, 32, None, None, True), (1, 77, 112, None, None, True),
+    (2, 130, 112, 40, None, True),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, group, S, hd,
                                     window, chunk, pad):
@@ -70,6 +72,7 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, group, S, hd,
     (1, 96, 64, None, None), (2, 300, 64, None, None),
     (4, 64, 128, None, None), (2, 96, 64, 20, None), (1, 64, 64, None, 16),
     (8, 2048, 64, None, None), (2, 200, 32, None, None),
+    (1, 300, 112, None, None), (2, 96, 112, 20, None),
 ])
 def test_decode_kernel_matches_plain(cuda_device, dtype, group, W, hd,
                                      window, chunk):
@@ -145,7 +148,7 @@ def _paged_case(rng, B, Hkv, ps, M, hd, S=None, shared=True):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("group,ps,M,hd", [
     (1, 16, 8, 64), (2, 16, 16, 64), (4, 8, 12, 128), (8, 16, 4, 32),
-    (2, 8, 130, 64),
+    (2, 8, 130, 64), (1, 16, 12, 112), (2, 16, 20, 112),
 ])
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, group, ps, M,
                                            hd):
@@ -212,6 +215,83 @@ def test_paged_kernels_refuse_what_they_do_not_take(cuda_device):
                                    pages[..., :32], tbl.long(), q_pos, k_pos)
 
 
+def _ssd_inputs(gen, B, T, H, P, N, dtype, dev):
+    """x, dt = softplus(N(0,1) - 4), A in [-16, -1], B, C: the model's
+    (B, T, H, *) layout on the card. dt is the size the model's dt_bias
+    starts it at (about 0.01): with dt near 1, cum = cumsum(dt*A) reaches
+    thousands in a 256-step chunk and its float32 rounding alone moves
+    exp(cum[t]-cum[s]) by more than 1e-4 in either version."""
+    x = torch.randn(B, T, H, P, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(B, T, H, generator=gen) - 4)
+    A = -torch.linspace(1.0, 16.0, H)
+    Bm = torch.randn(B, T, H, N, generator=gen)
+    Cm = torch.randn(B, T, H, N, generator=gen)
+    return ([t.to(dtype).to(dev) for t in (x, dt)], A.to(dev),
+            [t.to(dtype).to(dev) for t in (Bm, Cm)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,P,N,chunk,broadcast", [
+    (2, 64, 4, 64, 64, 256, False),     # one chunk of 64
+    (1, 300, 3, 64, 64, 256, False),    # 256 + a padded chunk
+    (2, 8, 4, 32, 16, 8, True),         # the smoke config's block
+    (1, 100, 2, 16, 32, 32, True),      # ragged, four chunks
+    (2, 512, 2, 64, 64, 256, True),     # the full config's chunk, twice
+])
+def test_ssd_kernel_matches_plain(cuda_device, dtype, B, T, H, P, N, chunk,
+                                  broadcast):
+    """``ops.ssd_scan`` on the card (the kernel for the within-chunk part)
+    against the plain version on the same inputs, on the card; also the
+    kernel's three outputs directly. ``broadcast``: one B/C group seen by
+    every head through a stride-0 view, as the mamba2 block passes it.
+    float32 outputs either way: atol and rtol 1e-4 (sums in another
+    order)."""
+    gen = torch.Generator().manual_seed(T + P + N)
+    (x, dt), A, (Bm, Cm) = _ssd_inputs(gen, B, T, H, P, N, dtype,
+                                       cuda_device)
+    if broadcast:
+        Bm = Bm[:, :, :1].expand(B, T, H, N)
+        Cm = Cm[:, :, :1].expand(B, T, H, N)
+    h0 = torch.randn(B, H, P, N, generator=gen).to(cuda_device) * 0.1
+    before = ops.launch_counts()["ssd_chunk"]
+    got_y, got_h = ops.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    cl = min(chunk, T)
+    pad = (-T) % cl
+    xs, dts, Bs, Cs = (torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
+    nc = (T + pad) // cl
+    k = [t.reshape(B, nc, cl, H, -1).permute(0, 3, 1, 2, 4)
+         for t in (xs, Bs, Cs)]
+    dtk = dts.reshape(B, nc, cl, H).permute(0, 3, 1, 2)
+    got = ssd.ssd_chunk(k[0], dtk, A, k[1], k[2])
+    want = ref.ssd_chunk(k[0], dtk, A, k[1], k[2])
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("y_intra", "h_chunk", "decay")):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    # the whole scan: the plain version on the same inputs, on the card
+    plain = [t.cpu() for t in (x, dt, A, Bm, Cm, h0)]
+    want_y, want_h = ops.ssd_scan(*plain[:5], plain[5], chunk=chunk)
+    torch.testing.assert_close(got_y.cpu(), want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_h.cpu(), want_h, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    (x, dt), A, (Bm, Cm) = _ssd_inputs(gen, 1, 8, 2, 48, 16, torch.float32,
+                                       cuda_device)
+    k = lambda t: t.reshape(1, 1, 8, 2, -1).permute(0, 3, 1, 2, 4)
+    dtk = dt.reshape(1, 1, 8, 2).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd.ssd_chunk(k(x), dtk, A, k(Bm), k(Cm))
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_chunk(k(x[..., :32]), dtk, A.double(), k(Bm), k(Cm))
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd.ssd_chunk(k(x[..., :32]), dtk.bfloat16(), A, k(Bm), k(Cm))
+
+
 def test_paged_engine_on_card_matches_cpu(cuda_device):
     """The smoke config served on the paged + chunked + prefix-sharing rung
     on the card (kernels) and on the CPU (plain versions), from the same
@@ -244,7 +324,42 @@ def test_paged_engine_on_card_matches_cpu(cuda_device):
     assert counts["decode_attention"] == counts["flash_attention"] == 0
 
 
-@pytest.mark.parametrize("rung", ["contiguous", "paged+chunk+sharing"])
+@pytest.mark.parametrize("rung", ["contiguous", "paged"])
+def test_zamba2_engine_on_card_matches_cpu(cuda_device, rung):
+    """zamba2-7b smoke (float32) served on the card (SSD, flash and decode
+    kernels) and on the CPU (plain versions), from the same weights:
+    identical tokens on ragged prompts, every kernel of the path ran, and
+    the paged run returns every page."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("zamba2-7b", "smoke")
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(2, cfg.vocab, n).tolist()
+               for n in (5, 40, 17, 64, 3, 29)]
+    ecfg = EngineConfig(max_batch=4, max_len=128, paged=rung == "paged")
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                            device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        ops.reset_launches()
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        counts = ops.launch_counts()
+    assert toks["cpu"] == toks[str(cuda_device)]
+    assert counts["ssd_chunk"] == 2 * eng.prefill_batches
+    assert counts["flash_attention"] == eng.prefill_batches
+    decode = "paged_decode_attention" if ecfg.paged else "decode_attention"
+    assert counts[decode] == eng.stats()["steps"]
+    if ecfg.paged:
+        assert eng.free_pages == eng.num_pages
+        assert int(eng.caches["paged"]["top"]) == eng.num_pages
+
+
+@pytest.mark.parametrize("rung", ["contiguous", "paged+chunk+sharing",
+                                  "zamba2-paged"])
 def test_engine_waits_for_the_card_only_at_host_syncs(cuda_device, rung):
     """Under CUDA's sync debug mode every point where the host waits for
     the stream warns: a served trace waits exactly ``host_syncs`` times
@@ -256,7 +371,8 @@ def test_engine_waits_for_the_card_only_at_host_syncs(cuda_device, rung):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig, Request, ServingEngine
-    cfg = get_config("llama3.2-1b", "smoke")
+    cfg = get_config("zamba2-7b" if rung == "zamba2-paged"
+                     else "llama3.2-1b", "smoke")
     model = Model(cfg, cuda_device)
     params = model.init(torch.Generator(device=cuda_device).manual_seed(1))
     rng = np.random.default_rng(5)
@@ -264,10 +380,12 @@ def test_engine_waits_for_the_card_only_at_host_syncs(cuda_device, rung):
     prompts = [system + rng.integers(2, cfg.vocab, n).tolist()
                for n in (3, 20, 0, 9)]
     prompts += [rng.integers(2, cfg.vocab, n).tolist() for n in (40, 7)]
-    ecfg = (EngineConfig(max_batch=4, max_len=128) if rung == "contiguous"
-            else EngineConfig(max_batch=4, max_len=128, paged=True,
-                              page_size=16, prefill_chunk=16, prefill_pack=2,
-                              prefix_sharing=True))
+    ecfg = {"contiguous": EngineConfig(max_batch=4, max_len=128),
+            "paged+chunk+sharing": EngineConfig(
+                max_batch=4, max_len=128, paged=True, page_size=16,
+                prefill_chunk=16, prefill_pack=2, prefix_sharing=True),
+            "zamba2-paged": EngineConfig(max_batch=4, max_len=128,
+                                         paged=True)}[rung]
     eng = ServingEngine(model, params, ecfg, device=cuda_device)
     for rid, p in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))

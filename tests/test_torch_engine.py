@@ -9,6 +9,7 @@ requests that stop on their EOS id."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -392,3 +393,109 @@ def test_waiting_whole_prompt_adopters_leave_shared_pages_alone(
             if not key.startswith(WALL_CLOCK):
                 assert ts[key] == pytest.approx(val, rel=1e-12, abs=0.0), key
         _assert_pool_clean(teng)
+
+
+# ------------------------------------------------- zamba2: a hybrid model
+# zamba2-7b smoke (two mamba2 blocks and the shared attention block) on the
+# contiguous and paged rungs. Its blocks do not chunk, so chunked prefill
+# and prefix sharing raise as in the reference.
+ZARCH = "zamba2-7b"
+ZECFG = dict(max_batch=4, max_len=128, prefill_min_bucket=8,
+             profile="h100_sxm", region="QC")
+ZRUNGS = pytest.mark.parametrize("rung", [{}, dict(paged=True)],
+                                 ids=["contiguous", "paged"])
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    jmodel = JModel(jax_get_config(ZARCH, "smoke"))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    cfg = get_config(ZARCH, "smoke")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                             cfg, "cpu")
+    return jmodel, jparams, Model(cfg, "cpu"), params, None, None
+
+
+@ZRUNGS
+def test_zamba2_engine_matches_reference(zamba, rung):
+    """Every prompt is exactly its power-of-two bucket (8-64 tokens), so
+    the reference's padded prefill holds no pad token and is right: the
+    engines agree token for token, modeled J and gCO2 to 1e-12."""
+    rng = np.random.default_rng(31)
+    lens = [8, 16, 32, 64, 8, 16, 32, 8, 64, 16]
+    trace = [(i, rng.integers(2, 512, L).tolist(), int(n))
+             for i, (L, n) in enumerate(zip(lens, rng.integers(1, 20,
+                                                               len(lens))))]
+    _, teng = _both(zamba, dict(ZECFG, **rung), trace, {})
+    assert teng.prefill_batches > 0
+    if rung:
+        _assert_pool_clean(teng)
+
+
+_ORACLE = {}
+
+
+def _exact_length_greedy(jmodel, jparams, prompt, n_new, max_len):
+    """The reference MODEL served one request alone: prefill of the prompt
+    at its exact length, then greedy ``decode_step``s (memoized: both
+    rungs ask for the same requests)."""
+    key = (tuple(prompt), n_new, max_len)
+    if key not in _ORACLE:
+        _ORACLE[key] = _greedy(jmodel, jparams, prompt, n_new, max_len)
+    return _ORACLE[key]
+
+
+def _greedy(jmodel, jparams, prompt, n_new, max_len):
+    vocab = jmodel.cfg.vocab
+    logits, cache = jmodel.prefill(jparams, jnp.asarray([prompt], jnp.int32),
+                                   max_len=max_len)
+    toks = [int(np.argmax(np.asarray(logits)[0, :vocab]))]
+    step = jax.jit(jmodel.decode_step)
+    while len(toks) < n_new:
+        logits, cache = step(jparams, cache,
+                             jnp.asarray([[toks[-1]]], jnp.int32))
+        toks.append(int(np.argmax(np.asarray(logits)[0, :vocab])))
+    return toks
+
+
+@ZRUNGS
+def test_zamba2_ragged_trace_matches_exact_length_model(zamba, rung):
+    """Prompts of ragged lengths prefill right-padded to their buckets. The
+    reference engine decodes such a row from a conv state holding pad
+    tokens (ROADMAP Queue 3), so the oracle here is the reference model
+    run per request at exact length; the port's engine equals it token
+    for token."""
+    jmodel, jparams, model, params, _, _ = zamba
+    rng = np.random.default_rng(32)
+    lens = [5, 13, 29, 3, 47, 21, 9, 60]
+    trace = [(i, rng.integers(2, 512, L).tolist(), int(n))
+             for i, (L, n) in enumerate(zip(lens, rng.integers(2, 12,
+                                                               len(lens))))]
+    teng = ServingEngine(model, params, EngineConfig(**ZECFG, **rung),
+                         device="cpu")
+    got = _run(teng, Request, trace, {})
+    for rid, prompt, n in trace:
+        assert got[rid].tokens == _exact_length_greedy(
+            jmodel, jparams, prompt, n, ZECFG["max_len"]), rid
+    if rung:
+        _assert_pool_clean(teng)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(paged=True, prefill_chunk=16),
+    dict(paged=True, prefill_chunk=16, prefix_sharing=True),
+    dict(paged=True, prefix_sharing=True),
+], ids=["chunk", "chunk+sharing", "sharing"])
+def test_zamba2_refuses_chunked_prefill_like_reference(zamba, knob):
+    """Recurrent blocks need carried-state chunk resume: a chunked (or
+    sharing) engine on Zamba2 raises at construction, with the
+    reference's message."""
+    jmodel, jparams, model, params, _, _ = zamba
+    assert not model.supports_chunked_prefill
+    assert model.supports_paged_decode and model.supports_padded_prefill
+    with pytest.raises(ValueError) as want:
+        JServingEngine(jmodel, jparams, JEngineConfig(**ZECFG, **knob))
+    with pytest.raises(ValueError) as got:
+        ServingEngine(model, params, EngineConfig(**ZECFG, **knob),
+                      device="cpu")
+    assert str(got.value) == str(want.value)

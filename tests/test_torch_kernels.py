@@ -134,7 +134,10 @@ def test_launch_counts_untouched_on_cpu():
     TOPS.paged_decode_attention(q[:, :, 0], pages, pages, tbl, pos[:, 3],
                                 k_pos)
     TOPS.chunked_prefill_attention(q, pages, pages, tbl, pos, k_pos)
+    x = torch.randn(1, 8, 2, 16)                     # (B, T, H, P)
+    TOPS.ssd_scan(x, torch.rand(1, 8, 2), -torch.rand(2), x, x, chunk=4)
     assert TOPS.launch_counts() == {"flash_attention": 0,
                                     "decode_attention": 0,
                                     "paged_decode_attention": 0,
-                                    "chunked_prefill_attention": 0}
+                                    "chunked_prefill_attention": 0,
+                                    "ssd_chunk": 0}

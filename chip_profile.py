@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served trace's time goes on the card.
 
-    python3 chip_profile.py [contiguous] [paged] [zamba2]
+    python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -11,12 +11,13 @@ waits for the device. On ``llama-paper-1b``, the contiguous path serves
 16-1024-token prompts on the default engine and the paged path serves
 the shared-system-prompt trace with the paged pool, chunked prefill
 (256, pack 2) and prefix sharing; the zamba2 path serves the contiguous
-path's prompts on ``zamba2-7b`` with the paged pool. With no argument it
-profiles all three. Prints the three timed walls,
-the device's busy time and idle share in the profiled run, the host's
-waits (by source line) beside the engine's ``host_syncs``, the warm
-wall per decode micro-step, and the kernels and host ops that take the
-most time. Needs one NVIDIA card.
+path's prompts on ``zamba2-7b`` with the paged pool, and the rwkv path
+on ``rwkv6-1.6b`` with the contiguous engine (exact-length prefill
+groups). With no argument it profiles all four. Prints the three timed
+walls, the device's busy time and idle share in the profiled run, the
+host's waits (by source line) beside the engine's ``host_syncs``, the
+warm wall per decode micro-step, and the kernels and host ops that take
+the most time. Needs one NVIDIA card.
 """
 import collections
 import sys
@@ -110,8 +111,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
-    paths = sys.argv[1:] or ["contiguous", "paged", "zamba2"]
-    unknown = set(paths) - {"contiguous", "paged", "zamba2"}
+    known = ["contiguous", "paged", "zamba2", "rwkv"]
+    paths = sys.argv[1:] or known
+    unknown = set(paths) - set(known)
     if unknown:
         print(f"chip_profile: unknown paths {sorted(unknown)}", file=sys.stderr)
         return 2
@@ -142,6 +144,12 @@ def main() -> int:
         cfg, model, params = load("zamba2-7b")
         profile(card, "zamba2 paged", model, params,
                 EngineConfig(**base, paged=True, page_size=16),
+                lambda: chip_smoke.engine_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    if "rwkv" in paths:
+        cfg, model, params = load("rwkv6-1.6b")
+        profile(card, "rwkv6 contiguous", model, params, EngineConfig(**base),
                 lambda: chip_smoke.engine_requests(cfg.vocab))
     return 0
 

@@ -11,16 +11,23 @@ Phases (any failure raises and the script exits non-zero):
    registers / shared memory / spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main paths' shapes (attention at head dims 64 and 112, the SSD
-   chunk at Zamba2's full width), bf16 (atol 2e-2, rtol 2e-2) and float32
-   (1e-4), on valid query rows; each bf16 kernel also against the plain
-   version run in float32 on the same bf16 inputs (atol 2e-3, rtol
+   chunk at Zamba2's full width, WKV6 at RWKV6's prefill and decode
+   shapes, RMSNorm at d 2048 and 7168), bf16 (atol 2e-2, rtol 2e-2) and
+   float32 (1e-4), on valid query rows; each bf16 kernel also against the
+   plain version run in float32 on the same bf16 inputs (atol 2e-3, rtol
    1e-2: the kernels accumulate in float32 and round once at the store,
-   while a dropped or doubled key page moves an output by more); kernel,
-   plain-version and library (``scaled_dot_product_attention``; for the
-   paged kernels over the logical view gathered beforehand, the gather
-   not timed; none for the SSD chunk, which no single PyTorch call
-   computes) times from CUDA events, beside the least time the card could
-   take (valid keys, causal pairs only);
+   while a dropped or doubled key page moves an output by more); WKV6,
+   which computes in float32 from either input type, to 1e-5 relative
+   and absolute against the largest output (the model's decay w ~ 0.9975
+   grows the state's terms to ~100); kernel, plain-version and library
+   (``scaled_dot_product_attention``; for the paged kernels over the
+   logical view gathered beforehand, the gather not timed;
+   ``F.rms_norm`` for RMSNorm; none for the SSD chunk and WKV6, which no
+   single PyTorch call computes) times from CUDA events (for WKV6 and
+   RMSNorm, whose decode-size calls take less device time than the host
+   takes to issue them, around the replay of a CUDA graph of the calls),
+   beside the least time the card could take (valid keys, causal pairs
+   only);
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. ``llama-paper-1b`` at full width and depth in
@@ -31,15 +38,22 @@ Phases (any failure raises and the script exits non-zero):
    bf16 on the paged pool (16 requests; the SSD kernel in all 68 mamba2
    layers and the flash kernel in the 13 shared-attention sites of every
    prefill launch, the paged-decode kernel in the 13 sites of every
-   micro-step). Small float32 configs (llama3.2-1b and zamba2-7b smoke)
-   are also served on the card and on the CPU (the plain path) and must
-   agree token for token;
+   micro-step). Then ``rwkv6-1.6b`` at full width and depth in bf16 on
+   the contiguous engine (16 requests, exact-length prefill groups; the
+   WKV6 kernel in all 24 layers of every prefill launch and micro-step,
+   no attention kernel). RMSNorm runs on every path, once per norm: 45
+   launches per forward on llama-paper-1b, 163 on zamba2-7b, 1 on
+   rwkv6-1.6b (its blocks use LayerNorm). Small float32 configs
+   (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also served on the
+   card and on the CPU (the plain path) and must agree token for token;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: with ``torch.cuda.is_available()`` false it exits 2
 and prints no result.
 """
+import functools
+import gc
 import json
 import math
 import os
@@ -60,6 +74,13 @@ TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 TOL_WIDE = (2e-3, 1e-2)   # bf16 kernel vs the float32 plain version
 N_LAYERS = 22             # llama-paper-1b
 N_MAMBA, N_SHARED = 68, 13  # zamba2-7b: mamba2 layers, shared-attention sites
+N_RWKV = 24               # rwkv6-1.6b
+# rmsnorm launches per forward: two per dense, mamba2 (ln1, gate_norm) and
+# shared block, one final norm; rwkv6 blocks norm with LayerNorm
+NORMS_LLAMA = 2 * N_LAYERS + 1
+NORMS_ZAMBA = 2 * N_MAMBA + 2 * N_SHARED + 1
+NORMS_RWKV = 1
+WKV_REL = 1e-5            # WKV6: relative to the largest output
 CSRC = "src/repro_torch/kernels/csrc/"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -72,6 +93,8 @@ KERNELS = {
     "chunked_prefill_attention": (CSRC + "chunked_prefill_attention.cu",
                                   "src/repro/kernels/chunked_prefill.py:117"),
     "ssd_chunk": (CSRC + "ssd_chunk.cu", "src/repro/kernels/ssd.py:58"),
+    "wkv6": (CSRC + "wkv6.cu", "src/repro/kernels/wkv6.py:59"),
+    "rmsnorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25"),
 }
 SYSTEM_PROMPT = 512       # shared prefix of the paged run's traffic
 
@@ -84,15 +107,39 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    for _ in range(warmup):
-        fn()
+@functools.lru_cache(maxsize=None)
+def _side_stream():
+    return torch.cuda.Stream()
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 20,
+            graph: bool = False) -> float:
+    """Device ms per call of ``fn`` from CUDA events around ``iters``
+    calls. Launched eagerly, a call whose kernels take less than the
+    host's cost of issuing them (ctypes, checks, allocation: ~15 us) is
+    timed at that cost; ``graph`` captures the ``iters`` calls in a CUDA
+    graph and times its replay, which is the kernels' time alone."""
+    # graphs warm up and capture on one side stream: every stream that runs
+    # a matmul keeps a cuBLAS workspace for the rest of the process
+    stream = _side_stream() if graph else torch.cuda.current_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            run()
+        g.replay()
+        run = g.replay
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
@@ -366,6 +413,75 @@ def ssd_case(SSD, REF, B, H, T, cl, P, N, dtype, gen):
                 bound_ms=bms, bound_by=by, wide=wide)
 
 
+def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
+    """One WKV6 launch in the rwkv6 block's layout: (B, T, H, hd)
+    projections seen as (B, H, T, hd) views, r/k/v in ``dtype``, the decay
+    w = exp(-exp(-6 + N(0, 0.1))) ~ 0.9975 in float32 as the model makes
+    it, nonzero s0, the final state written over s0 (as decode does)."""
+    dev = "cuda"
+    r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=dev).to(dtype)
+               .transpose(1, 2) for _ in range(3))
+    w = torch.exp(-torch.exp(-6 + 0.1 * torch.randn(
+        B, T, H, hd, generator=gen, device=dev))).transpose(1, 2)
+    u = 0.5 * torch.randn(H, hd, generator=gen, device=dev)
+    s0 = 0.1 * torch.randn(B, H, hd, hd, generator=gen, device=dev)
+    state = s0.clone()
+    got = WKV.wkv6(r, k, v, w, u, state, state)
+    want = REF.wkv6(r, k, v, w, u, s0)
+    label = f"wkv6 B{B} H{H} T{T} hd{hd} {dtype}"
+    err = 0.0
+    for g, wt in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: non-finite output")
+        scale = max(1.0, wt.abs().max().item())
+        e = (g - wt).abs()
+        bad = int((e > WKV_REL * scale + WKV_REL * wt.abs()).sum())
+        if bad:
+            raise AssertionError(f"{label}: {bad} elements past {WKV_REL} "
+                                 f"of the largest output {scale:.3e} (max "
+                                 f"abs err {e.max().item():.3e})")
+        err = max(err, e.max().item())
+    # the function's least work: out = r.S + (r.(u*k)) v and the update
+    # S = w*S + k(x)v, 4 hd^2 float32 operations a step; r/k/v/w read and
+    # out written once, u, s0 and the final state once
+    flops = 4.0 * B * H * T * hd * hd
+    nbytes = (3 * r.numel() * r.element_size() + 4 * w.numel()
+              + 4 * u.numel() + 2 * 4 * s0.numel() + 4 * r.numel())
+    bms, by = bound_ms(flops, nbytes, torch.float32)
+    ms = time_ms(lambda: WKV.wkv6(r, k, v, w, u, s0), graph=True)
+    plain = time_ms(lambda: REF.wkv6(r, k, v, w, u, s0), warmup=1,
+                    iters=2 if T > 1 else 20, graph=True)
+    eager = time_ms(lambda: WKV.wkv6(r, k, v, w, u, s0))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=bms, bound_by=by, eager_ms=eager,
+                wide=(err if dtype == torch.bfloat16 else None, 0))
+
+
+def rmsnorm_case(RMS, REF, R, d, dtype, gen, eps=1e-5):
+    """One RMSNorm launch on (R, d) rows (a prefill's or a decode step's
+    hidden states), scale ~ 1 + N(0, 0.1) in the same dtype."""
+    dev = "cuda"
+    x = torch.randn(R, d, generator=gen, device=dev).to(dtype)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+    got = RMS.rmsnorm(x, scale, eps)
+    want = REF.rmsnorm(x, scale, eps)
+    rows = torch.ones_like(want, dtype=torch.bool)
+    err = check_close(f"rmsnorm R{R} d{d} {dtype}", got, want, rows, dtype)
+    wide = check_wide(got, lambda a, b: REF.rmsnorm(a, b, eps), (x, scale),
+                      rows, dtype)
+    e = x.element_size()
+    flops = 4.0 * R * d
+    nbytes = 2.0 * R * d * e + d * scale.element_size()
+    bms, by = bound_ms(flops, nbytes, torch.float32)
+    ms = time_ms(lambda: RMS.rmsnorm(x, scale, eps), graph=True)
+    plain = time_ms(lambda: REF.rmsnorm(x, scale, eps), graph=True)
+    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), scale, eps),
+                  graph=True)
+    eager = time_ms(lambda: RMS.rmsnorm(x, scale, eps))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
+
+
 def phase_kernels(card):
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -430,12 +546,28 @@ def phase_kernels(card):
             ("ssd B1 H112 T64 cl64 P64 N64 f32",
              (1, 112, 64, 64, 64, 64, f32))]:
         ssd[label] = ssd_case(SSD, REF, *args, gen)
+    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.kernels import wkv6 as WKV
+    wkv = {}
+    for label, args in [
+            ("wkv6 B1 H32 T1024 hd64 bf16", (1, 32, 1024, 64, bf)),
+            ("wkv6 B8 H32 T1 hd64 bf16", (8, 32, 1, 64, bf)),
+            ("wkv6 B1 H32 T1024 hd64 f32", (1, 32, 1024, 64, f32))]:
+        wkv[label] = wkv6_case(WKV, REF, *args, gen)
+    rms = {}
+    for label, args in [
+            ("rmsnorm R1024 d2048 bf16", (1024, 2048, bf)),
+            ("rmsnorm R8 d2048 bf16", (8, 2048, bf)),
+            ("rmsnorm R8 d7168 bf16", (8, 7168, bf)),
+            ("rmsnorm R37 d2048 f32", (37, 2048, f32))]:
+        rms[label] = rmsnorm_case(RMS, REF, *args, gen)
     print(f"\n[kernels] vs plain version on valid rows ({card})")
     print(f"{'case':34s} {'max_abs_err':>11s} {'err_vs_f32':>10s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'sdpa_ms':>9s} {'bound_ms':>9s} "
           "bound_by")
     cases = (list(flash.items()) + list(decode.items())
-             + list(paged.items()) + list(chunk.items()) + list(ssd.items()))
+             + list(paged.items()) + list(chunk.items()) + list(ssd.items())
+             + list(wkv.items()) + list(rms.items()))
     for label, r in cases:
         wide = "-" if r["wide"][0] is None else f"{r['wide'][0]:.3e}"
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -446,26 +578,37 @@ def phase_kernels(card):
           "float32 on the same inputs; paged and chunk sdpa_ms: over the "
           "logical view gathered beforehand, the gather not timed; ssd: "
           "the largest of y_intra, h_chunk and decay, no single library "
-          "call)")
+          "call; wkv6: the larger of out and the final state, no single "
+          "library call; rmsnorm: the library column is F.rms_norm)")
+    print("  (wkv6 and rmsnorm: ms, plain_ms and sdpa_ms from the replay of "
+          "a CUDA graph of the calls, the kernels' time alone; launched "
+          "eagerly, one call of the kernel takes:)")
+    for label, r in cases:
+        if "eager_ms" in r:
+            print(f"    {label:36s} eager {r.pop('eager_ms'):9.4f} ms")
     bad = [f"{label}: {r['wide'][1]} elements" for label, r in cases
            if r["wide"][1]]
     if bad:
         raise AssertionError(f"bf16 kernels past atol {TOL_WIDE[0]} rtol "
                              f"{TOL_WIDE[1]} of the float32 plain version: "
                              f"{bad}")
-    for r in (flash, decode, paged, chunk, ssd):
+    for r in (flash, decode, paged, chunk, ssd, wkv, rms):
         for case in r.values():
             del case["wide"]
     # each kernel at the shapes of the path whose launches are reported:
     # flash, paged decode and the SSD chunk on the zamba2 path (head dim
-    # 112), decode and chunked prefill on the llama paths
+    # 112), decode and chunked prefill on the llama paths, WKV6 at a
+    # prefill of the rwkv path, RMSNorm at the llama contiguous path's
+    # decode rows
     return {"flash_attention": flash["flash B8 H32/32 S512 hd112 bf16"],
             "decode_attention": decode["decode B8 H32/32 W2048 bf16"],
             "paged_decode_attention":
                 paged["paged B8 H32/32 ps16 M128 hd112 bf16"],
             "chunked_prefill_attention":
                 chunk["chunk B1 H32/32 S256 hist768 bf16"],
-            "ssd_chunk": ssd["ssd B2 H112 T1024 cl256 P64 N64 f32"]}
+            "ssd_chunk": ssd["ssd B2 H112 T1024 cl256 P64 N64 f32"],
+            "wkv6": wkv["wkv6 B1 H32 T1024 hd64 bf16"],
+            "rmsnorm": rms["rmsnorm R8 d2048 bf16"]}
 
 
 # --------------------------------------------------------------------------
@@ -477,7 +620,8 @@ def smoke_agreement():
     """Small float32 configs served on the card (kernels) and on the CPU
     (plain versions) from the same weights: llama3.2-1b on the contiguous
     path and on the paged + chunked + prefix-sharing rung, zamba2-7b on
-    the contiguous and paged paths. Identical tokens."""
+    the contiguous and paged paths, rwkv6-1.6b on the contiguous path.
+    Identical tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -499,6 +643,8 @@ def smoke_agreement():
                                       ragged),
         ("zamba2-7b", "paged"): (EngineConfig(max_batch=4, max_len=128,
                                               paged=True), ragged),
+        ("rwkv6-1.6b", "contiguous"): (EngineConfig(max_batch=4, max_len=128),
+                                       ragged),
     }
     for (arch, name), (ecfg, reqs) in runs.items():
         cfg = get_config(arch, "smoke")
@@ -642,6 +788,10 @@ def phase_engine(card):
             counts["decode_attention"] % N_LAYERS:
         raise AssertionError(f"decode launches {counts['decode_attention']} "
                              f"vs {N_LAYERS} x {st['steps']} micro-steps")
+    forwards = engine.prefill_batches + counts["decode_attention"] // N_LAYERS
+    if counts["rmsnorm"] != NORMS_LLAMA * forwards:
+        raise AssertionError(f"rmsnorm launches {counts['rmsnorm']} != "
+                             f"{NORMS_LLAMA} x {forwards} forwards")
     del engine
 
     engine, st, pcounts = serve(card, "paged + chunked prefill + prefix "
@@ -664,6 +814,10 @@ def phase_engine(card):
          f"!= {N_LAYERS} x {st['prefill_chunks']} chunks"),
         (pcounts["decode_attention"] == 0 and pcounts["flash_attention"] == 0,
          f"contiguous kernels ran on the paged path: {pcounts}"),
+        (pcounts["rmsnorm"]
+         == NORMS_LLAMA * (st["prefill_chunks"] + st["steps"]),
+         f"rmsnorm launches {pcounts['rmsnorm']} != {NORMS_LLAMA} x "
+         f"({st['prefill_chunks']} chunks + {st['steps']} micro-steps)"),
     ]
     for ok, what in checks:
         if not ok:
@@ -675,7 +829,8 @@ def phase_engine(card):
             "decode_attention": counts["decode_attention"],
             "paged_decode_attention": pcounts["paged_decode_attention"],
             "chunked_prefill_attention":
-                pcounts["chunked_prefill_attention"]}
+                pcounts["chunked_prefill_attention"],
+            "rmsnorm": counts["rmsnorm"]}
 
 
 def phase_zamba(card):
@@ -724,6 +879,9 @@ def phase_zamba(card):
         (counts["chunked_prefill_attention"] == 0
          and counts["decode_attention"] == 0,
          f"chunked-prefill or contiguous decode kernels ran: {counts}"),
+        (counts["rmsnorm"] == NORMS_ZAMBA * (pb + steps),
+         f"rmsnorm launches {counts['rmsnorm']} != {NORMS_ZAMBA} x "
+         f"({pb} prefill launches + {steps} micro-steps)"),
         (st["free_pages"] == st["pages_total"], "pages not returned"),
     ]
     for ok, what in checks:
@@ -735,6 +893,53 @@ def phase_zamba(card):
     return {"flash_attention": counts["flash_attention"],
             "paged_decode_attention": counts["paged_decode_attention"],
             "ssd_chunk": counts["ssd_chunk"]}
+
+
+def phase_rwkv(card):
+    """rwkv6-1.6b at full width and depth (24 layers, d_model 2048, 32 WKV
+    heads of 64, d_ff 7168, vocab 65536), bf16, random weights from a
+    seed, on the contiguous engine with the llama contiguous run's
+    traffic. Its blocks take no mask, so prompts prefill in exact-length
+    groups; its state is O(1) per slot (no KV cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("rwkv6-1.6b")
+    assert (cfg.n_layers, cfg.d_model, cfg.dtype) == (N_RWKV, 2048,
+                                                      "bfloat16")
+    assert set(cfg.block_pattern) == {"rwkv6"}
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(t.numel() for t in _leaves(params))
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"\n[rwkv6] {cfg.name}: {cfg.n_layers} layers, {n_params} "
+          f"parameters, {weights / 1e9:.3f} GB on the card ({card})")
+    ecfg = EngineConfig(max_batch=8, max_len=2048, profile="h100_sxm",
+                        region="QC")
+    warm = ServingEngine(model, params, ecfg)   # not counted
+    warm.submit(Request(rid=0, prompt=list(range(2, 40)), max_new_tokens=4))
+    warm.run()
+    del warm
+    engine, st, counts = serve(card, "rwkv6 contiguous", ecfg,
+                               engine_requests(cfg.vocab), model, params)
+    forwards = engine.prefill_batches + st["steps"]
+    others = {k: n for k, n in counts.items()
+              if k not in ("wkv6", "rmsnorm") and n}
+    checks = [
+        (counts["wkv6"] == N_RWKV * forwards,
+         f"wkv6 launches {counts['wkv6']} != {N_RWKV} x "
+         f"({engine.prefill_batches} prefill launches + {st['steps']} "
+         "micro-steps)"),
+        (counts["rmsnorm"] == NORMS_RWKV * forwards,
+         f"rmsnorm launches {counts['rmsnorm']} != {forwards} forwards"),
+        (not others, f"attention or SSD kernels ran: {others}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"rwkv6 run: {what}")
+    return {"wkv6": counts["wkv6"]}
 
 
 def _leaves(tree):
@@ -773,12 +978,18 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     measured = phase_kernels(card)
+    gc.collect()                 # phase 3's graphs and their memory pools
+    torch.cuda.empty_cache()
+    print(f"\n[memory] allocated before the engines: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({card})")
     smoke_agreement()
     launches = phase_engine(card)
     torch.cuda.empty_cache()
     # flash and paged decode are reported from the zamba2 path, at the head
     # dim 112 timed in phase 3
     launches.update(phase_zamba(card))
+    torch.cuda.empty_cache()
+    launches.update(phase_rwkv(card))
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

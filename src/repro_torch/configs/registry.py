@@ -1,17 +1,18 @@
 """Architecture registry of the port: ``get_config(arch_id, variant)``.
 
 Covers the configurations the port serves so far: the paper's own dense
-``llama-paper-{1b,3b,7b}`` (MHA), ``llama3.2-1b`` (GQA) and the hybrid
-``zamba2-7b`` (Mamba2 + one weight-shared attention block). Variants
-are the JAX registry's: ``full``, ``smoke`` (a few layers, narrow widths,
-float32; for CPU tests) and ``long`` (full with a sliding window).
+``llama-paper-{1b,3b,7b}`` (MHA), ``llama3.2-1b`` (GQA), the hybrid
+``zamba2-7b`` (Mamba2 + one weight-shared attention block) and the
+attention-free ``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
+``smoke`` (a few layers, narrow widths, float32; for CPU tests) and
+``long`` (full with a sliding window; full itself for ``rwkv6-1.6b``).
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ["llama-paper-1b", "llama-paper-3b", "llama-paper-7b",
-            "llama3.2-1b", "zamba2-7b"]
+            "llama3.2-1b", "zamba2-7b", "rwkv6-1.6b"]
 
 _MODULES = {
     "llama-paper-1b": "repro_torch.configs.llama_paper",
@@ -19,6 +20,7 @@ _MODULES = {
     "llama-paper-7b": "repro_torch.configs.llama_paper",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 VARIANTS = ("full", "smoke", "long")

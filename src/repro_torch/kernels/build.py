@@ -27,10 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "chunked_prefill_attention", "ssd_chunk")
+           "chunked_prefill_attention", "ssd_chunk", "wkv6", "rmsnorm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # entry symbol and argument types of each library; the extern "C" entry at
 # the end of each source documents every argument
@@ -48,6 +50,8 @@ ARGTYPES = {
                                   [_P, _P, _P, _P, _P, _P, _P, _STRIDES]
                                   + [_I] * 13 + [_P]),
     "ssd_chunk": ("ssd_chunk_fwd", [_P] * 8 + [_STRIDES] + [_I] * 8 + [_P]),
+    "wkv6": ("wkv6_fwd", [_P] * 8 + [_STRIDES] + [_I] * 6 + [_P]),
+    "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_L, _L, _I, _F] + [_I] * 3 + [_P]),
 }
 
 

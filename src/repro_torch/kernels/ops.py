@@ -19,11 +19,14 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import wkv6 as _wkv
 
 _KERNELS = {"flash_attention": _fa, "decode_attention": _dec,
             "paged_decode_attention": _pdec,
-            "chunked_prefill_attention": _cp, "ssd_chunk": _ssd}
+            "chunked_prefill_attention": _cp, "ssd_chunk": _ssd,
+            "wkv6": _wkv, "rmsnorm": _rms}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -121,6 +124,33 @@ def ssd_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None,
         h_in.transpose(-1, -2)                            # (B,H,nc,cl,P)
     y = (y_intra + y_cross).permute(0, 2, 3, 1, 4).reshape(B, T + pad, H, P)
     return y[:, :T], h
+
+
+def wkv6(r, k, v, w, u, s0, s_out: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 recurrence (the port of the reference's ``ops.wkv6``).
+    r/k/v/w: (B,H,T,hd), any (b, h, t) strides; u: (H,hd); s0:
+    (B,H,hd,hd) float32. Returns (out (B,H,T,hd), s_final (B,H,hd,hd)),
+    float32. ``s_out``, if given, receives the final state (it may be
+    ``s0``: the state is updated in place) and is returned. On the card
+    ``w``, ``u`` and ``s0`` must be float32: the decay is never cast down."""
+    if _on_cuda(r):
+        return _wkv.wkv6(r, k, v, w, u, s0, s_out)
+    out, S = _ref.wkv6(r, k, v, w, u, s0)
+    if s_out is None:
+        return out, S
+    return out, s_out.copy_(S)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim (the port of the reference's
+    ``ops.rmsnorm``): leading dims are flattened into rows, statistics in
+    float32, output in ``x.dtype``."""
+    if _on_cuda(x):
+        return _rms.rmsnorm(x.reshape(-1, x.shape[-1]), scale,
+                            eps).reshape(x.shape)
+    return _ref.rmsnorm(x, scale, eps)
 
 
 def reset_launches() -> None:

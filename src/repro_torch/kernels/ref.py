@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (same layouts, same contracts as
 the JAX oracles in ``repro.kernels.ref``): the attention kernels, the
 paged ones included (they gather the logical view through the block table
-and score like the contiguous ones), and the Mamba2 SSD chunk.
+and score like the contiguous ones), the Mamba2 SSD chunk, the RWKV6
+recurrence and the row RMSNorm.
 
 They are the CPU execution path of ``kernels/ops.py`` and the yardstick
 the CUDA kernels are held against on the card. Attention: mask
@@ -109,3 +110,28 @@ def ssd_chunk(x, dt, A, Bm, Cm):
     emit = torch.exp(cum[..., -1:] - cum)               # (B,H,nc,cl)
     h = (xdt * emit[..., None]).transpose(-1, -2) @ Bf  # (B,H,nc,P,N)
     return y, h, torch.exp(cum[..., -1])
+
+
+def wkv6(r, k, v, w, u, s0):
+    """r/k/v/w: (B,H,T,hd), any strides; u: (H,hd); s0: (B,H,hd,hd).
+    The RWKV6 recurrence per (batch, head), in float32 whatever the input
+    type: out_t = r_t (S + u (x) k_t v_t), then S = diag(w_t) S + k_t v_t.
+    Returns (out (B,H,T,hd), s_final (B,H,hd,hd)), float32."""
+    S = s0.float()
+    uu = u.float()[..., :, None]
+    outs = []
+    for t in range(r.shape[2]):
+        rt, kt, vt, wt = (a[:, :, t].float() for a in (r, k, v, w))
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", rt, S + uu * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(outs, dim=2), S
+
+
+def rmsnorm(x, scale, eps: float):
+    """x: (..., d); scale: (d,). Statistics in float32, output in
+    ``x.dtype``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)

@@ -1,7 +1,8 @@
 """Per-layer blocks (the port of ``repro.models.blocks``) for the kinds the
 port serves: ``dense`` (pre-norm self-attention + SwiGLU MLP on a
-sequential residual), ``mamba2`` (the Mamba2 SSD block) and ``shared``
-(Zamba2's weight-shared attention + MLP block on concat(h, embedding))."""
+sequential residual), ``mamba2`` (the Mamba2 SSD block), ``shared``
+(Zamba2's weight-shared attention + MLP block on concat(h, embedding))
+and ``rwkv6`` (RWKV6 time-mix + channel-mix, attention-free)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,9 +12,10 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-PORTED_KINDS = ("dense", "mamba2", "shared")
+PORTED_KINDS = ("dense", "mamba2", "shared", "rwkv6")
 
 
 @dataclasses.dataclass
@@ -47,6 +49,8 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
     if kind == "mamba2":
         return {"ln1": L.rmsnorm_init(d, dt, device),
                 "ssm": SSM.ssm_init(gen, cfg, device)}
+    if kind == "rwkv6":
+        return RWKV.rwkv_layer_init(gen, cfg, device)
     if kind == "shared":
         # Zamba2 weight-shared block on concat(h, emb): width 2d
         return {"ln1": L.rmsnorm_init(2 * d, dt, device),
@@ -67,6 +71,8 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
     _require_ported(kind)
     if kind == "mamba2":
         return SSM.init_ssm_state(cfg, batch, device)
+    if kind == "rwkv6":
+        return RWKV.init_rwkv_state(cfg, batch, device)
     if cfg.layer_uses_chunked_attn(layer_idx):
         # chunked local attention only ever attends within the current
         # chunk: a ring of `attn_chunk` slots suffices
@@ -89,6 +95,8 @@ def block_apply(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
         h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         y = SSM.mamba2_block(p["ssm"], cfg, h, cache, ctx.mode, ctx.mask)
         return _res(cfg, x, y), cache
+    if kind == "rwkv6":
+        return RWKV.rwkv_block(p, cfg, x, cache, ctx.mode), cache
     window, chunk = _layer_window_chunk(cfg, ctx.layer_idx)
     if kind == "shared":
         # the residual stream and the embedding output side by side; the

@@ -51,6 +51,10 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
             s = cfg.ssm
             state_bytes += (s.n_heads(cfg.d_model) * s.head_dim * s.state_dim
                             * 4 + (s.d_conv - 1) * s.conv_dim(cfg.d_model) * 4)
+        elif kind == "rwkv6":
+            H = cfg.d_model // cfg.rwkv.head_dim
+            state_bytes += (H * cfg.rwkv.head_dim ** 2 * 4
+                            + 2 * cfg.d_model * dtype_bytes)
         else:
             raise NotImplementedError(f"costing of block kind {kind!r}")
     return LLMWorkload(

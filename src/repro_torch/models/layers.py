@@ -5,6 +5,10 @@ Params are plain dicts of tensors with the JAX package's key names.
 Weights keep the JAX (d_in, d_out) orientation, so every projection is
 ``x @ w``. Mixed precision follows the reference: activations in
 ``cfg.dtype``, norm statistics, RoPE angles and the SiLU in float32.
+
+RMSNorm goes through ``kernels.ops.rmsnorm``: the plain version on the
+CPU, the hand-written kernel on the card. LayerNorm (RWKV6's only) has no
+kernel in the reference and stays plain PyTorch.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import ops as KOPS
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,10 +46,20 @@ def rmsnorm_init(dim: int, dtype, device) -> Dict:
 
 
 def rmsnorm(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    return KOPS.rmsnorm(x, p["scale"], eps)
+
+
+def layernorm_init(dim: int, dtype, device) -> Dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # --- rotary embeddings -----------------------------------------------------

@@ -25,7 +25,9 @@ from repro_torch.models.config import ModelConfig
 # whose decode state can live in the paged pool (full attention, or
 # fixed-size recurrent state that stays slot-addressed), and kinds whose
 # prompt can be chunked (every stateful block's KV in the pool): the
-# reference's sets (``repro/models/model.py``).
+# reference's sets (``repro/models/model.py``). ``rwkv6`` is in none of
+# them: its block takes no mask, so its prompts prefill in exact-length
+# groups, on the contiguous engine only.
 PADDED_PREFILL_KINDS = {"dense", "parallel", "moe", "mla", "mla_moe",
                         "shared", "mamba2"}
 PAGED_DECODE_KINDS = {"dense", "parallel", "moe", "shared", "mamba2"}

@@ -14,8 +14,9 @@ Hot path, as in the reference:
   * admissions are batched: every waiting request that fits a free slot
     prefills in one launch per power-of-two length bucket (right padding
     plus position masking, for models whose blocks mask pads exactly:
-    every ported kind, mamba2 included), padded to a power-of-two batch;
-    the new caches enter the pool in one indexed copy per leaf;
+    dense, shared and mamba2), or per exact prompt length for a model
+    with a block that takes no mask (rwkv6), padded to a power-of-two
+    batch; the new caches enter the pool in one indexed copy per leaf;
   * decode runs ``sync_every`` fused micro-steps (decode -> sample ->
     EOS/budget masking) on the device per host sync.
 
@@ -29,7 +30,9 @@ The KV memory ladder, each rung requiring the previous, as the reference:
     request's worst case (prompt + decode budget) in pages, so the
     on-device free stack never underflows, and rejects a request that can
     never fit; decode runs the paged decode kernel. A hybrid model's
-    recurrent state (mamba2) stays slot-addressed beside the pool;
+    recurrent state (mamba2) stays slot-addressed beside the pool; rwkv6
+    is served on the contiguous engine only and refuses this rung, as in
+    the reference;
   * ``prefill_chunk``: prompts are split into fixed-size chunks, and each
     scheduling quantum runs at most one chunk launch (``prefill_pack``
     requests packed into it) plus one fused decode chunk; the chunk runs

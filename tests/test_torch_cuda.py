@@ -6,14 +6,19 @@ card. Marked ``cuda``: on a host without a card every test skips (the
 
 Tolerances: float32 1e-4 (f32 FMA in another order); bf16 2e-2 abs and
 rel (the kernel rounds once at its output, the plain version after an f32
-softmax and product: one bf16 ulp apart at most)."""
+softmax and product: one bf16 ulp apart at most). WKV6: float32 1e-5,
+relative and absolute against the largest magnitude of the output, in
+either input type (both versions compute in float32; under the model's
+decay the state's terms reach ~100 while some outputs cancel to ~0.1)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm
 from repro_torch.kernels import ssd
+from repro_torch.kernels import wkv6
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -407,6 +412,140 @@ def test_engine_waits_for_the_card_only_at_host_syncs(cuda_device, rung):
             torch.cuda.set_sync_debug_mode("default")
     assert eng.host_syncs > 0
     assert len(waits) == eng.host_syncs, "\n".join(waits)
+
+
+def _wkv_inputs(gen, B, H, T, hd, dtype, dev):
+    """r, k, v ~ N(0, 1) in ``dtype`` and the model's layout (B, T, H, hd)
+    seen as (B, H, T, hd) views; w = exp(-exp(-6 + N(0, 0.1))) ~ 0.9975
+    float32, as the model makes it; u ~ N(0, 0.5); s0 ~ N(0, 0.1)."""
+    r, k, v = (torch.randn(B, T, H, hd, generator=gen).to(dtype).to(dev)
+               .transpose(1, 2) for _ in range(3))
+    w = torch.exp(-torch.exp(-6 + 0.1 * torch.randn(B, T, H, hd,
+                                                    generator=gen)))
+    u = 0.5 * torch.randn(H, hd, generator=gen)
+    s0 = 0.1 * torch.randn(B, H, hd, hd, generator=gen)
+    return r, k, v, w.to(dev).transpose(1, 2), u.to(dev), s0.to(dev)
+
+
+def _close_to_max(got, want, rel=1e-5):
+    torch.testing.assert_close(got, want, rtol=rel,
+                               atol=rel * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,hd", [
+    (8, 32, 1, 64),       # a decode step of the full config
+    (2, 3, 23, 32),       # ragged tile of the smoke config's head dim
+    (1, 32, 1024, 64),    # a full-config prefill
+    (2, 4, 1024, 32),
+])
+def test_wkv6_kernel_matches_plain(cuda_device, dtype, B, H, T, hd):
+    """``ops.wkv6`` on the card against the plain version on the same
+    inputs, on the card: the output, and the final state written in place
+    over ``s0`` (as decode updates the cache)."""
+    gen = torch.Generator().manual_seed(T + hd)
+    r, k, v, w, u, s0 = _wkv_inputs(gen, B, H, T, hd, dtype, cuda_device)
+    want_o, want_s = ref.wkv6(r, k, v, w, u, s0)
+    state = s0.clone()
+    before = ops.launch_counts()["wkv6"]
+    got_o, got_s = ops.wkv6(r, k, v, w, u, state, state)
+    assert ops.launch_counts()["wkv6"] == before + 1
+    torch.cuda.synchronize()
+    assert got_s is state and got_o.shape == (B, H, T, hd)
+    assert got_o.dtype == torch.float32 and torch.isfinite(got_o).all()
+    _close_to_max(got_o, want_o)
+    _close_to_max(state, want_s)
+    # a fresh state buffer gives the same result
+    got_o2, got_s2 = wkv6.wkv6(r, k, v, w, u, s0)
+    torch.testing.assert_close(got_o2, got_o, rtol=0, atol=0)
+    torch.testing.assert_close(got_s2, state, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d,strided", [
+    (37, 64, False), (37, 2048, False), (8, 3584, False), (37, 7168, False),
+    (1030, 2048, False),   # a 1024-token prefill's rows, and some
+    (19, 100, False),      # d not a multiple of the 16-byte vector
+    (21, 2048, True),      # rows of a wider tensor (row stride != d)
+])
+def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, R, d, strided):
+    gen = torch.Generator().manual_seed(R + d)
+    base = torch.randn(R, d + (8 if strided else 0), generator=gen)
+    x = base.to(dtype).to(cuda_device)[:, :d]
+    scale = (torch.randn(d, generator=gen) * 0.1 + 1).to(dtype).to(
+        cuda_device)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, scale, 1e-5)
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    want = ref.rmsnorm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (R, d)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    # leading dims flatten into rows, as the model passes (B, T, d)
+    x3 = x.reshape(1, R, d) if not strided else x[None]
+    torch.testing.assert_close(ops.rmsnorm(x3, scale, 1e-5)[0].float(),
+                               got.float(), rtol=0, atol=0)
+
+
+def test_wkv6_and_rmsnorm_refuse_what_they_do_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    r, k, v, w, u, s0 = _wkv_inputs(gen, 1, 2, 8, 64, torch.bfloat16,
+                                    cuda_device)
+    with pytest.raises(TypeError, match="w must be float32"):
+        wkv6.wkv6(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(TypeError, match="u must be float32"):
+        wkv6.wkv6(r, k, v, w, u.bfloat16(), s0)
+    r48, k48, v48, w48, u48, s48 = _wkv_inputs(gen, 1, 2, 8, 48,
+                                               torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6.wkv6(r48, k48, v48, w48, u48, s48)
+    spaced = torch.zeros(1, 2, 8, 128, dtype=r.dtype,
+                         device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv6.wkv6(spaced, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6.wkv6(r, k, v, w, u, s0.transpose(2, 3))
+    x = torch.randn(4, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="unit stride"):
+        rmsnorm.rmsnorm(x.t(), torch.ones(4, device=cuda_device))
+    with pytest.raises(TypeError, match="rmsnorm takes"):
+        rmsnorm.rmsnorm(x.half(), torch.ones(64, device=cuda_device))
+
+
+def test_rwkv6_engine_on_card_matches_cpu(cuda_device):
+    """rwkv6-1.6b smoke (float32) on the contiguous engine, on the card
+    (wkv6 and rmsnorm kernels) and on the CPU (plain versions), from the
+    same weights: identical tokens on ragged prompts (two of one length
+    share a prefill group), wkv6 launched in both layers of every prefill
+    launch and micro-step, rmsnorm once per forward, and no attention
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("rwkv6-1.6b", "smoke")
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(2, cfg.vocab, n).tolist()
+               for n in (5, 40, 17, 40, 3, 64)]
+    ecfg = EngineConfig(max_batch=4, max_len=128)
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                            device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        ops.reset_launches()
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        counts = ops.launch_counts()
+    assert toks["cpu"] == toks[str(cuda_device)]
+    forwards = eng.prefill_batches + eng.stats()["steps"]
+    assert counts["wkv6"] == cfg.n_layers * forwards
+    assert counts["rmsnorm"] == forwards
+    assert sum(counts[k] for k in ("flash_attention", "decode_attention",
+                                   "paged_decode_attention",
+                                   "chunked_prefill_attention",
+                                   "ssd_chunk")) == 0
 
 
 def _to(tree, dev):

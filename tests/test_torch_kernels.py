@@ -1,9 +1,10 @@
-"""Plain PyTorch attention (the CPU path of ``repro_torch.kernels.ops``)
-against the JAX ops, both through the Pallas kernels in interpret mode and
-through the jnp oracles. Inputs are made with numpy from a seed and handed
-to both packages; only valid query rows are compared (a pad row's output
-is unspecified: the Pallas kernel's block padding makes it differ from the
-oracle's). float32, atol/rtol 1e-5: the same f32 math in another order."""
+"""Plain PyTorch attention and RMSNorm (the CPU path of
+``repro_torch.kernels.ops``) against the JAX ops, both through the Pallas
+kernels in interpret mode and through the jnp oracles. Inputs are made
+with numpy from a seed and handed to both packages; only valid query rows
+are compared (a pad row's output is unspecified: the Pallas kernel's
+block padding makes it differ from the oracle's). float32, atol/rtol
+1e-5: the same f32 math in another order."""
 import functools
 
 import numpy as np
@@ -136,8 +137,36 @@ def test_launch_counts_untouched_on_cpu():
     TOPS.chunked_prefill_attention(q, pages, pages, tbl, pos, k_pos)
     x = torch.randn(1, 8, 2, 16)                     # (B, T, H, P)
     TOPS.ssd_scan(x, torch.rand(1, 8, 2), -torch.rand(2), x, x, chunk=4)
+    xt = x.transpose(1, 2)                           # (B, H, T, hd) views
+    TOPS.wkv6(xt, xt, xt, torch.rand(1, 2, 8, 16), torch.rand(2, 16),
+              torch.zeros(1, 2, 16, 16))
+    TOPS.rmsnorm(x, torch.ones(16), 1e-5)
     assert TOPS.launch_counts() == {"flash_attention": 0,
                                     "decode_attention": 0,
                                     "paged_decode_attention": 0,
                                     "chunked_prefill_attention": 0,
-                                    "ssd_chunk": 0}
+                                    "ssd_chunk": 0, "wkv6": 0, "rmsnorm": 0}
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,d", [(8, 128), (37, 256), (5, 512)])
+def test_rmsnorm_plain_matches_jax(impl, dtype, R, d):
+    """The plain RMSNorm (the CPU path of ``ops.rmsnorm``) against the
+    reference's on ``tests/test_kernels.py``'s sweep shapes, with a
+    leading batch dim flattened into rows as the model passes it. float32
+    1e-5; bf16 2e-2 (the reference sweep's: both compute in float32 and
+    round once to bf16, so they differ by at most one bf16 ulp)."""
+    rng = np.random.default_rng(R + d)
+    x = rng.standard_normal((1, R, d), dtype=np.float32)
+    scale = (rng.standard_normal(d) * 0.1 + 1.0).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    kw = dict(block_rows=16) if impl == "pallas_interpret" else {}
+    want = JOPS.rmsnorm(jnp.asarray(x).astype(jdt),
+                        jnp.asarray(scale).astype(jdt), impl=impl, **kw)
+    got = TOPS.rmsnorm(torch.from_numpy(x).to(tdt),
+                       torch.from_numpy(scale).to(tdt), 1e-5)
+    assert got.dtype == tdt and got.shape == (1, R, d)
+    t = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **t)

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Time the two prefill attention kernels against the same kernels built
+from other sources, on one card, in one process.
+
+    mkdir -p build/ab
+    for f in flash_attention chunked_prefill_attention; do
+      git show <commit>:src/repro_torch/kernels/csrc/$f.cu > build/ab/$f.cu
+    done
+    python3 chip_kernel_ab.py build/ab
+
+DIR holds ``flash_attention.cu`` and ``chunked_prefill_attention.cu`` and
+the ``*.cuh`` headers they include (an earlier tree's, or a variant of
+this tree's). Both are built with this tree's ``nvcc`` flags into
+``build/kernels/`` beside this tree's own (``build.build(..., csrc=DIR)``)
+and called through this tree's wrappers. At ``chip_smoke.py``'s main-path
+shapes, in bf16 (chunked prefill B1 H32/32 S256 after 768 history tokens
+at hd 64; flash B8 H32/32 S512, right-padded, at hd 64 and 112), it holds
+both builds to the plain version (``chip_smoke.TOL`` on valid rows, or it
+fails), counts each build's elements past ``chip_smoke.TOL_WIDE`` against
+the plain version run in float32 (reported, not held: a variant may be
+there to show that it breaks it), and times each around the replay of a
+CUDA graph of 20 calls, in turns (DIR, this tree, this tree, DIR), beside
+``scaled_dot_product_attention`` with the same mask and the least time
+the card could take. Needs one NVIDIA card.
+"""
+import functools
+import json
+import sys
+from pathlib import Path
+from unittest import mock
+
+import torch
+
+import chip_smoke
+
+NAMES = ("flash_attention", "chunked_prefill_attention")
+
+
+def through(csrc, call):
+    """``call`` with the wrappers' kernels built from ``csrc`` (None: this
+    tree's sources)."""
+    from repro_torch.kernels import build
+
+    def run():
+        if csrc is None:
+            return call()
+        with mock.patch.object(build, "library",
+                               functools.partial(build.library, csrc=csrc)):
+            return call()
+    return run
+
+
+def main() -> int:
+    if not torch.cuda.is_available() or len(sys.argv) != 2:
+        print("usage (one NVIDIA card): python3 chip_kernel_ab.py DIR",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    from repro_torch.kernels import chunked_prefill as CP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as REF
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = chip_smoke.card_line()
+    print(card)
+    base = Path(sys.argv[1]).resolve()
+    build.build(NAMES, csrc=base)
+    build.build(NAMES)
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    args = chip_smoke.chunk_inputs(32, 32, [1024], 256, bf, gen)
+    flops, nbytes = chip_smoke.paged_traffic(
+        args[3], args[4], args[5], 16, 32, 32, 64, 2, S=256)
+    cases = [dict(label="chunk B1 H32/32 S256 hist768 hd64",
+                  kernel=CP.chunked_prefill_attention,
+                  plain=REF.chunked_prefill_attention, args=args,
+                  sdpa=chip_smoke.chunk_sdpa(*args), qpos=args[4],
+                  flops=flops, nbytes=nbytes)]
+    for hd in (64, 112):
+        q, k, v, pos = chip_smoke.flash_inputs(8, 32, 32, 512, bf, gen, hd)
+        flops, nbytes, mask = chip_smoke.flash_work(q, k, v, pos)
+        cases.append(dict(
+            label=f"flash B8 H32/32 S512 hd{hd}", kernel=FA.flash_attention,
+            plain=REF.flash_attention, args=(q, k, v, pos, pos),
+            sdpa=lambda a=(q, k, v), m=mask: torch.nn.functional.
+            scaled_dot_product_attention(*a, attn_mask=m),
+            qpos=pos, flops=flops, nbytes=nbytes))
+    rows_out = []
+    print(f"\n[ab] bf16, ms per call from CUDA-graph replays; max abs err "
+          f"against the plain version, elements past TOL_WIDE against it in "
+          f"float32 ({card})")
+    print(f"{'case':36s} {'base':>8s} {'new':>8s} {'new':>8s} {'base':>8s} "
+          f"{'sdpa':>8s} {'bound':>8s} by      base_err  new_err  "
+          f"base_wide new_wide")
+    for c in cases:
+        call = lambda c=c: c["kernel"](*c["args"])  # noqa: E731
+        want = c["plain"](*c["args"])
+        rows = (c["qpos"] >= 0)[:, None, :, None].expand_as(want)
+        errs, wide = [], []
+        for who, src in (("base", base), ("new", None)):
+            got = through(src, call)()
+            errs.append(chip_smoke.check_close(f"{c['label']} {who}", got,
+                                               want, rows, bf))
+            wide.append(chip_smoke.check_wide(got, c["plain"], c["args"],
+                                              rows, bf)[1])
+        times = [chip_smoke.time_ms(through(src, call), graph=True)
+                 for src in (base, None, None, base)]
+        lib = chip_smoke.time_ms(c["sdpa"], graph=True)
+        bms, by = chip_smoke.bound_ms(c["flops"], c["nbytes"], bf)
+        print(f"{c['label']:36s} " + " ".join(f"{t:8.4f}" for t in times)
+              + f" {lib:8.4f} {bms:8.5f} {by:7s} {errs[0]:.2e} {errs[1]:.2e}"
+              f" {wide[0]:9d} {wide[1]:8d}")
+        rows_out.append(dict(case=c["label"], base_ms=[times[0], times[3]],
+                             new_ms=[times[1], times[2]], sdpa_ms=lib,
+                             bound_ms=bms, bound_by=by,
+                             base_max_abs_err=errs[0],
+                             new_max_abs_err=errs[1],
+                             base_past_tol_wide=wide[0],
+                             new_past_tol_wide=wide[1]))
+    print(card)
+    print(json.dumps({"ab": rows_out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

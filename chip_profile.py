@@ -16,10 +16,12 @@ on ``rwkv6-1.6b`` with the contiguous engine (exact-length prefill
 groups). With no argument it profiles all four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
-warm wall per decode micro-step, and the kernels and host ops that take
-the most time. Needs one NVIDIA card.
+warm wall per decode micro-step, the kernels and host ops that take the
+most time, and the device time of each of the port's kernels. Needs one
+NVIDIA card.
 """
 import collections
+import re
 import sys
 import time
 import traceback
@@ -28,6 +30,11 @@ import warnings
 import torch
 
 import chip_smoke
+
+# the __global__ functions of src/repro_torch/kernels/csrc/*.cu
+KERNELS = ("flash_tc_kernel", "flash_fwd_kernel", "chunk_tc_kernel",
+           "chunk_fwd_kernel", "decode_kernel", "paged_decode_kernel",
+           "ssd_chunk_kernel", "wkv6_kernel", "rmsnorm_kernel")
 
 
 def profile(card, label, model, params, ecfg, requests) -> None:
@@ -97,6 +104,14 @@ def profile(card, label, model, params, ecfg, requests) -> None:
     for e in top[:15]:
         print(f"    {getattr(e, 'self_device_time_total', 0) / 1e3:10.2f} ms"
               f"  x{e.count:6d}  {e.key[:90]}")
+    print("  the port's kernels by device time (total over the run):")
+    for stem in KERNELS:
+        hits = [e for e in rows
+                if re.search(rf"(?<![A-Za-z_]){stem}(?:<|I)", e.key)]
+        if hits:
+            t = sum(getattr(e, "self_device_time_total", 0) for e in hits)
+            print(f"    {t / 1e3:10.2f} ms  x{sum(e.count for e in hits):6d}"
+                  f"  {stem}")
     print("  top host ops by CPU time (self):")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in host[:10]:

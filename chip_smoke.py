@@ -23,11 +23,15 @@ Phases (any failure raises and the script exits non-zero):
    (``scaled_dot_product_attention``; for the paged kernels over the
    logical view gathered beforehand, the gather not timed;
    ``F.rms_norm`` for RMSNorm; none for the SSD chunk and WKV6, which no
-   single PyTorch call computes) times from CUDA events (for WKV6 and
-   RMSNorm, whose decode-size calls take less device time than the host
-   takes to issue them, around the replay of a CUDA graph of the calls),
-   beside the least time the card could take (valid keys, causal pairs
-   only);
+   single PyTorch call computes) times from CUDA events (for flash,
+   chunked prefill, WKV6 and RMSNorm, whose calls take about as much
+   device time as the host takes to issue them or less, around the
+   replay of a CUDA graph of the calls, with the eager time on a line of
+   its own), beside the least time the card could take (valid query
+   rows and keys, causal pairs only). First, the bf16 instances of the
+   flash and chunked-prefill kernels: ptxas' registers and spills and
+   their tensor-core (HMMA) instruction counts from ``cuobjdump -sass``
+   (no spill and some HMMA, or it fails; none in the float32 instances);
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. ``llama-paper-1b`` at full width and depth in
@@ -119,6 +123,9 @@ def time_ms(fn, warmup: int = 3, iters: int = 20,
     host's cost of issuing them (ctypes, checks, allocation: ~15 us) is
     timed at that cost; ``graph`` captures the ``iters`` calls in a CUDA
     graph and times its replay, which is the kernels' time alone."""
+    # an earlier call's graph and its memory pool are freed here, not inside
+    # the timed calls (freeing a pool waits for the device)
+    gc.collect()
     # graphs warm up and capture on one side stream: every stream that runs
     # a matmul keeps a cuBLAS workspace for the rest of the process
     stream = _side_stream() if graph else torch.cuda.current_stream()
@@ -186,39 +193,60 @@ def check_wide(got, plain, args, rows, dtype):
 # --------------------------------------------------------------------------
 
 
-def flash_case(FA, REF, B, Hq, Hkv, S, dtype, gen, hd=64):
+def flash_inputs(B, Hq, Hkv, S, dtype, gen, hd=64):
+    """Right-padded prompts in the model's layout: (B,S,H,hd) projections
+    seen as (B,H,S,hd) views, row b holding lens[b] real tokens (row 0
+    full). Returns (q, k, v, pos)."""
     dev = "cuda"
     q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype)
-    # right-padded prompts: row b holds lens[b] real tokens
     lens = torch.randint(S // 4, S + 1, (B,), generator=gen, device=dev)
     lens[0] = S
     ar = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
     pos = torch.where(ar < lens[:, None], ar, torch.full_like(ar, -1))
-    pos = pos.contiguous()
-    # the model's layout: (B,S,H,hd) projections seen as (B,H,S,hd) views
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            pos.contiguous())
+
+
+def flash_work(q, k, v, pos):
+    """(operations, bytes, mask) of one flash call: causal valid pairs;
+    the valid q rows and the K and V rows some valid query sees read once
+    (pad rows need not be read), out written once in full (pad rows 0),
+    the positions."""
+    Hq, Hkv, hd = q.shape[1], k.shape[1], q.shape[-1]
+    mask = (pos[:, None, :, None] >= 0) & (pos[:, None, None, :] >= 0) & \
+        (pos[:, None, None, :] <= pos[:, None, :, None])
+    pairs = float(mask.sum().item()) * Hq
+    q_rows = float((pos >= 0).sum().item())
+    kv_rows = float(mask.any(dim=2).sum().item())
+    nbytes = ((q_rows * Hq + 2 * kv_rows * Hkv) * hd * q.element_size()
+              + q.numel() * q.element_size() + 2 * pos.numel() * 4)
+    return 4.0 * hd * pairs, nbytes, mask
+
+
+def flash_case(FA, REF, B, Hq, Hkv, S, dtype, gen, hd=64):
+    qt, kt, vt, pos = flash_inputs(B, Hq, Hkv, S, dtype, gen, hd)
     got = FA.flash_attention(qt, kt, vt, pos, pos)
     want = REF.flash_attention(qt, kt, vt, pos, pos)
     rows = (pos >= 0)[:, None, :, None].expand_as(want)
     err = check_close(f"flash B{B} H{Hq}/{Hkv} S{S} hd{hd} {dtype}", got, want,
                       rows, dtype)
+    if (got[~rows] != 0).any():
+        raise AssertionError(f"flash B{B} S{S} hd{hd}: a pad query's output "
+                             "is not 0")
     wide = check_wide(got, REF.flash_attention, (qt, kt, vt, pos, pos),
                       rows, dtype)
-    mask = (pos[:, None, :, None] >= 0) & (pos[:, None, None, :] >= 0) & \
-        (pos[:, None, None, :] <= pos[:, None, :, None])
-    pairs = float(mask.sum().item()) * Hq
-    flops = 4.0 * hd * pairs
-    nbytes = float((q.numel() + k.numel() + v.numel() + q.numel())
-                   * q.element_size() + 2 * pos.numel() * 4)
+    flops, nbytes, mask = flash_work(qt, kt, vt, pos)
     bms, by = bound_ms(flops, nbytes, dtype)
-    ms = time_ms(lambda: FA.flash_attention(qt, kt, vt, pos, pos))
-    plain = time_ms(lambda: REF.flash_attention(qt, kt, vt, pos, pos))
+    ms = time_ms(lambda: FA.flash_attention(qt, kt, vt, pos, pos), graph=True)
+    plain = time_ms(lambda: REF.flash_attention(qt, kt, vt, pos, pos),
+                    graph=True)
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
+        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), graph=True)
+    eager = time_ms(lambda: FA.flash_attention(qt, kt, vt, pos, pos))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, wide=wide)
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
 def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
@@ -299,8 +327,8 @@ def paged_pool(B, Hkv, ps, M, hd, lens, dtype, gen, S=None, shared=True):
 def paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd, e, S=None):
     """(operations, bytes) the paged function must move at least: valid
     (query, key) pairs for the operations; each valid pool row read once
-    (a page mapped by two slots counted once), q and out once, and the
-    table and positions."""
+    (a page mapped by two slots counted once), the valid q rows read
+    once, out written once in full, and the table and positions."""
     qp = q_pos if S is not None else q_pos[:, None]
     ok = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= qp[:, :, None])
     pairs = float(ok.sum().item())
@@ -310,9 +338,9 @@ def paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd, e, S=None):
     phys = tbl[:, lp].long() * ps + torch.arange(
         M * ps, device=tbl.device) % ps
     rows = float(phys[key_valid & (tbl[:, lp] >= 0)].unique().numel())
-    n_q = q_pos.numel()
+    n_q, q_rows = q_pos.numel(), float((q_pos >= 0).sum().item())
     flops = 4.0 * hd * pairs * Hq
-    nbytes = (rows * Hkv * 2 * hd * e + 2 * n_q * Hq * hd * e
+    nbytes = (rows * Hkv * 2 * hd * e + (q_rows + n_q) * Hq * hd * e
               + (tbl.numel() + k_pos.numel() + q_pos.numel()) * 4)
     return flops, nbytes
 
@@ -343,37 +371,53 @@ def paged_case(PD, REF, B, Hq, Hkv, lens, dtype, gen, ps=16, M=128, hd=64):
                 bound_ms=bms, bound_by=by, wide=wide)
 
 
+def chunk_inputs(Hq, Hkv, lens, S, dtype, gen, ps=16, M=128, hd=64):
+    """One chunked-prefill launch's operands: slot b holds lens[b] tokens,
+    of which the last min(S, len) are its chunk (the history before them);
+    q in the model's (B,S,H,hd) layout seen as (B,H,S,hd). Returns (q,
+    k_pages, v_pages, tbl, q_pos, k_pos)."""
+    B = len(lens)
+    kp, vp, tbl, q_pos, k_pos = paged_pool(B, Hkv, ps, M, hd, lens, dtype,
+                                           gen, S=S, shared=False)
+    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+    return q.transpose(1, 2), kp, vp, tbl, q_pos, k_pos
+
+
+def chunk_sdpa(q, kp, vp, tbl, q_pos, k_pos):
+    """``scaled_dot_product_attention`` over the logical view gathered
+    beforehand (the gather not timed), pad rows unmasked (no NaN)."""
+    from repro_torch.kernels import ref as REF
+    kk, vv = REF.logical_view(kp, tbl), REF.logical_view(vp, tbl)
+    mask = ((k_pos[:, None, :] >= 0)
+            & (k_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+    mask = mask | (q_pos < 0)[:, None, :, None]
+    gqa = q.shape[1] != kp.shape[0]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, vv, attn_mask=mask, enable_gqa=gqa)
+
+
 def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128):
     """One chunked-prefill launch: slot b holds lens[b] tokens, of which
     the last min(S, len) are its chunk (the history before them)."""
     hd = 64
     B = len(lens)
-    kp, vp, tbl, q_pos, k_pos = paged_pool(B, Hkv, ps, M, hd, lens, dtype,
-                                           gen, S=S, shared=False)
-    q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
-    qt = q.transpose(1, 2)                  # the model's (B,S,H,hd) layout
-    got = CP.chunked_prefill_attention(qt, kp, vp, tbl, q_pos, k_pos)
-    want = REF.chunked_prefill_attention(qt, kp, vp, tbl, q_pos, k_pos)
+    args = chunk_inputs(Hq, Hkv, lens, S, dtype, gen, ps, M, hd)
+    qt, kp, vp, tbl, q_pos, k_pos = args
+    got = CP.chunked_prefill_attention(*args)
+    want = REF.chunked_prefill_attention(*args)
     rows = (q_pos >= 0)[:, None, :, None].expand_as(want)
     err = check_close(f"chunk B{B} H{Hq}/{Hkv} S{S} {dtype}", got, want,
                       rows, dtype)
-    wide = check_wide(got, REF.chunked_prefill_attention,
-                      (qt, kp, vp, tbl, q_pos, k_pos), rows, dtype)
+    wide = check_wide(got, REF.chunked_prefill_attention, args, rows, dtype)
     flops, nbytes = paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd,
-                                  q.element_size(), S=S)
+                                  qt.element_size(), S=S)
     bms, by = bound_ms(flops, nbytes, dtype)
-    ms = time_ms(lambda: CP.chunked_prefill_attention(qt, kp, vp, tbl, q_pos,
-                                                      k_pos))
-    plain = time_ms(lambda: REF.chunked_prefill_attention(qt, kp, vp, tbl,
-                                                          q_pos, k_pos))
-    kk, vv = REF.logical_view(kp, tbl), REF.logical_view(vp, tbl)
-    mask = ((k_pos[:, None, :] >= 0)
-            & (k_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
-    mask = mask | (q_pos < 0)[:, None, :, None]   # pad rows: no NaN
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kk, vv, attn_mask=mask, enable_gqa=Hq != Hkv))
+    ms = time_ms(lambda: CP.chunked_prefill_attention(*args), graph=True)
+    plain = time_ms(lambda: REF.chunked_prefill_attention(*args), graph=True)
+    lib = time_ms(chunk_sdpa(*args), graph=True)
+    eager = time_ms(lambda: CP.chunked_prefill_attention(*args))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, wide=wide)
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
 def ssd_case(SSD, REF, B, H, T, cl, P, N, dtype, gen):
@@ -482,7 +526,60 @@ def rmsnorm_case(RMS, REF, R, d, dtype, gen, eps=1e-5):
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
+def tensor_core_report(card):
+    """The bf16 instances of the two prefill attention kernels: ptxas'
+    registers and spills per instance, and the tensor-core (HMMA)
+    instructions in their SASS (``cuobjdump -sass``). Raises if a bf16 instance spills or
+    has no HMMA, or a float32 instance has one."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    print(f"\n[tensor cores] bf16 prefill attention instances ({card})")
+    for lib in ("flash_attention", "chunked_prefill_attention"):
+        entries, cur = {}, None
+        for line in build.ptxas_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = entries.setdefault(m.group(1), {"ptxas": []})
+            elif cur is not None and ("spill" in line or "registers" in line):
+                cur["ptxas"].append(line.strip())
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.build([lib])[lib])],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                entries.setdefault(fn, {"ptxas": []})["hmma"] = 0
+            elif fn is not None and "HMMA" in line:
+                entries[fn]["hmma"] += 1
+        named = []
+        for name, e in entries.items():
+            m = re.search(r"((?:flash|chunk)_(?:tc|fwd)_kernel)ILi(\d+)E",
+                          name)
+            if m:
+                named.append((m.group(1), int(m.group(2)), e))
+        for kernel, hd, e in sorted(named, key=lambda x: x[:2]):
+            hmma = e.get("hmma", 0)
+            tensor = "_tc_" in kernel
+            spills = [int(x) for line in e["ptxas"] if "spill" in line
+                      for x in re.findall(r"(\d+) bytes spill", line)]
+            print(f"  {kernel}<{hd}>: HMMA {hmma}; "
+                  + "; ".join(e["ptxas"]))
+            if tensor and (hmma == 0 or any(spills)):
+                raise AssertionError(f"{kernel}<{hd}>: HMMA {hmma}, spill "
+                                     f"bytes {spills}")
+            if not tensor and hmma:
+                raise AssertionError(f"{kernel}<{hd}>: float32 body has "
+                                     f"{hmma} HMMA")
+
+
 def phase_kernels(card):
+    tensor_core_report(card)
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as REF
@@ -580,9 +677,9 @@ def phase_kernels(card):
           "the largest of y_intra, h_chunk and decay, no single library "
           "call; wkv6: the larger of out and the final state, no single "
           "library call; rmsnorm: the library column is F.rms_norm)")
-    print("  (wkv6 and rmsnorm: ms, plain_ms and sdpa_ms from the replay of "
-          "a CUDA graph of the calls, the kernels' time alone; launched "
-          "eagerly, one call of the kernel takes:)")
+    print("  (flash, chunk, wkv6 and rmsnorm: ms, plain_ms and sdpa_ms from "
+          "the replay of a CUDA graph of the calls, the kernels' time alone; "
+          "launched eagerly, one call of the kernel takes:)")
     for label, r in cases:
         if "eager_ms" in r:
             print(f"    {label:36s} eager {r.pop('eager_ms'):9.4f} ms")

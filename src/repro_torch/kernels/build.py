@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` file has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/kernels``
 at the repository root, at first use. Each library is keyed by a hash of
-its source and the compiler flags, so an edited source rebuilds and an
-unchanged one is reused. Builds of several sources run in parallel, one
-``nvcc`` each. ``nvcc -Xptxas -v`` output (registers, shared memory,
-spills per kernel) is kept beside each library as ``<name>-<hash>.log``.
+its source, the shared ``csrc/*.cuh`` headers and the compiler flags, so
+an edited source or header rebuilds and an unchanged one is reused.
+Builds of several sources run in parallel, one ``nvcc`` each. ``nvcc
+-Xptxas -v`` output (registers, shared memory, spills per kernel) is kept
+beside each library as ``<name>-<hash>.log``.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a host with no ``nvcc``.
@@ -67,24 +68,34 @@ def nvcc_path() -> str:
                        "toolkit")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+def _target(name: str, csrc: Path | None = None) -> Path:
+    """The library of ``<csrc>/<name>.cu`` (``csrc`` defaults to this
+    package's ``CSRC``), keyed by the source, every ``*.cuh`` header
+    beside it (a source may include any of them) and the flags, so
+    sources of another tree get libraries of their own in ``BUILD_DIR``."""
+    csrc = csrc or CSRC
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every source in ``names`` whose library is missing, all
-    ``nvcc`` processes started together; raise with the compiler's output
-    if one fails. Returns name -> library path."""
+def build(names: Sequence[str] = SOURCES,
+          csrc: Path | None = None) -> Dict[str, Path]:
+    """Compile every source in ``names`` (from ``csrc``, by default this
+    package's) whose library is missing, all ``nvcc`` processes started
+    together; raise with the compiler's output if one fails. Returns
+    name -> library path."""
+    csrc = csrc or CSRC
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {n: _target(n, csrc) for n in names}
     procs = {}
     for n, out in targets.items():
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
@@ -103,16 +114,17 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     return targets
 
 
-def ptxas_log(name: str) -> str:
+def ptxas_log(name: str, csrc: Path | None = None) -> str:
     """The ``-Xptxas -v`` report of the built library ``name``."""
-    return _target(name).with_suffix(".log").read_text()
+    return _target(name, csrc).with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str):
-    """The entry point of ``csrc/<name>.cu``, built if needed, with every
-    ``argtypes`` set (pointers and the stream as ``c_void_p``)."""
-    path = build([name])[name]
+def library(name: str, csrc: Path | None = None):
+    """The entry point of ``<csrc>/<name>.cu`` (by default this
+    package's), built if needed, with every ``argtypes`` set (pointers and
+    the stream as ``c_void_p``)."""
+    path = build([name], csrc)[name]
     lib = ctypes.CDLL(str(path))
     sym, argtypes = ARGTYPES[name]
     fn = getattr(lib, sym)

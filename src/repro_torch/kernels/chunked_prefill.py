@@ -6,7 +6,9 @@ A chunk of S prompt queries per slot scores the slot's whole logical
 history through the block table. q is read, and the output written,
 through strides: the model passes a (B, Hq, S, hd) view of its (B, S, Hq,
 hd) projection and gets back a view of a (B, S, Hq, hd) buffer, so the
-head merge after attention is a free reshape.
+head merge after attention is a free reshape. A bf16 q must have 16-byte
+aligned rows with unit d stride (the kernel copies rows with
+``cp.async``); the pools always must.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPES, check_common
+from repro_torch.kernels.flash_attention import (DTYPES, check_bf16_rows,
+                                                 check_common)
 from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
 HEAD_DIMS = (32, 64, 128)
@@ -42,6 +45,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     M = block_tbl.shape[1]
     if q_pos.shape != (B, S):
         raise ValueError("q_pos must be (B, S)")
+    check_bf16_rows(q=q)           # the pools: check_pool
     tbl = block_tbl.contiguous()
     q_pos, k_pos = q_pos.contiguous(), k_pos.contiguous()
     out = torch.empty((B, S, Hq, hd), dtype=q.dtype,

@@ -15,38 +15,31 @@
 // What bounds it on the H100: at the main path's chunk of S = 256 queries
 // per slot over a history of up to ~1k keys, 4*S*keys*hd operations per
 // head against (S + 2*keys)*hd*2 bytes: ~100 operations per byte in bf16,
-// under the ~295 of the ridge, so bytes on paper; this first kernel, on
-// the CUDA cores in f32 FMA, is bound by its own arithmetic long before
-// either.
+// under the ~295 of the ridge, so bound by bytes.
 //
 // What this design does about that: the TPU kernel keeps the whole
 // (group*S, hd) query chunk resident in VMEM, which does not fit one
-// Hopper block. Here the queries are tiled across blocks, grid (ceil(S /
-// 64), Hq, B); the TPU's sequential grid axis over logical pages becomes a
-// loop inside the block over tiles of 64 logical keys, with the running
-// softmax state (m, l, acc) in registers and the q tile in shared memory
-// for the whole loop. Each key tile first loads its positions and its
-// rows' 64-bit pool offsets (table entry per logical page, read by the
-// block itself); the tile is skipped when the positions prove every
-// (query, key) pair masked — never from the table — so a causal chunk at
-// the head of a long table reads only its history's pages. K/V rows are
-// then staged in shared memory (one page of one head is ps*hd contiguous
-// elements, read with coalesced loads). mma.sync, then wgmma + TMA, are
-// the next steps toward the operations bound.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+// Hopper block; here the queries are tiled across blocks, grid (ceil(S /
+// 64), Hq, B), and the TPU's sequential grid axis over logical pages
+// becomes the key loop of the block. bf16 runs the shared tensor-core tile
+// core of attention_tile.cuh (mma.sync products, cp.async double-buffered
+// K/V tiles, tiles the positions prove masked skipped, so a causal chunk at
+// the head of a long table reads only its history's pages); this file gives
+// it only where a key row lives: logical key kj of slot b at physical page
+// tbl[b, kj / ps] (-1 or out of range -> the trash page P1 - 1), row kj %
+// ps, read by the block itself. The float32 instance keeps the first
+// kernel's f32 FMA body on the CUDA cores (the 1e-4 float32 check): each
+// key tile loads its positions and its rows' 64-bit pool offsets, then
+// stages K transposed and V in f32 shared memory.
+#include "attention_tile.cuh"
 
 namespace {
 
+using namespace attn;
+
 constexpr int BQ = 64;        // queries per block
 constexpr int BK = 64;        // logical keys per kv tile
-constexpr int THREADS = 128;  // 16 row groups (4 rows each) x 8 column lanes
-constexpr float NEG_INF_SCORE = -1e9f;  // finite mask value of the oracle
-
-struct Strides4 {
-  long long b, h, s, d;
-};
+constexpr int THREADS = 128;  // float32: 16 row groups (4 rows) x 8 lanes
 
 struct ChunkArgs {
   const void* q;     // (B, Hq, S, hd), strides sq
@@ -62,28 +55,63 @@ struct ChunkArgs {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ---- bf16: the shared tensor-core core, keys through the block table
+
+struct PagedKeys {
+  const tc::bf16* k;  // page 0, row 0 of the kv head
+  const tc::bf16* v;
+  const int* tbl;     // (M,) of the slot
+  long long sk_p, sk_r, sv_p, sv_r;
+  int ps, P1;
+  __device__ __forceinline__ int locate(int kj) const {
+    return __ldg(tbl + kj / ps);
+  }
+  __device__ __forceinline__ void rows(int kj, int pg, const tc::bf16*& kr,
+                                       const tc::bf16*& vr) const {
+    if (pg < 0 || pg >= P1) pg = P1 - 1;  // unmapped: the trash page
+    const long long r = kj % ps;
+    kr = k + pg * sk_p + r * sk_r;
+    vr = v + pg * sv_p + r * sv_r;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    chunk_tc_kernel(ChunkArgs a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.group;
+  const int W = a.M * a.ps;
+  tc::Tile p;
+  p.q = (const tc::bf16*)a.q + b * a.sq.b + h * a.sq.h;
+  p.out = (tc::bf16*)a.out + b * a.so.b + h * a.so.h;
+  p.q_s = a.sq.s;
+  p.o_s = a.so.s;
+  p.qpos = a.qpos + (long long)b * a.S;
+  p.kpos = a.kpos + (long long)b * W;
+  p.Sq = a.S;
+  p.Sk = W;
+  p.window = a.window;
+  p.chunk = a.chunk;
+  p.scale_log2 = a.scale * tc::LOG2E;
+  const PagedKeys keys{(const tc::bf16*)a.k + hk * a.sk_h,
+                       (const tc::bf16*)a.v + hk * a.sv_h,
+                       a.tbl + (long long)b * a.M,
+                       a.sk_p, a.sk_r, a.sv_p, a.sv_r, a.ps, a.P1};
+  tc::attention_tile<HD>(p, keys, tc_smem);
 }
 
-__device__ __forceinline__ bool allowed(int qp, int kp, int window,
-                                        int chunk) {
-  bool ok = (kp >= 0) && (kp <= qp);
-  if (window > 0) ok = ok && (kp > qp - window);
-  if (chunk > 0) ok = ok && (kp / chunk == qp / chunk);
-  return ok;
+template <int HD>
+cudaError_t launch_bf16(const ChunkArgs& a, cudaStream_t stream) {
+  const int W = a.M * a.ps;
+  const size_t smem = tc::Layout<HD>::bytes((W + tc::BK - 1) / tc::BK);
+  cudaError_t err = allow_smem<chunk_tc_kernel<HD>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + tc::BQ - 1) / tc::BQ, a.Hq, a.B);
+  chunk_tc_kernel<HD><<<grid, tc::THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
+
+// ---- float32: f32 FMA on the CUDA cores
 
 template <int HD>
 constexpr size_t chunk_smem_bytes() {
@@ -93,7 +121,7 @@ constexpr size_t chunk_smem_bytes() {
          (size_t)(BK + BQ) * sizeof(int);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
   constexpr int DJ = HD / 8;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -115,16 +143,15 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
   const int hk = h / a.group;
   const int W = a.M * a.ps;
 
-  const T* Q = (const T*)a.q + b * a.sq.b + h * a.sq.h;
-  const T* K = (const T*)a.k + hk * a.sk_h;
-  const T* V = (const T*)a.v + hk * a.sv_h;
+  const float* Q = (const float*)a.q + b * a.sq.b + h * a.sq.h;
+  const float* K = (const float*)a.k + hk * a.sk_h;
+  const float* V = (const float*)a.v + hk * a.sv_h;
   const int* TB = a.tbl + (long long)b * a.M;
   const int* KP = a.kpos + (long long)b * W;
 
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
-    q_s[r * (HD + 1) + d] =
-        qi < a.S ? to_f32(Q[qi * a.sq.s + d * a.sq.d]) : 0.f;
+    q_s[r * (HD + 1) + d] = qi < a.S ? Q[qi * a.sq.s + d * a.sq.d] : 0.f;
   }
   for (int r = tid; r < BQ; r += THREADS) {
     const int qi = q0 + r;
@@ -173,8 +200,8 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
       const int c = i / HD, d = i % HD, kj = k0 + c;
       float kv = 0.f, vv = 0.f;
       if (kj < W) {
-        kv = to_f32(K[koff_s[c] + d]);
-        vv = to_f32(V[voff_s[c] + d]);
+        kv = K[koff_s[c] + d];
+        vv = V[voff_s[c] + d];
       }
       kt_s[d * (BK + 1) + c] = kv;
       v_s[c * HD + d] = vv;
@@ -252,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
     __syncthreads();
   }
 
-  T* O = (T*)a.out + b * a.so.b + h * a.so.h;
+  float* O = (float*)a.out + b * a.so.b + h * a.so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
@@ -263,20 +290,17 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
     const bool pad = qp[i] < 0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      O[qi * a.so.s + (tx + 8 * j) * a.so.d] =
-          from_f32<T>(pad ? 0.f : acc[i][j] / denom);
+      O[qi * a.so.s + (tx + 8 * j) * a.so.d] = pad ? 0.f : acc[i][j] / denom;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const ChunkArgs& a, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const ChunkArgs& a, cudaStream_t stream) {
   const size_t smem = chunk_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = allow_smem<chunk_fwd_kernel<HD>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, a.B);
-  chunk_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
+  chunk_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -329,11 +353,11 @@ extern "C" int chunked_prefill_attention_fwd(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && hd == 32) return (int)launch<float, 32>(a, st);
-  if (dtype == 0 && hd == 64) return (int)launch<float, 64>(a, st);
-  if (dtype == 0 && hd == 128) return (int)launch<float, 128>(a, st);
-  if (dtype == 1 && hd == 32) return (int)launch<__nv_bfloat16, 32>(a, st);
-  if (dtype == 1 && hd == 64) return (int)launch<__nv_bfloat16, 64>(a, st);
-  if (dtype == 1 && hd == 128) return (int)launch<__nv_bfloat16, 128>(a, st);
+  if (dtype == 0 && hd == 32) return (int)launch_f32<32>(a, st);
+  if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
+  if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
+  if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
+  if (dtype == 1 && hd == 64) return (int)launch_bf16<64>(a, st);
+  if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
   return (int)cudaErrorInvalidValue;
 }

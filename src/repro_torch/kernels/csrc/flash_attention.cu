@@ -4,41 +4,36 @@
 // src/repro/kernels/flash_attention.py: causal attention by explicit
 // positions (-1 = invalid slot), optional sliding window and chunked
 // (local) attention, GQA by the uniform divide kv_head = h / group, f32
-// accumulation, output in the input type.
+// accumulation, output in the input type; a pad query writes 0.
 //
-// What bounds it on the H100: at long S the work is 4*S^2*hd operations
-// against ~4*S*hd*2 bytes of q/k/v/o per head, so past a few hundred
-// tokens it is bound by operations, not bytes.
+// What bounds it on the H100: at the main paths' prompts (S = 512,
+// right-padded, hd 64 and 112) the q/k/v/o bytes over 3.35 TB/s exceed the
+// causal pairs' 4*hd operations each over 989 TFLOP/s, so bytes on paper;
+// past a few thousand tokens it is bound by operations.
 //
-// What this design does about that: one block owns a (batch, q head,
-// 64-query tile); the TPU's sequential kv grid axis becomes a loop inside
-// the block, with the running softmax state (m, l, acc) in registers. The
-// q tile stays in shared memory for the whole loop and every K/V tile is
-// read from device memory once per q tile. A kv tile is skipped only when
-// the positions prove every (query, key) pair of it masked, so a causal
-// prefill does about half the work. This first kernel multiplies with f32
-// FMA on the CUDA cores (exact enough for the 1e-4 float32 check); moving
-// the two products onto tensor cores (mma.sync, then wgmma + TMA) is the
-// next step toward the operations bound.
+// What this design does about that: bf16 runs the shared tensor-core tile
+// core of attention_tile.cuh (mma.sync products, cp.async double-buffered
+// K/V tiles, tiles the positions prove masked skipped); this file gives it
+// only where a key row lives: row kj of (batch, kv head) at
+// k + b*sk.b + hk*sk.h + kj*sk.s, d stride 1. The float32 instance keeps
+// the first kernel's f32 FMA body on the CUDA cores (the 1e-4 float32
+// check, which TF32 could not meet): one block per (batch, q head,
+// 64-query tile), the q tile in shared memory, each K/V tile staged
+// transposed in f32.
 //
 // Layout: q (B,Hq,Sq,hd), k/v (B,Hkv,Sk,hd), out (B,Hq,Sq,hd), each given
 // by four element strides, so the caller passes head-transposed views of
 // (B,S,H,hd) projections without copies. Ragged Sq/Sk edges are masked
 // here; nothing is padded on the host.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_tile.cuh"
 
 namespace {
 
+using namespace attn;
+
 constexpr int BQ = 64;        // queries per block
 constexpr int BK = 64;        // keys per kv tile
-constexpr int THREADS = 128;  // 16 row groups (4 rows each) x 8 column lanes
-constexpr float NEG_INF_SCORE = -1e9f;  // finite mask value of the oracle
-
-struct Strides4 {
-  long long b, h, s, d;
-};
+constexpr int THREADS = 128;  // float32: 16 row groups (4 rows) x 8 lanes
 
 struct FlashArgs {
   const void* q;
@@ -52,30 +47,54 @@ struct FlashArgs {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ---- bf16: the shared tensor-core core, keys from a strided tensor
+
+struct ContiguousKeys {
+  const tc::bf16* k;  // row 0 of (batch, kv head)
+  const tc::bf16* v;
+  long long sk, sv;   // row strides
+  __device__ __forceinline__ int locate(int) const { return 0; }
+  __device__ __forceinline__ void rows(int kj, int, const tc::bf16*& kr,
+                                       const tc::bf16*& vr) const {
+    kr = k + kj * sk;
+    vr = v + kj * sv;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    flash_tc_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.group;
+  tc::Tile p;
+  p.q = (const tc::bf16*)a.q + b * a.sq.b + h * a.sq.h;
+  p.out = (tc::bf16*)a.out + b * a.so.b + h * a.so.h;
+  p.q_s = a.sq.s;
+  p.o_s = a.so.s;
+  p.qpos = a.qpos + (long long)b * a.Sq;
+  p.kpos = a.kpos + (long long)b * a.Sk;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.window = a.window;
+  p.chunk = a.chunk;
+  p.scale_log2 = a.scale * tc::LOG2E;
+  const ContiguousKeys keys{
+      (const tc::bf16*)a.k + b * a.sk.b + hk * a.sk.h,
+      (const tc::bf16*)a.v + b * a.sv.b + hk * a.sv.h, a.sk.s, a.sv.s};
+  tc::attention_tile<HD>(p, keys, tc_smem);
 }
 
-// 0 <= kp <= qp, plus window / chunk when > 0 (the && chain keeps the
-// integer divisions on non-negative operands only).
-__device__ __forceinline__ bool allowed(int qp, int kp, int window,
-                                        int chunk) {
-  bool ok = (kp >= 0) && (kp <= qp);
-  if (window > 0) ok = ok && (kp > qp - window);
-  if (chunk > 0) ok = ok && (kp / chunk == qp / chunk);
-  return ok;
+template <int HD>
+cudaError_t launch_bf16(const FlashArgs& a, cudaStream_t stream) {
+  const size_t smem = tc::Layout<HD>::bytes((a.Sk + tc::BK - 1) / tc::BK);
+  cudaError_t err = allow_smem<flash_tc_kernel<HD>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + tc::BQ - 1) / tc::BQ, a.Hq, a.B);
+  flash_tc_kernel<HD><<<grid, tc::THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
+
+// ---- float32: f32 FMA on the CUDA cores
 
 template <int HD>
 constexpr size_t flash_smem_bytes() {
@@ -84,7 +103,7 @@ constexpr size_t flash_smem_bytes() {
          (size_t)(BK + BQ) * sizeof(int);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
   constexpr int DJ = HD / 8;  // output columns per thread
   extern __shared__ float smem[];
@@ -103,14 +122,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
   const int b = blockIdx.z;
   const int hk = h / a.group;
 
-  const T* Q = (const T*)a.q + b * a.sq.b + h * a.sq.h;
-  const T* K = (const T*)a.k + b * a.sk.b + hk * a.sk.h;
-  const T* V = (const T*)a.v + b * a.sv.b + hk * a.sv.h;
+  const float* Q = (const float*)a.q + b * a.sq.b + h * a.sq.h;
+  const float* K = (const float*)a.k + b * a.sk.b + hk * a.sk.h;
+  const float* V = (const float*)a.v + b * a.sv.b + hk * a.sv.h;
 
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
-    q_s[r * (HD + 1) + d] =
-        qi < a.Sq ? to_f32(Q[qi * a.sq.s + d * a.sq.d]) : 0.f;
+    q_s[r * (HD + 1) + d] = qi < a.Sq ? Q[qi * a.sq.s + d * a.sq.d] : 0.f;
   }
   for (int r = tid; r < BQ; r += THREADS) {
     const int qi = q0 + r;
@@ -150,8 +168,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
       const int c = i / HD, d = i % HD, kj = k0 + c;
       float kv = 0.f, vv = 0.f;
       if (kj < a.Sk) {
-        kv = to_f32(K[kj * a.sk.s + d * a.sk.d]);
-        vv = to_f32(V[kj * a.sv.s + d * a.sv.d]);
+        kv = K[kj * a.sk.s + d * a.sk.d];
+        vv = V[kj * a.sv.s + d * a.sv.d];
       }
       kt_s[d * (BK + 1) + c] = kv;
       v_s[c * HD + d] = vv;
@@ -229,29 +247,28 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
     __syncthreads();
   }
 
-  // a row no tile reached (a pad query, q_pos = -1) has l = 0: the 1e-30
-  // clamp gives 0, finite
-  T* O = (T*)a.out + b * a.so.b + h * a.so.h;
+  // a pad query (q_pos = -1) writes 0; a row no tile reached has l = 0
+  // and the 1e-30 clamp keeps it finite
+  float* O = (float*)a.out + b * a.so.b + h * a.so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= a.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    const bool pad = qp[i] < 0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      O[qi * a.so.s + (tx + 8 * j) * a.so.d] = from_f32<T>(acc[i][j] / denom);
+      O[qi * a.so.s + (tx + 8 * j) * a.so.d] = pad ? 0.f : acc[i][j] / denom;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = allow_smem<flash_fwd_kernel<HD>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.Hq, a.B);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -291,13 +308,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && hd == 32) return (int)launch<float, 32>(a, st);
-  if (dtype == 0 && hd == 64) return (int)launch<float, 64>(a, st);
-  if (dtype == 0 && hd == 112) return (int)launch<float, 112>(a, st);
-  if (dtype == 0 && hd == 128) return (int)launch<float, 128>(a, st);
-  if (dtype == 1 && hd == 32) return (int)launch<__nv_bfloat16, 32>(a, st);
-  if (dtype == 1 && hd == 64) return (int)launch<__nv_bfloat16, 64>(a, st);
-  if (dtype == 1 && hd == 112) return (int)launch<__nv_bfloat16, 112>(a, st);
-  if (dtype == 1 && hd == 128) return (int)launch<__nv_bfloat16, 128>(a, st);
+  if (dtype == 0 && hd == 32) return (int)launch_f32<32>(a, st);
+  if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
+  if (dtype == 0 && hd == 112) return (int)launch_f32<112>(a, st);
+  if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
+  if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
+  if (dtype == 1 && hd == 64) return (int)launch_bf16<64>(a, st);
+  if (dtype == 1 && hd == 112) return (int)launch_bf16<112>(a, st);
+  if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,20 +14,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_common
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
+                                                 check_common, row_aligned)
 
 GROUPS = (1, 2, 4, 8)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
-
-
-def row_aligned(t: torch.Tensor) -> bool:
-    """Every (b, h, s) row starts on a 16-byte boundary with unit d stride:
-    the kernel reads K rows with 16-byte vector loads."""
-    e = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all((s * e) % 16 == 0 for s in t.stride()[:-1]))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,6 +5,10 @@ The kernel reads q/k/v through their strides and writes its output
 through strides too: the result is a (B, Hq, Sq, hd) view of a
 (B, Sq, Hq, hd) buffer, so the model's head merge after attention is a
 free reshape. It masks the ragged Sq/Sk edges itself; nothing is padded.
+The bf16 instance copies 16-byte pieces of rows with ``cp.async``, so it
+takes only operands whose rows are 16-byte aligned with unit d stride
+(the model's (B, S, H, hd) projections and their head-transposed views
+are) and raises on any other; there is no copy and no fallback.
 """
 from __future__ import annotations
 
@@ -20,6 +24,24 @@ HEAD_DIMS = (32, 64, 112, 128)    # 112: Zamba2's shared attention
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
+
+
+def row_aligned(t: torch.Tensor) -> bool:
+    """Every row (all indices but the last) starts on a 16-byte boundary
+    with unit d stride: the kernels read rows in 16-byte pieces."""
+    e = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all((s * e) % 16 == 0 for s in t.stride()[:-1]))
+
+
+def check_bf16_rows(**tensors: torch.Tensor) -> None:
+    """The bf16 prefill kernels copy rows with 16-byte ``cp.async``: raise
+    on an operand whose rows are not 16-byte aligned with unit d stride."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and not row_aligned(t):
+            raise ValueError(
+                f"bf16 {name} (strides {t.stride()}) needs unit d stride and "
+                "16-byte aligned rows: the kernel copies rows with cp.async")
 
 
 def check_common(q, k, v, q_pos, k_pos, window, chunk) -> None:
@@ -44,8 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
                     window: Optional[int] = None,
                     chunk: Optional[int] = None) -> torch.Tensor:
-    """q: (B,Hq,Sq,hd); k/v: (B,Hkv,Sk,hd); q_pos: (B,Sq); k_pos: (B,Sk)
-    int32, all on one CUDA device. Returns (B,Hq,Sq,hd) in q.dtype."""
+    """q: (B,Hq,Sq,hd); k/v: (B,Hkv,Sk,hd); q_pos: (B,Sq) (-1 = pad
+    query, output 0); k_pos: (B,Sk) int32, all on one CUDA device.
+    Returns (B,Hq,Sq,hd) in q.dtype."""
     global launches
     check_common(q, k, v, q_pos, k_pos, window, chunk)
     B, Hq, Sq, hd = q.shape
@@ -59,6 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if q_pos.shape != (B, Sq) or k_pos.shape != (B, Sk):
         raise ValueError("positions must be (B, Sq) and (B, Sk)")
+    check_bf16_rows(q=q, k=k, v=v)
     q_pos, k_pos = q_pos.contiguous(), k_pos.contiguous()
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

@@ -15,8 +15,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import GROUPS, row_aligned
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_common
+from repro_torch.kernels.decode_attention import GROUPS
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
+                                                 check_common, row_aligned)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

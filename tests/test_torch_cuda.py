@@ -6,10 +6,16 @@ card. Marked ``cuda``: on a host without a card every test skips (the
 
 Tolerances: float32 1e-4 (f32 FMA in another order); bf16 2e-2 abs and
 rel (the kernel rounds once at its output, the plain version after an f32
-softmax and product: one bf16 ulp apart at most). WKV6: float32 1e-5,
-relative and absolute against the largest magnitude of the output, in
-either input type (both versions compute in float32; under the model's
-decay the state's terms reach ~100 while some outputs cancel to ~0.1)."""
+softmax and product: one bf16 ulp apart at most); the bf16 tensor-core
+prefill kernels also against the plain version run in float32 on the
+same bf16 inputs, atol 2e-3 and rtol 1e-2 (``chip_smoke.py``'s check:
+the kernels accumulate in float32 and round once at the store). WKV6:
+float32 1e-5, relative and absolute against the largest magnitude of the
+output, in either input type (both versions compute in float32; under
+the model's decay the state's terms reach ~100 while some outputs cancel
+to ~0.1)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +28,7 @@ from repro_torch.kernels import wkv6
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_WIDE = (2e-3, 1e-2)   # bf16 kernel vs the float32 plain version
 
 
 @pytest.fixture
@@ -205,6 +212,143 @@ def test_chunked_prefill_kernel_matches_plain(cuda_device, dtype, group, ps,
                                atol=TOL[dtype], rtol=TOL[dtype])
     pads = (qp < 0)[:, None, :, None].expand_as(got)
     assert (got.float()[pads] == 0).all()          # pad queries write 0
+
+
+def _check_bf16(got, plain, args, rows):
+    """A bf16 kernel's output on ``rows``: within TOL of ``plain`` on the
+    same bf16 inputs and within TOL_WIDE of ``plain`` run in float32 on
+    them."""
+    assert torch.isfinite(got.float()).all()
+    want = plain(*args)
+    torch.testing.assert_close(got.float()[rows], want.float()[rows],
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    wide = plain(*[a.float() if a.is_floating_point() else a for a in args])
+    torch.testing.assert_close(got.float()[rows], wide[rows],
+                               atol=TOL_WIDE[0], rtol=TOL_WIDE[1])
+
+
+@pytest.mark.parametrize("group,S,hd,window,chunk,layout,pads", [
+    (2, 77, 64, None, None, "heads", "ragged"),     # S % 16, S % 64 != 0
+    (2, 190, 112, 40, None, "heads", "ragged"),     # hd 112 with a window
+    (8, 150, 64, None, None, "heads", "ragged"),    # GQA group 8
+    (1, 200, 128, None, 48, "heads", "none"),       # chunked local attention
+    (2, 100, 64, None, None, "heads", "slot"),      # one slot all pads
+    (4, 129, 112, None, None, "fused", "ragged"),   # rows of a fused qkv
+    (1, 33, 32, 8, None, "heads", "ragged"),
+])
+def test_flash_bf16_tensor_core_cases(cuda_device, group, S, hd, window,
+                                      chunk, layout, pads):
+    """The bf16 tensor-core flash kernel on the shapes that reach its
+    edges: ragged q and key tiles, hd 112, group 8, window and chunk masks,
+    pad rows (0 out, a whole slot of them too), and q/k/v read as column
+    blocks of one fused (B, S, (Hq + 2 Hkv) hd) projection (row stride
+    (Hq + 2 Hkv) hd)."""
+    gen = torch.Generator().manual_seed(S * 10 + group)
+    B, Hkv = 3, 2
+    Hq = Hkv * group
+    dev = cuda_device
+    if layout == "fused":
+        buf = torch.randn(B, S, (Hq + 2 * Hkv) * hd, generator=gen).to(
+            torch.bfloat16).to(dev)
+        q, k, v = (t.unflatten(-1, (-1, hd)) for t in
+                   buf.split([Hq * hd, Hkv * hd, Hkv * hd], dim=-1))
+        assert q.stride(1) == (Hq + 2 * Hkv) * hd
+    else:
+        q, k, v = (torch.randn(B, S, H, hd, generator=gen).to(
+            torch.bfloat16).to(dev) for H in (Hq, Hkv, Hkv))
+    pos = _pos(B, S, gen, pads == "ragged")
+    if pads == "slot":
+        pos[1] = -1
+    p = pos.to(dev)
+    args = [q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), p, p]
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(*args, window=window, chunk=chunk)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    rows = (p >= 0)[:, None, :, None].expand_as(got)
+    plain = functools.partial(ref.flash_attention, window=window, chunk=chunk)
+    _check_bf16(got, plain, args, rows)
+    assert (got.float()[~rows] == 0).all()         # pad queries write 0
+
+
+@pytest.mark.parametrize("group,ps,M,S,hd,window,chunk,case", [
+    (2, 16, 12, 48, 64, None, None, "hole"),    # 64 unmapped keys: a tile
+    (8, 8, 20, 77, 64, None, None, "ragged"),   # group 8, S % 16 != 0
+    (1, 16, 10, 100, 128, 50, None, "ragged"),
+    (2, 16, 8, 64, 32, None, 24, "ragged"),     # chunked local attention
+    (2, 12, 10, 50, 64, None, None, "ragged"),  # page size not a power of 2
+    (2, 16, 10, 40, 64, None, None, "slot"),    # one slot all pads
+    (4, 16, 8, 40, 64, None, None, "fused"),    # q rows of a fused qkv
+])
+def test_chunked_prefill_bf16_tensor_core_cases(cuda_device, group, ps, M,
+                                                S, hd, window, chunk, case):
+    """The bf16 tensor-core chunked-prefill kernel on the edges of the
+    paged path: a whole 64-key tile of unmapped pages inside a slot's
+    table, ragged chunks, group 8, window and chunk masks, a page size that
+    is not a power of two, a slot whose
+    queries are all pads (0 out), and q read as a column block of a fused
+    (B, S, (Hq + 2 Hkv) hd) projection."""
+    rng = np.random.default_rng(group * 1000 + ps + M + S)
+    B, Hkv = 3, 2
+    Hq = Hkv * group
+    kp, vp, tbl, q_pos, k_pos = _paged_case(rng, B, Hkv, ps, M, hd, S=S)
+    if case == "hole":
+        tbl[0, 4:8] = -1                       # keys 64..127 of slot 0
+        k_pos[0, 4 * ps:8 * ps] = -1
+    if case == "slot":
+        q_pos[2] = -1
+    dev = cuda_device
+    width = (Hq + 2 * Hkv) * hd if case == "fused" else Hq * hd
+    buf = rng.standard_normal((B, S, width), dtype=np.float32)
+    buf = torch.from_numpy(buf).to(torch.bfloat16).to(dev)
+    q = buf[..., :Hq * hd].unflatten(-1, (Hq, hd)).transpose(1, 2)
+    kp, vp = (torch.from_numpy(x).to(torch.bfloat16).to(dev)
+              for x in (kp, vp))
+    tbl, qp, kpos = (torch.from_numpy(x).to(dev)
+                     for x in (tbl, q_pos, k_pos))
+    args = [q, kp, vp, tbl, qp, kpos]
+    before = ops.launch_counts()["chunked_prefill_attention"]
+    got = ops.chunked_prefill_attention(*args, window=window, chunk=chunk)
+    assert ops.launch_counts()["chunked_prefill_attention"] == before + 1
+    torch.cuda.synchronize()
+    rows = (qp >= 0)[:, None, :, None].expand_as(got)
+    plain = functools.partial(ref.chunked_prefill_attention, window=window,
+                              chunk=chunk)
+    _check_bf16(got, plain, args, rows)
+    assert (got.float()[~rows] == 0).all()         # pad queries write 0
+
+
+def test_bf16_prefill_kernels_refuse_misaligned_rows(cuda_device):
+    """cp.async copies 16-byte pieces of rows: a bf16 view whose rows start
+    off a 16-byte boundary, or whose row stride is not a multiple of 16
+    bytes, is refused before any launch; float32 takes both."""
+    dev = cuda_device
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    pages = torch.zeros(2, 3, 4, 64, dtype=torch.bfloat16, device=dev)
+    tbl = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    k_pos = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    before = ops.launch_counts()
+    for width, start in ((2 * 64 + 8, 1), (2 * 64 + 4, 0)):
+        buf = torch.randn(1, 8, width, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = buf.to(dtype)[..., start:start + 128].unflatten(-1, (2, 64))
+            q = x.transpose(1, 2)
+            if dtype == torch.float32:
+                out = ops.flash_attention(q, q, q, pos, pos)
+                torch.testing.assert_close(
+                    out, ref.flash_attention(q, q, q, pos, pos),
+                    atol=TOL[dtype], rtol=TOL[dtype])
+                continue
+            with pytest.raises(ValueError, match="16-byte aligned rows"):
+                ops.flash_attention(q, q, q, pos, pos)
+            with pytest.raises(ValueError, match="16-byte aligned rows"):
+                ops.chunked_prefill_attention(q, pages, pages, tbl, pos,
+                                              k_pos)
+    after = ops.launch_counts()
+    assert after["chunked_prefill_attention"] == \
+        before["chunked_prefill_attention"]
+    assert after["flash_attention"] == before["flash_attention"] + 2
 
 
 def test_paged_kernels_refuse_what_they_do_not_take(cuda_device):

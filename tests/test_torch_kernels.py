@@ -170,3 +170,46 @@ def test_rmsnorm_plain_matches_jax(impl, dtype, R, d):
     t = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **t)
+
+
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    """A kernel library is keyed by its source and by every shared
+    ``csrc/*.cuh`` header: an edited header changes the key of every
+    source (a stale library is never reused), an unchanged tree keeps it.
+    Hashing only; no ``nvcc``."""
+    import shutil
+
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["attention_tile.cuh"]
+    before = {n: build._target(n) for n in build.SOURCES}
+    assert before == {n: build._target(n) for n in build.SOURCES}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: build._target(n) for n in build.SOURCES}
+    assert all(after[n] != before[n] for n in build.SOURCES)
+    (csrc / "flash_attention.cu").write_text("// edited source\n")
+    again = {n: build._target(n) for n in build.SOURCES}
+    assert again["flash_attention"] != after["flash_attention"]
+    assert all(again[n] == after[n] for n in build.SOURCES
+               if n != "flash_attention")
+
+
+def test_build_key_follows_source_dir(tmp_path):
+    """Sources of another directory (``build.build(..., csrc=DIR)``) are
+    keyed by their own content into the same build directory: an identical
+    copy shares this tree's library, an edited one gets its own. Hashing
+    only; no ``nvcc``."""
+    import shutil
+
+    from repro_torch.kernels import build
+    other = tmp_path / "other"
+    shutil.copytree(build.CSRC, other)
+    ours = {n: build._target(n) for n in build.SOURCES}
+    assert ours == {n: build._target(n, other) for n in build.SOURCES}
+    (other / "chunked_prefill_attention.cu").write_text("// variant\n")
+    theirs = build._target("chunked_prefill_attention", other)
+    assert theirs != ours["chunked_prefill_attention"]
+    assert theirs.parent == build.BUILD_DIR

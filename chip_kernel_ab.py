@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
-"""Time the two prefill attention kernels against the same kernels built
-from other sources, on one card, in one process.
+"""Time the four attention kernels against the same kernels built from
+other sources, on one card, in one process.
 
     mkdir -p build/ab
-    for f in flash_attention chunked_prefill_attention; do
+    for f in decode_attention paged_decode_attention; do
       git show <commit>:src/repro_torch/kernels/csrc/$f.cu > build/ab/$f.cu
     done
     python3 chip_kernel_ab.py build/ab
 
-DIR holds ``flash_attention.cu`` and ``chunked_prefill_attention.cu`` and
-the ``*.cuh`` headers they include (an earlier tree's, or a variant of
-this tree's). Both are built with this tree's ``nvcc`` flags into
-``build/kernels/`` beside this tree's own (``build.build(..., csrc=DIR)``)
-and called through this tree's wrappers. At ``chip_smoke.py``'s main-path
-shapes, in bf16 (chunked prefill B1 H32/32 S256 after 768 history tokens
-at hd 64; flash B8 H32/32 S512, right-padded, at hd 64 and 112), it holds
-both builds to the plain version (``chip_smoke.TOL`` on valid rows, or it
-fails), counts each build's elements past ``chip_smoke.TOL_WIDE`` against
-the plain version run in float32 (reported, not held: a variant may be
-there to show that it breaks it), and times each around the replay of a
-CUDA graph of 20 calls, in turns (DIR, this tree, this tree, DIR), beside
-``scaled_dot_product_attention`` with the same mask and the least time
-the card could take. Needs one NVIDIA card.
+DIR holds any of ``flash_attention.cu``, ``chunked_prefill_attention.cu``,
+``decode_attention.cu`` and ``paged_decode_attention.cu`` and the
+``*.cuh`` headers they include (an earlier tree's, or a variant of this
+tree's); the kernels whose source is there are compared. Each is built
+with this tree's ``nvcc`` flags into ``build/kernels/`` beside this tree's
+own (``build.build(..., csrc=DIR)``) and called through this tree's
+wrappers. At ``chip_smoke.py``'s main-path shapes, in bf16 (chunked
+prefill B1 H32/32 S256 after 768 history tokens at hd 64; flash B8 H32/32
+S512, right-padded, at hd 64 and 112; decode B8 H32/32 W2048, mixed fills,
+and paged decode B8 H32/32 ps16 M128, fills 16-2048, at hd 64 and 112, and
+both again at a serving step's fills: the engine trace's first 8 prompts,
+32 tokens into their decode), it
+holds both builds to the plain version (``chip_smoke.TOL`` on valid rows,
+or it fails), counts each build's elements past ``chip_smoke.TOL_WIDE``
+against the plain version run in float32 (reported, not held: a variant
+may be there to show that it breaks it), and times each around the replay
+of a CUDA graph of 20 calls, in turns (DIR, this tree, this tree, DIR),
+beside ``scaled_dot_product_attention`` with the same mask and the least
+time the card could take. Needs one NVIDIA card.
 """
 import functools
 import json
@@ -33,7 +38,8 @@ import torch
 
 import chip_smoke
 
-NAMES = ("flash_attention", "chunked_prefill_attention")
+NAMES = ("flash_attention", "chunked_prefill_attention", "decode_attention",
+         "paged_decode_attention")
 
 
 def through(csrc, call):
@@ -57,26 +63,35 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.kernels import chunked_prefill as CP
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
     from repro_torch.kernels import ref as REF
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_line()
     print(card)
     base = Path(sys.argv[1]).resolve()
-    build.build(NAMES, csrc=base)
-    build.build(NAMES)
+    names = [n for n in NAMES if (base / f"{n}.cu").exists()]
+    if not names:
+        print(f"chip_kernel_ab: no kernel source of {NAMES} in {base}",
+              file=sys.stderr)
+        return 2
+    build.build(names, csrc=base)
+    build.build(names)
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    args = chip_smoke.chunk_inputs(32, 32, [1024], 256, bf, gen)
-    flops, nbytes = chip_smoke.paged_traffic(
-        args[3], args[4], args[5], 16, 32, 32, 64, 2, S=256)
-    cases = [dict(label="chunk B1 H32/32 S256 hist768 hd64",
-                  kernel=CP.chunked_prefill_attention,
-                  plain=REF.chunked_prefill_attention, args=args,
-                  sdpa=chip_smoke.chunk_sdpa(*args), qpos=args[4],
-                  flops=flops, nbytes=nbytes)]
-    for hd in (64, 112):
+    cases = []
+    if "chunked_prefill_attention" in names:
+        args = chip_smoke.chunk_inputs(32, 32, [1024], 256, bf, gen)
+        flops, nbytes = chip_smoke.paged_traffic(
+            args[3], args[4], args[5], 16, 32, 32, 64, 2, S=256)
+        cases.append(dict(label="chunk B1 H32/32 S256 hist768 hd64",
+                          kernel=CP.chunked_prefill_attention,
+                          plain=REF.chunked_prefill_attention, args=args,
+                          sdpa=chip_smoke.chunk_sdpa(*args), qpos=args[4],
+                          flops=flops, nbytes=nbytes))
+    for hd in (64, 112) if "flash_attention" in names else ():
         q, k, v, pos = chip_smoke.flash_inputs(8, 32, 32, 512, bf, gen, hd)
         flops, nbytes, mask = chip_smoke.flash_work(q, k, v, pos)
         cases.append(dict(
@@ -85,17 +100,44 @@ def main() -> int:
             sdpa=lambda a=(q, k, v), m=mask: torch.nn.functional.
             scaled_dot_product_attention(*a, attn_mask=m),
             qpos=pos, flops=flops, nbytes=nbytes))
+    # the decode kernels also at a serving step's fills: the first 8 prompts
+    # of chip_smoke.py's engine trace (one of 1,024 tokens, the rest 16-119)
+    # 32 tokens into their decode, in a 2,048-key cache or table
+    serving = [len(r.prompt) + 32
+               for r in chip_smoke.engine_requests(32000)[:8]]
+    for fills, tag in ((None, ""), (serving, " serving")):
+        for hd in (64, 112) if "decode_attention" in names else ():
+            args = chip_smoke.decode_inputs(8, 32, 32, 2048, bf, gen, hd,
+                                            fills)
+            flops, nbytes = chip_smoke.decode_work(*args[:2], *args[3:])
+            cases.append(dict(
+                label=f"decode B8 H32/32 W2048 hd{hd}{tag}",
+                kernel=DA.decode_attention, plain=REF.decode_attention,
+                args=args, sdpa=chip_smoke.decode_sdpa(*args), qpos=None,
+                flops=flops, nbytes=nbytes))
+        for hd in (64, 112) if "paged_decode_attention" in names else ():
+            args = chip_smoke.paged_inputs(
+                8, 32, 32, fills or chip_smoke.paged_fills(), bf, gen, hd=hd)
+            flops, nbytes = chip_smoke.paged_traffic(
+                args[3], args[4], args[5], 16, 32, 32, hd, 2)
+            cases.append(dict(
+                label=f"paged B8 H32/32 ps16 M128 hd{hd}{tag}",
+                kernel=PD.paged_decode_attention,
+                plain=REF.paged_decode_attention, args=args,
+                sdpa=chip_smoke.paged_sdpa(*args), qpos=None, flops=flops,
+                nbytes=nbytes))
     rows_out = []
     print(f"\n[ab] bf16, ms per call from CUDA-graph replays; max abs err "
           f"against the plain version, elements past TOL_WIDE against it in "
           f"float32 ({card})")
-    print(f"{'case':36s} {'base':>8s} {'new':>8s} {'new':>8s} {'base':>8s} "
+    print(f"{'case':42s} {'base':>8s} {'new':>8s} {'new':>8s} {'base':>8s} "
           f"{'sdpa':>8s} {'bound':>8s} by      base_err  new_err  "
           f"base_wide new_wide")
     for c in cases:
         call = lambda c=c: c["kernel"](*c["args"])  # noqa: E731
         want = c["plain"](*c["args"])
-        rows = (c["qpos"] >= 0)[:, None, :, None].expand_as(want)
+        rows = (torch.ones_like(want, dtype=torch.bool) if c["qpos"] is None
+                else (c["qpos"] >= 0)[:, None, :, None].expand_as(want))
         errs, wide = [], []
         for who, src in (("base", base), ("new", None)):
             got = through(src, call)()
@@ -107,7 +149,7 @@ def main() -> int:
                  for src in (base, None, None, base)]
         lib = chip_smoke.time_ms(c["sdpa"], graph=True)
         bms, by = chip_smoke.bound_ms(c["flops"], c["nbytes"], bf)
-        print(f"{c['label']:36s} " + " ".join(f"{t:8.4f}" for t in times)
+        print(f"{c['label']:42s} " + " ".join(f"{t:8.4f}" for t in times)
               + f" {lib:8.4f} {bms:8.5f} {by:7s} {errs[0]:.2e} {errs[1]:.2e}"
               f" {wide[0]:9d} {wide[1]:8d}")
         rows_out.append(dict(case=c["label"], base_ms=[times[0], times[3]],

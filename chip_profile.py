@@ -16,8 +16,10 @@ on ``rwkv6-1.6b`` with the contiguous engine (exact-length prefill
 groups). With no argument it profiles all four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
-warm wall per decode micro-step, the kernels and host ops that take the
-most time, and the device time of each of the port's kernels. Needs one
+warm wall per decode micro-step, the kernel launches per micro-step by
+launch call (``cudaLaunchKernel``; the decode kernels' cluster launches
+are ``cudaLaunchKernelExC``, cuBLAS's ``cuLaunchKernelEx``), the kernels and host ops that take the most time, and the
+device time of each of the port's kernels. Needs one
 NVIDIA card.
 """
 import collections
@@ -31,10 +33,16 @@ import torch
 
 import chip_smoke
 
-# the __global__ functions of src/repro_torch/kernels/csrc/*.cu
+# the __global__ functions of src/repro_torch/kernels/csrc/*.cu (both
+# decode kernels run the split-KV core of decode_tile.cuh)
 KERNELS = ("flash_tc_kernel", "flash_fwd_kernel", "chunk_tc_kernel",
            "chunk_fwd_kernel", "decode_kernel", "paged_decode_kernel",
            "ssd_chunk_kernel", "wkv6_kernel", "rmsnorm_kernel")
+# the host calls that launch a kernel: the port's kernels and PyTorch's own
+# use cudaLaunchKernel, the decode kernels' cluster launches (and some
+# library kernels) cudaLaunchKernelExC, cuBLAS's matmuls cuLaunchKernelEx
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 
 
 def profile(card, label, model, params, ecfg, requests) -> None:
@@ -99,6 +107,12 @@ def profile(card, label, model, params, ecfg, requests) -> None:
           f"{engine.prefill_chunks}, decode micro-steps {st['steps']}, warm "
           f"wall per micro-step (prefill included) "
           f"{warm_wall / max(st['steps'], 1) * 1e3:.2f} ms")
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in LAUNCH_CALLS}
+    n_launch = sum(calls.values())
+    print(f"  kernel launches {n_launch} ({calls}), "
+          f"{n_launch / max(st['steps'], 1):.1f} per micro-step (prefill "
+          f"included)")
     print("  top kernels by device time (self, total over the run):")
     top = sorted(rows, key=lambda e: -getattr(e, "self_device_time_total", 0))
     for e in top[:15]:

@@ -23,15 +23,18 @@ Phases (any failure raises and the script exits non-zero):
    (``scaled_dot_product_attention``; for the paged kernels over the
    logical view gathered beforehand, the gather not timed;
    ``F.rms_norm`` for RMSNorm; none for the SSD chunk and WKV6, which no
-   single PyTorch call computes) times from CUDA events (for flash,
-   chunked prefill, WKV6 and RMSNorm, whose calls take about as much
+   single PyTorch call computes) times from CUDA events (for the four
+   attention kernels, WKV6 and RMSNorm, whose calls take about as much
    device time as the host takes to issue them or less, around the
    replay of a CUDA graph of the calls, with the eager time on a line of
    its own), beside the least time the card could take (valid query
-   rows and keys, causal pairs only). First, the bf16 instances of the
-   flash and chunked-prefill kernels: ptxas' registers and spills and
-   their tensor-core (HMMA) instruction counts from ``cuobjdump -sass``
-   (no spill and some HMMA, or it fails; none in the float32 instances);
+   rows and keys, causal pairs only) and the factor over it; the bf16
+   decode cases beside SDPA on lines of their own. First, the bf16
+   instances of the flash and chunked-prefill kernels: ptxas' registers
+   and spills and their tensor-core (HMMA) instruction counts from
+   ``cuobjdump -sass`` (no spill and some HMMA, or it fails; none in the
+   float32 instances); then every instance of the two decode kernels'
+   split-KV core (48 each): registers, and no spill or it fails;
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. ``llama-paper-1b`` at full width and depth in
@@ -249,7 +252,10 @@ def flash_case(FA, REF, B, Hq, Hkv, S, dtype, gen, hd=64):
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
-def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
+def decode_inputs(B, Hq, Hkv, W, dtype, gen, hd=64, fills=None):
+    """One decode step over a (B, W, Hkv, hd) ring cache seen as (B, Hkv,
+    W, hd) views; ``fills``: tokens written per slot (default mixed, the
+    last slot wrapped). Returns (q, k, v, q_pos, k_pos)."""
     dev = "cuda"
     q = torch.randn(B, Hq, hd, generator=gen, device=dev).to(dtype)
     cache_k = torch.randn(B, W, Hkv, hd, generator=gen, device=dev).to(dtype)
@@ -258,6 +264,8 @@ def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
     # the ring (k_pos unsorted), pad rows of a right-padded prompt at -1
     n_tok = torch.randint(16, W, (B,), generator=gen, device=dev).tolist()
     n_tok[-1] = W + W // 3
+    if fills is not None:
+        n_tok = list(fills)
     k_pos = torch.full((B, W), -1, dtype=torch.int32)
     for b, n in enumerate(n_tok):
         t = torch.arange(max(0, n - W), n, dtype=torch.int32)
@@ -266,7 +274,31 @@ def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
             k_pos[b, 5:9] = -1
     q_pos = torch.tensor([n - 1 for n in n_tok], dtype=torch.int32)
     k_pos, q_pos = k_pos.to(dev), q_pos.to(dev)
-    kt, vt = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    return q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), q_pos, k_pos
+
+
+def decode_work(q, k, q_pos, k_pos):
+    """(operations, bytes) of one decode call: the valid keys' K and V rows
+    read once, q read and out written once, the positions."""
+    Hq, Hkv, hd = q.shape[1], k.shape[1], q.shape[-1]
+    valid = float(((k_pos >= 0) & (k_pos <= q_pos[:, None])).sum().item())
+    e = q.element_size()
+    flops = valid * Hq * 4.0 * hd
+    nbytes = (valid * Hkv * 2 * hd * e + 2 * q.numel() * e
+              + k_pos.numel() * 4 + q_pos.numel() * 4)
+    return flops, nbytes
+
+
+def decode_sdpa(q, k, v, q_pos, k_pos):
+    """``scaled_dot_product_attention`` of one decode step, same mask."""
+    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None, :]
+    gqa = q.shape[1] != k.shape[1]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=gqa)
+
+
+def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
+    q, kt, vt, q_pos, k_pos = decode_inputs(B, Hq, Hkv, W, dtype, gen, hd)
     got = DA.decode_attention(q, kt, vt, q_pos, k_pos)
     want = REF.decode_attention(q, kt, vt, q_pos, k_pos)
     rows = torch.ones_like(want, dtype=torch.bool)
@@ -274,19 +306,15 @@ def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
                       rows, dtype)
     wide = check_wide(got, REF.decode_attention, (q, kt, vt, q_pos, k_pos),
                       rows, dtype)
-    valid = float(((k_pos >= 0) & (k_pos <= q_pos[:, None])).sum().item())
-    e = q.element_size()
-    flops = valid * Hq * 4.0 * hd
-    nbytes = (valid * Hkv * 2 * hd * e + 2 * q.numel() * e
-              + k_pos.numel() * 4 + q_pos.numel() * 4)
-    bms, by = bound_ms(flops, nbytes, dtype)
-    ms = time_ms(lambda: DA.decode_attention(q, kt, vt, q_pos, k_pos))
-    plain = time_ms(lambda: REF.decode_attention(q, kt, vt, q_pos, k_pos))
-    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None, :]
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
+    bms, by = bound_ms(*decode_work(q, kt, q_pos, k_pos), dtype)
+    ms = time_ms(lambda: DA.decode_attention(q, kt, vt, q_pos, k_pos),
+                 graph=True)
+    plain = time_ms(lambda: REF.decode_attention(q, kt, vt, q_pos, k_pos),
+                    graph=True)
+    lib = time_ms(decode_sdpa(q, kt, vt, q_pos, k_pos), graph=True)
+    eager = time_ms(lambda: DA.decode_attention(q, kt, vt, q_pos, k_pos))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, wide=wide)
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
 def paged_pool(B, Hkv, ps, M, hd, lens, dtype, gen, S=None, shared=True):
@@ -345,10 +373,35 @@ def paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd, e, S=None):
     return flops, nbytes
 
 
-def paged_case(PD, REF, B, Hq, Hkv, lens, dtype, gen, ps=16, M=128, hd=64):
+def paged_fills():
+    """The paged decode cases' fills: 16..2048 tokens in each of 8 slots,
+    slot 0 full, slot 1 long enough to share its first page."""
+    fills = torch.randint(16, 2049, (8,), generator=torch.Generator()
+                          .manual_seed(3)).tolist()
+    fills[0], fills[1] = 2048, max(fills[1], 64)
+    return fills
+
+
+def paged_inputs(B, Hq, Hkv, lens, dtype, gen, ps=16, M=128, hd=64):
+    """One paged decode step: ``paged_pool`` and q. Returns (q, k_pages,
+    v_pages, tbl, q_pos, k_pos)."""
     kp, vp, tbl, q_pos, k_pos = paged_pool(B, Hkv, ps, M, hd, lens, dtype,
                                            gen)
     q = torch.randn(B, Hq, hd, generator=gen, device="cuda").to(dtype)
+    return q, kp, vp, tbl, q_pos, k_pos
+
+
+def paged_sdpa(q, kp, vp, tbl, q_pos, k_pos):
+    """``scaled_dot_product_attention`` over the logical view gathered
+    beforehand (the gather not timed), same mask."""
+    from repro_torch.kernels import ref as REF
+    return decode_sdpa(q, REF.logical_view(kp, tbl),
+                       REF.logical_view(vp, tbl), q_pos, k_pos)
+
+
+def paged_case(PD, REF, B, Hq, Hkv, lens, dtype, gen, ps=16, M=128, hd=64):
+    q, kp, vp, tbl, q_pos, k_pos = paged_inputs(B, Hq, Hkv, lens, dtype, gen,
+                                                ps, M, hd)
     got = PD.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
     want = REF.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
     rows = torch.ones_like(want, dtype=torch.bool)
@@ -360,15 +413,14 @@ def paged_case(PD, REF, B, Hq, Hkv, lens, dtype, gen, ps=16, M=128, hd=64):
                                   q.element_size())
     bms, by = bound_ms(flops, nbytes, dtype)
     ms = time_ms(lambda: PD.paged_decode_attention(q, kp, vp, tbl, q_pos,
-                                                   k_pos))
+                                                   k_pos), graph=True)
     plain = time_ms(lambda: REF.paged_decode_attention(q, kp, vp, tbl, q_pos,
-                                                       k_pos))
-    kk, vv = REF.logical_view(kp, tbl), REF.logical_view(vp, tbl)
-    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None, :]
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kk, vv, attn_mask=mask, enable_gqa=Hq != Hkv))
+                                                       k_pos), graph=True)
+    lib = time_ms(paged_sdpa(q, kp, vp, tbl, q_pos, k_pos), graph=True)
+    eager = time_ms(lambda: PD.paged_decode_attention(q, kp, vp, tbl, q_pos,
+                                                      k_pos))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, wide=wide)
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
 def chunk_inputs(Hq, Hkv, lens, S, dtype, gen, ps=16, M=128, hd=64):
@@ -578,8 +630,47 @@ def tensor_core_report(card):
                                      f"{hmma} HMMA")
 
 
+def decode_report(card):
+    """Every instance of the two decode kernels (hd 8-128 x group 1-8 x
+    float32 / bf16, one split-KV core): ptxas' registers, the range per
+    kernel and type; raises if an instance spills or is missing."""
+    import re
+
+    from repro_torch.kernels import build
+    print(f"\n[decode] split-KV core instances ({card})")
+    for lib, stem in (("decode_attention", "decode_kernel"),
+                      ("paged_decode_attention", "paged_decode_kernel")):
+        regs, spills, cur = {}, [], None
+        for line in build.ptxas_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '\S*" + stem
+                          + r"I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", line)
+            if m:
+                cur = ("bf16" if m.group(1) != "f" else "f32",
+                       int(m.group(2)), int(m.group(3)))
+            elif cur and "registers" in line:
+                regs[cur] = int(re.search(r"Used (\d+) registers",
+                                          line).group(1))
+            elif cur and "spill" in line and re.search(
+                    r"[1-9]\d* bytes spill", line):
+                spills.append((cur, line.strip()))
+        want = {(t, hd, g) for t in ("bf16", "f32")
+                for hd in (8, 16, 32, 64, 112, 128) for g in (1, 2, 4, 8)}
+        for t in ("f32", "bf16"):
+            r = {k[1:]: v for k, v in regs.items() if k[0] == t}
+            n_spill = sum(1 for k, _ in spills if k[0] == t)
+            print(f"  {stem} {t}: {len(r)} instances, registers "
+                  f"{min(r.values())}-{max(r.values())} "
+                  f"(hd 64 g1 {r.get((64, 1))}, hd 112 g1 "
+                  f"{r.get((112, 1))}); {n_spill} spill" if r else
+                  f"  {stem} {t}: no instance")
+        if set(regs) != want or spills:
+            raise AssertionError(f"{stem}: instances {sorted(want - set(regs))}"
+                                 f" missing, spills {spills}")
+
+
 def phase_kernels(card):
     tensor_core_report(card)
+    decode_report(card)
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as REF
@@ -607,11 +698,7 @@ def phase_kernels(card):
                                     *args[5:])
     from repro_torch.kernels import chunked_prefill as CP
     from repro_torch.kernels import paged_decode_attention as PD
-    # decode fills of 16..2048 tokens per slot; slot 0 full, slot 1 long
-    # enough to share its first page
-    fills = torch.randint(16, 2049, (8,), generator=torch.Generator()
-                          .manual_seed(3)).tolist()
-    fills[0], fills[1] = 2048, max(fills[1], 64)
+    fills = paged_fills()
     paged = {}
     for label, args in [
             ("paged B8 H32/32 ps16 M128 bf16", (8, 32, 32, fills, bf)),
@@ -661,7 +748,7 @@ def phase_kernels(card):
     print(f"\n[kernels] vs plain version on valid rows ({card})")
     print(f"{'case':34s} {'max_abs_err':>11s} {'err_vs_f32':>10s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'sdpa_ms':>9s} {'bound_ms':>9s} "
-          "bound_by")
+          "x_bound bound_by")
     cases = (list(flash.items()) + list(decode.items())
              + list(paged.items()) + list(chunk.items()) + list(ssd.items())
              + list(wkv.items()) + list(rms.items()))
@@ -670,19 +757,28 @@ def phase_kernels(card):
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{label:38s} {r['max_abs_err']:11.3e} {wide:>10s} "
               f"{r['ms']:9.4f} {r['plain_ms']:9.4f} {lib:>9s} "
-              f"{r['bound_ms']:9.5f} {r['bound_by']}")
+              f"{r['bound_ms']:9.5f} {r['ms'] / r['bound_ms']:6.1f}x "
+              f"{r['bound_by']}")
     print("  (err_vs_f32: the bf16 kernel against the plain version in "
           "float32 on the same inputs; paged and chunk sdpa_ms: over the "
           "logical view gathered beforehand, the gather not timed; ssd: "
           "the largest of y_intra, h_chunk and decay, no single library "
           "call; wkv6: the larger of out and the final state, no single "
           "library call; rmsnorm: the library column is F.rms_norm)")
-    print("  (flash, chunk, wkv6 and rmsnorm: ms, plain_ms and sdpa_ms from "
-          "the replay of a CUDA graph of the calls, the kernels' time alone; "
-          "launched eagerly, one call of the kernel takes:)")
+    print("  (flash, decode, paged, chunk, wkv6 and rmsnorm: ms, plain_ms and "
+          "sdpa_ms from the replay of a CUDA graph of the calls, the kernels' "
+          "time alone; launched eagerly, one call of the kernel takes:)")
     for label, r in cases:
         if "eager_ms" in r:
             print(f"    {label:36s} eager {r.pop('eager_ms'):9.4f} ms")
+    print(f"\n[decode] bf16 decode kernels against SDPA with the same mask, "
+          f"graph replay ({card})")
+    for label, r in list(decode.items()) + list(paged.items()):
+        if "bf16" in label and "H32/32" in label:
+            print(f"  {label:38s} {r['ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}"
+                  f"x SDPA), {r['ms'] / r['bound_ms']:.1f}x its bound "
+                  f"{r['bound_ms']:.5f} ms; past TOL_WIDE {r['wide'][1]}")
     bad = [f"{label}: {r['wide'][1]} elements" for label, r in cases
            if r["wide"][1]]
     if bad:

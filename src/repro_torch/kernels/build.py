@@ -51,7 +51,7 @@ ARGTYPES = {
                                   [_P, _P, _P, _P, _P, _P, _P, _STRIDES]
                                   + [_I] * 13 + [_P]),
     "ssd_chunk": ("ssd_chunk_fwd", [_P] * 8 + [_STRIDES] + [_I] * 8 + [_P]),
-    "wkv6": ("wkv6_fwd", [_P] * 8 + [_STRIDES] + [_I] * 6 + [_P]),
+    "wkv6": ("wkv6_fwd", [_P] * 8 + [_STRIDES] + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_L, _L, _I, _F] + [_I] * 3 + [_P]),
 }
 

@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import (DTYPES, check_bf16_rows,
                                                  check_common)
 from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)     # 16: the reference's kernel sweep
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

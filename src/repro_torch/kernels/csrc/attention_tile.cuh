@@ -52,7 +52,8 @@
 //   entry for a row is read one tile before its copy. Rows past the ragged
 //   edge are zero-filled (src-size 0) and never read. Shared rows are
 //   padded to hd + 8 bf16, an odd number of 16-byte chunks at every head dim
-//   (hd 112: 240 bytes, 15 chunks), so ldmatrix is free of bank conflicts.
+//   (hd 112: 240 bytes, 15 chunks; hd 16, and hd 8 zero-filled to 16: 48
+//   bytes, 3 chunks), so ldmatrix is free of bank conflicts.
 // - Before the key loop the block marks the tiles that hold a key some
 //   valid query of the block may see (0 <= k_pos <= max q_pos, and inside
 //   the window or chunk of the smallest q_pos); the loop visits only those,
@@ -124,46 +125,7 @@ cudaError_t allow_smem(size_t bytes) {
   return cudaSuccess;
 }
 
-// ------------------------------------------------------------------------
-// bf16 tensor-core tile core
-// ------------------------------------------------------------------------
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 64;        // queries per block, 16 per warp
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // four warps
-constexpr int STAGES = 2;     // K/V tiles in flight
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Byte offsets of the dynamic shared memory of one block.
-template <int HD>
-struct Layout {
-  static constexpr int LD = HD + 8;  // padded row, bf16 elements
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + (size_t)BQ * LD * 2;
-  static constexpr size_t V = K + (size_t)STAGES * BK * LD * 2;
-  static constexpr size_t KPOS = V + (size_t)STAGES * BK * LD * 2;
-  static constexpr size_t RED = KPOS + (size_t)STAGES * BK * 4;
-  static constexpr size_t LIVE = RED + 8 * 4;
-  __host__ __device__ static constexpr size_t bytes(int n_kt) {
-    return LIVE + (size_t)4 * ((n_kt + 31) / 32);
-  }
-};
-
-// What the core reads and writes for one (batch, q head): pointers already
-// offset to the pair, d stride 1 everywhere.
-struct Tile {
-  const bf16* q;      // row qi at q + qi * q_s
-  bf16* out;          // row qi at out + qi * o_s
-  long long q_s, o_s;
-  const int* qpos;    // (Sq,), -1 = pad query
-  const int* kpos;    // (Sk,)
-  int Sq, Sk, window, chunk;
-  float scale_log2;   // softmax scale * log2(e)
-};
-
+// cp.async copies (16 bytes, or 4), global -> shared
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -191,6 +153,71 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// The keys query position qp may see are exactly lo <= k_pos <= qp with
+// lo = first_key(qp): 0, raised to qp - window + 1 (window) and to the
+// start of qp's chunk (chunk) when those are > 0; an empty range for a pad
+// query (qp < 0 <= lo). The same set as allowed(qp, .), in two compares.
+__device__ __forceinline__ int first_key(int qp, int window, int chunk) {
+  int lo = 0;
+  if (window > 0) lo = max(lo, qp - window + 1);
+  if (chunk > 0 && qp >= 0) lo = max(lo, qp - qp % chunk);
+  return lo;
+}
+
+// 2^x on the special-function unit; a result below 2^-126 flushes to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------------------------------
+// bf16 tensor-core tile core
+// ------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;        // queries per block, 16 per warp
+constexpr int BK = 64;        // keys per tile
+constexpr int THREADS = 128;  // four warps
+constexpr int STAGES = 2;     // K/V tiles in flight
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The depth the products run at: one m16n8k16 step at least, so hd 8 rows
+// are zero-filled to 16 in shared memory (see attention_tile)
+template <int HD>
+__host__ __device__ constexpr int depth() {
+  return HD < 16 ? 16 : HD;
+}
+
+// Byte offsets of the dynamic shared memory of one block.
+template <int HD>
+struct Layout {
+  static constexpr int LD = depth<HD>() + 8;  // padded row, bf16 elements
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + (size_t)BQ * LD * 2;
+  static constexpr size_t V = K + (size_t)STAGES * BK * LD * 2;
+  static constexpr size_t KPOS = V + (size_t)STAGES * BK * LD * 2;
+  static constexpr size_t RED = KPOS + (size_t)STAGES * BK * 4;
+  static constexpr size_t LIVE = RED + 8 * 4;
+  __host__ __device__ static constexpr size_t bytes(int n_kt) {
+    return LIVE + (size_t)4 * ((n_kt + 31) / 32);
+  }
+};
+
+// What the core reads and writes for one (batch, q head): pointers already
+// offset to the pair, d stride 1 everywhere.
+struct Tile {
+  const bf16* q;      // row qi at q + qi * q_s
+  bf16* out;          // row qi at out + qi * o_s
+  long long q_s, o_s;
+  const int* qpos;    // (Sq,), -1 = pad query
+  const int* kpos;    // (Sk,)
+  int Sq, Sk, window, chunk;
+  float scale_log2;   // softmax scale * log2(e)
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -228,24 +255,6 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// The keys query position qp may see are exactly lo <= k_pos <= qp with
-// lo = first_key(qp): 0, raised to qp - window + 1 (window) and to the
-// start of qp's chunk (chunk) when those are > 0; an empty range for a pad
-// query (qp < 0 <= lo). The same set as allowed(qp, .), in two compares.
-__device__ __forceinline__ int first_key(int qp, int window, int chunk) {
-  int lo = 0;
-  if (window > 0) lo = max(lo, qp - window + 1);
-  if (chunk > 0 && qp >= 0) lo = max(lo, qp - qp % chunk);
-  return lo;
-}
-
-// 2^x on the special-function unit; a result below 2^-126 flushes to 0
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // first tile >= from whose bit is set, or n_kt
 __device__ __forceinline__ int next_live(const uint32_t* live, int from,
                                          int n_kt) {
@@ -260,15 +269,24 @@ __device__ __forceinline__ int next_live(const uint32_t* live, int from,
 // One block: the 64-query tile (reversed blockIdx.x) of one (batch, q head)
 // against every live key tile. 128 threads; dynamic shared memory
 // Layout<HD>::bytes(ceil(Sk / 64)).
+//
+// hd 8 runs this core at depth 16 (one k16 step): its Q, K and V rows are
+// copied into the lower half of 16-wide shared rows and the upper half is
+// zero-filled by the same cp.async (src-size 0, nothing read), so Q·Kᵀ adds
+// exact zeros and the upper 8 output columns, never written, are 0. That
+// keeps one bf16 body for every head dim, where an FMA body would be a
+// second one for a shape off the main paths.
 template <int HD, class Keys>
 __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
                                                unsigned char* smem) {
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+  constexpr int HDP = depth<HD>();
+  static_assert(HDP % 16 == 0 && HDP <= 128, "head dim 8 or 16k <= 128");
   using L = Layout<HD>;
   constexpr int LD = L::LD;
-  constexpr int KSTEPS = HD / 16;  // k16 steps of Q·Kᵀ
-  constexpr int DT = HD / 8;       // n8 tiles of O
-  constexpr int CPR = HD / 8;      // 16-byte chunks per row
+  constexpr int KSTEPS = HDP / 16;  // k16 steps of Q·Kᵀ
+  constexpr int DT = HDP / 8;       // n8 tiles of O
+  constexpr int CPR = HDP / 8;      // 16-byte chunks per shared row
+  constexpr int CIN = HD / 8;       // ... of them present in device memory
   static_assert(THREADS == 2 * BQ && THREADS == 2 * BK, "two threads a row");
   bf16* q_s = reinterpret_cast<bf16*>(smem + L::Q);
   bf16* k_s = reinterpret_cast<bf16*>(smem + L::K);
@@ -296,7 +314,9 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
 #pragma unroll
     for (int i = 0; i < CPR / 2; ++i) {
       const int c = 2 * i + cs;
-      cp_async16(smem_u32(q_s + cr * LD + c * 8), src + c * 8, in);
+      const bool got = in && c < CIN;
+      cp_async16(smem_u32(q_s + cr * LD + c * 8), src + (got ? c * 8 : 0),
+                 got);
     }
   }
   cp_async_commit();
@@ -319,8 +339,10 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
 #pragma unroll
     for (int i = 0; i < CPR / 2; ++i) {
       const int c = 2 * i + cs;
-      cp_async16(smem_u32(ks + c * 8), kr + c * 8, in);
-      cp_async16(smem_u32(vs + c * 8), vr + c * 8, in);
+      const bool got = in && c < CIN;
+      const int off = got ? c * 8 : 0;
+      cp_async16(smem_u32(ks + c * 8), kr + off, got);
+      cp_async16(smem_u32(vs + c * 8), vr + off, got);
     }
     if (tid < BK) {
       const int kk = kt * BK + tid;
@@ -526,7 +548,7 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
   const float inv1 = qp1 < 0 ? 0.f : 1.f / fmaxf(l1, 1e-30f);
   const int qi0 = q0 + row0, qi1 = qi0 + 8;
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {  // the zero-filled columns stay unwritten
     const int c = j * 8 + 2 * t;
     if (qi0 < p.Sq)
       *reinterpret_cast<__nv_bfloat162*>(p.out + qi0 * p.o_s + c) =

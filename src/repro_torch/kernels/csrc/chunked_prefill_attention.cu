@@ -353,9 +353,11 @@ extern "C" int chunked_prefill_attention_fwd(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0 && hd == 16) return (int)launch_f32<16>(a, st);
   if (dtype == 0 && hd == 32) return (int)launch_f32<32>(a, st);
   if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
   if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
+  if (dtype == 1 && hd == 16) return (int)launch_bf16<16>(a, st);
   if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
   if (dtype == 1 && hd == 64) return (int)launch_bf16<64>(a, st);
   if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);

@@ -46,6 +46,10 @@ constexpr int TT = 64;        // t rows per tile (4 per row group)
 constexpr int TS = 64;        // s rows per tile (4 per column lane)
 constexpr int MAX_CL = 256;   // longest chunk: one cumsum value per thread
 constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
+// columns of a feature dim below 16 (the reference sweep's P 8, N 4 and 8)
+// leave lanes idle: a lane's columns are tx + 16 j < the dim, and every
+// shuffle (the cumsum's) is over the chunk's steps, never over features
+__host__ __device__ constexpr int lanes16(int n) { return (n + 15) / 16; }
 constexpr int WARPS = THREADS / 32;
 
 struct SsdArgs {
@@ -75,9 +79,10 @@ constexpr size_t ssd_smem_bytes() {
 
 template <typename T, int P, int N>
 __global__ void __launch_bounds__(THREADS) ssd_chunk_kernel(SsdArgs a) {
-  static_assert(P % 16 == 0 && N % 16 == 0 && P <= 64 && N <= 64,
-                "P and N are 16, 32 or 64");
-  constexpr int PJ = P / 16;  // y columns per thread: p = tx + 16*j
+  static_assert((P == 8 || P % 16 == 0) && P <= 64 &&
+                    (N == 4 || N == 8 || N % 16 == 0) && N <= 64,
+                "P in 8, 16, 32, 64; N in 4, 8, 16, 32, 64");
+  constexpr int PJ = lanes16(P);  // y columns per thread: p = tx + 16*j < P
   extern __shared__ float smem[];
   float* cum_s = smem;                   // [MAX_CL] inclusive cumsum of dt*A
   float* dt_s = cum_s + MAX_CL;          // [MAX_CL] dt in f32
@@ -128,8 +133,8 @@ __global__ void __launch_bounds__(THREADS) ssd_chunk_kernel(SsdArgs a) {
 
   if (tile == n_t) {
     // the chunk's emitted state and decay: h[p][n] over all s; thread owns
-    // rows p = ty*PR + i, columns n = tx + 16*j
-    constexpr int PR = P / 16, NJ = N / 16;
+    // rows p = ty + 16*i < P, columns n = tx + 16*j < N
+    constexpr int PR = lanes16(P), NJ = lanes16(N);
     float acc[PR][NJ];
 #pragma unroll
     for (int i = 0; i < PR; ++i)
@@ -153,9 +158,11 @@ __global__ void __launch_bounds__(THREADS) ssd_chunk_kernel(SsdArgs a) {
       for (int r = 0; r < rows; ++r) {
         float xv[PR], bv[NJ];
 #pragma unroll
-        for (int i = 0; i < PR; ++i) xv[i] = x_s[r * P + ty * PR + i];
+        for (int i = 0; i < PR; ++i)
+          xv[i] = ty + 16 * i < P ? x_s[r * P + ty + 16 * i] : 0.f;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) bv[j] = bt_s[r * N + tx + 16 * j];
+        for (int j = 0; j < NJ; ++j)
+          bv[j] = tx + 16 * j < N ? bt_s[r * N + tx + 16 * j] : 0.f;
 #pragma unroll
         for (int i = 0; i < PR; ++i)
 #pragma unroll
@@ -167,7 +174,8 @@ __global__ void __launch_bounds__(THREADS) ssd_chunk_kernel(SsdArgs a) {
     for (int i = 0; i < PR; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        Hout[(ty * PR + i) * N + tx + 16 * j] = acc[i][j];
+        if (ty + 16 * i < P && tx + 16 * j < N)
+          Hout[(ty + 16 * i) * N + tx + 16 * j] = acc[i][j];
     if (tid == 0) a.dec[bhc] = expf(cend);
     return;
   }
@@ -234,7 +242,8 @@ __global__ void __launch_bounds__(THREADS) ssd_chunk_kernel(SsdArgs a) {
     for (int r = 0; r < TS; ++r) {
       float xv[PJ];
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) xv[j] = x_s[r * P + tx + 16 * j];
+      for (int j = 0; j < PJ; ++j)
+        xv[j] = tx + 16 * j < P ? x_s[r * P + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float w = w_s[(ty * 4 + i) * (TS + 1) + r];
@@ -250,7 +259,8 @@ __global__ void __launch_bounds__(THREADS) ssd_chunk_kernel(SsdArgs a) {
     const int t = t0 + ty * 4 + i;
     if (t >= cl) continue;
 #pragma unroll
-    for (int j = 0; j < PJ; ++j) Y[(long long)t * P + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < PJ; ++j)
+      if (tx + 16 * j < P) Y[(long long)t * P + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -269,6 +279,8 @@ cudaError_t launch(const SsdArgs& a, cudaStream_t stream) {
 template <typename T, int P>
 cudaError_t launch_n(const SsdArgs& a, int N, cudaStream_t stream) {
   switch (N) {
+    case 4: return launch<T, P, 4>(a, stream);
+    case 8: return launch<T, P, 8>(a, stream);
     case 16: return launch<T, P, 16>(a, stream);
     case 32: return launch<T, P, 32>(a, stream);
     case 64: return launch<T, P, 64>(a, stream);
@@ -279,6 +291,7 @@ cudaError_t launch_n(const SsdArgs& a, int N, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_pn(const SsdArgs& a, int P, int N, cudaStream_t stream) {
   switch (P) {
+    case 8: return launch_n<T, 8>(a, N, stream);
     case 16: return launch_n<T, 16>(a, N, stream);
     case 32: return launch_n<T, 32>(a, N, stream);
     case 64: return launch_n<T, 64>(a, N, stream);

@@ -7,9 +7,10 @@
 //   out_t = r_t . (S + u (x) k_t v_t)        (row vector times matrix)
 //   S     = diag(w_t) S + k_t (x) v_t
 //
-// in float32 whatever the input type: r, k, v float32 or bfloat16, the
-// decay w, the bonus u and the state float32 only (w ~ 0.9975 at the
-// model's initial decay rounds to 0.996 or 1.0 in bf16).
+// in float32 whatever the input type: r, k, v float32 or bfloat16; the
+// decay w and the bonus u each float32 or the type of r, k and v, widened to
+// float32 as they are loaded (the model keeps w in float32: w ~ 0.9975 at
+// its initial decay rounds to 0.996 or 1.0 in bf16); the state float32.
 //
 // What bounds it on the H100: operations, and before them latency. A step
 // is about 4 hd^2 float32 operations on 4 hd inputs, so at hd 64 it is
@@ -34,8 +35,8 @@
 //
 // Layout: r, k, v, w (B,H,T,hd), each read through (b, h, t) element
 // strides with unit feature stride, so the model passes transposed views of
-// its (B,T,H,hd) projections; u (H,hd), s0 and s_out (B,H,hd,hd)
-// contiguous float32. out is written contiguous as (B,T,H,hd) float32 (the
+// its (B,T,H,hd) projections; u (H,hd) contiguous; s0 and
+// s_out (B,H,hd,hd) contiguous float32. out is written contiguous as (B,T,H,hd) float32 (the
 // wrapper returns its (B,H,T,hd) view).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,8 +49,8 @@ struct WkvArgs {
   const void* r;
   const void* k;
   const void* v;
-  const float* w;
-  const float* u;
+  const void* w;
+  const void* u;
   const float* s0;
   float* s_out;
   float* out;
@@ -62,7 +63,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, int HD>
+// T: the type of r, k, v; TW: of w; TU: of u. HD threads a block: at hd 8
+// and 16 a block is part of one warp, so the kernel uses block barriers
+// only, no warp-wide primitive.
+template <typename T, typename TW, typename TU, int HD>
 __global__ void __launch_bounds__(HD) wkv6_kernel(WkvArgs a) {
   __shared__ float r_s[TT][HD], k_s[TT][HD], v_s[TT][HD], w_s[TT][HD];
   __shared__ float u_s[HD];
@@ -72,14 +76,14 @@ __global__ void __launch_bounds__(HD) wkv6_kernel(WkvArgs a) {
   const T* R = (const T*)a.r + b * a.sr[0] + h * a.sr[1];
   const T* K = (const T*)a.k + b * a.sk[0] + h * a.sk[1];
   const T* V = (const T*)a.v + b * a.sv[0] + h * a.sv[1];
-  const float* W = a.w + b * a.sw[0] + h * a.sw[1];
+  const TW* W = (const TW*)a.w + b * a.sw[0] + h * a.sw[1];
   const long long bh = (long long)b * a.H + h;
 
   float S[HD];  // column j of the state
   const float* S0 = a.s0 + bh * HD * HD;
 #pragma unroll
   for (int i = 0; i < HD; ++i) S[i] = S0[i * HD + j];
-  u_s[j] = a.u[h * HD + j];
+  u_s[j] = to_f32(((const TU*)a.u)[h * HD + j]);
 
   // out[b, t, h, j]
   float* O = a.out + ((long long)b * a.T * a.H + h) * HD + j;
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(HD) wkv6_kernel(WkvArgs a) {
       r_s[tt][j] = to_f32(R[t * a.sr[2] + j]);
       k_s[tt][j] = to_f32(K[t * a.sk[2] + j]);
       v_s[tt][j] = to_f32(V[t * a.sv[2] + j]);
-      w_s[tt][j] = W[t * a.sw[2] + j];
+      w_s[tt][j] = to_f32(W[t * a.sw[2] + j]);
     }
     __syncthreads();
     for (int tt = 0; tt < nt; ++tt) {
@@ -118,15 +122,21 @@ __global__ void __launch_bounds__(HD) wkv6_kernel(WkvArgs a) {
   for (int i = 0; i < HD; ++i) SO[i * HD + j] = S[i];
 }
 
-template <typename T>
+template <typename T, typename TW, typename TU>
 cudaError_t launch(const WkvArgs& a, int hd, cudaStream_t stream) {
   const dim3 grid(a.B * a.H);
   switch (hd) {
+    case 8:
+      wkv6_kernel<T, TW, TU, 8><<<grid, 8, 0, stream>>>(a);
+      break;
+    case 16:
+      wkv6_kernel<T, TW, TU, 16><<<grid, 16, 0, stream>>>(a);
+      break;
     case 32:
-      wkv6_kernel<T, 32><<<grid, 32, 0, stream>>>(a);
+      wkv6_kernel<T, TW, TU, 32><<<grid, 32, 0, stream>>>(a);
       break;
     case 64:
-      wkv6_kernel<T, 64><<<grid, 64, 0, stream>>>(a);
+      wkv6_kernel<T, TW, TU, 64><<<grid, 64, 0, stream>>>(a);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -136,17 +146,18 @@ cudaError_t launch(const WkvArgs& a, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (r, k and v share it; w, u, s0, s_out
-// and out are float32); device: the CUDA ordinal of the tensors, made
-// current for the launch. strides: 12 element strides, (b, h, t) of r, k,
+// dtype: 0 = float32, 1 = bfloat16 (r, k and v share it); wdtype, udtype:
+// the same codes for w and for u (float32, or dtype); s0, s_out and out are
+// float32;
+// device: the CUDA ordinal of the tensors, made current for the launch. strides: 12 element strides, (b, h, t) of r, k,
 // v, w in that order (the feature dim has stride 1). s_out may be s0.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // head dim or type it does not take).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
-                        const float* w, const float* u, const float* s0,
+                        const void* w, const void* u, const float* s0,
                         float* s_out, float* out, const long long* strides,
-                        int B, int H, int T, int hd, int dtype, int device,
-                        void* stream) {
+                        int B, int H, int T, int hd, int dtype, int wdtype,
+                        int udtype, int device, void* stream) {
   if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
   WkvArgs a;
   a.r = r;
@@ -169,7 +180,14 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch<float>(a, hd, st);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(a, hd, st);
-  return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && wdtype == 0 && udtype == 0)
+    return (int)launch<float, float, float>(a, hd, st);
+  if (dtype != 1 || wdtype < 0 || wdtype > 1 || udtype < 0 || udtype > 1)
+    return (int)cudaErrorInvalidValue;
+  if (wdtype == 0 && udtype == 0)
+    return (int)launch<bf16, float, float>(a, hd, st);
+  if (wdtype == 0) return (int)launch<bf16, float, bf16>(a, hd, st);
+  if (udtype == 0) return (int)launch<bf16, bf16, float>(a, hd, st);
+  return (int)launch<bf16, bf16, bf16>(a, hd, st);
 }

@@ -1,10 +1,12 @@
 """Wrapper of the hand-written CUDA decode kernel ``csrc/decode_attention.cu``
 (the port of the Pallas TPU kernel ``repro.kernels.decode_attention``).
 
-One block per (batch, kv head) scores the whole GQA group against each
-K/V row once. K and V are read through their strides, so the model passes
-``cache["k"].transpose(1, 2)`` — a view of the (B, W, Hkv, hd) cache —
-and no per-step copy of the cache is ever made.
+A cluster of up to eight blocks per (batch, kv head) splits the cache
+(the split-KV core ``csrc/decode_tile.cuh``, one launch a call) and scores
+the whole GQA group against each K/V row once. K and V are read through
+their strides, so the model passes ``cache["k"].transpose(1, 2)`` — a view
+of the (B, W, Hkv, hd) cache — and no per-step copy of the cache is ever
+made.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel takes hd == hd_v in {HEAD_DIMS}")
     if q_pos.shape != (B,) or k_pos.shape != (B, W):
         raise ValueError("positions must be (B,) and (B, W)")
+    if W < 1:
+        raise ValueError("the cache needs at least one row")
     if not (row_aligned(k) and row_aligned(v)):
         raise ValueError("k/v rows must be 16-byte aligned with unit d "
                          "stride")

@@ -20,7 +20,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 112, 128)    # 112: Zamba2's shared attention
+# 112: Zamba2's shared attention; 8 and 16: the reference's kernel sweeps
+HEAD_DIMS = (8, 16, 32, 64, 112, 128)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

@@ -133,7 +133,8 @@ def wkv6(r, k, v, w, u, s0, s_out: Optional[torch.Tensor] = None
     (B,H,hd,hd) float32. Returns (out (B,H,T,hd), s_final (B,H,hd,hd)),
     float32. ``s_out``, if given, receives the final state (it may be
     ``s0``: the state is updated in place) and is returned. On the card
-    ``w``, ``u`` and ``s0`` must be float32: the decay is never cast down."""
+    ``s0`` must be float32, and ``w`` and ``u`` float32 or the type of
+    ``r``: the kernel widens them on load and never casts the decay down."""
     if _on_cuda(r):
         return _wkv.wkv6(r, k, v, w, u, s0, s_out)
     out, S = _ref.wkv6(r, k, v, w, u, s0)

@@ -2,10 +2,12 @@
 (the port of the Pallas TPU kernel ``paged_decode_attention`` in
 ``repro.kernels.decode_attention``).
 
-One block per (batch, kv head) walks the slot's logical pages through the
-block table, so the shared page pool is never gathered into a per-slot
-copy. The pool's strides reach the kernel as 64-bit integers; every flat
-page offset is computed in 64 bits.
+A cluster of up to eight blocks per (batch, kv head) splits the slot's
+logical pages (the split-KV core ``csrc/decode_tile.cuh``), each block
+walking its span through the block table, so the shared page pool is never
+gathered into a per-slot copy; one launch a call. The pool's strides reach
+the kernel as 64-bit integers; every flat page offset is computed in 64
+bits.
 """
 from __future__ import annotations
 
@@ -73,6 +75,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     M = block_tbl.shape[1]
     if q_pos.shape != (B,):
         raise ValueError("q_pos must be (B,)")
+    if M * ps * ps >= 2 ** 32:
+        raise ValueError(f"table width {M} x page size {ps}^2 must be < "
+                         "2^32 (the kernel's page division by reciprocal)")
     q = q.contiguous()
     tbl = block_tbl.contiguous()
     q_pos, k_pos = q_pos.contiguous(), k_pos.contiguous()

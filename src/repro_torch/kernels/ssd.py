@@ -17,7 +17,10 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FEATURE_DIMS = (16, 32, 64)     # P (head dim) and N (state dim) it takes
+# the head dim P and state dim N it takes: the models' 16-64, and the
+# reference's kernel sweep's P 8, N 4 (N 8 beside it)
+HEAD_DIMS = (8, 16, 32, 64)
+STATE_DIMS = (4, 8, 16, 32, 64)
 MAX_CHUNK = 256
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
@@ -52,9 +55,9 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"A {tuple(A.shape)} Bm {tuple(Bm.shape)} Cm "
                          f"{tuple(Cm.shape)} do not match")
-    if P not in FEATURE_DIMS or N not in FEATURE_DIMS:
+    if P not in HEAD_DIMS or N not in STATE_DIMS:
         raise ValueError(f"head dim {P} / state dim {N} not in "
-                         f"{FEATURE_DIMS}")
+                         f"{HEAD_DIMS} / {STATE_DIMS}")
     if not 1 <= cl <= MAX_CHUNK:
         raise ValueError(f"chunk length {cl} not in [1, {MAX_CHUNK}]")
     x, Bm, Cm = _unit_feature(x), _unit_feature(Bm), _unit_feature(Cm)

@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # r, k, v
-HEAD_DIMS = (32, 64)                             # smoke and full
+# 32 and 64: the smoke and full configs; 8 and 16: the reference's sweeps
+HEAD_DIMS = (8, 16, 32, 64)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
@@ -29,9 +30,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
          s_out: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v: (B,H,T,hd) float32 or bf16 (one dtype); w: (B,H,T,hd)
-    float32; u: (H,hd) float32; s0: (B,H,hd,hd) float32, contiguous; all
-    on one CUDA device, unit stride on hd. ``s_out`` (contiguous float32,
+    """r/k/v: (B,H,T,hd) float32 or bf16 (one dtype); w: (B,H,T,hd) and
+    u: (H,hd), each float32 or the dtype of r/k/v (widened to float32 on
+    load); s0: (B,H,hd,hd) float32, contiguous; all on one CUDA device,
+    unit stride on hd. ``s_out`` (contiguous float32,
     may be ``s0``) receives the final state. Returns (out (B,H,T,hd)
     float32, s_final (B,H,hd,hd) float32)."""
     global launches
@@ -42,9 +44,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"wkv6 takes r/k/v in {list(DTYPES)}, got {r.dtype}")
     if not (k.dtype == v.dtype == r.dtype):
         raise TypeError("r, k and v must share one dtype")
-    for name, t in (("w", w), ("u", u), ("s0", s0)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("w", w), ("u", u)):
+        if t.dtype not in (torch.float32, r.dtype):
+            raise TypeError(f"{name} must be float32 or {r.dtype}, got "
+                            f"{t.dtype}")
+    if s0.dtype != torch.float32:
+        raise TypeError(f"s0 must be float32, got {s0.dtype}")
     B, H, T, hd = r.shape
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape \
             or u.shape != (H, hd) or s0.shape != (B, H, hd, hd):
@@ -73,7 +78,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = build.library("wkv6")
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), s0.data_ptr(), s_out.data_ptr(), out.data_ptr(),
-             strides, B, H, T, hd, DTYPES[r.dtype], r.device.index or 0,
+             strides, B, H, T, hd, DTYPES[r.dtype], DTYPES[w.dtype],
+             DTYPES[u.dtype], r.device.index or 0,
              torch.cuda.current_stream(r.device).cuda_stream)
     launches += 1
     build.check(err, "wkv6")

@@ -636,10 +636,19 @@ def test_wkv6_and_rmsnorm_refuse_what_they_do_not_take(cuda_device):
     gen = torch.Generator().manual_seed(0)
     r, k, v, w, u, s0 = _wkv_inputs(gen, 1, 2, 8, 64, torch.bfloat16,
                                     cuda_device)
-    with pytest.raises(TypeError, match="w must be float32"):
-        wkv6.wkv6(r, k, v, w.bfloat16(), u, s0)
-    with pytest.raises(TypeError, match="u must be float32"):
-        wkv6.wkv6(r, k, v, w, u.bfloat16(), s0)
+    # w and u in the type of r/k/v are taken (widened to float32 on load)
+    # and match the plain version on the same inputs; float16 is not
+    for wt, ut in ((w.bfloat16(), u), (w, u.bfloat16()),
+                   (w.bfloat16(), u.bfloat16())):
+        got_o, got_s = wkv6.wkv6(r, k, v, wt, ut, s0)
+        want_o, want_s = ref.wkv6(r, k, v, wt, ut, s0)
+        torch.cuda.synchronize()
+        _close_to_max(got_o, want_o)
+        _close_to_max(got_s, want_s)
+    with pytest.raises(TypeError, match="w must be float32 or"):
+        wkv6.wkv6(r, k, v, w.half(), u, s0)
+    with pytest.raises(TypeError, match="u must be float32 or"):
+        wkv6.wkv6(r, k, v, w, u.half(), s0)
     r48, k48, v48, w48, u48, s48 = _wkv_inputs(gen, 1, 2, 8, 48,
                                                torch.float32, cuda_device)
     with pytest.raises(ValueError, match="head dim"):
@@ -698,3 +707,293 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# --------------------------------------------------------------------------
+# the reference's own kernel sweeps: tests/test_kernels.py,
+# tests/test_paged_kernel.py and tests/test_chunked_prefill_kernel.py, their
+# parameter lists verbatim (bq/bk/bt: the Pallas block sizes, unused here)
+# at their tolerances, each CUDA kernel against its plain version on the
+# same inputs; inputs from numpy
+# --------------------------------------------------------------------------
+
+SWEEP_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # attention
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}      # SSD and WKV6
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        dtype).to(dev)
+
+
+def _launched(name, call):
+    before = ops.launch_counts()[name]
+    out = call()
+    assert ops.launch_counts()[name] == before + 1
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,hd,bq,bk", [
+    (1, 2, 2, 16, 16, 8, 16, 16),      # MHA, exact blocks
+    (2, 4, 2, 37, 37, 16, 16, 16),     # GQA 2x, ragged blocks
+    (1, 8, 2, 33, 65, 32, 8, 32),      # GQA 4x, Sq != Sk
+    (2, 4, 1, 7, 130, 64, 4, 64),      # MQA, tiny q block
+])
+@pytest.mark.parametrize("window,chunk", [(None, None), (8, None), (None, 8)])
+def test_flash_kernel_reference_sweep(cuda_device, dtype, B, Hq, Hkv, Sq, Sk,
+                                      hd, bq, bk, window, chunk):
+    """``tests/test_kernels.py::test_flash_attention_sweep``'s shapes: hd 8
+    (bf16: the tensor-core core with rows zero-filled to 16), 16, 32, 64."""
+    rng = np.random.default_rng(Sq + Sk + hd)
+    dev = cuda_device
+    q = _normal(rng, (B, Hq, Sq, hd), dtype, dev)
+    k = _normal(rng, (B, Hkv, Sk, hd), dtype, dev)
+    v = _normal(rng, (B, Hkv, Sk, hd), dtype, dev)
+    qpos = torch.arange(Sk - Sq, Sk, dtype=torch.int32,
+                        device=dev)[None].repeat(B, 1)
+    kpos = torch.arange(Sk, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    got = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, qpos, kpos, window, chunk))
+    want = ref.flash_attention(q, k, v, qpos, kpos, window, chunk)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=SWEEP_TOL[dtype], rtol=SWEEP_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,W,hd,bk", [
+    (1, 2, 2, 16, 8, 8),
+    (2, 4, 2, 29, 16, 8),
+    (1, 8, 1, 130, 64, 64),
+])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("fill", [0.6, 1.0])
+def test_decode_kernel_reference_sweep(cuda_device, dtype, B, Hq, Hkv, W, hd,
+                                       bk, window, fill):
+    """``tests/test_kernels.py::test_decode_attention_sweep``'s shapes."""
+    rng = np.random.default_rng(W * hd)
+    dev = cuda_device
+    q = _normal(rng, (B, Hq, hd), dtype, dev)
+    k = _normal(rng, (B, Hkv, W, hd), dtype, dev)
+    v = _normal(rng, (B, Hkv, W, hd), dtype, dev)
+    n_valid = max(1, int(W * fill))
+    kp = np.tile(np.arange(W, dtype=np.int32), (B, 1))
+    kpos = torch.from_numpy(np.where(kp < n_valid, kp, -1).astype(
+        np.int32)).to(dev)
+    qpos = torch.full((B,), n_valid - 1, dtype=torch.int32, device=dev)
+    got = _launched("decode_attention", lambda: ops.decode_attention(
+        q, k, v, qpos, kpos, window))
+    want = ref.decode_attention(q, k, v, qpos, kpos, window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=SWEEP_TOL[dtype], rtol=SWEEP_TOL[dtype])
+
+
+def _reference_pool(rng, B, Hkv, hd, ps, num_pages, lens, M, S=None):
+    """The reference sweeps' pool (``make_pool`` / ``make_case``): pages
+    from a permutation of ``num_pages``, slot b holding lens[b] tokens;
+    with ``S`` the last min(S, len) tokens are its chunk (pads -1)."""
+    kp = rng.normal(size=(Hkv, num_pages + 1, ps, hd)).astype(np.float32)
+    vp = rng.normal(size=(Hkv, num_pages + 1, ps, hd)).astype(np.float32)
+    perm = rng.permutation(num_pages)
+    tbl = np.full((B, M), -1, np.int32)
+    kpos = np.full((B, M * ps), -1, np.int32)
+    qpos = np.full((B, S or 1), -1, np.int32)
+    pi = 0
+    for b, L in enumerate(lens):
+        npg = -(-L // ps)
+        tbl[b, :npg] = perm[pi:pi + npg]
+        pi += npg
+        kpos[b, :L] = np.arange(L)
+        nv = min(S or 1, L)
+        qpos[b, :nv] = np.arange(L - nv, L)
+    if S is None:
+        qpos = qpos[:, 0]
+    return kp, vp, tbl, qpos, kpos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("page_size", [8, 16])
+def test_paged_decode_kernel_reference_sweep(cuda_device, dtype, group,
+                                             page_size):
+    """``tests/test_paged_kernel.py::test_paged_kernel_matches_ref``: hd
+    16, a partial page, an exact fill and a tiny slot, pages shared tighter
+    than B x M (float32 there; bf16 beside it)."""
+    B, Hkv, hd, M = 3, 2, 16, 4
+    Hq = group * Hkv
+    num_pages = B * M - 2
+    lens = [13, 3 * page_size, 5]
+    rng = np.random.default_rng(group * 17 + page_size)
+    kp, vp, tbl, qpos, kpos = _reference_pool(rng, B, Hkv, hd, page_size,
+                                              num_pages, lens, M)
+    q = rng.normal(size=(B, Hq, hd)).astype(np.float32)
+    dev = cuda_device
+    q, kp, vp = (torch.from_numpy(x).to(dtype).to(dev) for x in (q, kp, vp))
+    tbl, qpos, kpos = (torch.from_numpy(x).to(dev) for x in (tbl, qpos, kpos))
+    got = _launched("paged_decode_attention", lambda: ops.paged_decode_attention(
+        q, kp, vp, tbl, qpos, kpos))
+    want = ref.paged_decode_attention(q, kp, vp, tbl, qpos, kpos)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=SWEEP_TOL[dtype], rtol=SWEEP_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("chunk_len", [4, 8, 16])
+def test_chunked_prefill_kernel_reference_sweep(cuda_device, dtype, group,
+                                                page_size, chunk_len):
+    """``tests/test_chunked_prefill_kernel.py``'s sweep at hd 16: history
+    and a partial chunk, a chunk that is the whole short prompt, a chunk
+    across a page boundary; valid query rows compared, pads write 0
+    (float32 there; bf16 beside it)."""
+    B, Hkv, hd, M = 3, 2, 16, 4
+    Hq = group * Hkv
+    num_pages = B * M - 2
+    lens = [2 * page_size + 5, 3, min(chunk_len + page_size - 1,
+                                      M * page_size)]
+    rng = np.random.default_rng(group * 31 + page_size * 7 + chunk_len)
+    kp, vp, tbl, qpos, kpos = _reference_pool(rng, B, Hkv, hd, page_size,
+                                              num_pages, lens, M, chunk_len)
+    q = rng.normal(size=(B, Hq, chunk_len, hd)).astype(np.float32)
+    dev = cuda_device
+    q, kp, vp = (torch.from_numpy(x).to(dtype).to(dev) for x in (q, kp, vp))
+    tbl, qpos, kpos = (torch.from_numpy(x).to(dev) for x in (tbl, qpos, kpos))
+    got = _launched("chunked_prefill_attention",
+                    lambda: ops.chunked_prefill_attention(q, kp, vp, tbl,
+                                                          qpos, kpos))
+    want = ref.chunked_prefill_attention(q, kp, vp, tbl, qpos, kpos)
+    rows = (qpos >= 0)[:, None, :, None].expand_as(want)
+    torch.testing.assert_close(got.float()[rows], want.float()[rows],
+                               atol=SWEEP_TOL[dtype], rtol=SWEEP_TOL[dtype])
+    assert (got.float()[~rows] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,hd,bt", [
+    (1, 2, 8, 8, 8),
+    (2, 3, 23, 16, 8),     # ragged time blocks
+    (1, 4, 64, 32, 16),
+])
+def test_wkv6_kernel_reference_sweep(cuda_device, dtype, B, H, T, hd, bt):
+    """``tests/test_kernels.py::test_wkv6_sweep``: hd 8 and 16 (a block is
+    part of one warp), w = sigmoid(N(0, 1)) and u in the dtype of r/k/v."""
+    rng = np.random.default_rng(T * hd)
+    dev = cuda_device
+    r, k, v = (_normal(rng, (B, H, T, hd), dtype, dev) for _ in range(3))
+    w = torch.sigmoid(_normal(rng, (B, H, T, hd), torch.float32, dev)).to(
+        dtype)
+    u = (_normal(rng, (H, hd), torch.float32, dev) * 0.5).to(dtype)
+    s0 = _normal(rng, (B, H, hd, hd), torch.float32, dev) * 0.1
+    got_o, got_s = _launched("wkv6", lambda: ops.wkv6(r, k, v, w, u, s0))
+    want_o, want_s = ref.wkv6(r, k, v, w, u, s0)
+    t = SCAN_TOL[dtype]
+    torch.testing.assert_close(got_o, want_o, atol=t, rtol=t)
+    torch.testing.assert_close(got_s, want_s, atol=t, rtol=t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,P,N,cl", [
+    (1, 2, 16, 8, 4, 8),
+    (2, 3, 21, 8, 4, 8),    # ragged chunks
+    (1, 2, 64, 16, 16, 16),
+])
+def test_ssd_kernel_reference_sweep(cuda_device, dtype, B, H, T, P, N, cl):
+    """``tests/test_kernels.py::test_ssd_sweep``: P 8 and N 4 leave column
+    lanes of the kernel idle; the whole scan on the card against the plain
+    version on the same inputs."""
+    rng = np.random.default_rng(T * P + N)
+    dev = cuda_device
+    x = _normal(rng, (B, T, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        _normal(rng, (B, T, H), torch.float32, dev)).to(dtype)
+    A = -torch.exp(_normal(rng, (H,), torch.float32, dev) * 0.5)
+    Bm = _normal(rng, (B, T, H, N), dtype, dev)
+    Cm = _normal(rng, (B, T, H, N), dtype, dev)
+    h0 = _normal(rng, (B, H, P, N), torch.float32, dev) * 0.1
+    got_y, got_h = _launched("ssd_chunk", lambda: ops.ssd_scan(
+        x, dt, A, Bm, Cm, h0, chunk=cl))
+    plain = [t.cpu() for t in (x, dt, A, Bm, Cm, h0)]
+    want_y, want_h = ops.ssd_scan(*plain, chunk=cl)
+    t = SCAN_TOL[dtype]
+    torch.testing.assert_close(got_y.cpu(), want_y, atol=t, rtol=t)
+    torch.testing.assert_close(got_h.cpu(), want_h, atol=t, rtol=t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 112])
+@pytest.mark.parametrize("case", ["last_span", "one_span", "wrapped",
+                                  "shared_page", "no_valid_key"])
+def test_decode_kernels_split_cases(cuda_device, dtype, hd, case):
+    """The split across a cluster of blocks on its edges, W 4,096 (a cluster
+    of eight blocks): one valid key, in the last span only; every span but
+    one empty;
+    a wrapped ring (positions unsorted); a page mapped by two slots that
+    holds rows valid for one and -1 for the other; a slot with no valid key
+    (writes 0, finite: the documented difference from the oracle). Both
+    decode kernels, GQA group 2; rows with a valid key against the plain
+    version at the sweep tolerances."""
+    rng = np.random.default_rng(hd + len(case))
+    B, Hkv, G, W, ps = 3, 2, 2, 4096, 16
+    M = W // ps
+    dev = cuda_device
+    k_pos = np.full((B, W), -1, np.int32)
+    q_pos = np.zeros(B, np.int32)
+    for b in range(B):
+        if case == "last_span":
+            k_pos[b, W - 1 - 3 * b] = 9
+            q_pos[b] = 9 + b
+        elif case == "one_span":
+            k_pos[b, 1900:2100] = np.arange(200)
+            q_pos[b] = 150 + b
+        elif case == "wrapped":
+            n = W + 300 + 517 * b
+            t = np.arange(n - W, n)
+            k_pos[b, t % W] = t
+            q_pos[b] = n - 1
+        elif case == "shared_page":
+            k_pos[b, :1000 + 7 * b] = np.arange(1000 + 7 * b)
+            q_pos[b] = 999 + 7 * b
+        else:
+            k_pos[b, :300] = np.arange(300)
+            q_pos[b] = [299, -1, 299][b]       # slot 1: no valid key
+            if b == 2:
+                k_pos[b] = -1                  # slot 2: an empty cache
+    if case == "shared_page":
+        k_pos[1, 8:16] = -1                    # half of slot 0's page 0
+    q = _normal(rng, (B, Hkv * G, hd), dtype, dev)
+    valid = [bool(((k_pos[b] >= 0) & (k_pos[b] <= q_pos[b])).any())
+             for b in range(B)]
+    qp, kp = (torch.from_numpy(x).to(dev) for x in (q_pos, k_pos))
+    # contiguous: the (B, W, Hkv, hd) ring seen as (B, Hkv, W, hd)
+    ck = _normal(rng, (B, W, Hkv, hd), dtype, dev).transpose(1, 2)
+    cv = _normal(rng, (B, W, Hkv, hd), dtype, dev).transpose(1, 2)
+    # paged: slot b's logical page lp at physical page b * M + lp, except
+    # that slot 1 maps slot 0's page 0 (shared_page)
+    tbl = np.arange(B * M, dtype=np.int32).reshape(B, M)
+    if case == "shared_page":
+        tbl[1, 0] = tbl[0, 0]
+    tbl = torch.from_numpy(tbl).to(dev)
+    pk = _normal(rng, (Hkv, B * M + 1, ps, hd), dtype, dev)
+    pv = _normal(rng, (Hkv, B * M + 1, ps, hd), dtype, dev)
+    runs = [("decode_attention",
+             lambda: ops.decode_attention(q, ck, cv, qp, kp),
+             lambda: ref.decode_attention(q, ck, cv, qp, kp)),
+            ("paged_decode_attention",
+             lambda: ops.paged_decode_attention(q, pk, pv, tbl, qp, kp),
+             lambda: ref.paged_decode_attention(q, pk, pv, tbl, qp, kp))]
+    for name, kernel, plain in runs:
+        got = _launched(name, kernel)
+        want = plain()
+        assert torch.isfinite(got.float()).all(), name
+        for b in range(B):
+            if valid[b]:
+                torch.testing.assert_close(
+                    got[b].float(), want[b].float(), atol=SWEEP_TOL[dtype],
+                    rtol=SWEEP_TOL[dtype], msg=lambda m, n=name: f"{n}: {m}")
+            else:
+                assert (got[b] == 0).all(), name
+    assert valid == ([True, False, False] if case == "no_valid_key"
+                     else [True] * B)

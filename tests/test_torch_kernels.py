@@ -6,6 +6,7 @@ are compared (a pad row's output is unspecified: the Pallas kernel's
 block padding makes it differ from the oracle's). float32, atol/rtol
 1e-5: the same f32 math in another order."""
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -184,12 +185,15 @@ def test_build_key_covers_headers(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["attention_tile.cuh"]
+    assert [h.name for h in headers] == ["attention_tile.cuh",
+                                         "decode_tile.cuh"]
     before = {n: build._target(n) for n in build.SOURCES}
     assert before == {n: build._target(n) for n in build.SOURCES}
-    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
-    after = {n: build._target(n) for n in build.SOURCES}
-    assert all(after[n] != before[n] for n in build.SOURCES)
+    for header in headers:
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {n: build._target(n) for n in build.SOURCES}
+        assert all(after[n] != before[n] for n in build.SOURCES)
+        before = after
     (csrc / "flash_attention.cu").write_text("// edited source\n")
     again = {n: build._target(n) for n in build.SOURCES}
     assert again["flash_attention"] != after["flash_attention"]
@@ -213,3 +217,196 @@ def test_build_key_follows_source_dir(tmp_path):
     theirs = build._target("chunked_prefill_attention", other)
     assert theirs != ours["chunked_prefill_attention"]
     assert theirs.parent == build.BUILD_DIR
+
+
+# --------------------------------------------------------------------------
+# the split-KV arithmetic of csrc/decode_tile.cuh, emulated in float32
+# --------------------------------------------------------------------------
+
+def _first_key(qp, window, chunk):
+    """The smallest valid key position of query position ``qp``: keys are
+    valid iff first_key <= k_pos <= qp (the core's two compares)."""
+    lo = 0
+    if window is not None:
+        lo = max(lo, qp - window + 1)
+    if chunk is not None and qp >= 0:
+        lo = max(lo, qp - qp % chunk)
+    return lo
+
+
+def _split_decode(q, k, v, q_pos, k_pos, window, chunk, C, tile):
+    """The decode core's arithmetic in float32: the W keys of each (batch,
+    kv head) cut into ``tile``-key tiles, the tiles into C contiguous spans
+    of whole tiles (one per block of a cluster). A span whose positions
+    prove every key masked contributes (m, l, o) = (-inf, 0, 0); any other
+    scores a valid key q.k/sqrt(hd), a masked one -1e9 and one past the
+    edge -inf, with the masked rows' V zero-filled. The spans merge with
+    weights exp(m - M), 0 where m is -inf, and the denominator is clamped
+    at 1e-30, so a query with no valid key writes 0."""
+    B, Hq, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n_all = -(-W // tile)
+    per = -(-n_all // C)
+    out = torch.zeros(B, Hq, hd)
+    for b in range(B):
+        qp = int(q_pos[b])
+        lo = _first_key(qp, window, chunk)
+        for h in range(Hq):
+            kk, vv = k[b, h // G], v[b, h // G]
+            ms, ls, os_ = [], [], []
+            for c in range(C):
+                # a block past the last tile owns no keys at all
+                idx = torch.arange(c * per * tile,
+                                   max(c * per, min(n_all, (c + 1) * per))
+                                   * tile)
+                inside = idx < W
+                kp = torch.where(inside, k_pos[b, idx.clamp(max=W - 1)],
+                                 torch.full_like(idx, -1, dtype=k_pos.dtype))
+                valid = inside & (kp >= lo) & (kp <= qp)
+                if not bool(valid.any()):
+                    ms.append(torch.tensor(-math.inf))
+                    ls.append(torch.tensor(0.0))
+                    os_.append(torch.zeros(hd))
+                    continue
+                rows = idx.clamp(max=W - 1)
+                s = (kk[rows] @ q[b, h]) / math.sqrt(hd)
+                s = torch.where(valid, s, torch.full_like(s, -1e9))
+                s = torch.where(inside, s, torch.full_like(s, -math.inf))
+                m = s.max()
+                p = torch.exp(s - m)
+                vz = torch.where(valid[:, None], vv[rows], torch.zeros(()))
+                ms.append(m)
+                ls.append(p.sum())
+                os_.append(p @ vz)
+            m_all = torch.stack(ms)
+            M = m_all.max()
+            f = torch.where(m_all == -math.inf, torch.zeros(()),
+                            torch.exp(m_all - M))
+            L = (f * torch.stack(ls)).sum()
+            O = (f[:, None] * torch.stack(os_)).sum(0)
+            out[b, h] = O / torch.clamp(L, min=1e-30)
+    return out
+
+
+def _has_valid(q_pos, k_pos, window, chunk):
+    return [bool(((k_pos[b] >= _first_key(int(q_pos[b]), window, chunk))
+                  & (k_pos[b] <= int(q_pos[b]))).any())
+            for b in range(len(q_pos))]
+
+
+@pytest.mark.parametrize("C,tile", [(1, 64), (3, 8), (8, 4)])
+@pytest.mark.parametrize("fill", [0.6, 1.0])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("B,Hq,Hkv,W,hd", [
+    (1, 2, 2, 16, 8), (2, 4, 2, 29, 16), (1, 8, 1, 130, 64),
+])
+def test_split_decode_arithmetic_matches_plain(B, Hq, Hkv, W, hd, window,
+                                               fill, C, tile):
+    """The core's span-and-merge arithmetic equals ``ref.decode_attention``
+    on the reference's decode sweep shapes (``tests/test_kernels.py``),
+    float32, atol/rtol 1e-5."""
+    rng = np.random.default_rng(W * hd + C)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, hd), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, Hkv, W, hd),
+                                             dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, Hkv, W, hd),
+                                             dtype=np.float32))
+    n_valid = max(1, int(W * fill))
+    kp = np.tile(np.arange(W, dtype=np.int32), (B, 1))
+    kp = torch.from_numpy(np.where(kp < n_valid, kp, -1).astype(np.int32))
+    qp = torch.full((B,), n_valid - 1, dtype=torch.int32)
+    got = _split_decode(q, k, v, qp, kp, window, None, C, tile)
+    want = TOPS.decode_attention(q, k, v, qp, kp, window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("C,tile", [(1, 64), (3, 8), (8, 4)])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_split_paged_decode_arithmetic_matches_plain(group, page_size, C,
+                                                     tile):
+    """The same arithmetic on the logical view of a paged pool equals
+    ``ref.paged_decode_attention`` on the reference's paged sweep
+    (``tests/test_paged_kernel.py``: B 3, 2 kv heads, hd 16, 4 pages a slot,
+    a partial page, an exact fill and a tiny slot, pages shared tighter than
+    B x M), float32, atol/rtol 1e-5."""
+    from repro_torch.kernels import ref as TREF
+    B, Hkv, hd, M = 3, 2, 16, 4
+    ps = page_size
+    rng = np.random.default_rng(group * 17 + ps + C)
+    num_pages = B * M - 2
+    lens = [13, 3 * ps, 5]
+    kp = rng.standard_normal((Hkv, num_pages + 1, ps, hd), dtype=np.float32)
+    vp = rng.standard_normal((Hkv, num_pages + 1, ps, hd), dtype=np.float32)
+    perm = rng.permutation(num_pages)
+    tbl = np.full((B, M), -1, np.int32)
+    k_pos = np.full((B, M * ps), -1, np.int32)
+    pi = 0
+    for b, L in enumerate(lens):
+        npg = -(-L // ps)
+        tbl[b, :npg] = perm[pi:pi + npg]
+        pi += npg
+        k_pos[b, :L] = np.arange(L)
+    q_pos = np.asarray([L - 1 for L in lens], np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, group * Hkv, hd),
+                                             dtype=np.float32))
+    kp, vp, tbl, q_pos, k_pos = (torch.from_numpy(x) for x in
+                                 (kp, vp, tbl, q_pos, k_pos))
+    got = _split_decode(q, TREF.logical_view(kp, tbl),
+                        TREF.logical_view(vp, tbl), q_pos, k_pos, None, None,
+                        C, tile)
+    want = TOPS.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["last_span_only", "one_span",
+                                  "all_empty", "wrapped", "chunk_window"])
+def test_split_decode_arithmetic_with_empty_spans(case):
+    """Spans with no valid key merge to nothing: one valid key in the last
+    of eight spans of a 2,048-key cache, every span but one empty, a wrapped
+    ring (positions unsorted), a chunk and window mask leaving most spans
+    empty: equal to ``ref.decode_attention``, finite, no NaN. A row with no
+    valid key at all (every span empty) writes 0 (the oracle averages the
+    masked values instead: the documented difference)."""
+    rng = np.random.default_rng(11)
+    B, Hkv, G, hd, W = 3, 2, 2, 16, 2048
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, hd),
+                                             dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, Hkv, W, hd),
+                                             dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, Hkv, W, hd),
+                                             dtype=np.float32))
+    k_pos = np.full((B, W), -1, np.int32)
+    q_pos = np.zeros(B, np.int32)
+    window = chunk = None
+    for b in range(B):
+        if case == "last_span_only":           # one key, at the very end
+            k_pos[b, W - 1 - b] = 5
+            q_pos[b] = 5
+        elif case == "one_span":               # keys 700..899 only
+            k_pos[b, 700:900] = np.arange(200)
+            q_pos[b] = 199 - b
+        elif case == "all_empty":
+            q_pos[b] = [0, 10, -1][b]          # no row holds a valid key
+        elif case == "wrapped":
+            n = W + 300 + 97 * b               # the ring wrapped
+            t = np.arange(n - W, n)
+            k_pos[b, t % W] = t
+            q_pos[b] = n - 1
+        else:
+            k_pos[b] = np.arange(W)
+            q_pos[b] = 1500 + b
+            window, chunk = 40, 512
+    qp, kp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
+    got = _split_decode(q, k, v, qp, kp, window, chunk, 8, 64)
+    assert torch.isfinite(got).all()
+    valid = _has_valid(qp, kp, window, chunk)
+    want = TOPS.decode_attention(q, k, v, qp, kp, window, chunk)
+    for b in range(B):
+        if valid[b]:
+            np.testing.assert_allclose(got[b].numpy(), want[b].numpy(),
+                                       **TOL)
+        else:
+            assert (got[b] == 0).all()
+    assert any(valid) == (case != "all_empty")

@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""Time the four attention kernels against the same kernels built from
-other sources, on one card, in one process.
+"""Time the port's kernels against the same kernels built from other
+sources, on one card, in one process.
 
     mkdir -p build/ab
-    for f in decode_attention paged_decode_attention; do
+    for f in wkv6 ssd_chunk; do
       git show <commit>:src/repro_torch/kernels/csrc/$f.cu > build/ab/$f.cu
     done
     python3 chip_kernel_ab.py build/ab
 
 DIR holds any of ``flash_attention.cu``, ``chunked_prefill_attention.cu``,
-``decode_attention.cu`` and ``paged_decode_attention.cu`` and the
-``*.cuh`` headers they include (an earlier tree's, or a variant of this
-tree's); the kernels whose source is there are compared. Each is built
-with this tree's ``nvcc`` flags into ``build/kernels/`` beside this tree's
-own (``build.build(..., csrc=DIR)``) and called through this tree's
-wrappers. At ``chip_smoke.py``'s main-path shapes, in bf16 (chunked
-prefill B1 H32/32 S256 after 768 history tokens at hd 64; flash B8 H32/32
-S512, right-padded, at hd 64 and 112; decode B8 H32/32 W2048, mixed fills,
-and paged decode B8 H32/32 ps16 M128, fills 16-2048, at hd 64 and 112, and
-both again at a serving step's fills: the engine trace's first 8 prompts,
-32 tokens into their decode), it
-holds both builds to the plain version (``chip_smoke.TOL`` on valid rows,
-or it fails), counts each build's elements past ``chip_smoke.TOL_WIDE``
-against the plain version run in float32 (reported, not held: a variant
-may be there to show that it breaks it), and times each around the replay
-of a CUDA graph of 20 calls, in turns (DIR, this tree, this tree, DIR),
-beside ``scaled_dot_product_attention`` with the same mask and the least
-time the card could take. Needs one NVIDIA card.
+``decode_attention.cu``, ``paged_decode_attention.cu``, ``wkv6.cu`` and
+``ssd_chunk.cu`` and the ``*.cuh`` headers they include (an earlier
+tree's, or a variant of this tree's); the kernels whose source is there
+are compared. Each is built with this tree's ``nvcc`` flags into
+``build/kernels/`` beside this tree's own (``build.build(..., csrc=DIR)``)
+and called through this tree's wrappers. At ``chip_smoke.py``'s main-path
+shapes, in bf16 (chunked prefill B1 H32/32 S256 after 768 history tokens
+at hd 64; flash B8 H32/32 S512, right-padded, at hd 64 and 112; decode B8
+H32/32 W2048, mixed fills, and paged decode B8 H32/32 ps16 M128, fills
+16-2048, at hd 64 and 112, and both again at a serving step's fills: the
+engine trace's first 8 prompts, 32 tokens into their decode; WKV6 at B1
+H32 T1024 and B8 H32 T1 hd 64 and at the rwkv6 engine's prefills, B1 T16,
+B2 T17, B1 T48 and B1 T119; the SSD chunk at B2 H112 T1024 cl256 P64 N64
+in float32 and bf16 and at the zamba2 engine's prefill buckets in bf16,
+B8 T128 cl128, B4 T64 cl64, B1 T32 cl32 and B1 T1024 cl256), it holds both
+builds to the plain version (attention: ``chip_smoke.TOL`` on valid rows;
+WKV6: ``chip_smoke.WKV_REL`` of the largest output; SSD: 1e-4; or it
+fails), counts each attention build's elements past
+``chip_smoke.TOL_WIDE`` against the plain version run in float32
+(reported, not held: a variant may be there to show that it breaks it),
+and times each around the replay of a CUDA graph of 20 calls, in turns
+(DIR, this tree, this tree, DIR), beside ``scaled_dot_product_attention``
+with the same mask (attention only) and the least time the card could
+take. Needs one NVIDIA card.
 """
 import functools
 import json
@@ -39,7 +45,7 @@ import torch
 import chip_smoke
 
 NAMES = ("flash_attention", "chunked_prefill_attention", "decode_attention",
-         "paged_decode_attention")
+         "paged_decode_attention", "wkv6", "ssd_chunk")
 
 
 def through(csrc, call):
@@ -67,6 +73,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
     from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_line()
     print(card)
@@ -126,31 +134,62 @@ def main() -> int:
                 plain=REF.paged_decode_attention, args=args,
                 sdpa=chip_smoke.paged_sdpa(*args), qpos=None, flops=flops,
                 nbytes=nbytes))
+    # the scan kernels: phase 3's shapes and the engines' prefills (rwkv6:
+    # exact-length groups; zamba2: power-of-two buckets), and WKV6's decode
+    for B, T in ((1, 1024), (8, 1), (1, 16), (2, 17), (1, 48), (1, 119)):
+        if "wkv6" not in names:
+            break
+        args = chip_smoke.wkv6_inputs(B, 32, T, 64, bf, gen)
+        flops, nbytes = chip_smoke.wkv6_work(*args)
+        cases.append(dict(label=f"wkv6 B{B} H32 T{T} hd64", kernel=WKV.wkv6,
+                          plain=REF.wkv6, args=args,
+                          check=chip_smoke.wkv6_check, flops=flops,
+                          nbytes=nbytes, dtype=torch.float32))
+    for B, T, cl, dt in ((2, 1024, 256, torch.float32), (2, 1024, 256, bf),
+                         (8, 128, 128, bf), (4, 64, 64, bf), (1, 32, 32, bf),
+                         (1, 1024, 256, bf)):
+        if "ssd_chunk" not in names:
+            break
+        args = chip_smoke.ssd_inputs(B, 112, T, cl, 64, 64, dt, gen)
+        flops, nbytes, peak = chip_smoke.ssd_work(*args)
+        cases.append(dict(
+            label=f"ssd B{B} H112 T{T} cl{cl} P64 N64 "
+            f"{'bf16' if dt == bf else 'f32'}", kernel=SSD.ssd_chunk,
+            plain=REF.ssd_chunk, args=args, check=chip_smoke.ssd_check,
+            flops=flops, nbytes=nbytes, dtype=dt, peak=peak))
     rows_out = []
-    print(f"\n[ab] bf16, ms per call from CUDA-graph replays; max abs err "
+    print(f"\n[ab] ms per call from CUDA-graph replays; max abs err "
           f"against the plain version, elements past TOL_WIDE against it in "
-          f"float32 ({card})")
+          f"float32 (attention; bf16 unless named) ({card})")
     print(f"{'case':42s} {'base':>8s} {'new':>8s} {'new':>8s} {'base':>8s} "
           f"{'sdpa':>8s} {'bound':>8s} by      base_err  new_err  "
           f"base_wide new_wide")
     for c in cases:
         call = lambda c=c: c["kernel"](*c["args"])  # noqa: E731
         want = c["plain"](*c["args"])
-        rows = (torch.ones_like(want, dtype=torch.bool) if c["qpos"] is None
-                else (c["qpos"] >= 0)[:, None, :, None].expand_as(want))
         errs, wide = [], []
         for who, src in (("base", base), ("new", None)):
             got = through(src, call)()
-            errs.append(chip_smoke.check_close(f"{c['label']} {who}", got,
-                                               want, rows, bf))
+            label = f"{c['label']} {who}"
+            if "check" in c:           # the scan kernels
+                errs.append(c["check"](label, got, want))
+                wide.append(0)
+                continue
+            rows = (torch.ones_like(want, dtype=torch.bool)
+                    if c["qpos"] is None
+                    else (c["qpos"] >= 0)[:, None, :, None].expand_as(want))
+            errs.append(chip_smoke.check_close(label, got, want, rows, bf))
             wide.append(chip_smoke.check_wide(got, c["plain"], c["args"],
                                               rows, bf)[1])
         times = [chip_smoke.time_ms(through(src, call), graph=True)
                  for src in (base, None, None, base)]
-        lib = chip_smoke.time_ms(c["sdpa"], graph=True)
-        bms, by = chip_smoke.bound_ms(c["flops"], c["nbytes"], bf)
+        lib = (chip_smoke.time_ms(c["sdpa"], graph=True) if "sdpa" in c
+               else None)
+        bms, by = chip_smoke.bound_ms(c["flops"], c["nbytes"],
+                                      c.get("dtype", bf), c.get("peak"))
         print(f"{c['label']:42s} " + " ".join(f"{t:8.4f}" for t in times)
-              + f" {lib:8.4f} {bms:8.5f} {by:7s} {errs[0]:.2e} {errs[1]:.2e}"
+              + (f" {lib:8.4f}" if lib is not None else f" {'-':>8s}")
+              + f" {bms:8.5f} {by:7s} {errs[0]:.2e} {errs[1]:.2e}"
               f" {wide[0]:9d} {wide[1]:8d}")
         rows_out.append(dict(case=c["label"], base_ms=[times[0], times[3]],
                              new_ms=[times[1], times[2]], sdpa_ms=lib,

@@ -17,10 +17,10 @@ groups). With no argument it profiles all four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
 warm wall per decode micro-step, the kernel launches per micro-step by
-launch call (``cudaLaunchKernel``; the decode kernels' cluster launches
-are ``cudaLaunchKernelExC``, cuBLAS's ``cuLaunchKernelEx``), the kernels and host ops that take the most time, and the
-device time of each of the port's kernels. Needs one
-NVIDIA card.
+launch call (``cudaLaunchKernel``; the cluster launches of the decode,
+``wkv6`` and ``ssd_chunk`` kernels are ``cudaLaunchKernelExC``, cuBLAS's
+``cuLaunchKernelEx``), the kernels and host ops that take the most time,
+and the device time of each of the port's kernels. Needs one NVIDIA card.
 """
 import collections
 import re
@@ -39,8 +39,9 @@ KERNELS = ("flash_tc_kernel", "flash_fwd_kernel", "chunk_tc_kernel",
            "chunk_fwd_kernel", "decode_kernel", "paged_decode_kernel",
            "ssd_chunk_kernel", "wkv6_kernel", "rmsnorm_kernel")
 # the host calls that launch a kernel: the port's kernels and PyTorch's own
-# use cudaLaunchKernel, the decode kernels' cluster launches (and some
-# library kernels) cudaLaunchKernelExC, cuBLAS's matmuls cuLaunchKernelEx
+# use cudaLaunchKernel, the cluster launches of the decode, wkv6 and SSD
+# kernels (and some library kernels) cudaLaunchKernelExC, cuBLAS's matmuls
+# cuLaunchKernelEx
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 

@@ -23,18 +23,20 @@ Phases (any failure raises and the script exits non-zero):
    (``scaled_dot_product_attention``; for the paged kernels over the
    logical view gathered beforehand, the gather not timed;
    ``F.rms_norm`` for RMSNorm; none for the SSD chunk and WKV6, which no
-   single PyTorch call computes) times from CUDA events (for the four
-   attention kernels, WKV6 and RMSNorm, whose calls take about as much
-   device time as the host takes to issue them or less, around the
-   replay of a CUDA graph of the calls, with the eager time on a line of
-   its own), beside the least time the card could take (valid query
-   rows and keys, causal pairs only) and the factor over it; the bf16
-   decode cases beside SDPA on lines of their own. First, the bf16
-   instances of the flash and chunked-prefill kernels: ptxas' registers
-   and spills and their tensor-core (HMMA) instruction counts from
-   ``cuobjdump -sass`` (no spill and some HMMA, or it fails; none in the
-   float32 instances); then every instance of the two decode kernels'
-   split-KV core (48 each): registers, and no spill or it fails;
+   single PyTorch call computes) times from CUDA events (every kernel
+   around the replay of a CUDA graph of the calls, its time alone, with
+   the eager time on a line of its own), beside the least time the card
+   could take (valid query rows and keys, causal pairs only; the SSD
+   chunk's products at the tensor cores' rate of its input type, with the
+   CUDA cores' float32 bound printed beside it) and the factor over it;
+   the bf16 decode cases beside SDPA on lines of their own. First, the
+   bf16 instances of the flash and chunked-prefill kernels: ptxas'
+   registers and spills and their tensor-core (HMMA) instruction counts
+   from ``cuobjdump -sass`` (no spill and some HMMA, or it fails; none in
+   the float32 instances); then every instance of the two decode
+   kernels' split-KV core (48 each): registers, and no spill or it
+   fails; then every instance of ``wkv6`` (20) and ``ssd_chunk`` (40):
+   registers, no spill, and HMMA in every SSD instance, or it fails;
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. ``llama-paper-1b`` at full width and depth in
@@ -75,6 +77,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_TF32 = 495e12        # H100 SXM dense TF32 tensor-core FLOP/s
 PEAK_F32 = 67e12          # H100 SXM float32 outside the tensor cores
 HBM_BPS = 3.35e12         # H100 SXM device memory bytes/s
 TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
@@ -155,8 +158,12 @@ def time_ms(fn, warmup: int = 3, iters: int = 20,
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+def bound_ms(flops: float, nbytes: float, dtype, peak=None) -> tuple:
+    """(least ms, "operations" or "bytes"): the larger of ``flops`` over
+    ``peak`` (by default the bf16 tensor cores' for bf16, the CUDA cores'
+    float32 otherwise) and ``nbytes`` over the memory rate."""
+    if peak is None:
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     t_ops, t_bytes = flops / peak, nbytes / HBM_BPS
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -472,11 +479,12 @@ def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128):
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
-def ssd_case(SSD, REF, B, H, T, cl, P, N, dtype, gen):
-    """One SSD-chunk launch in the mamba2 block's layout: (B, T, H, *)
-    projections seen as (B, H, nc, cl, *) views, one B/C group broadcast
-    over the heads through a stride-0 view; dt = softplus(N(0,1) - 4) (the
-    model's initial dt is about 0.01) and A = -[1 .. 16], as initialised."""
+def ssd_inputs(B, H, T, cl, P, N, dtype, gen):
+    """One SSD-chunk launch's arguments in the mamba2 block's layout: (B,
+    T, H, *) projections seen as (B, H, nc, cl, *) views, one B/C group
+    broadcast over the heads through a stride-0 view; dt = softplus(N(0,1)
+    - 4) (the model's initial dt is about 0.01) and A = -[1 .. 16], as
+    initialised."""
     dev = "cuda"
     nc = T // cl
     x = torch.randn(B, T, H, P, generator=gen, device=dev)
@@ -486,34 +494,58 @@ def ssd_case(SSD, REF, B, H, T, cl, P, N, dtype, gen):
     bc = torch.randn(2, B, T, 1, N, generator=gen, device=dev)
     x, dt, bc = x.to(dtype), dt.to(dtype), bc.to(dtype)
     view = lambda t: t.reshape(B, nc, cl, H, -1).permute(0, 3, 1, 2, 4)
-    args = (view(x), dt.reshape(B, nc, cl, H).permute(0, 3, 1, 2), A,
+    return (view(x), dt.reshape(B, nc, cl, H).permute(0, 3, 1, 2), A,
             view(bc[0].expand(B, T, H, N)), view(bc[1].expand(B, T, H, N)))
-    got = SSD.ssd_chunk(*args)
-    want = REF.ssd_chunk(*args)
-    label = f"ssd B{B} H{H} T{T} cl{cl} P{P} N{N} {dtype}"
-    # both read the inputs into float32 and compute there, so the kernel is
-    # held to the float32 tolerance in either input type; for bf16 inputs
-    # that is the check against the plain version in float32
-    err = max(check_close(label, g, w, torch.ones_like(w, dtype=torch.bool),
-                          torch.float32) for g, w in zip(got, want))
-    wide = (err if dtype == torch.bfloat16 else None, 0)
+
+
+def ssd_work(x, dt, A, Bm, Cm) -> tuple:
+    """(operations, bytes, peak) of one SSD chunk call: the causal pairs'
+    two products and h's; x, dt, one B/C group and A read once, the three
+    float32 outputs written once; the products' tensor-core rate (bf16, or
+    TF32 for float32 inputs)."""
+    B, H, nc, cl, P = x.shape
+    N = Bm.shape[-1]
     pairs = B * H * nc * cl * (cl + 1) / 2
     flops = 2.0 * pairs * (N + P) + 2.0 * B * H * nc * cl * P * N
     e = x.element_size()
-    nbytes = ((x.numel() + dt.numel() + bc.numel()) * e + A.numel() * 4
-              + sum(t.numel() for t in got) * 4)
-    bms, by = bound_ms(flops, nbytes, torch.float32)
-    ms = time_ms(lambda: SSD.ssd_chunk(*args))
+    outs = B * H * nc * (cl * P + P * N + 1)
+    nbytes = ((x.numel() + dt.numel() + 2 * B * nc * cl * N) * e
+              + A.numel() * 4 + outs * 4)
+    return flops, nbytes, (PEAK_BF16 if x.dtype == torch.bfloat16
+                           else PEAK_TF32)
+
+
+def ssd_check(label, got, want) -> float:
+    """Max abs error of the three outputs; raise past atol and rtol 1e-4.
+    Both versions read the inputs into float32 and compute there, so the
+    kernel is held to the float32 tolerance in either input type (for bf16
+    inputs that is the check against the plain version in float32)."""
+    return max(check_close(label, g, w, torch.ones_like(w, dtype=torch.bool),
+                           torch.float32) for g, w in zip(got, want))
+
+
+def ssd_case(SSD, REF, B, H, T, cl, P, N, dtype, gen):
+    args = ssd_inputs(B, H, T, cl, P, N, dtype, gen)
+    label = f"ssd B{B} H{H} T{T} cl{cl} P{P} N{N} {dtype}"
+    err = ssd_check(label, SSD.ssd_chunk(*args), REF.ssd_chunk(*args))
+    flops, nbytes, peak = ssd_work(*args)
+    # on the tensor cores; the CUDA cores' float32 bound printed beside it
+    bms, by = bound_ms(flops, nbytes, dtype, peak)
+    cuda_core = bound_ms(flops, nbytes, torch.float32, PEAK_F32)[0]
+    ms = time_ms(lambda: SSD.ssd_chunk(*args), graph=True)
     plain = time_ms(lambda: REF.ssd_chunk(*args), iters=5)
+    eager = time_ms(lambda: SSD.ssd_chunk(*args))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-                bound_ms=bms, bound_by=by, wide=wide)
+                bound_ms=bms, bound_by=by, eager_ms=eager,
+                wide=(err if dtype == torch.bfloat16 else None, 0),
+                cuda_core_bound_ms=cuda_core)
 
 
-def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
-    """One WKV6 launch in the rwkv6 block's layout: (B, T, H, hd)
-    projections seen as (B, H, T, hd) views, r/k/v in ``dtype``, the decay
-    w = exp(-exp(-6 + N(0, 0.1))) ~ 0.9975 in float32 as the model makes
-    it, nonzero s0, the final state written over s0 (as decode does)."""
+def wkv6_inputs(B, H, T, hd, dtype, gen):
+    """One WKV6 launch's arguments in the rwkv6 block's layout: (B, T, H,
+    hd) projections seen as (B, H, T, hd) views, r/k/v in ``dtype``, the
+    decay w = exp(-exp(-6 + N(0, 0.1))) ~ 0.9975 in float32 as the model
+    makes it, u ~ N(0, 0.5), s0 ~ N(0, 0.1)."""
     dev = "cuda"
     r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=dev).to(dtype)
                .transpose(1, 2) for _ in range(3))
@@ -521,10 +553,23 @@ def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
         B, T, H, hd, generator=gen, device=dev))).transpose(1, 2)
     u = 0.5 * torch.randn(H, hd, generator=gen, device=dev)
     s0 = 0.1 * torch.randn(B, H, hd, hd, generator=gen, device=dev)
-    state = s0.clone()
-    got = WKV.wkv6(r, k, v, w, u, state, state)
-    want = REF.wkv6(r, k, v, w, u, s0)
-    label = f"wkv6 B{B} H{H} T{T} hd{hd} {dtype}"
+    return r, k, v, w, u, s0
+
+
+def wkv6_work(r, k, v, w, u, s0) -> tuple:
+    """(operations, bytes) of one WKV6 call: out = r.S + (r.(u*k)) v and
+    the update S = w*S + k(x)v, 4 hd^2 float32 operations a step; r/k/v/w
+    read and out written once, u, s0 and the final state once."""
+    B, H, T, hd = r.shape
+    flops = 4.0 * B * H * T * hd * hd
+    nbytes = (3 * r.numel() * r.element_size() + w.numel() * w.element_size()
+              + 4 * u.numel() + 2 * 4 * s0.numel() + 4 * r.numel())
+    return flops, nbytes
+
+
+def wkv6_check(label, got, want) -> float:
+    """Max abs error of out and the final state; raise past WKV_REL of the
+    largest magnitude of each (relative and absolute)."""
     err = 0.0
     for g, wt in zip(got, want):
         if not torch.isfinite(g).all():
@@ -537,13 +582,18 @@ def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
                                  f"of the largest output {scale:.3e} (max "
                                  f"abs err {e.max().item():.3e})")
         err = max(err, e.max().item())
-    # the function's least work: out = r.S + (r.(u*k)) v and the update
-    # S = w*S + k(x)v, 4 hd^2 float32 operations a step; r/k/v/w read and
-    # out written once, u, s0 and the final state once
-    flops = 4.0 * B * H * T * hd * hd
-    nbytes = (3 * r.numel() * r.element_size() + 4 * w.numel()
-              + 4 * u.numel() + 2 * 4 * s0.numel() + 4 * r.numel())
-    bms, by = bound_ms(flops, nbytes, torch.float32)
+    return err
+
+
+def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
+    """The kernel with the final state written over s0 (as decode does),
+    against the plain version on a copy of s0."""
+    r, k, v, w, u, s0 = wkv6_inputs(B, H, T, hd, dtype, gen)
+    state = s0.clone()
+    got = WKV.wkv6(r, k, v, w, u, state, state)
+    err = wkv6_check(f"wkv6 B{B} H{H} T{T} hd{hd} {dtype}", got,
+                     REF.wkv6(r, k, v, w, u, s0))
+    bms, by = bound_ms(*wkv6_work(r, k, v, w, u, s0), torch.float32)
     ms = time_ms(lambda: WKV.wkv6(r, k, v, w, u, s0), graph=True)
     plain = time_ms(lambda: REF.wkv6(r, k, v, w, u, s0), warmup=1,
                     iters=2 if T > 1 else 20, graph=True)
@@ -668,9 +718,104 @@ def decode_report(card):
                                  f" missing, spills {spills}")
 
 
+def _ptxas_instances(lib, stem):
+    """{entry: {"regs": n, "spill": bytes}} of the entries of library
+    ``lib`` whose mangled name holds ``stem``, from ptxas' report."""
+    import re
+
+    from repro_torch.kernels import build
+    out, cur = {}, None
+    for line in build.ptxas_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if stem in m.group(1) else None
+            if cur:
+                out[cur] = {"regs": None, "spill": 0}
+        elif cur and "registers" in line:
+            out[cur]["regs"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+        elif cur and "spill" in line:
+            out[cur]["spill"] += sum(int(x) for x in
+                                     re.findall(r"(\d+) bytes spill", line))
+    return out
+
+
+def _sass_hmma(lib):
+    """{entry: tensor-core (HMMA) instructions} of library ``lib``, from
+    ``cuobjdump -sass``."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.build([lib])[lib])],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _template_args(names, stem):
+    """{mangled name: 'bf16 f32 64'} for the instances ``stem<...>`` in
+    ``names``: their template arguments, demangled by the toolkit's
+    ``cu++filt`` (the mangled name where it cannot)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    names = sorted(names)
+    try:
+        out = subprocess.run(
+            [str(Path(build.nvcc_path()).with_name("cu++filt")), *names],
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    short = {"__nv_bfloat16": "bf16", "float": "f32"}
+    res = {}
+    for name, dem in zip(names, out):
+        m = re.search(stem + r"<(.*?)>", dem)
+        res[name] = (" ".join(
+            short.get(x.strip(), x.strip().replace("(int)", ""))
+            for x in m.group(1).split(",")) if m else name)
+    return res
+
+
+def scan_report(card):
+    """Every instance of the two scan kernels: ``wkv6`` (hd 8-64 x the five
+    type combinations of r/k/v, w and u) and ``ssd_chunk`` (P 8-64 x N
+    4-64 x float32 / bf16): ptxas' registers and spills, and the SSD
+    instances' tensor-core (HMMA) instructions. Raises on a spill, a
+    missing instance or an SSD instance without HMMA."""
+    print(f"\n[scan kernels] wkv6 and ssd_chunk instances ({card})")
+    for lib, stem, want in (("wkv6", "wkv6_kernel", 20),
+                            ("ssd_chunk", "ssd_chunk_kernel", 40)):
+        inst = _ptxas_instances(lib, stem)
+        hmma = _sass_hmma(lib) if lib == "ssd_chunk" else None
+        args = _template_args(inst, stem)
+        for name, e in sorted(inst.items(), key=lambda x: args[x[0]]):
+            tc = "" if hmma is None else f"; HMMA {hmma.get(name, 0)}"
+            print(f"  {stem}<{args[name]}>: {e['regs']} registers, "
+                  f"{e['spill']} bytes spill{tc}")
+        bad = [args[n] for n, e in inst.items()
+               if e["spill"] or (hmma is not None and not hmma.get(n))]
+        if len(inst) != want or bad:
+            raise AssertionError(f"{stem}: {len(inst)} instances (want "
+                                 f"{want}); spilling or without HMMA: {bad}")
+
+
 def phase_kernels(card):
     tensor_core_report(card)
     decode_report(card)
+    scan_report(card)
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as REF
@@ -728,7 +873,9 @@ def phase_kernels(card):
             ("ssd B2 H112 T1024 cl256 P64 N64 bf16",
              (2, 112, 1024, 256, 64, 64, bf)),
             ("ssd B1 H112 T64 cl64 P64 N64 f32",
-             (1, 112, 64, 64, 64, 64, f32))]:
+             (1, 112, 64, 64, 64, 64, f32)),
+            ("ssd B8 H112 T128 cl128 P64 N64 bf16",
+             (8, 112, 128, 128, 64, 64, bf))]:
         ssd[label] = ssd_case(SSD, REF, *args, gen)
     from repro_torch.kernels import rmsnorm as RMS
     from repro_torch.kernels import wkv6 as WKV
@@ -736,7 +883,11 @@ def phase_kernels(card):
     for label, args in [
             ("wkv6 B1 H32 T1024 hd64 bf16", (1, 32, 1024, 64, bf)),
             ("wkv6 B8 H32 T1 hd64 bf16", (8, 32, 1, 64, bf)),
-            ("wkv6 B1 H32 T1024 hd64 f32", (1, 32, 1024, 64, f32))]:
+            ("wkv6 B1 H32 T1024 hd64 f32", (1, 32, 1024, 64, f32)),
+            ("wkv6 B1 H32 T16 hd64 bf16", (1, 32, 16, 64, bf)),
+            ("wkv6 B2 H32 T64 hd64 bf16", (2, 32, 64, 64, bf)),
+            ("wkv6 B1 H32 T119 hd64 bf16", (1, 32, 119, 64, bf)),
+            ("wkv6 B1 H32 T1500 hd64 bf16", (1, 32, 1500, 64, bf))]:
         wkv[label] = wkv6_case(WKV, REF, *args, gen)
     rms = {}
     for label, args in [
@@ -765,12 +916,17 @@ def phase_kernels(card):
           "the largest of y_intra, h_chunk and decay, no single library "
           "call; wkv6: the larger of out and the final state, no single "
           "library call; rmsnorm: the library column is F.rms_norm)")
-    print("  (flash, decode, paged, chunk, wkv6 and rmsnorm: ms, plain_ms and "
-          "sdpa_ms from the replay of a CUDA graph of the calls, the kernels' "
-          "time alone; launched eagerly, one call of the kernel takes:)")
+    print("  (every kernel's ms, and plain_ms and sdpa_ms but SSD's plain, "
+          "from the replay of a CUDA graph of the calls, the kernels' time "
+          "alone; launched eagerly, one call of the kernel takes:)")
     for label, r in cases:
         if "eager_ms" in r:
             print(f"    {label:36s} eager {r.pop('eager_ms'):9.4f} ms")
+    print("  (ssd bound_ms: on the tensor cores, bf16 989 TFLOP/s, float32 "
+          "inputs as TF32 495; on the CUDA cores' float32, 67 TFLOP/s:)")
+    for label, r in ssd.items():
+        print(f"    {label:36s} bound on the CUDA cores "
+              f"{r.pop('cuda_core_bound_ms'):9.5f} ms")
     print(f"\n[decode] bf16 decode kernels against SDPA with the same mask, "
           f"graph replay ({card})")
     for label, r in list(decode.items()) + list(paged.items()):

@@ -386,6 +386,7 @@ def _ssd_inputs(gen, B, T, H, P, N, dtype, dev):
     (2, 8, 4, 32, 16, 8, True),         # the smoke config's block
     (1, 100, 2, 16, 32, 32, True),      # ragged, four chunks
     (2, 512, 2, 64, 64, 256, True),     # the full config's chunk, twice
+    (8, 128, 112, 64, 64, 128, True),   # zamba2's prefill: B8 T128 cl128
 ])
 def test_ssd_kernel_matches_plain(cuda_device, dtype, B, T, H, P, N, chunk,
                                   broadcast):
@@ -582,6 +583,10 @@ def _close_to_max(got, want, rel=1e-5):
     (2, 3, 23, 32),       # ragged tile of the smoke config's head dim
     (1, 32, 1024, 64),    # a full-config prefill
     (2, 4, 1024, 32),
+    (1, 32, 16, 64),      # the engine's prefills: one block a head
+    (2, 32, 64, 64),      # four blocks a head
+    (1, 32, 119, 64),     # eight blocks, a ragged last span
+    (1, 32, 1500, 64),    # past eight spans of 128: two rounds
 ])
 def test_wkv6_kernel_matches_plain(cuda_device, dtype, B, H, T, hd):
     """``ops.wkv6`` on the card against the plain version on the same

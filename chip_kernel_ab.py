@@ -9,10 +9,10 @@ sources, on one card, in one process.
     python3 chip_kernel_ab.py build/ab
 
 DIR holds any of ``flash_attention.cu``, ``chunked_prefill_attention.cu``,
-``decode_attention.cu``, ``paged_decode_attention.cu``, ``wkv6.cu`` and
-``ssd_chunk.cu`` and the ``*.cuh`` headers they include (an earlier
-tree's, or a variant of this tree's); the kernels whose source is there
-are compared. Each is built with this tree's ``nvcc`` flags into
+``decode_attention.cu``, ``paged_decode_attention.cu``, ``wkv6.cu``,
+``ssd_chunk.cu`` and ``rmsnorm.cu`` and the ``*.cuh`` headers they
+include (an earlier tree's, or a variant of this tree's); the kernels
+whose source is there are compared. Each is built with this tree's ``nvcc`` flags into
 ``build/kernels/`` beside this tree's own (``build.build(..., csrc=DIR)``)
 and called through this tree's wrappers. At ``chip_smoke.py``'s main-path
 shapes, in bf16 (chunked prefill B1 H32/32 S256 after 768 history tokens
@@ -23,16 +23,22 @@ engine trace's first 8 prompts, 32 tokens into their decode; WKV6 at B1
 H32 T1024 and B8 H32 T1 hd 64 and at the rwkv6 engine's prefills, B1 T16,
 B2 T17, B1 T48 and B1 T119; the SSD chunk at B2 H112 T1024 cl256 P64 N64
 in float32 and bf16 and at the zamba2 engine's prefill buckets in bf16,
-B8 T128 cl128, B4 T64 cl64, B1 T32 cl32 and B1 T1024 cl256), it holds both
-builds to the plain version (attention: ``chip_smoke.TOL`` on valid rows;
-WKV6: ``chip_smoke.WKV_REL`` of the largest output; SSD: 1e-4; or it
-fails), counts each attention build's elements past
+B8 T128 cl128, B4 T64 cl64, B1 T32 cl32 and B1 T1024 cl256; RMSNorm's
+plain row at (8, 2048), (8, 3584), (1024, 2048) and (1024, 7168), its
+residual add at (8, 2048) and (1024, 2048), Zamba2's add and concat at
+(8, 3584 + 3584) and Mamba2's gate at (8, 7168) and (1024, 7168); an
+``rmsnorm.cu`` from before the prologues runs behind its own wrapper,
+after the add, concat or gate in PyTorch, as the engines ran it), it
+holds both builds to the plain version (attention: ``chip_smoke.TOL`` on valid rows;
+WKV6: ``chip_smoke.WKV_REL`` of the largest output; SSD: 1e-4; RMSNorm:
+``chip_smoke.TOL``; or it fails), counts each attention build's elements past
 ``chip_smoke.TOL_WIDE`` against the plain version run in float32
 (reported, not held: a variant may be there to show that it breaks it),
 and times each around the replay of a CUDA graph of 20 calls, in turns
 (DIR, this tree, this tree, DIR), beside ``scaled_dot_product_attention``
 with the same mask (attention only) and the least time the card could
-take. Needs one NVIDIA card.
+take; RMSNorm's calls also launched eagerly (the host's cost per call,
+where it exceeds the kernel's). Needs one NVIDIA card.
 """
 import functools
 import json
@@ -45,7 +51,7 @@ import torch
 import chip_smoke
 
 NAMES = ("flash_attention", "chunked_prefill_attention", "decode_attention",
-         "paged_decode_attention", "wkv6", "ssd_chunk")
+         "paged_decode_attention", "wkv6", "ssd_chunk", "rmsnorm")
 
 
 def through(csrc, call):
@@ -62,6 +68,52 @@ def through(csrc, call):
     return run
 
 
+def plain_only_rmsnorm(csrc):
+    """The wrapper of an ``rmsnorm.cu`` from before the prologues (entry
+    ``rmsnorm_fwd(x, scale, y, rows, row_stride, d, eps, dtype,
+    scale_dtype, device, stream)``), its checks and its call as that
+    tree's ``kernels/rmsnorm.py`` made them."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    fn = getattr(ctypes.CDLL(str(build.build(["rmsnorm"], csrc)["rmsnorm"])),
+                 "rmsnorm_fwd")
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+
+    def rmsnorm(x, scale, eps=1e-5):
+        if scale.device != x.device:
+            raise ValueError("scale and x on different devices")
+        if x.dtype not in dtypes or scale.dtype not in dtypes:
+            raise TypeError(f"rmsnorm takes {list(dtypes)}")
+        if x.dim() != 2 or scale.shape != (x.shape[1],):
+            raise ValueError("x must be (R, d) and scale (d,)")
+        if x.stride(1) != 1:
+            raise ValueError("x needs unit stride on d")
+        R, d = x.shape
+        y = torch.empty((R, d), dtype=x.dtype, device=x.device)
+        scale = scale.contiguous()
+        err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), R,
+                 x.stride(0), d, float(eps), dtypes[x.dtype],
+                 dtypes[scale.dtype], x.device.index or 0,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "rmsnorm")
+        return y
+    return rmsnorm
+
+
+def rms_check(label, got, want):
+    """y of an RMSNorm call (the second of (s, y)) against the plain
+    version, at ``chip_smoke.TOL`` for bf16."""
+    if isinstance(got, tuple):
+        got = got[1]
+    rows = torch.ones_like(want, dtype=torch.bool)
+    return chip_smoke.check_close(label, got, want, rows, torch.bfloat16)
+
+
 def main() -> int:
     if not torch.cuda.is_available() or len(sys.argv) != 2:
         print("usage (one NVIDIA card): python3 chip_kernel_ab.py DIR",
@@ -73,6 +125,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
     from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import rmsnorm as RMS
     from repro_torch.kernels import ssd as SSD
     from repro_torch.kernels import wkv6 as WKV
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,6 +210,30 @@ def main() -> int:
             f"{'bf16' if dt == bf else 'f32'}", kernel=SSD.ssd_chunk,
             plain=REF.ssd_chunk, args=args, check=chip_smoke.ssd_check,
             flops=flops, nbytes=nbytes, dtype=dt, peak=peak))
+    # RMSNorm: the plain row at the llama and zamba2 paths' decode and
+    # prefill rows, and the prologues at theirs; a DIR source from before
+    # the prologues runs behind its own wrapper, after the add, concat or
+    # gate in PyTorch, as the engines ran it
+    old_abi = ("rmsnorm" in names and "int prologue"
+               not in (base / "rmsnorm.cu").read_text())
+    old_rms = plain_only_rmsnorm(base) if old_abi else None
+    for variant, R, d in (("plain", 8, 2048), ("plain", 8, 3584),
+                          ("plain", 1024, 2048), ("plain", 1024, 7168),
+                          ("add", 8, 2048), ("add", 1024, 2048),
+                          ("add+cat", 8, 3584), ("gate", 8, 7168),
+                          ("gate", 1024, 7168)):
+        if "rmsnorm" not in names:
+            break
+        kern, plain, _, unfused, args, nbytes = chip_smoke.rmsnorm_inputs(
+            RMS, REF, variant, R, d, bf, gen)
+        cases.append(dict(
+            label=f"rmsnorm {variant} R{R} d{d}",
+            kernel=kern, plain=plain, args=args, check=rms_check,
+            flops=chip_smoke.RMS_FLOPS[variant] * R * d
+            * (2 if "cat" in variant else 1),
+            nbytes=nbytes, dtype=torch.float32, eager=True,
+            base_call=(lambda u=unfused, a=args: u(old_rms, *a))
+            if old_abi else None))
     rows_out = []
     print(f"\n[ab] ms per call from CUDA-graph replays; max abs err "
           f"against the plain version, elements past TOL_WIDE against it in "
@@ -166,10 +243,12 @@ def main() -> int:
           f"base_wide new_wide")
     for c in cases:
         call = lambda c=c: c["kernel"](*c["args"])  # noqa: E731
+        runs = {"base": c.get("base_call") or through(base, call),
+                "new": through(None, call)}
         want = c["plain"](*c["args"])
         errs, wide = [], []
-        for who, src in (("base", base), ("new", None)):
-            got = through(src, call)()
+        for who in ("base", "new"):
+            got = runs[who]()
             label = f"{c['label']} {who}"
             if "check" in c:           # the scan kernels
                 errs.append(c["check"](label, got, want))
@@ -181,8 +260,8 @@ def main() -> int:
             errs.append(chip_smoke.check_close(label, got, want, rows, bf))
             wide.append(chip_smoke.check_wide(got, c["plain"], c["args"],
                                               rows, bf)[1])
-        times = [chip_smoke.time_ms(through(src, call), graph=True)
-                 for src in (base, None, None, base)]
+        times = [chip_smoke.time_ms(runs[who], graph=True)
+                 for who in ("base", "new", "new", "base")]
         lib = (chip_smoke.time_ms(c["sdpa"], graph=True) if "sdpa" in c
                else None)
         bms, by = chip_smoke.bound_ms(c["flops"], c["nbytes"],
@@ -191,13 +270,19 @@ def main() -> int:
               + (f" {lib:8.4f}" if lib is not None else f" {'-':>8s}")
               + f" {bms:8.5f} {by:7s} {errs[0]:.2e} {errs[1]:.2e}"
               f" {wide[0]:9d} {wide[1]:8d}")
+        eager = ([chip_smoke.time_ms(runs[who], iters=200)
+                  for who in ("base", "new", "new", "base")]
+                 if c.get("eager") else None)
+        if eager:
+            print(f"{'':42s} eager " + " ".join(f"{t:8.4f}" for t in eager))
         rows_out.append(dict(case=c["label"], base_ms=[times[0], times[3]],
                              new_ms=[times[1], times[2]], sdpa_ms=lib,
                              bound_ms=bms, bound_by=by,
                              base_max_abs_err=errs[0],
                              new_max_abs_err=errs[1],
                              base_past_tol_wide=wide[0],
-                             new_past_tol_wide=wide[1]))
+                             new_past_tol_wide=wide[1],
+                             eager_ms=eager))
     print(card)
     print(json.dumps({"ab": rows_out}))
     return 0

@@ -12,7 +12,11 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main paths' shapes (attention at head dims 64 and 112, the SSD
    chunk at Zamba2's full width, WKV6 at RWKV6's prefill and decode
-   shapes, RMSNorm at d 2048 and 7168), bf16 (atol 2e-2, rtol 2e-2) and
+   shapes, RMSNorm in each of its prologues: the row as it is, the
+   residual add, Zamba2's concat with and without the add, Mamba2's gate,
+   at d 2048, 3584 and 7168, x + delta bit-identical to PyTorch's and each
+   prologue also timed against the launches it replaces), bf16 (atol
+   2e-2, rtol 2e-2) and
    float32 (1e-4), on valid query rows; each bf16 kernel also against the
    plain version run in float32 on the same bf16 inputs (atol 2e-3, rtol
    1e-2: the kernels accumulate in float32 and round once at the store,
@@ -36,7 +40,9 @@ Phases (any failure raises and the script exits non-zero):
    the float32 instances); then every instance of the two decode
    kernels' split-KV core (48 each): registers, and no spill or it
    fails; then every instance of ``wkv6`` (20) and ``ssd_chunk`` (40):
-   registers, no spill, and HMMA in every SSD instance, or it fails;
+   registers, no spill, and HMMA in every SSD instance, or it fails; then
+   every instance of ``rmsnorm_kernel`` (60): registers, no spill, or it
+   fails;
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. ``llama-paper-1b`` at full width and depth in
@@ -50,7 +56,8 @@ Phases (any failure raises and the script exits non-zero):
    micro-step). Then ``rwkv6-1.6b`` at full width and depth in bf16 on
    the contiguous engine (16 requests, exact-length prefill groups; the
    WKV6 kernel in all 24 layers of every prefill launch and micro-step,
-   no attention kernel). RMSNorm runs on every path, once per norm: 45
+   no attention kernel). RMSNorm runs on every path, once per norm, with
+   the residual add, concat or gate before it in the same launch: 45
    launches per forward on llama-paper-1b, 163 on zamba2-7b, 1 on
    rwkv6-1.6b (its blocks use LayerNorm). Small float32 configs
    (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also served on the
@@ -603,29 +610,121 @@ def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
                 wide=(err if dtype == torch.bfloat16 else None, 0))
 
 
-def rmsnorm_case(RMS, REF, R, d, dtype, gen, eps=1e-5):
-    """One RMSNorm launch on (R, d) rows (a prefill's or a decode step's
-    hidden states), scale ~ 1 + N(0, 0.1) in the same dtype."""
+def rmsnorm_inputs(RMS, REF, variant, R, d, dtype, gen):
+    """The main paths' inputs of one RMSNorm prologue on (R, d) rows (a
+    prefill's or a decode step's): x, delta and the second segment e in
+    ``dtype``; the gate's y float32 and z float32 rows of Mamba2's wider
+    in-projection (2 d + 240 wide, as zamba2-7b's z among x, B, C and dt);
+    scale ~ 1 + N(0, 0.1) in ``dtype``, over 2 d for the concat. Returns
+    (kernel, plain, yardstick, unfused, args, bytes): the kernel's wrapper,
+    its plain version returning y, one PyTorch sequence the port never
+    calls (``F.rms_norm`` after the same add, concat or gate), the launches
+    the model made before the prologues (``unfused(norm, *args)``: the
+    add, concat or gate, then ``norm``, a plain-row RMSNorm wrapper), the
+    inputs, and the bytes read once and written once."""
+    F = torch.nn.functional
     dev = "cuda"
-    x = torch.randn(R, d, generator=gen, device=dev).to(dtype)
-    scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
-    got = RMS.rmsnorm(x, scale, eps)
-    want = REF.rmsnorm(x, scale, eps)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    width = 2 * d if "cat" in variant else d
+    scale = (1 + 0.1 * torch.randn(width, generator=gen, device=dev)).to(
+        dtype)
+    x, delta, e = randn(R, d), randn(R, d), randn(R, d)
+    es = x.element_size()
+    nbytes = width * scale.element_size()
+    if variant == "plain":
+        return (lambda a, sc: RMS.rmsnorm(a, sc),
+                lambda a, sc: REF.rmsnorm(a, sc, 1e-5),
+                lambda a, sc: F.rms_norm(a, (d,), sc, 1e-5),
+                lambda norm, a, sc: norm(a, sc),
+                (x, scale), nbytes + 2.0 * R * d * es)
+    if variant == "add":
+        return (lambda a, b, sc: RMS.add_rmsnorm(a, b, sc),
+                lambda a, b, sc: REF.add_rmsnorm(a, b, sc, 1e-5)[1],
+                lambda a, b, sc: F.rms_norm(a + b, (d,), sc, 1e-5),
+                lambda norm, a, b, sc: norm(a + b, sc),
+                (x, delta, scale), nbytes + 4.0 * R * d * es)
+    if variant == "cat":
+        return (lambda a, c, sc: RMS.cat_rmsnorm(a, c, sc),
+                lambda a, c, sc: REF.cat_rmsnorm(a, c, sc, 1e-5),
+                lambda a, c, sc: F.rms_norm(torch.cat([a, c], -1), (2 * d,),
+                                            sc, 1e-5),
+                lambda norm, a, c, sc: norm(torch.cat([a, c], -1), sc),
+                (x, e, scale), nbytes + 4.0 * R * d * es)
+    if variant == "add+cat":
+        return (lambda a, b, c, sc: RMS.cat_rmsnorm(a, c, sc, delta=b),
+                lambda a, b, c, sc: REF.cat_rmsnorm(a, c, sc, 1e-5, b)[1],
+                lambda a, b, c, sc: F.rms_norm(torch.cat([a + b, c], -1),
+                                               (2 * d,), sc, 1e-5),
+                lambda norm, a, b, c, sc: norm(torch.cat([a + b, c], -1),
+                                               sc),
+                (x, delta, e, scale), nbytes + 6.0 * R * d * es)
+    y = randn(R, d, dt=torch.float32)
+    z = randn(R, 2 * d + 240, dt=torch.float32)[:, :d]
+    return (lambda a, b, sc: RMS.gated_rmsnorm(a, b, sc, 1e-5, sc.dtype),
+            lambda a, b, sc: REF.gated_rmsnorm(a, b, sc, 1e-5, sc.dtype),
+            lambda a, b, sc: F.rms_norm((a * F.silu(b)).to(sc.dtype), (d,),
+                                        sc, 1e-5),
+            lambda norm, a, b, sc: norm((a * F.silu(b)).to(sc.dtype), sc),
+            (y, z, scale), nbytes + 8.0 * R * d + R * d * es)
+
+
+# float32 operations per element of the formed row: the norm's square, sum
+# and two products, the add, the gate's negation, exp, add, division and
+# product
+RMS_FLOPS = {"plain": 4, "add": 5, "cat": 4, "add+cat": 4.5, "gate": 9}
+
+
+def rmsnorm_case(RMS, REF, variant, R, d, dtype, gen):
+    """One launch of RMSNorm prologue ``variant`` (``rmsnorm_inputs``)
+    against its plain version, x + delta bit-identical to PyTorch's; the
+    kernel, plain, yardstick and before-the-prologues (``unfused_ms``)
+    times from graph replays, and the eager time."""
+    kern, plain, lib, unfused, args, nbytes = rmsnorm_inputs(
+        RMS, REF, variant, R, d, dtype, gen)
+    label = f"{variant} R{R} d{d} {dtype}"
+    out = kern(*args)
+    if isinstance(out, tuple):
+        s, got = out
+        if not torch.equal(s, args[0] + args[1]):
+            raise AssertionError(f"{label}: x + delta not bit-identical")
+    else:
+        got = out
+    want = plain(*args)
     rows = torch.ones_like(want, dtype=torch.bool)
-    err = check_close(f"rmsnorm R{R} d{d} {dtype}", got, want, rows, dtype)
-    wide = check_wide(got, lambda a, b: REF.rmsnorm(a, b, eps), (x, scale),
-                      rows, dtype)
-    e = x.element_size()
-    flops = 4.0 * R * d
-    nbytes = 2.0 * R * d * e + d * scale.element_size()
-    bms, by = bound_ms(flops, nbytes, torch.float32)
-    ms = time_ms(lambda: RMS.rmsnorm(x, scale, eps), graph=True)
-    plain = time_ms(lambda: REF.rmsnorm(x, scale, eps), graph=True)
-    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), scale, eps),
-                  graph=True)
-    eager = time_ms(lambda: RMS.rmsnorm(x, scale, eps))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
+    err = check_close(f"rmsnorm {label}", got, want, rows, dtype)
+    wide = check_wide(got, plain, args, rows, dtype)
+    width = got.shape[1]
+    bms, by = bound_ms(RMS_FLOPS[variant] * R * width, nbytes,
+                       torch.float32)
+    ms = time_ms(lambda: kern(*args), graph=True)
+    plain_ms = time_ms(lambda: plain(*args), graph=True)
+    lib_ms = time_ms(lambda: lib(*args), graph=True)
+    unfused_ms = (None if variant == "plain" else time_ms(
+        lambda: unfused(RMS.rmsnorm, *args), graph=True))
+    eager = time_ms(lambda: kern(*args), iters=200)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager,
+                unfused_ms=unfused_ms)
+
+
+def norm_report(card):
+    """Every instance of ``rmsnorm_kernel`` (row type x scale type x the
+    five prologues x the one-pass register path, the vector loop and the
+    element loop): ptxas' registers and spills. Raises on a spill or a
+    missing instance."""
+    print(f"\n[rmsnorm] kernel instances ({card})")
+    inst = _ptxas_instances("rmsnorm", "rmsnorm_kernel")
+    args = _template_args(inst, "rmsnorm_kernel")
+    for name, e in sorted(inst.items(), key=lambda x: args[x[0]]):
+        print(f"  rmsnorm_kernel<{args[name]}>: {e['regs']} registers, "
+              f"{e['spill']} bytes spill")
+    bad = [args[n] for n, e in inst.items() if e["spill"]]
+    if len(inst) != 60 or bad:
+        raise AssertionError(f"rmsnorm_kernel: {len(inst)} instances (want "
+                             f"60); spilling: {bad}")
 
 
 def tensor_core_report(card):
@@ -816,6 +915,7 @@ def phase_kernels(card):
     tensor_core_report(card)
     decode_report(card)
     scan_report(card)
+    norm_report(card)
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as REF
@@ -889,12 +989,25 @@ def phase_kernels(card):
             ("wkv6 B1 H32 T119 hd64 bf16", (1, 32, 119, 64, bf)),
             ("wkv6 B1 H32 T1500 hd64 bf16", (1, 32, 1500, 64, bf))]:
         wkv[label] = wkv6_case(WKV, REF, *args, gen)
+    # RMSNorm: every prologue at the main paths' rows, a decode step's 8
+    # and a prefill's 1,024 (llama d 2048; zamba2 d 3584, its shared block's
+    # concat of two 3584 segments and its gate over d_inner 7168)
     rms = {}
     for label, args in [
-            ("rmsnorm R1024 d2048 bf16", (1024, 2048, bf)),
-            ("rmsnorm R8 d2048 bf16", (8, 2048, bf)),
-            ("rmsnorm R8 d7168 bf16", (8, 7168, bf)),
-            ("rmsnorm R37 d2048 f32", (37, 2048, f32))]:
+            ("rmsnorm R1024 d2048 bf16", ("plain", 1024, 2048, bf)),
+            ("rmsnorm R8 d2048 bf16", ("plain", 8, 2048, bf)),
+            ("rmsnorm R8 d7168 bf16", ("plain", 8, 7168, bf)),
+            ("rmsnorm R37 d2048 f32", ("plain", 37, 2048, f32)),
+            ("add R8 d2048 bf16", ("add", 8, 2048, bf)),
+            ("add R1024 d2048 bf16", ("add", 1024, 2048, bf)),
+            ("add R8 d3584 bf16", ("add", 8, 3584, bf)),
+            ("add R37 d2048 f32", ("add", 37, 2048, f32)),
+            ("cat R8 d3584+3584 bf16", ("cat", 8, 3584, bf)),
+            ("add+cat R8 d3584+3584 bf16", ("add+cat", 8, 3584, bf)),
+            ("add+cat R1024 d3584+3584 bf16", ("add+cat", 1024, 3584, bf)),
+            ("gate R8 d7168 bf16", ("gate", 8, 7168, bf)),
+            ("gate R1024 d7168 bf16", ("gate", 1024, 7168, bf)),
+            ("gate R37 d7168 f32", ("gate", 37, 7168, f32))]:
         rms[label] = rmsnorm_case(RMS, REF, *args, gen)
     print(f"\n[kernels] vs plain version on valid rows ({card})")
     print(f"{'case':34s} {'max_abs_err':>11s} {'err_vs_f32':>10s} "
@@ -915,13 +1028,24 @@ def phase_kernels(card):
           "logical view gathered beforehand, the gather not timed; ssd: "
           "the largest of y_intra, h_chunk and decay, no single library "
           "call; wkv6: the larger of out and the final state, no single "
-          "library call; rmsnorm: the library column is F.rms_norm)")
+          "library call; rmsnorm: the library column is F.rms_norm, after "
+          "the same add, concat or gate in PyTorch for the prologues)")
     print("  (every kernel's ms, and plain_ms and sdpa_ms but SSD's plain, "
           "from the replay of a CUDA graph of the calls, the kernels' time "
           "alone; launched eagerly, one call of the kernel takes:)")
     for label, r in cases:
         if "eager_ms" in r:
             print(f"    {label:36s} eager {r.pop('eager_ms'):9.4f} ms")
+    print(f"\n[rmsnorm] each prologue against the launches it replaces "
+          f"(the add, concat or gate, then the plain kernel), graph replay; "
+          f"share of its bytes bound ({card})")
+    for label, r in rms.items():
+        before = r.pop("unfused_ms")
+        print(f"  {label:34s} {r['ms']:.4f} ms"
+              + ("" if before is None else
+                 f", unfused {before:.4f} ms ({before / r['ms']:.2f}x)")
+              + f", {100 * r['bound_ms'] / r['ms']:.1f}% of its bound "
+              f"{r['bound_ms']:.5f} ms; library {r['library_ms']:.4f} ms")
     print("  (ssd bound_ms: on the tensor cores, bf16 989 TFLOP/s, float32 "
           "inputs as TF32 495; on the CUDA cores' float32, 67 TFLOP/s:)")
     for label, r in ssd.items():
@@ -948,7 +1072,7 @@ def phase_kernels(card):
     # flash, paged decode and the SSD chunk on the zamba2 path (head dim
     # 112), decode and chunked prefill on the llama paths, WKV6 at a
     # prefill of the rwkv path, RMSNorm at the llama contiguous path's
-    # decode rows
+    # decode rows, the residual add before each norm fused in
     return {"flash_attention": flash["flash B8 H32/32 S512 hd112 bf16"],
             "decode_attention": decode["decode B8 H32/32 W2048 bf16"],
             "paged_decode_attention":
@@ -957,7 +1081,7 @@ def phase_kernels(card):
                 chunk["chunk B1 H32/32 S256 hist768 bf16"],
             "ssd_chunk": ssd["ssd B2 H112 T1024 cl256 P64 N64 f32"],
             "wkv6": wkv["wkv6 B1 H32 T1024 hd64 bf16"],
-            "rmsnorm": rms["rmsnorm R8 d2048 bf16"]}
+            "rmsnorm": rms["add R8 d2048 bf16"]}
 
 
 # --------------------------------------------------------------------------

@@ -52,7 +52,8 @@ ARGTYPES = {
                                   + [_I] * 13 + [_P]),
     "ssd_chunk": ("ssd_chunk_fwd", [_P] * 8 + [_STRIDES] + [_I] * 8 + [_P]),
     "wkv6": ("wkv6_fwd", [_P] * 8 + [_STRIDES] + [_I] * 8 + [_P]),
-    "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_L, _L, _I, _F] + [_I] * 3 + [_P]),
+    "rmsnorm": ("rmsnorm_fwd",
+                [_I] + [_P] * 6 + [_L] * 4 + [_I, _I, _F] + [_I] * 3 + [_P]),
 }
 
 

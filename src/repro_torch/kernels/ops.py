@@ -154,6 +154,46 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return _ref.rmsnorm(x, scale, eps)
 
 
+def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the RMSNorm of its result, one kernel launch
+    on the card: returns (s, y) with s = x + delta (in ``x.dtype``) and y =
+    rmsnorm(s), both of x's shape."""
+    if _on_cuda(x):
+        d = x.shape[-1]
+        s, y = _rms.add_rmsnorm(x.reshape(-1, d), delta.reshape(-1, d),
+                                scale, eps)
+        return s.view(x.shape), y.view(x.shape)
+    return _ref.add_rmsnorm(x, delta, scale, eps)
+
+
+def cat_rmsnorm(x: torch.Tensor, e: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5, delta: Optional[torch.Tensor] = None):
+    """RMSNorm of concat([x, e], -1) without forming it in memory on the
+    card; with ``delta``, of concat([x + delta, e]), returning (x + delta,
+    y). y has x's leading dims and width d1 + d2."""
+    if not _on_cuda(x):
+        return _ref.cat_rmsnorm(x, e, scale, eps, delta)
+    d1, d2 = x.shape[-1], e.shape[-1]
+    shape = x.shape[:-1] + (d1 + d2,)
+    rows = (x.reshape(-1, d1), e.reshape(-1, d2), scale, eps)
+    if delta is None:
+        return _rms.cat_rmsnorm(*rows).view(shape)
+    s, y = _rms.cat_rmsnorm(*rows, delta.reshape(-1, d1))
+    return s.view(x.shape), y.view(shape)
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: rmsnorm((y * silu(z)).to(dtype)), one
+    kernel launch on the card (y and z float32 there)."""
+    if _on_cuda(y):
+        d = y.shape[-1]
+        return _rms.gated_rmsnorm(y.reshape(-1, d), z.reshape(-1, d), scale,
+                                  eps, dtype).view(y.shape)
+    return _ref.gated_rmsnorm(y, z, scale, eps, dtype)
+
+
 def reset_launches() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0

@@ -2,7 +2,8 @@
 the JAX oracles in ``repro.kernels.ref``): the attention kernels, the
 paged ones included (they gather the logical view through the block table
 and score like the contiguous ones), the Mamba2 SSD chunk, the RWKV6
-recurrence and the row RMSNorm.
+recurrence and the row RMSNorm, with the unfused sequences that form its
+row (the residual add, Zamba2's concat, Mamba2's gate).
 
 They are the CPU execution path of ``kernels/ops.py`` and the yardstick
 the CUDA kernels are held against on the card. Attention: mask
@@ -16,6 +17,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e9
 
@@ -135,3 +137,23 @@ def rmsnorm(x, scale, eps: float):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def add_rmsnorm(x, delta, scale, eps: float):
+    """s = x + delta (the residual stream), then rmsnorm(s). -> (s, y)"""
+    s = x + delta
+    return s, rmsnorm(s, scale, eps)
+
+
+def cat_rmsnorm(x, e, scale, eps: float, delta=None):
+    """rmsnorm of concat([x, e]) on the last dim; with ``delta``, x + delta
+    first and (x + delta, y) returned."""
+    if delta is None:
+        return rmsnorm(torch.cat([x, e], dim=-1), scale, eps)
+    s = x + delta
+    return s, rmsnorm(torch.cat([s, e], dim=-1), scale, eps)
+
+
+def gated_rmsnorm(y, z, scale, eps: float, dtype):
+    """rmsnorm of (y * silu(z)) cast to ``dtype`` (Mamba2's gated norm)."""
+    return rmsnorm((y * F.silu(z)).to(dtype), scale, eps)

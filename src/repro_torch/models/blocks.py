@@ -80,36 +80,49 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
     return A.init_kv_cache(cfg, batch, max_len, device)
 
 
-def _res(cfg, x, delta):
+def _res(cfg, delta):
+    """The block's residual delta, scaled where the config says so."""
     if cfg.residual_scale != 1.0:
         delta = delta * torch.tensor(cfg.residual_scale, dtype=delta.dtype,
                                      device=delta.device)
-    return x + delta
+    return delta
 
 
 def block_apply(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
                 cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, cache); the cache is updated in place."""
+    """One whole block: returns (x, cache) with its residual add done; the
+    cache is updated in place."""
+    x, delta = block_apply_pending(p, cfg, kind, ctx, x, None, cache)
+    return (x if delta is None else x + delta), cache
+
+
+def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
+                        x: torch.Tensor, delta: Optional[torch.Tensor],
+                        cache: Optional[Dict]
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block on the residual stream x + delta, the add still pending
+    (``delta`` None: none): the block's first norm performs it, and the
+    block returns (x, delta) with its own last add pending, for the next
+    norm to perform. On the card each norm and the add before it are one
+    kernel launch. The cache is updated in place."""
     _require_ported(kind)
     if kind == "mamba2":
-        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps)
         y = SSM.mamba2_block(p["ssm"], cfg, h, cache, ctx.mode, ctx.mask)
-        return _res(cfg, x, y), cache
+        return x, _res(cfg, y)
     if kind == "rwkv6":
-        return RWKV.rwkv_block(p, cfg, x, cache, ctx.mode), cache
+        if delta is not None:
+            x = x + delta
+        return RWKV.rwkv_block(p, cfg, x, cache, ctx.mode), None
     window, chunk = _layer_window_chunk(cfg, ctx.layer_idx)
+    cat = None
     if kind == "shared":
         # the residual stream and the embedding output side by side; the
         # block's attention takes no chunked-local variant
-        h = L.rmsnorm(p["ln1"], torch.cat([x, ctx.emb_orig], dim=-1),
-                      cfg.norm_eps)
-        chunk = None
-    else:
-        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        cat, chunk = ctx.emb_orig, None
+    x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps, cat)
     a, cache = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
                                 chunk, cache, ctx.mode,
                                 page_tbl=ctx.page_tbl)
-    x = _res(cfg, x, a)
-    h2 = x if kind != "shared" else torch.cat([x, ctx.emb_orig], dim=-1)
-    h2 = L.rmsnorm(p["ln2"], h2, cfg.norm_eps)
-    return _res(cfg, x, L.swiglu(p["mlp"], h2)), cache
+    x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
+    return x, _res(cfg, L.swiglu(p["mlp"], h2))

@@ -6,9 +6,11 @@ Weights keep the JAX (d_in, d_out) orientation, so every projection is
 ``x @ w``. Mixed precision follows the reference: activations in
 ``cfg.dtype``, norm statistics, RoPE angles and the SiLU in float32.
 
-RMSNorm goes through ``kernels.ops.rmsnorm``: the plain version on the
-CPU, the hand-written kernel on the card. LayerNorm (RWKV6's only) has no
-kernel in the reference and stays plain PyTorch.
+RMSNorm goes through ``kernels.ops``: the plain version on the CPU, the
+hand-written kernel on the card, which also forms the row it normalises
+(the residual add, Zamba2's concat, Mamba2's gate) in the same launch.
+LayerNorm (RWKV6's only) has no kernel in the reference and stays plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -47,6 +49,29 @@ def rmsnorm_init(dim: int, dtype, device) -> Dict:
 
 def rmsnorm(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return KOPS.rmsnorm(x, p["scale"], eps)
+
+
+def residual_rmsnorm(p: Dict, x: torch.Tensor, delta: Optional[torch.Tensor],
+                     eps: float, cat: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pending residual add and the norm that reads it, in one kernel
+    launch on the card: returns (x + delta, rmsnorm(x + delta)), or with
+    ``cat`` (Zamba2's shared block) (x + delta, rmsnorm(concat([x + delta,
+    cat], -1))). ``delta`` None: no add, x returned as it is."""
+    if cat is not None:
+        if delta is None:
+            return x, KOPS.cat_rmsnorm(x, cat, p["scale"], eps)
+        return KOPS.cat_rmsnorm(x, cat, p["scale"], eps, delta)
+    if delta is None:
+        return x, KOPS.rmsnorm(x, p["scale"], eps)
+    return KOPS.add_rmsnorm(x, delta, p["scale"], eps)
+
+
+def gated_rmsnorm(p: Dict, y: torch.Tensor, z: torch.Tensor, eps: float,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Mamba2's gated norm, rmsnorm((y * silu(z)).to(dtype)), in one kernel
+    launch on the card."""
+    return KOPS.gated_rmsnorm(y, z, p["scale"], eps, dtype)
 
 
 def layernorm_init(dim: int, dtype, device) -> Dict:

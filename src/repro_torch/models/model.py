@@ -160,15 +160,21 @@ class Model:
         x = L.embed(params["embed"], cfg, tokens)
         emb_orig = x if "shared" in self.kinds else None
         layer_caches = caches["layers"] if caches is not None else None
+        delta = None            # each block's last residual add, pending
         for i, kind in enumerate(cfg.block_pattern):
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
                              mask=mask, emb_orig=emb_orig, layer_idx=i,
                              page_tbl=page_tbl)
             c = layer_caches[i] if layer_caches is not None else None
-            x, _ = B.block_apply(params["layers"][i], cfg, kind, ctx, x, c)
+            x, delta = B.block_apply_pending(params["layers"][i], cfg, kind,
+                                             ctx, x, delta, c)
+        # the final norm performs the last add over every row, then the
+        # kept rows are gathered: one launch fewer than gathering x and
+        # delta before the norm, and the same values (rows are independent)
+        _, x = L.residual_rmsnorm(params["final_norm"], x, delta,
+                                  cfg.norm_eps)
         if last_index is not None:
             x = x[torch.arange(Bsz, device=x.device), last_index][:, None]
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = L.logits(params["lm_head"], params["embed"], cfg, x)
         if caches is not None:
             if mode == "decode":

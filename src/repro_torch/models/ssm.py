@@ -161,5 +161,5 @@ def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
                          f"{mode!r} (recurrent blocks do not chunk)")
 
     # gated RMSNorm then out-projection
-    y = L.rmsnorm(p["gate_norm"], (y * F.silu(z)).to(x.dtype), cfg.norm_eps)
+    y = L.gated_rmsnorm(p["gate_norm"], y, z, cfg.norm_eps, x.dtype)
     return y @ p["out_proj"]

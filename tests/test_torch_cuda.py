@@ -637,6 +637,165 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, R, d, strided):
                                got.float(), rtol=0, atol=0)
 
 
+def _fused_case(variant, R, d, dtype, dev, gen, extra=8):
+    """Inputs of one fused RMSNorm variant in the model's layouts: x rows of
+    a wider tensor (row stride d + extra), delta and the second segment e
+    contiguous, Mamba2's y contiguous float32 and z float32 rows of its
+    wider projection; scale ~ 1 + N(0, 0.1). Returns (kernel call, plain
+    call, the row the kernel forms, as PyTorch forms it in memory,
+    scale)."""
+    def rows(width, stride, dt):
+        base = torch.randn(R, stride, generator=gen).to(dt).to(dev)
+        return base[:, :width]
+    x = rows(d, d + extra, dtype)
+    delta, e = rows(d, d, dtype), rows(d, d, dtype)
+    width = 2 * d if "cat" in variant else d
+    scale = (torch.randn(width, generator=gen) * 0.1 + 1).to(dtype).to(dev)
+    if variant == "add":
+        return (lambda: rmsnorm.add_rmsnorm(x, delta, scale),
+                lambda: ref.add_rmsnorm(x, delta, scale, 1e-5), x + delta,
+                scale)
+    if variant == "cat":
+        return (lambda: rmsnorm.cat_rmsnorm(x, e, scale),
+                lambda: ref.cat_rmsnorm(x, e, scale, 1e-5),
+                torch.cat([x, e], dim=-1), scale)
+    if variant == "add+cat":
+        return (lambda: rmsnorm.cat_rmsnorm(x, e, scale, delta=delta),
+                lambda: ref.cat_rmsnorm(x, e, scale, 1e-5, delta),
+                torch.cat([x + delta, e], dim=-1), scale)
+    y = rows(d, d, torch.float32)
+    z = rows(d, 2 * d + extra, torch.float32)
+    return (lambda: rmsnorm.gated_rmsnorm(y, z, scale, 1e-5, dtype),
+            lambda: ref.gated_rmsnorm(y, z, scale, 1e-5, dtype),
+            (y * torch.nn.functional.silu(z)).to(dtype), scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 8, 1024])
+@pytest.mark.parametrize("d", [64, 100, 2048, 3584, 7168])
+@pytest.mark.parametrize("variant", ["add", "cat", "add+cat", "gate"])
+def test_fused_rmsnorm_kernel_matches_plain(cuda_device, variant, d, R,
+                                            dtype):
+    """Each prologue of ``csrc/rmsnorm.cu`` against its plain (unfused)
+    version on the same inputs, at the tolerance of the plain RMSNorm
+    case; x + delta bit-identical to PyTorch's; one launch a call. Where
+    the rows are 16-byte aligned (d % 8 == 0), the norm of the formed row
+    is also bit-identical to the plain kernel's on the row PyTorch forms
+    in memory: the same vectors in the same threads, summed in the same
+    order, and (gate) silu, product and cast in PyTorch's order."""
+    gen = torch.Generator().manual_seed(R * d + len(variant))
+    call, plain, formed, scale = _fused_case(variant, R, d, dtype,
+                                             cuda_device, gen)
+    before = ops.launch_counts()["rmsnorm"]
+    got = call()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    want = plain()
+    torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        assert got[0].dtype == dtype and got[0].shape == (R, d)
+        assert torch.equal(got[0], want[0])
+        got, want = got[1], want[1]
+    assert got.dtype == dtype and got.shape == formed.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if d % 8 == 0:
+        assert torch.equal(got, rmsnorm.rmsnorm(formed, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["add", "cat", "add+cat", "gate"])
+@pytest.mark.parametrize("R,d,extra", [
+    (3, 40000, 8),     # wider than the register path: the two-pass loop
+    (5, 2048, 1),      # rows not 16-byte aligned: one element at a time
+])
+def test_fused_rmsnorm_kernel_wide_and_unaligned_rows(cuda_device, variant,
+                                                      R, d, extra, dtype):
+    """The two-pass loop of each prologue against its plain version: a row
+    of more vectors than the register path holds, and rows whose stride
+    is not a multiple of 16 bytes; x + delta bit-identical."""
+    gen = torch.Generator().manual_seed(d + extra)
+    call, plain, formed, _ = _fused_case(variant, R, d, dtype, cuda_device,
+                                         gen, extra)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        assert torch.equal(got[0], want[0])
+        got, want = got[1], want[1]
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_fused_rmsnorm_refuses_what_it_does_not_take(cuda_device):
+    dev = cuda_device
+    x = torch.randn(4, 64, device=dev)
+    one = torch.ones(64, device=dev)
+    with pytest.raises(TypeError, match="delta in torch.float32"):
+        rmsnorm.add_rmsnorm(x, x.bfloat16(), one)
+    with pytest.raises(TypeError, match="rmsnorm takes"):
+        rmsnorm.add_rmsnorm(x.half(), x.half(), one)
+    with pytest.raises(ValueError, match="must be"):
+        rmsnorm.add_rmsnorm(x, x[:3], one)
+    with pytest.raises(ValueError, match="must be"):
+        rmsnorm.add_rmsnorm(x, x[:, :32], one)
+    with pytest.raises(ValueError, match="unit stride"):
+        rmsnorm.add_rmsnorm(x, torch.randn(64, 4, device=dev).t(), one)
+    with pytest.raises(ValueError, match="scale"):
+        rmsnorm.cat_rmsnorm(x, x, one)                  # scale of d1 only
+    with pytest.raises(TypeError, match="e in torch.float32"):
+        rmsnorm.cat_rmsnorm(x, x.bfloat16(), torch.ones(128, device=dev))
+    with pytest.raises(ValueError, match="must be"):
+        rmsnorm.cat_rmsnorm(x, x[:2], torch.ones(128, device=dev))
+    with pytest.raises(TypeError, match="y in torch.float32"):
+        rmsnorm.gated_rmsnorm(x.bfloat16(), x, one, 1e-5, torch.bfloat16)
+    with pytest.raises(TypeError, match="rmsnorm takes"):
+        rmsnorm.gated_rmsnorm(x, x, one, 1e-5, torch.float16)
+    with pytest.raises(ValueError, match="must be"):
+        rmsnorm.gated_rmsnorm(x, x[:, :63], one, 1e-5, torch.float32)
+    with pytest.raises(ValueError, match="is on"):
+        rmsnorm.add_rmsnorm(x, x.cpu(), one)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-7b"])
+def test_smoke_forward_on_card_matches_cpu(cuda_device, arch):
+    """The smoke config (float32) forward on the card (every norm one
+    kernel launch with its residual add, concat or gate) and on the CPU
+    (the unfused plain sequences), from the same weights: a ragged prefill
+    and two decode steps, logits within 1e-3 (the float32 kernels sum in
+    another order than the plain versions; the norms' rows agree to ~1e-6
+    and the attention kernels to 1e-4), the same greedy tokens, and
+    RMSNorm launched once per norm of the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch, "smoke")
+    kinds = cfg.block_pattern
+    norms = 2 * len(kinds) + 1       # two per dense, mamba2, shared block
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (3, 24)))
+    mask = torch.ones(3, 24, dtype=torch.int32)
+    mask[1, 15:] = 0
+    mask[2, 6:] = 0
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = Model(cfg, dev)
+        params = _to(cpu_params, dev)
+        ops.reset_launches()
+        logits, caches = model.prefill(params, toks.to(dev), mask.to(dev),
+                                       max_len=48)
+        steps = [logits]
+        for _ in range(2):
+            cur = steps[-1].argmax(-1)[:, None]
+            logits, caches = model.decode_step(params, caches, cur)
+            steps.append(logits)
+        out[str(dev)] = [t.cpu() for t in steps]
+        counts = ops.launch_counts()
+    assert counts["rmsnorm"] == 3 * norms
+    for i, (got, want) in enumerate(zip(out[str(cuda_device)], out["cpu"])):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3,
+                                   msg=f"forward {i}")
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
 def test_wkv6_and_rmsnorm_refuse_what_they_do_not_take(cuda_device):
     gen = torch.Generator().manual_seed(0)
     r, k, v, w, u, s0 = _wkv_inputs(gen, 1, 2, 8, 64, torch.bfloat16,

@@ -142,6 +142,9 @@ def test_launch_counts_untouched_on_cpu():
     TOPS.wkv6(xt, xt, xt, torch.rand(1, 2, 8, 16), torch.rand(2, 16),
               torch.zeros(1, 2, 16, 16))
     TOPS.rmsnorm(x, torch.ones(16), 1e-5)
+    TOPS.add_rmsnorm(x, x, torch.ones(16), 1e-5)
+    TOPS.cat_rmsnorm(x, x, torch.ones(32), 1e-5, delta=x)
+    TOPS.gated_rmsnorm(x, x, torch.ones(16), 1e-5, torch.bfloat16)
     assert TOPS.launch_counts() == {"flash_attention": 0,
                                     "decode_attention": 0,
                                     "paged_decode_attention": 0,
@@ -171,6 +174,59 @@ def test_rmsnorm_plain_matches_jax(impl, dtype, R, d):
     t = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **t)
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["add", "cat", "add+cat", "gate"])
+@pytest.mark.parametrize("R,d", [(8, 128), (37, 256), (5, 99)])
+def test_fused_rmsnorm_plain_matches_jax(impl, dtype, op, R, d):
+    """The plain versions of the fused RMSNorm ops (the CPU path of
+    ``ops.add_rmsnorm``, ``ops.cat_rmsnorm`` and ``ops.gated_rmsnorm``)
+    against the reference's composition on the same inputs: ``x + delta``,
+    ``jnp.concatenate`` or Mamba2's ``(y * jax.nn.silu(z)).astype(dt)``
+    (``repro/models/ssm.py``), then the reference's ``ops.rmsnorm``. The
+    tolerance of ``test_rmsnorm_plain_matches_jax``; the residual stream
+    x + delta equal to the reference's exactly. cat and add+cat: two
+    segments of d (Zamba2's concat of the residual stream and the
+    embedding output); gate: y and z float32, the row cast to dtype."""
+    rng = np.random.default_rng(R * d + len(op))
+    x, delta, e = (rng.standard_normal((1, R, d), dtype=np.float32)
+                   for _ in range(3))
+    width = 2 * d if "cat" in op else d
+    scale = (rng.standard_normal(width) * 0.1 + 1.0).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    kw = dict(block_rows=16) if impl == "pallas_interpret" else {}
+    jnorm = functools.partial(JOPS.rmsnorm, scale=jnp.asarray(scale).astype(
+        jdt), impl=impl, **kw)
+    tx, td, te = (torch.from_numpy(a).to(tdt) for a in (x, delta, e))
+    jx, jd, je = (jnp.asarray(a).astype(jdt) for a in (x, delta, e))
+    tscale = torch.from_numpy(scale).to(tdt)
+    want_s = got_s = None
+    if op == "add":
+        want_s = jx + jd
+        want = jnorm(want_s)
+        got_s, got = TOPS.add_rmsnorm(tx, td, tscale, 1e-5)
+    elif op == "cat":
+        want = jnorm(jnp.concatenate([jx, je], axis=-1))
+        got = TOPS.cat_rmsnorm(tx, te, tscale, 1e-5)
+    elif op == "add+cat":
+        want_s = jx + jd
+        want = jnorm(jnp.concatenate([want_s, je], axis=-1))
+        got_s, got = TOPS.cat_rmsnorm(tx, te, tscale, 1e-5, delta=td)
+    else:
+        want = jnorm((jnp.asarray(x) * jax.nn.silu(jnp.asarray(delta)))
+                     .astype(jdt))
+        got = TOPS.gated_rmsnorm(torch.from_numpy(x), torch.from_numpy(delta),
+                                 tscale, 1e-5, tdt)
+    assert got.dtype == tdt and got.shape == (1, R, width)
+    t = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **t)
+    if want_s is not None:
+        assert got_s.dtype == tdt and got_s.shape == (1, R, d)
+        np.testing.assert_array_equal(got_s.float().numpy(),
+                                      np.asarray(want_s, np.float32))
 
 
 def test_build_key_covers_headers(tmp_path, monkeypatch):

@@ -2,6 +2,8 @@
 """Where a served trace's time goes on the card.
 
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
+                            [llama3b] [llama3b-paged] [llama7b]
+                            [internlm2] [minicpm]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -13,7 +15,13 @@ the shared-system-prompt trace with the paged pool, chunked prefill
 (256, pack 2) and prefix sharing; the zamba2 path serves the contiguous
 path's prompts on ``zamba2-7b`` with the paged pool, and the rwkv path
 on ``rwkv6-1.6b`` with the contiguous engine (exact-length prefill
-groups). With no argument it profiles all four. Prints the three timed
+groups). The dense paths serve ``chip_smoke.py``'s dense trace (12
+requests of the shared-system-prompt trace, 32 new tokens each):
+``llama-paper-3b`` (head dim 100) on the contiguous engine
+(``llama3b``) and on the paged main path (``llama3b-paged``), and
+``llama-paper-7b``, ``internlm2-20b`` (GQA group 3) and ``minicpm-2b``
+(padded heads, the identity map) on the paged main path. With no
+argument it profiles the first four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
 warm wall per decode micro-step, the kernel launches per micro-step by
@@ -142,8 +150,14 @@ def main() -> int:
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
     known = ["contiguous", "paged", "zamba2", "rwkv"]
+    # path -> (config, paged main path)
+    dense = {"llama3b": ("llama-paper-3b", False),
+             "llama3b-paged": ("llama-paper-3b", True),
+             "llama7b": ("llama-paper-7b", True),
+             "internlm2": ("internlm2-20b", True),
+             "minicpm": ("minicpm-2b", True)}
     paths = sys.argv[1:] or known
-    unknown = set(paths) - set(known)
+    unknown = set(paths) - set(known) - set(dense)
     if unknown:
         print(f"chip_profile: unknown paths {sorted(unknown)}", file=sys.stderr)
         return 2
@@ -181,6 +195,19 @@ def main() -> int:
         cfg, model, params = load("rwkv6-1.6b")
         profile(card, "rwkv6 contiguous", model, params, EngineConfig(**base),
                 lambda: chip_smoke.engine_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    for path in [p for p in paths if p in dense]:
+        arch, paged = dense[path]
+        cfg, model, params = load(arch)
+        ecfg = (EngineConfig(**base, paged=True, page_size=16,
+                             prefill_chunk=256, prefill_pack=2,
+                             prefix_sharing=True) if paged
+                else EngineConfig(**base))
+        profile(card, f"{arch} {'paged' if paged else 'contiguous'}", model,
+                params, ecfg, lambda: chip_smoke.dense_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -10,7 +10,10 @@ Phases (any failure raises and the script exits non-zero):
    ``sm_90a`` (one process per source, in parallel), printing ptxas'
    registers / shared memory / spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main paths' shapes (attention at head dims 64 and 112, the SSD
+   at the main paths' shapes (attention at head dims 64 and 112, and the
+   paged path's of the dense configurations of phase 4: llama-paper-3b's
+   head dim 100, llama-paper-7b's 32 heads of 128, internlm2-20b's GQA
+   group 3 and minicpm-2b's 48 padded heads of 64; the SSD
    chunk at Zamba2's full width, WKV6 at RWKV6's prefill and decode
    shapes, RMSNorm in each of its prologues: the row as it is, the
    residual add, Zamba2's concat with and without the add, Mamba2's gate,
@@ -38,9 +41,11 @@ Phases (any failure raises and the script exits non-zero):
    registers and spills and their tensor-core (HMMA) instruction counts
    from ``cuobjdump -sass`` (no spill and some HMMA, or it fails; none in
    the float32 instances); then every instance of the two decode
-   kernels' split-KV core (48 each): registers, and no spill or it
-   fails; then every instance of ``wkv6`` (20) and ``ssd_chunk`` (40):
-   registers, no spill, and HMMA in every SSD instance, or it fails; then
+   kernels' split-KV core (70 each: hd 8-128 with 100, groups 1-8 with
+   3): registers, and no spill or it fails, the hd 100 and group 3
+   instances listed; then every instance of ``wkv6`` (20) and
+   ``ssd_chunk`` (40): registers, no spill, and HMMA in every SSD
+   instance, or it fails; then
    every instance of ``rmsnorm_kernel`` (60): registers, no spill, or it
    fails;
 4. engine: random weights from a seed, each path served through
@@ -59,9 +64,19 @@ Phases (any failure raises and the script exits non-zero):
    no attention kernel). RMSNorm runs on every path, once per norm, with
    the residual add, concat or gate before it in the same launch: 45
    launches per forward on llama-paper-1b, 163 on zamba2-7b, 1 on
-   rwkv6-1.6b (its blocks use LayerNorm). Small float32 configs
-   (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also served on the
-   card and on the CPU (the plain path) and must agree token for token;
+   rwkv6-1.6b (its blocks use LayerNorm). Then the paper's other dense
+   configurations at full width and depth in bf16, 12 requests of the
+   paged trace (8 at once, four of them opening with its 512-token system
+   prompt, then four adopters of its pages), 32 new tokens each:
+   ``llama-paper-3b`` (head dim 100) on the contiguous engine (flash +
+   decode) and on the paged main path (chunked prefill + paged decode),
+   then ``llama-paper-7b``, ``internlm2-20b`` (GQA group 3) and
+   ``minicpm-2b`` (36 heads padded to 48: the group-1 kernels with the
+   identity map) on the paged main path, each model freed before the
+   next, launch counts, prefix hits and the free stack asserted. Small
+   float32 configs (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also
+   served on the card and on the CPU (the plain path) and must agree
+   token for token;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -92,9 +107,13 @@ TOL_WIDE = (2e-3, 1e-2)   # bf16 kernel vs the float32 plain version
 N_LAYERS = 22             # llama-paper-1b
 N_MAMBA, N_SHARED = 68, 13  # zamba2-7b: mamba2 layers, shared-attention sites
 N_RWKV = 24               # rwkv6-1.6b
-# rmsnorm launches per forward: two per dense, mamba2 (ln1, gate_norm) and
-# shared block, one final norm; rwkv6 blocks norm with LayerNorm
-NORMS_LLAMA = 2 * N_LAYERS + 1
+# the dense configurations of phase 4's last part -> layers (full depth)
+N_DENSE = {"llama-paper-3b": 26, "llama-paper-7b": 32, "internlm2-20b": 48,
+           "minicpm-2b": 40}
+DENSE_REQUESTS, DENSE_NEW = 12, 32   # of the paged trace; new tokens each
+# rmsnorm launches per forward: two per dense (2 L + 1 on a dense model:
+# contiguous_checks, paged_checks), mamba2 (ln1, gate_norm) and shared
+# block, one final norm; rwkv6 blocks norm with LayerNorm
 NORMS_ZAMBA = 2 * N_MAMBA + 2 * N_SHARED + 1
 NORMS_RWKV = 1
 WKV_REL = 1e-5            # WKV6: relative to the largest output
@@ -462,18 +481,18 @@ def chunk_sdpa(q, kp, vp, tbl, q_pos, k_pos):
         q, kk, vv, attn_mask=mask, enable_gqa=gqa)
 
 
-def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128):
+def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128,
+               hd=64):
     """One chunked-prefill launch: slot b holds lens[b] tokens, of which
     the last min(S, len) are its chunk (the history before them)."""
-    hd = 64
     B = len(lens)
     args = chunk_inputs(Hq, Hkv, lens, S, dtype, gen, ps, M, hd)
     qt, kp, vp, tbl, q_pos, k_pos = args
     got = CP.chunked_prefill_attention(*args)
     want = REF.chunked_prefill_attention(*args)
     rows = (q_pos >= 0)[:, None, :, None].expand_as(want)
-    err = check_close(f"chunk B{B} H{Hq}/{Hkv} S{S} {dtype}", got, want,
-                      rows, dtype)
+    err = check_close(f"chunk B{B} H{Hq}/{Hkv} S{S} hd{hd} {dtype}", got,
+                      want, rows, dtype)
     wide = check_wide(got, REF.chunked_prefill_attention, args, rows, dtype)
     flops, nbytes = paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd,
                                   qt.element_size(), S=S)
@@ -782,7 +801,8 @@ def tensor_core_report(card):
 def decode_report(card):
     """Every instance of the two decode kernels (hd 8-128 x group 1-8 x
     float32 / bf16, one split-KV core): ptxas' registers, the range per
-    kernel and type; raises if an instance spills or is missing."""
+    kernel and type, and each hd 100 and group 3 instance's; raises if an
+    instance spills or is missing."""
     import re
 
     from repro_torch.kernels import build
@@ -803,7 +823,8 @@ def decode_report(card):
                     r"[1-9]\d* bytes spill", line):
                 spills.append((cur, line.strip()))
         want = {(t, hd, g) for t in ("bf16", "f32")
-                for hd in (8, 16, 32, 64, 112, 128) for g in (1, 2, 4, 8)}
+                for hd in (8, 16, 32, 64, 100, 112, 128)
+                for g in (1, 2, 3, 4, 8)}
         for t in ("f32", "bf16"):
             r = {k[1:]: v for k, v in regs.items() if k[0] == t}
             n_spill = sum(1 for k, _ in spills if k[0] == t)
@@ -812,6 +833,11 @@ def decode_report(card):
                   f"(hd 64 g1 {r.get((64, 1))}, hd 112 g1 "
                   f"{r.get((112, 1))}); {n_spill} spill" if r else
                   f"  {stem} {t}: no instance")
+        for t in ("f32", "bf16"):
+            print(f"  {stem} {t} hd 100 (g1-8) and group 3 (hd 8-128) "
+                  "registers: " + ", ".join(
+                      f"hd{hd} g{g} {r}" for (tt, hd, g), r in sorted(
+                          regs.items()) if tt == t and (hd == 100 or g == 3)))
         if set(regs) != want or spills:
             raise AssertionError(f"{stem}: instances {sorted(want - set(regs))}"
                                  f" missing, spills {spills}")
@@ -930,7 +956,9 @@ def phase_kernels(card):
             ("flash B8 H32/16 S512 bf16", (8, 32, 16, 512, bf)),
             ("flash B2 H32/32 S128 f32", (2, 32, 32, 128, f32)),
             ("flash B8 H32/32 S512 hd112 bf16", (8, 32, 32, 512, bf, 112)),
-            ("flash B2 H32/32 S128 hd112 f32", (2, 32, 32, 128, f32, 112))]:
+            ("flash B2 H32/32 S128 hd112 f32", (2, 32, 32, 128, f32, 112)),
+            ("flash B8 H32/32 S512 hd100 bf16", (8, 32, 32, 512, bf, 100)),
+            ("flash B2 H32/32 S128 hd100 f32", (2, 32, 32, 128, f32, 100))]:
         flash[label] = flash_case(FA, REF, *args[:4], args[4], gen, *args[5:])
     decode = {}
     for label, args in [
@@ -938,7 +966,13 @@ def phase_kernels(card):
             ("decode B8 H32/16 W2048 bf16", (8, 32, 16, 2048, bf)),
             ("decode B8 H32/32 W2048 f32", (8, 32, 32, 2048, f32)),
             ("decode B8 H32/32 W2048 hd112 bf16",
-             (8, 32, 32, 2048, bf, 112))]:
+             (8, 32, 32, 2048, bf, 112)),
+            ("decode B8 H32/32 W2048 hd100 bf16",
+             (8, 32, 32, 2048, bf, 100)),
+            ("decode B8 H32/32 W2048 hd128 bf16",
+             (8, 32, 32, 2048, bf, 128)),
+            ("decode B8 H48/16 W2048 hd128 bf16",
+             (8, 48, 16, 2048, bf, 128))]:
         decode[label] = decode_case(DA, REF, *args[:4], args[4], gen,
                                     *args[5:])
     from repro_torch.kernels import chunked_prefill as CP
@@ -952,7 +986,14 @@ def phase_kernels(card):
             ("paged B8 H32/32 ps16 M128 hd112 bf16",
              (8, 32, 32, fills, bf, 112)),
             ("paged B8 H32/32 ps16 M128 hd112 f32",
-             (8, 32, 32, fills, f32, 112))]:
+             (8, 32, 32, fills, f32, 112)),
+            ("paged B8 H32/32 ps16 M128 hd100 bf16",
+             (8, 32, 32, fills, bf, 100)),
+            ("paged B8 H32/32 ps16 M128 hd128 bf16",
+             (8, 32, 32, fills, bf, 128)),
+            ("paged B8 H48/48 ps16 M128 bf16", (8, 48, 48, fills, bf)),
+            ("paged B8 H48/16 ps16 M128 hd128 bf16",
+             (8, 48, 16, fills, bf, 128))]:
         paged[label] = paged_case(PD, REF, *args[:5], gen, hd=args[5]
                                   if len(args) > 5 else 64)
     chunk = {}
@@ -963,8 +1004,18 @@ def phase_kernels(card):
             ("chunk B2 H32/32 S256 packed bf16",
              (32, 32, [768, 100], 256, bf)),
             ("chunk B1 H32/16 S256 hist768 bf16", (32, 16, [1024], 256, bf)),
-            ("chunk B1 H32/32 S256 hist256 f32", (32, 32, [512], 256, f32))]:
-        chunk[label] = chunk_case(CP, REF, *args, gen)
+            ("chunk B1 H32/32 S256 hist256 f32", (32, 32, [512], 256, f32)),
+            ("chunk B1 H32/32 S256 hist768 hd100 bf16",
+             (32, 32, [1024], 256, bf, 100)),
+            ("chunk B2 H32/32 S256 packed hd100 bf16",
+             (32, 32, [768, 100], 256, bf, 100)),
+            ("chunk B1 H32/32 S256 hist768 hd128 bf16",
+             (32, 32, [1024], 256, bf, 128)),
+            ("chunk B1 H48/48 S256 hist768 bf16", (48, 48, [1024], 256, bf)),
+            ("chunk B1 H48/16 S256 hist768 hd128 bf16",
+             (48, 16, [1024], 256, bf, 128))]:
+        chunk[label] = chunk_case(CP, REF, *args[:5], gen,
+                                  hd=args[5] if len(args) > 5 else 64)
     from repro_torch.kernels import ssd as SSD
     ssd = {}
     for label, args in [
@@ -1054,7 +1105,7 @@ def phase_kernels(card):
     print(f"\n[decode] bf16 decode kernels against SDPA with the same mask, "
           f"graph replay ({card})")
     for label, r in list(decode.items()) + list(paged.items()):
-        if "bf16" in label and "H32/32" in label:
+        if "bf16" in label and "H32/16" not in label:
             print(f"  {label:38s} {r['ms']:.4f} ms, SDPA "
                   f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}"
                   f"x SDPA), {r['ms'] / r['bound_ms']:.1f}x its bound "
@@ -1182,9 +1233,9 @@ def paged_requests(vocab):
             for i, p in enumerate(order)]
 
 
-def serve(card, label, ecfg, reqs, model, params):
-    """Serve ``reqs`` once, the launch counts set to 0 just before and read
-    just after; returns (engine, responses, counts, wall)."""
+def serve(card, label, ecfg, reqs, model, params, new_tokens=64):
+    """Serve ``reqs`` once (``new_tokens`` each), the launch counts set to
+    0 just before and read just after; returns (engine, stats, counts)."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
     torch.cuda.synchronize()
@@ -1201,7 +1252,7 @@ def serve(card, label, ecfg, reqs, model, params):
     st = engine.stats()
     for r in responses:
         if not (r.finished and r.finish_reason == "length"
-                and r.n_tokens == 64):
+                and r.n_tokens == new_tokens):
             raise AssertionError(f"{label} request {r.rid}: finished="
                                  f"{r.finished} reason={r.finish_reason} "
                                  f"n={r.n_tokens}")
@@ -1230,6 +1281,66 @@ def serve(card, label, ecfg, reqs, model, params):
     return engine, st, counts
 
 
+def contiguous_checks(label, L, engine, st, counts):
+    """The contiguous path's launch counts: flash in every layer of every
+    prefill launch, decode in every layer of every micro-step (and only
+    whole forwards), one RMSNorm per norm (2 L + 1 a forward), no paged
+    kernel."""
+    pb = engine.prefill_batches
+    checks = [
+        (counts["flash_attention"] >= L * pb,
+         f"flash launches {counts['flash_attention']} < {L} x {pb} "
+         "batches"),
+        (counts["decode_attention"] >= L * st["steps"]
+         and counts["decode_attention"] % L == 0,
+         f"decode launches {counts['decode_attention']} vs {L} x "
+         f"{st['steps']} micro-steps"),
+        (counts["rmsnorm"] == (2 * L + 1) * (
+            pb + counts["decode_attention"] // L),
+         f"rmsnorm launches {counts['rmsnorm']} != {2 * L + 1} x "
+         f"({pb} + {counts['decode_attention'] // L}) forwards"),
+        (counts["paged_decode_attention"] == 0
+         and counts["chunked_prefill_attention"] == 0,
+         f"paged kernels ran on the contiguous path: {counts}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"{label}: {what}")
+
+
+def paged_checks(label, L, engine, st, counts):
+    """The paged main path's launch counts (chunk and paged decode in every
+    layer of every chunk launch and micro-step, no contiguous kernel, one
+    RMSNorm per norm), prefix hits and the whole free stack."""
+    print(f"  pages: total {st['pages_total']}, peak reserved "
+          f"{st['peak_pages_reserved']} ({st['peak_kv_rows_reserved']} KV "
+          f"rows), free at the end {st['free_pages']}; prefix hit tokens "
+          f"{st['prefix_hit_tokens']} over {st['prefix_shared_requests']} "
+          f"requests")
+    norms = 2 * L + 1
+    checks = [
+        (st["prefix_hit_tokens"] > 0, "no prefix hit"),
+        (st["free_pages"] == st["pages_total"], "pages not returned"),
+        (counts["paged_decode_attention"] == L * st["steps"],
+         f"paged decode launches {counts['paged_decode_attention']} != "
+         f"{L} x {st['steps']} micro-steps"),
+        (counts["chunked_prefill_attention"] == L * st["prefill_chunks"],
+         f"chunked prefill launches {counts['chunked_prefill_attention']} "
+         f"!= {L} x {st['prefill_chunks']} chunks"),
+        (counts["decode_attention"] == 0 and counts["flash_attention"] == 0,
+         f"contiguous kernels ran on the paged path: {counts}"),
+        (counts["rmsnorm"] == norms * (st["prefill_chunks"] + st["steps"]),
+         f"rmsnorm launches {counts['rmsnorm']} != {norms} x "
+         f"({st['prefill_chunks']} chunks + {st['steps']} micro-steps)"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"{label}: {what}")
+    alloc = engine.caches["paged"]
+    if int(alloc["top"]) != engine.num_pages or (alloc["ref"] != 0).any():
+        raise AssertionError(f"{label}: device free stack not whole")
+
+
 def phase_engine(card):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -1254,50 +1365,13 @@ def phase_engine(card):
 
     engine, st, counts = serve(card, "contiguous", contiguous,
                                engine_requests(cfg.vocab), model, params)
-    if counts["flash_attention"] < N_LAYERS * engine.prefill_batches:
-        raise AssertionError(f"flash launches {counts['flash_attention']} < "
-                             f"{N_LAYERS} x {engine.prefill_batches} batches")
-    if counts["decode_attention"] < N_LAYERS * st["steps"] or \
-            counts["decode_attention"] % N_LAYERS:
-        raise AssertionError(f"decode launches {counts['decode_attention']} "
-                             f"vs {N_LAYERS} x {st['steps']} micro-steps")
-    forwards = engine.prefill_batches + counts["decode_attention"] // N_LAYERS
-    if counts["rmsnorm"] != NORMS_LLAMA * forwards:
-        raise AssertionError(f"rmsnorm launches {counts['rmsnorm']} != "
-                             f"{NORMS_LLAMA} x {forwards} forwards")
+    contiguous_checks("contiguous run", N_LAYERS, engine, st, counts)
     del engine
 
     engine, st, pcounts = serve(card, "paged + chunked prefill + prefix "
                                 "sharing", paged, paged_requests(cfg.vocab),
                                 model, params)
-    print(f"  pages: total {st['pages_total']}, peak reserved "
-          f"{st['peak_pages_reserved']} ({st['peak_kv_rows_reserved']} KV "
-          f"rows), free at the end {st['free_pages']}; prefix hit tokens "
-          f"{st['prefix_hit_tokens']} over {st['prefix_shared_requests']} "
-          f"requests")
-    checks = [
-        (st["prefix_hit_tokens"] > 0, "no prefix hit"),
-        (st["free_pages"] == st["pages_total"], "pages not returned"),
-        (pcounts["paged_decode_attention"] == N_LAYERS * st["steps"],
-         f"paged decode launches {pcounts['paged_decode_attention']} != "
-         f"{N_LAYERS} x {st['steps']} micro-steps"),
-        (pcounts["chunked_prefill_attention"]
-         == N_LAYERS * st["prefill_chunks"],
-         f"chunked prefill launches {pcounts['chunked_prefill_attention']} "
-         f"!= {N_LAYERS} x {st['prefill_chunks']} chunks"),
-        (pcounts["decode_attention"] == 0 and pcounts["flash_attention"] == 0,
-         f"contiguous kernels ran on the paged path: {pcounts}"),
-        (pcounts["rmsnorm"]
-         == NORMS_LLAMA * (st["prefill_chunks"] + st["steps"]),
-         f"rmsnorm launches {pcounts['rmsnorm']} != {NORMS_LLAMA} x "
-         f"({st['prefill_chunks']} chunks + {st['steps']} micro-steps)"),
-    ]
-    for ok, what in checks:
-        if not ok:
-            raise AssertionError(f"paged run: {what}")
-    alloc = engine.caches["paged"]
-    if int(alloc["top"]) != engine.num_pages or (alloc["ref"] != 0).any():
-        raise AssertionError("paged run: device free stack not whole")
+    paged_checks("paged run", N_LAYERS, engine, st, pcounts)
     return {"flash_attention": counts["flash_attention"],
             "decode_attention": counts["decode_attention"],
             "paged_decode_attention": pcounts["paged_decode_attention"],
@@ -1415,6 +1489,83 @@ def phase_rwkv(card):
     return {"wkv6": counts["wkv6"]}
 
 
+def dense_requests(vocab):
+    """The paged trace's first ``DENSE_REQUESTS`` requests with
+    ``DENSE_NEW`` new tokens each: the first wave of 8 holds the donor and
+    three other requests that open with the 512-token system prompt, and
+    four Alpaca-like ones; the next four (three suffixes and the whole
+    system prompt, the copy-on-write path) queue behind the wave and adopt
+    the donor's registered pages. With 8 requests only, every one is
+    admitted at once, before any prompt registers its pages, so no prefix
+    could be shared."""
+    from repro_torch.serving import Request
+    return [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=DENSE_NEW)
+            for r in paged_requests(vocab)[:DENSE_REQUESTS]]
+
+
+def phase_dense(card):
+    """The paper's other dense configurations at full width and depth in
+    bf16, random weights from a seed: ``llama-paper-3b`` (head dim 100) on
+    the contiguous engine and on the paged main path, then
+    ``llama-paper-7b``, ``internlm2-20b`` (48 q heads on 8 kv heads
+    duplicated to 16: GQA group 3) and ``minicpm-2b`` (36 heads padded to
+    48, group 1 with the identity map) on the paged main path. Each model
+    is freed before the next. Returns each kernel's launches on these
+    paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
+    runs = [("llama-paper-3b", "contiguous"), ("llama-paper-3b", "paged"),
+            ("llama-paper-7b", "paged"), ("internlm2-20b", "paged"),
+            ("minicpm-2b", "paged")]
+    total = {}
+    model = params = loaded = None
+    for arch, path in runs:
+        cfg = get_config(arch)
+        L = N_DENSE[arch]
+        assert cfg.n_layers == L and cfg.dtype == "bfloat16"
+        if loaded != arch:
+            model = params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = Model(cfg, "cuda")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            params, loaded = model.init(gen), arch
+            weights = sum(t.numel() * t.element_size()
+                          for t in _leaves(params))
+            print(f"\n[dense] {arch}: {L} layers, d_model {cfg.d_model}, "
+                  f"heads {cfg.n_heads}/{cfg.n_kv_heads} padded to "
+                  f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded}, head dim "
+                  f"{cfg.head_dim_}, parameters {weights / 1e9:.3f} GB on "
+                  f"the card ({card})")
+        ecfg = (EngineConfig(**base) if path == "contiguous" else
+                EngineConfig(**base, paged=True, page_size=16,
+                             prefill_chunk=256, prefill_pack=2,
+                             prefix_sharing=True))
+        warm = ServingEngine(model, params, ecfg)   # not counted
+        warm.submit(Request(rid=0, prompt=list(range(2, 40)),
+                            max_new_tokens=4))
+        warm.run()
+        del warm
+        label = f"{arch} {path}"
+        engine, st, counts = serve(card, label, ecfg,
+                                   dense_requests(cfg.vocab), model, params,
+                                   new_tokens=DENSE_NEW)
+        if path == "contiguous":
+            contiguous_checks(label, L, engine, st, counts)
+        else:
+            paged_checks(label, L, engine, st, counts)
+        del engine
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    model = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1463,6 +1614,11 @@ def main() -> int:
     launches.update(phase_zamba(card))
     torch.cuda.empty_cache()
     launches.update(phase_rwkv(card))
+    torch.cuda.empty_cache()
+    # the dense configurations' paths, read but not reported in the line:
+    # the line keeps each kernel's launches on the path timed in phase 3
+    dense = phase_dense(card)
+    print(f"\n[dense] launches over the five dense runs: {dense}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

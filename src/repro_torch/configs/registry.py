@@ -1,9 +1,11 @@
 """Architecture registry of the port: ``get_config(arch_id, variant)``.
 
 Covers the configurations the port serves so far: the paper's own dense
-``llama-paper-{1b,3b,7b}`` (MHA), ``llama3.2-1b`` (GQA), the hybrid
-``zamba2-7b`` (Mamba2 + one weight-shared attention block) and the
-attention-free ``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
+``llama-paper-{1b,3b,7b}`` (MHA; 3b at head dim 100), ``llama3.2-1b``
+(GQA), ``internlm2-20b`` (GQA group 3 after its kv heads are duplicated
+to 16), ``minicpm-2b`` (36 MHA heads padded to 48, muP-style scaling,
+tied embeddings), the hybrid ``zamba2-7b`` (Mamba2 + one weight-shared
+attention block) and the attention-free ``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
 ``smoke`` (a few layers, narrow widths, float32; for CPU tests) and
 ``long`` (full with a sliding window; full itself for ``rwkv6-1.6b``).
 """
@@ -12,13 +14,16 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = ["llama-paper-1b", "llama-paper-3b", "llama-paper-7b",
-            "llama3.2-1b", "zamba2-7b", "rwkv6-1.6b"]
+            "llama3.2-1b", "internlm2-20b", "minicpm-2b", "zamba2-7b",
+            "rwkv6-1.6b"]
 
 _MODULES = {
     "llama-paper-1b": "repro_torch.configs.llama_paper",
     "llama-paper-3b": "repro_torch.configs.llama_paper",
     "llama-paper-7b": "repro_torch.configs.llama_paper",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }

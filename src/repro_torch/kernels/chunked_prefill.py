@@ -6,9 +6,9 @@ A chunk of S prompt queries per slot scores the slot's whole logical
 history through the block table. q is read, and the output written,
 through strides: the model passes a (B, Hq, S, hd) view of its (B, S, Hq,
 hd) projection and gets back a view of a (B, S, Hq, hd) buffer, so the
-head merge after attention is a free reshape. A bf16 q must have 16-byte
-aligned rows with unit d stride (the kernel copies rows with
-``cp.async``); the pools always must.
+head merge after attention is a free reshape. A bf16 q must have rows
+aligned to the kernel's ``cp.async`` piece (16 bytes; 8 at hd 100) with
+unit d stride; the pools always must.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import (DTYPES, check_bf16_rows,
                                                  check_common)
 from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
-HEAD_DIMS = (16, 32, 64, 128)     # 16: the reference's kernel sweep
+HEAD_DIMS = (16, 32, 64, 100, 128)   # 16: the reference's kernel sweep
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

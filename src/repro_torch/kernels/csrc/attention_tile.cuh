@@ -51,9 +51,17 @@
 //   copy a row, one 32-byte sector a step, and the paged kernel's table
 //   entry for a row is read one tile before its copy. Rows past the ragged
 //   edge are zero-filled (src-size 0) and never read. Shared rows are
-//   padded to hd + 8 bf16, an odd number of 16-byte chunks at every head dim
-//   (hd 112: 240 bytes, 15 chunks; hd 16, and hd 8 zero-filled to 16: 48
-//   bytes, 3 chunks), so ldmatrix is free of bank conflicts.
+//   padded to depth + 8 bf16, an odd number of 16-byte chunks at every
+//   head dim (hd 112, and hd 100 zero-filled to 112: 240 bytes, 15 chunks;
+//   hd 16, and hd 8 zero-filled to 16: 48 bytes, 3 chunks), so ldmatrix is
+//   free of bank conflicts.
+// - hd 100 (LLaMA-3B): a bf16 row is 200 bytes, and the rows of a (B, S,
+//   H, 100) projection start on 8-byte boundaries only, so that instance
+//   copies 8-byte pieces (cp.async.ca, 25 a row, two threads a 16-byte
+//   step) and zero-fills the row to depth 112 in the same copies; the
+//   products run 7 k16 steps and 14 n8 tiles of O, whose columns past 100
+//   are never stored. Its registers are hd 112's; it issues twice the
+//   copies.
 // - Before the key loop the block marks the tiles that hold a key some
 //   valid query of the block may see (0 <= k_pos <= max q_pos, and inside
 //   the window or chunk of the smallest q_pos); the loop visits only those,
@@ -125,7 +133,7 @@ cudaError_t allow_smem(size_t bytes) {
   return cudaSuccess;
 }
 
-// cp.async copies (16 bytes, or 4), global -> shared
+// cp.async copies (16 bytes, 8 or 4), global -> shared
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -136,6 +144,33 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 16 : 0)
                : "memory");
+}
+
+// 8 bytes (rows that start on 8-byte boundaries only); zero-filled when !in
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+
+// Bytes of one cp.async piece of a row of HD elements of E bytes: 16, or
+// 8 where a row is not a whole number of 16-byte pieces (bf16 hd 100: 200
+// bytes). The wrappers' row checks (flash_attention.piece_bytes) mirror it.
+template <int HD, int E = 2>
+__host__ __device__ constexpr int piece_bytes() {
+  return (HD * E) % 16 == 0 ? 16 : 8;
+}
+
+// a CB-byte piece (16 or 8)
+template <int CB>
+__device__ __forceinline__ void cp_async_piece(uint32_t dst, const void* src,
+                                               bool in) {
+  static_assert(CB == 16 || CB == 8, "cp.async piece of 16 or 8 bytes");
+  if constexpr (CB == 16)
+    cp_async16(dst, src, in);
+  else
+    cp_async8(dst, src, in);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -172,6 +207,25 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// The float32 FMA bodies of flash and chunked prefill: the columns of a V
+// row in shared memory, whole groups of 8 (a thread's output columns are
+// tx + 8j), zero past hd (hd 100: 104)
+template <int HD>
+__host__ __device__ constexpr int vcols() {
+  return (HD + 7) / 8 * 8;
+}
+
+// Zero the columns past hd of a [rows][vcols] V tile (hd 100: 100-103),
+// read by each thread's last j and never written by the tile copies: once
+// a block, before the key loop
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void zero_v_tail(float* v_s, int tid) {
+  constexpr int HV = vcols<HD>(), PAD = HV - HD;
+  if constexpr (PAD > 0)
+    for (int i = tid; i < ROWS * PAD; i += THREADS)
+      v_s[(i / PAD) * HV + HD + i % PAD] = 0.f;
+}
+
 // ------------------------------------------------------------------------
 // bf16 tensor-core tile core
 // ------------------------------------------------------------------------
@@ -185,11 +239,12 @@ constexpr int THREADS = 128;  // four warps
 constexpr int STAGES = 2;     // K/V tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The depth the products run at: one m16n8k16 step at least, so hd 8 rows
-// are zero-filled to 16 in shared memory (see attention_tile)
+// The depth the products run at: whole m16n8k16 steps, so hd 8 rows are
+// zero-filled to 16 and hd 100 rows to 112 in shared memory (see
+// attention_tile)
 template <int HD>
 __host__ __device__ constexpr int depth() {
-  return HD < 16 ? 16 : HD;
+  return (HD + 15) / 16 * 16;
 }
 
 // Byte offsets of the dynamic shared memory of one block.
@@ -275,18 +330,23 @@ __device__ __forceinline__ int next_live(const uint32_t* live, int from,
 // zero-filled by the same cp.async (src-size 0, nothing read), so Q·Kᵀ adds
 // exact zeros and the upper 8 output columns, never written, are 0. That
 // keeps one bf16 body for every head dim, where an FMA body would be a
-// second one for a shape off the main paths.
+// second one for a shape off the main paths. hd 100 runs it the same way at
+// depth 112, its rows copied in 8-byte pieces (piece_bytes); the softmax
+// scale is the caller's 1/sqrt(hd), never the depth's.
 template <int HD, class Keys>
 __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
                                                unsigned char* smem) {
   constexpr int HDP = depth<HD>();
-  static_assert(HDP % 16 == 0 && HDP <= 128, "head dim 8 or 16k <= 128");
+  static_assert(HDP <= 128, "head dim <= 128");
   using L = Layout<HD>;
   constexpr int LD = L::LD;
   constexpr int KSTEPS = HDP / 16;  // k16 steps of Q·Kᵀ
   constexpr int DT = HDP / 8;       // n8 tiles of O
-  constexpr int CPR = HDP / 8;      // 16-byte chunks per shared row
-  constexpr int CIN = HD / 8;       // ... of them present in device memory
+  constexpr int CB = piece_bytes<HD>();
+  constexpr int CE = CB / 2;        // bf16 elements a copied piece
+  constexpr int CPR = HDP / CE;     // pieces per shared row
+  constexpr int CIN = HD / CE;      // ... of them present in device memory
+  static_assert(HD % CE == 0 && CPR % 2 == 0, "head dim");
   static_assert(THREADS == 2 * BQ && THREADS == 2 * BK, "two threads a row");
   bf16* q_s = reinterpret_cast<bf16*>(smem + L::Q);
   bf16* k_s = reinterpret_cast<bf16*>(smem + L::K);
@@ -301,9 +361,10 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
   const int n_qt = (p.Sq + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
   const int n_kt = (p.Sk + BK - 1) / BK;
-  // copies: thread tid moves row cr's 16-byte chunks 2i + cs, so a pair of
-  // threads reads one 32-byte sector a step and a row's address (a table
-  // lookup in the paged kernel) is found once per tile
+  // copies: thread tid moves row cr's pieces 2i + cs, so a pair of threads
+  // reads one 32-byte sector a step (16 bytes with 8-byte pieces) and a
+  // row's address (a table lookup in the paged kernel) is found once per
+  // tile
   const int cr = tid >> 1, cs = tid & 1;
 
   // Q tile, zero rows past Sq (its own copy group)
@@ -315,8 +376,8 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
     for (int i = 0; i < CPR / 2; ++i) {
       const int c = 2 * i + cs;
       const bool got = in && c < CIN;
-      cp_async16(smem_u32(q_s + cr * LD + c * 8), src + (got ? c * 8 : 0),
-                 got);
+      cp_async_piece<CB>(smem_u32(q_s + cr * LD + c * CE),
+                         src + (got ? c * CE : 0), got);
     }
   }
   cp_async_commit();
@@ -340,9 +401,9 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
     for (int i = 0; i < CPR / 2; ++i) {
       const int c = 2 * i + cs;
       const bool got = in && c < CIN;
-      const int off = got ? c * 8 : 0;
-      cp_async16(smem_u32(ks + c * 8), kr + off, got);
-      cp_async16(smem_u32(vs + c * 8), vr + off, got);
+      const int off = got ? c * CE : 0;
+      cp_async_piece<CB>(smem_u32(ks + c * CE), kr + off, got);
+      cp_async_piece<CB>(smem_u32(vs + c * CE), vr + off, got);
     }
     if (tid < BK) {
       const int kk = kt * BK + tid;
@@ -548,8 +609,9 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
   const float inv1 = qp1 < 0 ? 0.f : 1.f / fmaxf(l1, 1e-30f);
   const int qi0 = q0 + row0, qi1 = qi0 + 8;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {  // the zero-filled columns stay unwritten
+  for (int j = 0; j < (HD + 7) / 8; ++j) {  // zero-filled columns unwritten
     const int c = j * 8 + 2 * t;
+    if (c >= HD) continue;
     if (qi0 < p.Sq)
       *reinterpret_cast<__nv_bfloat162*>(p.out + qi0 * p.o_s + c) =
           __floats2bfloat162_rn(o[j][0] * inv0, o[j][1] * inv0);

@@ -116,21 +116,23 @@ cudaError_t launch_bf16(const ChunkArgs& a, cudaStream_t stream) {
 template <int HD>
 constexpr size_t chunk_smem_bytes() {
   return (size_t)BK * 2 * sizeof(long long) +           // row offsets
-         (size_t)(BQ * (HD + 1) + HD * (BK + 1) + BK * HD + BQ * (BK + 1)) *
+         (size_t)(BQ * (HD + 1) + HD * (BK + 1) + BK * vcols<HD>() +
+                  BQ * (BK + 1)) *
              sizeof(float) +
          (size_t)(BK + BQ) * sizeof(int);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
-  constexpr int DJ = HD / 8;  // output columns per thread
+  constexpr int DJ = (HD + 7) / 8;  // output columns per thread
+  constexpr int HV = vcols<HD>();   // V row in shared memory
   extern __shared__ __align__(16) unsigned char smem[];
   long long* koff_s = reinterpret_cast<long long*>(smem);  // [BK]
   long long* voff_s = koff_s + BK;                         // [BK]
   float* q_s = reinterpret_cast<float*>(voff_s + BK);      // [BQ][HD+1]
   float* kt_s = q_s + BQ * (HD + 1);         // [HD][BK+1], K transposed
-  float* v_s = kt_s + HD * (BK + 1);         // [BK][HD]
-  float* p_s = v_s + BK * HD;                // [BQ][BK+1]
+  float* v_s = kt_s + HD * (BK + 1);         // [BK][HV]
+  float* p_s = v_s + BK * HV;                // [BQ][BK+1]
   int* kpos_s = (int*)(p_s + BQ * (BK + 1)); // [BK]
   int* qpos_s = kpos_s + BK;                 // [BQ]
 
@@ -153,6 +155,7 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
     q_s[r * (HD + 1) + d] = qi < a.S ? Q[qi * a.sq.s + d * a.sq.d] : 0.f;
   }
+  zero_v_tail<HD, BK, THREADS>(v_s, tid);
   for (int r = tid; r < BQ; r += THREADS) {
     const int qi = q0 + r;
     qpos_s[r] = qi < a.S ? a.qpos[(long long)b * a.S + qi] : -1;
@@ -204,7 +207,7 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
         vv = V[voff_s[c] + d];
       }
       kt_s[d * (BK + 1) + c] = kv;
-      v_s[c * HD + d] = vv;
+      v_s[c * HV + d] = vv;
     }
     __syncthreads();
 
@@ -268,7 +271,7 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
     for (int c = 0; c < BK; ++c) {
       float vr[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vr[j] = v_s[c * HD + tx + 8 * j];
+      for (int j = 0; j < DJ; ++j) vr[j] = v_s[c * HV + tx + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = p_s[(ty * 4 + i) * (BK + 1) + c];
@@ -290,7 +293,9 @@ __global__ void __launch_bounds__(THREADS) chunk_fwd_kernel(ChunkArgs a) {
     const bool pad = qp[i] < 0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      O[qi * a.so.s + (tx + 8 * j) * a.so.d] = pad ? 0.f : acc[i][j] / denom;
+      if (tx + 8 * j < HD)
+        O[qi * a.so.s + (tx + 8 * j) * a.so.d] =
+            pad ? 0.f : acc[i][j] / denom;
   }
 }
 
@@ -321,7 +326,7 @@ extern "C" int chunked_prefill_attention_fwd(
   if (hd != hd_v || Hkv <= 0 || Hq % Hkv || ps <= 0 || P1 <= 0)
     return (int)cudaErrorInvalidValue;
   const int group = Hq / Hkv;
-  if (group != 1 && group != 2 && group != 4 && group != 8)
+  if (group != 1 && group != 2 && group != 3 && group != 4 && group != 8)
     return (int)cudaErrorInvalidValue;
   ChunkArgs a;
   a.q = q;
@@ -356,10 +361,12 @@ extern "C" int chunked_prefill_attention_fwd(
   if (dtype == 0 && hd == 16) return (int)launch_f32<16>(a, st);
   if (dtype == 0 && hd == 32) return (int)launch_f32<32>(a, st);
   if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
+  if (dtype == 0 && hd == 100) return (int)launch_f32<100>(a, st);
   if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
   if (dtype == 1 && hd == 16) return (int)launch_bf16<16>(a, st);
   if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
   if (dtype == 1 && hd == 64) return (int)launch_bf16<64>(a, st);
+  if (dtype == 1 && hd == 100) return (int)launch_bf16<100>(a, st);
   if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,10 +48,16 @@
 //   a CUDA graph.
 // - Bytes in flight. K and V tiles arrive by cp.async.cg, 16 bytes a copy,
 //   into a ring of two stages: tile j+1 loads while tile j is scored. A
-//   stage holds 16 KB (14 KB at hd 112; half that from group 4 up): every
-//   thread copies four 16-byte chunks of K and four of V a tile (two rows
-//   of two chunks at hd 112), so a tile is 64 keys at hd 64 bf16, 32 at
-//   hd 128 bf16 or hd 64 f32, 16 at hd 128 f32, 512 at hd 8 bf16. Two
+//   stage holds 16 KB (14 KB at hd 112, 12.8 KB at hd 100; half that from
+//   group 4 up): every thread copies 64 bytes of K and 64 of V a tile
+//   (four 16-byte chunks; two rows of two chunks at hd 112), so a tile is
+//   64 keys at hd 64 bf16, 32 at hd 128 bf16 or hd 64 f32, 16 at hd 128
+//   f32, 512 at hd 8 bf16. A bf16 row of hd 100 is 200 bytes and starts on
+//   an 8-byte boundary only, so it comes in 8-byte chunks (cp.async.ca, 25
+//   a row on 16 lanes, nine lanes with two): four rows of two chunks a
+//   lane, 32 keys a tile (16 from group 4 up), the cluster split as at the
+//   other head dims (one block per 512 keys). float32 hd 100 rows (400
+//   bytes) keep 16-byte chunks. Two
 //   stages, q in f32 and nothing else (the merge's partials reuse the
 //   stages where they fit): at most 33 KB a block, so the shared memory of
 //   one SM holds six blocks (96 KB of copies in flight). A tile's
@@ -89,6 +95,8 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "attention_tile.cuh"
 
 namespace attn {
@@ -116,12 +124,12 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// one 16-byte chunk of T in shared memory, widened to f32
-template <typename T>
+// one chunk of N elements of T in shared memory (16 bytes, or 8 for a
+// bf16 row that is no whole number of 16-byte pieces), widened to f32
+template <typename T, int N>
 struct Chunk;
 template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
+struct Chunk<float, 4> {
   __device__ __forceinline__ static void load(const float* p, float* o) {
     const float4 f = *reinterpret_cast<const float4*>(p);
     o[0] = f.x;
@@ -130,14 +138,15 @@ struct Chunk<float> {
     o[3] = f.w;
   }
 };
-template <>
-struct Chunk<bf16> {
-  static constexpr int N = 8;
+template <int N>
+struct Chunk<bf16, N> {
+  static_assert(N == 8 || N == 4, "16- or 8-byte bf16 chunk");
+  using Word = typename std::conditional<N == 8, uint4, uint2>::type;
   __device__ __forceinline__ static void load(const bf16* p, float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const Word u = *reinterpret_cast<const Word*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < N / 2; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
       o[2 * i] = f.x;
       o[2 * i + 1] = f.y;
@@ -151,21 +160,29 @@ __host__ __device__ constexpr int pow2_floor(int n) {
   return p;
 }
 
-// How one instance cuts a tile across the block's threads. From group 4
-// up a lane takes half the rows a tile: its scores (rows x G) and K chunks
-// otherwise push those instances past ptxas' register tiers into spills.
+// How one instance cuts a tile across the block's threads. A lane copies
+// 64 bytes of K a tile (four 16-byte chunks, or eight 8-byte ones), in
+// NCH chunks of each of NK rows. From group 4 up a lane takes half the rows
+// a tile: its scores (rows x G) and K chunks otherwise push those
+// instances past ptxas' register tiers into spills. Group 3 takes the
+// lower groups' tier (s[NK][3], o[3][NCH][VEC]); nothing here assumes G is
+// a power of two (the shuffles reduce over a row's LPR lanes and a warp's
+// row groups, never over G).
 template <typename T, int HD, int G>
 struct Geom {
-  static constexpr int VEC = Chunk<T>::N;            // elements a chunk
+  static constexpr int CB = piece_bytes<HD, (int)sizeof(T)>();  // bytes
+  static constexpr int VEC = CB / (int)sizeof(T);    // elements a chunk
   static constexpr int CH = HD / VEC;                // chunks a row
   static constexpr int LPR = CH >= 32 ? 32 : pow2_floor(CH);  // lanes a row
   static constexpr int NCH = (CH + LPR - 1) / LPR;   // chunks a lane
   static constexpr int RPW = 32 / LPR;               // rows a warp at once
-  static constexpr int NK = (G >= 4 ? 2 : 4) / NCH;  // rows a lane a tile
+  static constexpr int NK = (G >= 4 ? 2 : 4) * (16 / CB) / NCH;  // rows a
+                                                     // lane a tile
   static constexpr int KW = RPW * NK;                // rows a warp a tile
   static constexpr int TK = WARPS * KW;              // keys a tile
   static constexpr size_t STAGE = (size_t)2 * TK * HD * sizeof(T);  // K + V
-  static_assert(HD % VEC == 0 && NCH <= 2 && NK >= 1, "head dim");
+  static_assert(HD % VEC == 0 && VEC % 4 == 0 && NCH <= 2 && NK >= 1,
+                "head dim");
 };
 
 // Dynamic shared memory of one block: the K/V stages, then q in f32. The
@@ -178,7 +195,9 @@ struct Smem {
   static constexpr size_t PARTIALS =
       (size_t)(2 * WARPS * G + WARPS * G * HD + 2 * G + G * HD) * 4;
   static constexpr size_t RING = STAGES * Gm::STAGE;
-  static constexpr size_t Q = RING > PARTIALS ? RING : PARTIALS;
+  // q's float4 reads: a 16-byte boundary (group 3's partials are not)
+  static constexpr size_t Q = ((RING > PARTIALS ? RING : PARTIALS) + 15) /
+                              16 * 16;
   static constexpr size_t bytes = Q + (size_t)G * HD * 4;
 };
 
@@ -210,7 +229,9 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
                                             unsigned char* smem) {
   using Gm = Geom<T, HD, G>;
   using S = Smem<T, HD, G>;
-  constexpr int VEC = Gm::VEC, CH = Gm::CH, LPR = Gm::LPR, NCH = Gm::NCH;
+  constexpr int CB = Gm::CB, VEC = Gm::VEC, CH = Gm::CH, LPR = Gm::LPR;
+  constexpr int NCH = Gm::NCH;
+  using Ch = Chunk<T, VEC>;
   constexpr int RPW = Gm::RPW, NK = Gm::NK, KW = Gm::KW, TK = Gm::TK;
   constexpr unsigned FULL = 0xffffffffu;
   T* k_s = reinterpret_cast<T*>(smem);               // [STAGES][TK][HD]
@@ -311,8 +332,10 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
       for (int n = 0; n < NCH; ++n) {
         const int c = j + LPR * n;
         if (NCH == 1 || c < CH) {
-          cp_async16(smem_u32(ks + c * VEC), kr + (ok ? c * VEC : 0), ok);
-          cp_async16(smem_u32(vs + c * VEC), vr + (ok ? c * VEC : 0), ok);
+          cp_async_piece<CB>(smem_u32(ks + c * VEC), kr + (ok ? c * VEC : 0),
+                             ok);
+          cp_async_piece<CB>(smem_u32(vs + c * VEC), vr + (ok ? c * VEC : 0),
+                             ok);
         }
       }
     }
@@ -368,7 +391,7 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
           float kc[NK][VEC];
 #pragma unroll
           for (int i = 0; i < NK; ++i)
-            Chunk<T>::load(kt + row_of(i) * HD + c * VEC, kc[i]);
+            Ch::load(kt + row_of(i) * HD + c * VEC, kc[i]);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             float qc[VEC];
@@ -434,7 +457,7 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
 #pragma unroll
           for (int i = 0; i < NK; ++i) {
             float vc[VEC];
-            Chunk<T>::load(vt + row_of(i) * HD + c * VEC, vc);
+            Ch::load(vt + row_of(i) * HD + c * VEC, vc);
 #pragma unroll
             for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -576,8 +599,9 @@ cudaError_t launch_cluster(const Args& a, int W, int Hkv, int B,
   return cudaGetLastError();
 }
 
-// The instances every decode kernel takes: hd {8, 16, 32, 64, 112, 128} x
-// group {1, 2, 4, 8} x {float32, bf16}. Launch<T, HD, G>::run(a, stream)
+// The instances every decode kernel takes: hd {8, 16, 32, 64, 100, 112,
+// 128} x group {1, 2, 3, 4, 8} x {float32, bf16} (hd 100: LLaMA-3B; group
+// 3: InternLM2-20B's 48 query heads on 16 kv heads). Launch<T, HD, G>::run(a, stream)
 // is the file's launch of one instance.
 template <template <typename, int, int> class Launch, typename T, int HD,
           typename Args>
@@ -585,6 +609,7 @@ cudaError_t by_group(const Args& a, int group, cudaStream_t stream) {
   switch (group) {
     case 1: return Launch<T, HD, 1>::run(a, stream);
     case 2: return Launch<T, HD, 2>::run(a, stream);
+    case 3: return Launch<T, HD, 3>::run(a, stream);
     case 4: return Launch<T, HD, 4>::run(a, stream);
     case 8: return Launch<T, HD, 8>::run(a, stream);
     default: return cudaErrorInvalidValue;
@@ -600,6 +625,7 @@ cudaError_t by_head_dim(const Args& a, int hd, int group,
     case 16: return by_group<Launch, T, 16>(a, group, stream);
     case 32: return by_group<Launch, T, 32>(a, group, stream);
     case 64: return by_group<Launch, T, 64>(a, group, stream);
+    case 100: return by_group<Launch, T, 100>(a, group, stream);
     case 112: return by_group<Launch, T, 112>(a, group, stream);
     case 128: return by_group<Launch, T, 128>(a, group, stream);
     default: return cudaErrorInvalidValue;

@@ -98,19 +98,21 @@ cudaError_t launch_bf16(const FlashArgs& a, cudaStream_t stream) {
 
 template <int HD>
 constexpr size_t flash_smem_bytes() {
-  return (size_t)(BQ * (HD + 1) + HD * (BK + 1) + BK * HD + BQ * (BK + 1)) *
+  return (size_t)(BQ * (HD + 1) + HD * (BK + 1) + BK * vcols<HD>() +
+                  BQ * (BK + 1)) *
              sizeof(float) +
          (size_t)(BK + BQ) * sizeof(int);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
-  constexpr int DJ = HD / 8;  // output columns per thread
+  constexpr int DJ = (HD + 7) / 8;  // output columns per thread
+  constexpr int HV = vcols<HD>();   // V row in shared memory
   extern __shared__ float smem[];
   float* q_s = smem;                         // [BQ][HD+1]
   float* kt_s = q_s + BQ * (HD + 1);         // [HD][BK+1], K transposed
-  float* v_s = kt_s + HD * (BK + 1);         // [BK][HD]
-  float* p_s = v_s + BK * HD;                // [BQ][BK+1]
+  float* v_s = kt_s + HD * (BK + 1);         // [BK][HV]
+  float* p_s = v_s + BK * HV;                // [BQ][BK+1]
   int* kpos_s = (int*)(p_s + BQ * (BK + 1)); // [BK]
   int* qpos_s = kpos_s + BK;                 // [BQ]
 
@@ -130,6 +132,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
     const int r = i / HD, d = i % HD, qi = q0 + r;
     q_s[r * (HD + 1) + d] = qi < a.Sq ? Q[qi * a.sq.s + d * a.sq.d] : 0.f;
   }
+  zero_v_tail<HD, BK, THREADS>(v_s, tid);
   for (int r = tid; r < BQ; r += THREADS) {
     const int qi = q0 + r;
     qpos_s[r] = qi < a.Sq ? a.qpos[(long long)b * a.Sq + qi] : -1;
@@ -172,7 +175,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
         vv = V[kj * a.sv.s + d * a.sv.d];
       }
       kt_s[d * (BK + 1) + c] = kv;
-      v_s[c * HD + d] = vv;
+      v_s[c * HV + d] = vv;
     }
     __syncthreads();
 
@@ -236,7 +239,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
     for (int c = 0; c < BK; ++c) {
       float vr[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vr[j] = v_s[c * HD + tx + 8 * j];
+      for (int j = 0; j < DJ; ++j) vr[j] = v_s[c * HV + tx + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = p_s[(ty * 4 + i) * (BK + 1) + c];
@@ -258,7 +261,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
     const bool pad = qp[i] < 0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      O[qi * a.so.s + (tx + 8 * j) * a.so.d] = pad ? 0.f : acc[i][j] / denom;
+      if (tx + 8 * j < HD)
+        O[qi * a.so.s + (tx + 8 * j) * a.so.d] =
+            pad ? 0.f : acc[i][j] / denom;
   }
 }
 
@@ -312,12 +317,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0 && hd == 16) return (int)launch_f32<16>(a, st);
   if (dtype == 0 && hd == 32) return (int)launch_f32<32>(a, st);
   if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
+  if (dtype == 0 && hd == 100) return (int)launch_f32<100>(a, st);
   if (dtype == 0 && hd == 112) return (int)launch_f32<112>(a, st);
   if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
   if (dtype == 1 && hd == 8) return (int)launch_bf16<8>(a, st);
   if (dtype == 1 && hd == 16) return (int)launch_bf16<16>(a, st);
   if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
   if (dtype == 1 && hd == 64) return (int)launch_bf16<64>(a, st);
+  if (dtype == 1 && hd == 100) return (int)launch_bf16<100>(a, st);
   if (dtype == 1 && hd == 112) return (int)launch_bf16<112>(a, st);
   if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
   return (int)cudaErrorInvalidValue;

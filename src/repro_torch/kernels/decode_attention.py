@@ -17,9 +17,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
-                                                 check_common, row_aligned)
+                                                 check_common, check_rows)
 
-GROUPS = (1, 2, 4, 8)
+# 3: InternLM2-20B (48 query heads on 8 kv heads duplicated to 16)
+GROUPS = (1, 2, 3, 4, 8)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
@@ -48,9 +49,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("positions must be (B,) and (B, W)")
     if W < 1:
         raise ValueError("the cache needs at least one row")
-    if not (row_aligned(k) and row_aligned(v)):
-        raise ValueError("k/v rows must be 16-byte aligned with unit d "
-                         "stride")
+    check_rows("cache", k=k, v=v)
     q = q.contiguous()
     q_pos, k_pos = q_pos.contiguous(), k_pos.contiguous()
     out = torch.empty((B, Hq, hd_v), dtype=q.dtype, device=q.device)

@@ -5,10 +5,12 @@ The kernel reads q/k/v through their strides and writes its output
 through strides too: the result is a (B, Hq, Sq, hd) view of a
 (B, Sq, Hq, hd) buffer, so the model's head merge after attention is a
 free reshape. It masks the ragged Sq/Sk edges itself; nothing is padded.
-The bf16 instance copies 16-byte pieces of rows with ``cp.async``, so it
-takes only operands whose rows are 16-byte aligned with unit d stride
-(the model's (B, S, H, hd) projections and their head-transposed views
-are) and raises on any other; there is no copy and no fallback.
+The bf16 instance copies pieces of rows with ``cp.async``: 16 bytes, or
+8 at hd 100 (a 200-byte row; the rows of a (B, S, H, 100) projection start
+on 8-byte boundaries only). So it takes only operands whose rows are
+aligned to that piece with unit d stride (the model's (B, S, H, hd)
+projections and their head-transposed views are) and raises on any other;
+there is no copy and no fallback.
 """
 from __future__ import annotations
 
@@ -20,29 +22,46 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# 112: Zamba2's shared attention; 8 and 16: the reference's kernel sweeps
-HEAD_DIMS = (8, 16, 32, 64, 112, 128)
+# 100: LLaMA-3B; 112: Zamba2's shared attention; 8 and 16: the
+# reference's kernel sweeps
+HEAD_DIMS = (8, 16, 32, 64, 100, 112, 128)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
 
 
+def piece_bytes(t: torch.Tensor) -> int:
+    """Bytes of one ``cp.async`` piece of ``t``'s rows: 16, or 8 where a
+    row is no whole number of 16-byte pieces (bf16 hd 100: 200 bytes); the
+    rule of ``attn::piece_bytes`` in ``csrc/attention_tile.cuh``."""
+    return 16 if (t.shape[-1] * t.element_size()) % 16 == 0 else 8
+
+
 def row_aligned(t: torch.Tensor) -> bool:
-    """Every row (all indices but the last) starts on a 16-byte boundary
-    with unit d stride: the kernels read rows in 16-byte pieces."""
-    e = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all((s * e) % 16 == 0 for s in t.stride()[:-1]))
+    """Every row (all indices but the last) starts on a ``piece_bytes``
+    boundary with unit d stride: the kernels read rows in such pieces."""
+    e, n = t.element_size(), piece_bytes(t)
+    return (t.stride(-1) == 1 and t.data_ptr() % n == 0
+            and all((s * e) % n == 0 for s in t.stride()[:-1]))
+
+
+def check_rows(what: str, **tensors: torch.Tensor) -> None:
+    """Raise on an operand whose rows are not aligned to the kernel's
+    ``cp.async`` piece (``piece_bytes``) with unit d stride."""
+    for name, t in tensors.items():
+        if not row_aligned(t):
+            raise ValueError(
+                f"{what} {name} (strides {t.stride()}) needs unit d stride "
+                f"and {piece_bytes(t)}-byte aligned rows: the kernel copies "
+                "rows with cp.async")
 
 
 def check_bf16_rows(**tensors: torch.Tensor) -> None:
-    """The bf16 prefill kernels copy rows with 16-byte ``cp.async``: raise
-    on an operand whose rows are not 16-byte aligned with unit d stride."""
-    for name, t in tensors.items():
-        if t.dtype == torch.bfloat16 and not row_aligned(t):
-            raise ValueError(
-                f"bf16 {name} (strides {t.stride()}) needs unit d stride and "
-                "16-byte aligned rows: the kernel copies rows with cp.async")
+    """The bf16 prefill kernels copy rows with ``cp.async`` (the float32
+    ones read elements through any strides): raise on a bf16 operand whose
+    rows are not aligned to its piece."""
+    check_rows("bf16", **{n: t for n, t in tensors.items()
+                          if t.dtype == torch.bfloat16})
 
 
 def check_common(q, k, v, q_pos, k_pos, window, chunk) -> None:

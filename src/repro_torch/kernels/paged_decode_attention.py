@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import GROUPS
 from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
-                                                 check_common, row_aligned)
+                                                 check_common, check_rows)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
@@ -49,9 +49,7 @@ def check_pool(q, k_pages, v_pages, block_tbl, k_pos,
     if block_tbl.shape != (q.shape[0], M) or k_pos.shape != (q.shape[0],
                                                              M * ps):
         raise ValueError("block_tbl must be (B, M) and k_pos (B, M*ps)")
-    if not (row_aligned(k_pages) and row_aligned(v_pages)):
-        raise ValueError("k/v pool rows must be 16-byte aligned with unit d "
-                         "stride")
+    check_rows("pool", k_pages=k_pages, v_pages=v_pages)
 
 
 def pool_strides(k_pages: torch.Tensor, v_pages: torch.Tensor):

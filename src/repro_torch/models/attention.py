@@ -4,7 +4,13 @@ dense part of ``repro.models.attention``).
 * Head padding: configs whose head counts do not divide the sharding pad
   (``cfg.*_padded``) get zero wq columns / wo rows for padded q heads and
   duplicated kv heads, exactly as the reference initialises them; the
-  static q-head -> kv-head map keeps GQA exact.
+  static q-head -> kv-head map keeps GQA exact. Where that map is not the
+  uniform divide only because of the padded q heads (MiniCPM: 36 heads
+  padded to 48, the padded ones on kv head 0), the card runs the kernels
+  with the divide of the padded counts (``kernel_head_group``): a padded
+  head's output meets zero rows of wo whichever kv head it reads, so the
+  block's output is the same. ``model.check_head_padding`` holds a
+  parameter tree to those zero rows, once, where parameters are made.
 * KV cache per layer: ``{"k","v": (B, W, Hkv, hd), "pos_ids": (B, W)
   int32, "length": (B,) int32}``, W = min(max_len, sliding_window). A
   ring buffer: ``pos_ids`` (-1 = empty) drives every mask. Keys are stored
@@ -24,6 +30,7 @@ dense part of ``repro.models.attention``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -61,18 +68,40 @@ def _kv_index_map(n_q: int, n_kv: int, n_q_pad: int, n_kv_pad: int) -> np.ndarra
     return idx
 
 
-def uniform_gqa_group(cfg) -> Optional[int]:
-    """Group size when the q->kv map is the uniform divide (the kernels'
-    GQA layout); None otherwise."""
+def uniform_gqa_group(cfg, real_only: bool = False) -> Optional[int]:
+    """Group size when the q->kv map is the uniform divide of the padded
+    head counts (the kernels' GQA layout); None otherwise. ``real_only``
+    holds only the real q heads to the divide: padded q heads, whose wo
+    rows are zero, may read another kv head (MiniCPM-2B: 36 / 36 heads
+    padded to 48 / 48, the padded ones on kv head 0, group 1)."""
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
     n_qp, n_kvp = cfg.n_heads_padded, cfg.n_kv_heads_padded
     if n_qp % n_kvp:
         return None
     idx = _kv_index_map(n_q, n_kv, n_qp, n_kvp)
     gp = n_qp // n_kvp
-    if np.array_equal(idx, np.arange(n_qp) // gp):
+    n = n_q if real_only else n_qp
+    if np.array_equal(idx[:n], np.arange(n) // gp):
         return gp
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_head_group(cfg, device_type: str) -> Optional[int]:
+    """The GQA group attention runs ``cfg`` with on a device of
+    ``device_type``, worked out once a config: on the card the divide that
+    the real heads follow (exact given ``model.check_head_padding``); on
+    the CPU the uniform divide, else None, and the kv heads are expanded
+    through the reference's map (its semantics). A map no kernel takes
+    raises on the card."""
+    if device_type != "cuda":
+        return uniform_gqa_group(cfg)
+    group = uniform_gqa_group(cfg, real_only=True)
+    if group is None:
+        raise ValueError(f"{cfg.name}: the GQA map of its real heads is no "
+                         "uniform divide of the padded heads; no kernel "
+                         "takes it")
+    return group
 
 
 def attn_init(gen, cfg, device, d_in: Optional[int] = None) -> Dict:
@@ -323,18 +352,17 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     history, and ``k_pos <= q_pos`` gives causality inside the chunk.
 
     Attention runs in the kernels' (B, H, S, hd) layout through
-    ``kernels/ops.py``: transposed views in, no copies. A GQA map that is
-    not the uniform divide has no kernel: on CUDA it raises, on the CPU the
-    kv heads are expanded (a paged pool gathered first) and the plain
-    version runs with group 1.
+    ``kernels/ops.py``: transposed views in, no copies. The kv heads are
+    read through ``kernel_head_group``: the uniform divide, or on the card
+    the padded heads' divide (MiniCPM); where it is None (the CPU, a map
+    that is not the uniform divide) the kv heads are expanded (a paged pool
+    gathered first) and the plain version runs with group 1.
     """
     if mode not in ("prefill", "decode", "chunk"):
         raise ValueError(f"unknown attention mode {mode!r}")
     q, k, v = _qkv(p, cfg, x, positions)
-    uniform = uniform_gqa_group(cfg) is not None
-    if not uniform and q.device.type == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name}: non-uniform GQA head map has no CUDA kernel")
+    # direct: the kernels read the kv heads through the divide
+    direct = kernel_head_group(cfg, q.device.type) is not None
     paged = cache is not None and "k_pages" in cache
     if mode in ("decode", "chunk"):
         if cache is None:
@@ -345,7 +373,7 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             raise ValueError("chunked prefill needs a paged cache")
     if mode == "chunk":
         paged_chunk_write(cache, page_tbl, k, v, positions)
-        if uniform:
+        if direct:
             out = KOPS.chunked_prefill_attention(
                 q.transpose(1, 2), cache["k_pages"], cache["v_pages"],
                 page_tbl, positions, cache["pos_ids"], window=layer_window,
@@ -359,7 +387,7 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 chunk=layer_chunk).transpose(1, 2)
     elif mode == "decode" and paged:
         paged_decode_write(cache, page_tbl, k, v)
-        if uniform:
+        if direct:
             out = KOPS.paged_decode_attention(
                 q[:, 0], cache["k_pages"], cache["v_pages"], page_tbl,
                 positions[:, 0], cache["pos_ids"], window=layer_window,
@@ -374,7 +402,7 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     elif mode == "decode":
         decode_write_cache(cache, k, v)
         ck, cv = cache["k"], cache["v"]
-        if not uniform:
+        if not direct:
             ck, cv = _expand_kv(cfg, ck), _expand_kv(cfg, cv)
         # (B, Hkv, W, hd) views of the (B, W, Hkv, hd) cache: the decode
         # kernel reads through the strides, the cache is never copied
@@ -385,7 +413,7 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     else:
         if cache is not None:
             prefill_write_cache(cache, k, v, positions)
-        kk, vv = (k, v) if uniform else (_expand_kv(cfg, k), _expand_kv(cfg, v))
+        kk, vv = (k, v) if direct else (_expand_kv(cfg, k), _expand_kv(cfg, v))
         out = KOPS.flash_attention(
             q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
             positions, positions, window=layer_window,

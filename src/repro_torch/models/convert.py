@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.model import check_head_padding
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -30,7 +31,8 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     prefix keeps its own parameters there). Weights keep the reference's
     (d_in, d_out) orientation; nothing is transposed. Values pass through
     float32 (numpy has no bfloat16) and land in ``cfg.dtype`` exactly;
-    the SSM's float32 leaves stay float32.
+    the SSM's float32 leaves stay float32. Raises if a padded q head's wo
+    rows are not zero (``model.check_head_padding``).
     """
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
@@ -51,9 +53,11 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: rebuilt {len(layers)} layers, "
                          f"config has {cfg.n_layers}")
-    return {"embed": tree(np_tree["embed"]), "layers": layers,
-            "final_norm": tree(np_tree["final_norm"]),
-            "lm_head": tree(np_tree.get("lm_head", {}))}
+    params = {"embed": tree(np_tree["embed"]), "layers": layers,
+              "final_norm": tree(np_tree["final_norm"]),
+              "lm_head": tree(np_tree.get("lm_head", {}))}
+    check_head_padding(params, cfg)
+    return params
 
 
 def _index(x, r: int):

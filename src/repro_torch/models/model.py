@@ -34,6 +34,23 @@ PAGED_DECODE_KINDS = {"dense", "parallel", "moe", "shared", "mamba2"}
 CHUNKED_PREFILL_KINDS = {"dense", "parallel", "moe", "shared"}
 
 
+def check_head_padding(params: Dict, cfg: ModelConfig) -> None:
+    """Raise unless the wo rows of the padded q heads (``n_heads`` ..
+    ``n_heads_padded``) are zero in every attention block of a parameter
+    tree, as ``attn_init`` and the reference make them: the card's
+    padded-head map (``attention.kernel_head_group``) relies on it. A
+    device read per block: run where parameters are made (``Model.init``,
+    ``convert.params_from_jax``), never in a step."""
+    if cfg.n_heads_padded == cfg.n_heads:
+        return
+    for p in params["layers"]:
+        if "attn" in p and p["attn"]["wo"][cfg.n_heads * cfg.head_dim_:].any():
+            raise ValueError(
+                f"{cfg.name}: wo rows of the padded q heads {cfg.n_heads}.."
+                f"{cfg.n_heads_padded - 1} are not all zero; the padded-head "
+                "map needs them zero")
+
+
 class Model:
     """A ModelConfig bound to a device. Parameters live outside the object
     (``init`` returns them), as in the reference."""
@@ -101,6 +118,8 @@ class Model:
         params["layers"] = layers
         params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
         params["lm_head"] = L.lm_head_init(generator, cfg, dev)
+        if dev.type != "meta":
+            check_head_padding(params, cfg)
         return params
 
     def param_shapes(self) -> Dict:

@@ -53,7 +53,10 @@ def _pos(B, S, gen, pad):
     (4, 64, 128, None, None, False), (2, 96, 64, 24, None, True),
     (1, 80, 64, None, 32, False), (1, 200, 128, None, None, True),
     (2, 33, 32, None, None, True), (1, 77, 112, None, None, True),
-    (2, 130, 112, 40, None, True),
+    (2, 130, 112, 40, None, True), (1, 150, 100, None, None, True),
+    (2, 150, 100, None, None, True), (3, 150, 100, None, None, True),
+    (3, 150, 32, None, None, True), (3, 150, 64, None, None, True),
+    (3, 150, 128, None, None, True),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, group, S, hd,
                                     window, chunk, pad):
@@ -185,7 +188,10 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, group, ps, M,
 @pytest.mark.parametrize("group,ps,M,S,hd,window", [
     (1, 16, 8, 64, 64, None), (2, 16, 20, 100, 64, None),
     (4, 8, 12, 16, 128, None), (8, 16, 6, 33, 32, None),
-    (2, 16, 10, 48, 64, 40),
+    (2, 16, 10, 48, 64, 40), (1, 16, 12, 77, 100, None),
+    (3, 16, 12, 77, 100, None), (3, 16, 12, 77, 16, None),
+    (3, 16, 12, 77, 32, None), (3, 16, 12, 77, 64, None),
+    (3, 16, 12, 77, 128, None),
 ])
 def test_chunked_prefill_kernel_matches_plain(cuda_device, dtype, group, ps,
                                               M, S, hd, window):
@@ -236,14 +242,19 @@ def _check_bf16(got, plain, args, rows):
     (2, 100, 64, None, None, "heads", "slot"),      # one slot all pads
     (4, 129, 112, None, None, "fused", "ragged"),   # rows of a fused qkv
     (1, 33, 32, 8, None, "heads", "ragged"),
+    (1, 150, 100, None, None, "offset", "ragged"),  # rows 8 bytes off 16
+    (3, 150, 100, None, None, "offset", "ragged"),  # GQA group 3
+    (3, 150, 64, None, None, "heads", "ragged"),
+    (3, 150, 128, None, None, "heads", "ragged"),
 ])
 def test_flash_bf16_tensor_core_cases(cuda_device, group, S, hd, window,
                                       chunk, layout, pads):
     """The bf16 tensor-core flash kernel on the shapes that reach its
     edges: ragged q and key tiles, hd 112, group 8, window and chunk masks,
-    pad rows (0 out, a whole slot of them too), and q/k/v read as column
+    pad rows (0 out, a whole slot of them too), q/k/v read as column
     blocks of one fused (B, S, (Hq + 2 Hkv) hd) projection (row stride
-    (Hq + 2 Hkv) hd)."""
+    (Hq + 2 Hkv) hd), and hd 100 heads cut from wider rows 4 elements in
+    (each row 8 bytes past a 16-byte boundary)."""
     gen = torch.Generator().manual_seed(S * 10 + group)
     B, Hkv = 3, 2
     Hq = Hkv * group
@@ -254,6 +265,10 @@ def test_flash_bf16_tensor_core_cases(cuda_device, group, S, hd, window,
         q, k, v = (t.unflatten(-1, (-1, hd)) for t in
                    buf.split([Hq * hd, Hkv * hd, Hkv * hd], dim=-1))
         assert q.stride(1) == (Hq + 2 * Hkv) * hd
+    elif layout == "offset":
+        rng = np.random.default_rng(S * 10 + group)
+        q, k, v = (_fused_heads(rng, B, S, H, hd, torch.bfloat16, dev, 4)
+                   for H in (Hq, Hkv, Hkv))
     else:
         q, k, v = (torch.randn(B, S, H, hd, generator=gen).to(
             torch.bfloat16).to(dev) for H in (Hq, Hkv, Hkv))
@@ -280,6 +295,10 @@ def test_flash_bf16_tensor_core_cases(cuda_device, group, S, hd, window,
     (2, 12, 10, 50, 64, None, None, "ragged"),  # page size not a power of 2
     (2, 16, 10, 40, 64, None, None, "slot"),    # one slot all pads
     (4, 16, 8, 40, 64, None, None, "fused"),    # q rows of a fused qkv
+    (1, 16, 12, 77, 100, None, None, "offset"),  # rows 8 bytes off 16
+    (3, 16, 12, 77, 100, None, None, "offset"),  # GQA group 3
+    (3, 16, 12, 77, 64, None, None, "ragged"),
+    (3, 16, 12, 77, 128, None, None, "ragged"),
 ])
 def test_chunked_prefill_bf16_tensor_core_cases(cuda_device, group, ps, M,
                                                 S, hd, window, chunk, case):
@@ -287,8 +306,9 @@ def test_chunked_prefill_bf16_tensor_core_cases(cuda_device, group, ps, M,
     paged path: a whole 64-key tile of unmapped pages inside a slot's
     table, ragged chunks, group 8, window and chunk masks, a page size that
     is not a power of two, a slot whose
-    queries are all pads (0 out), and q read as a column block of a fused
-    (B, S, (Hq + 2 Hkv) hd) projection."""
+    queries are all pads (0 out), q read as a column block of a fused
+    (B, S, (Hq + 2 Hkv) hd) projection, and hd 100 q heads cut from wider
+    rows 4 elements in (each row 8 bytes past a 16-byte boundary)."""
     rng = np.random.default_rng(group * 1000 + ps + M + S)
     B, Hkv = 3, 2
     Hq = Hkv * group
@@ -299,10 +319,12 @@ def test_chunked_prefill_bf16_tensor_core_cases(cuda_device, group, ps, M,
     if case == "slot":
         q_pos[2] = -1
     dev = cuda_device
-    width = (Hq + 2 * Hkv) * hd if case == "fused" else Hq * hd
+    width = {"fused": (Hq + 2 * Hkv) * hd,
+             "offset": Hq * hd + 8}.get(case, Hq * hd)
+    off = 4 if case == "offset" else 0
     buf = rng.standard_normal((B, S, width), dtype=np.float32)
     buf = torch.from_numpy(buf).to(torch.bfloat16).to(dev)
-    q = buf[..., :Hq * hd].unflatten(-1, (Hq, hd)).transpose(1, 2)
+    q = buf[..., off:off + Hq * hd].unflatten(-1, (Hq, hd)).transpose(1, 2)
     kp, vp = (torch.from_numpy(x).to(torch.bfloat16).to(dev)
               for x in (kp, vp))
     tbl, qp, kpos = (torch.from_numpy(x).to(dev)
@@ -1087,7 +1109,7 @@ def test_ssd_kernel_reference_sweep(cuda_device, dtype, B, H, T, P, N, cl):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 112])
+@pytest.mark.parametrize("hd", [64, 100, 112])
 @pytest.mark.parametrize("case", ["last_span", "one_span", "wrapped",
                                   "shared_page", "no_valid_key"])
 def test_decode_kernels_split_cases(cuda_device, dtype, hd, case):
@@ -1161,3 +1183,145 @@ def test_decode_kernels_split_cases(cuda_device, dtype, hd, case):
                 assert (got[b] == 0).all(), name
     assert valid == ([True, False, False] if case == "no_valid_key"
                      else [True] * B)
+
+
+# ---------------------------------------------------------------------------
+# head dim 100 (LLaMA-3B) and GQA group 3 (InternLM2-20B): every new instance
+# ---------------------------------------------------------------------------
+# decode cores: hd 100 at every group, group 3 at every other head dim
+NEW_DECODE = ([(100, g) for g in (1, 2, 3, 4, 8)]
+              + [(hd, 3) for hd in (8, 16, 32, 64, 112, 128)])
+
+
+def _fused_heads(rng, B, S, H, hd, dtype, dev, offset):
+    """(B, S, H, hd) heads cut from a wider (B, S, H hd + 8) row starting
+    ``offset`` (<= 8) elements in: with bf16 hd 100 and offset 4 every
+    head's row starts on an 8-byte, not a 16-byte, boundary."""
+    buf = _normal(rng, (B, S, H * hd + 8), dtype, dev)
+    return buf[..., offset:offset + H * hd].unflatten(-1, (H, hd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,group", NEW_DECODE)
+def test_decode_new_instances_match_plain(cuda_device, dtype, hd, group):
+    """A ring of 1,100 rows (a cluster of three blocks) seen through
+    (B, Hkv, W, hd) views of a cache whose rows start 8 bytes past a
+    16-byte boundary at bf16 hd 100; ragged fills, one slot wrapped, pad
+    rows -1. bf16 also against the plain version in float32."""
+    rng = np.random.default_rng(hd * 10 + group)
+    B, Hkv, W = 3, 2, 1100
+    dev = cuda_device
+    q = _normal(rng, (B, Hkv * group, hd), dtype, dev)
+    off = 4 if hd == 100 else 0
+    ck = _fused_heads(rng, B, W, Hkv, hd, dtype, dev, off).transpose(1, 2)
+    cv = _fused_heads(rng, B, W, Hkv, hd, dtype, dev, off).transpose(1, 2)
+    if dtype == torch.bfloat16 and hd == 100:
+        assert ck.data_ptr() % 16 == 8
+    k_pos = np.full((B, W), -1, np.int32)
+    q_pos = np.zeros((B,), np.int32)
+    for b, n in enumerate([37, 900, W + 413]):
+        t = np.arange(max(0, n - W), n)
+        k_pos[b, t % W] = t
+        k_pos[b, 5:9] = -1
+        q_pos[b] = n - 1
+    qp, kp = (torch.from_numpy(x).to(dev) for x in (q_pos, k_pos))
+    args = (q, ck, cv, qp, kp)
+    got = _launched("decode_attention", lambda: ops.decode_attention(*args))
+    rows = torch.ones_like(got, dtype=torch.bool)
+    if dtype == torch.bfloat16:
+        _check_bf16(got, ref.decode_attention, args, rows)
+    else:
+        torch.testing.assert_close(got, ref.decode_attention(*args),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,group", NEW_DECODE)
+def test_paged_decode_new_instances_match_plain(cuda_device, dtype, hd,
+                                                group):
+    """A table of 40 pages of 16 (a cluster of two blocks), mixed fills,
+    an unmapped (-1) page inside slot 0 and a page mapped by two slots;
+    the pool's rows start on 8-byte boundaries at bf16 hd 100."""
+    rng = np.random.default_rng(hd * 10 + group + 1)
+    B, Hkv, ps, M = 3, 2, 16, 40
+    kp, vp, tbl, q_pos, k_pos = _paged_case(rng, B, Hkv, ps, M, hd)
+    q = rng.standard_normal((B, Hkv * group, hd), dtype=np.float32)
+    dev = cuda_device
+    q, kp, vp = (torch.from_numpy(x).to(dtype).to(dev) for x in (q, kp, vp))
+    tbl, qp, kpos = (torch.from_numpy(x).to(dev)
+                     for x in (tbl, q_pos, k_pos))
+    assert (tbl == -1).any()
+    args = (q, kp, vp, tbl, qp, kpos)
+    got = _launched("paged_decode_attention",
+                    lambda: ops.paged_decode_attention(*args))
+    rows = torch.ones_like(got, dtype=torch.bool)
+    if dtype == torch.bfloat16:
+        _check_bf16(got, ref.paged_decode_attention, args, rows)
+    else:
+        torch.testing.assert_close(got, ref.paged_decode_attention(*args),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_hd100_bf16_rows_need_8_byte_alignment(cuda_device):
+    """bf16 hd 100 copies 8-byte pieces: rows 8 bytes past a 16-byte
+    boundary run (above); rows 2 bytes off are refused before any launch,
+    by all four kernels."""
+    dev = cuda_device
+    before = ops.launch_counts()
+    buf = torch.randn(1, 8, 2 * 100 + 8, device=dev).to(torch.bfloat16)
+    x = buf[..., 1:201].unflatten(-1, (2, 100))           # 2-byte offset
+    q = x.transpose(1, 2)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    pages = torch.zeros(2, 3, 4, 100, dtype=torch.bfloat16, device=dev)
+    tbl = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="8-byte aligned rows"):
+        ops.flash_attention(q, q, q, pos, pos)
+    with pytest.raises(ValueError, match="8-byte aligned rows"):
+        ops.chunked_prefill_attention(q, pages, pages, tbl, pos, pos)
+    with pytest.raises(ValueError, match="8-byte aligned rows"):
+        ops.decode_attention(q[:, :, 0], q, q, pos[:, 0], pos)
+    bad_pages = torch.zeros(2, 3, 4, 101, dtype=torch.bfloat16,
+                            device=dev)[..., 1:]
+    with pytest.raises(ValueError, match="8-byte aligned rows"):
+        ops.paged_decode_attention(q[:, :, 0], bad_pages, bad_pages, tbl,
+                                   pos[:, 0], pos)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "internlm2-20b"])
+def test_dense_smoke_engine_on_card_matches_cpu(cuda_device, arch):
+    """minicpm-2b (the padded heads through the group-1 kernels with the
+    identity map) and internlm2-20b smoke at head dim 32 (the smoke's own
+    24 has no kernel: widths changed to 4 heads of 32 for MiniCPM), float32
+    on the paged + chunked + prefix-sharing rung: the card's tokens equal
+    the CPU's (the expanded map), every kernel of the path ran."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config(arch, "smoke")
+    if arch == "minicpm-2b":
+        cfg = dataclasses.replace(cfg, d_model=192, n_heads=6, n_kv_heads=6)
+        assert cfg.n_heads_padded == 8 and cfg.head_dim_ == 32
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(5)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    prompts = [system + rng.integers(2, cfg.vocab, n).tolist()
+               for n in (3, 20, 0, 9)]
+    prompts += [rng.integers(2, cfg.vocab, n).tolist() for n in (40, 7)]
+    ecfg = EngineConfig(max_batch=4, max_len=128, paged=True, page_size=16,
+                        prefill_chunk=16, prefill_pack=2,
+                        prefix_sharing=True)
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                            device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        ops.reset_launches()
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        counts = ops.launch_counts()
+    assert toks["cpu"] == toks[str(cuda_device)]
+    assert counts["paged_decode_attention"] > 0
+    assert counts["chunked_prefill_attention"] > 0

@@ -19,7 +19,9 @@ shapes, in bf16 (chunked prefill B1 H32/32 S256 after 768 history tokens
 at hd 64; flash B8 H32/32 S512, right-padded, at hd 64 and 112; decode B8
 H32/32 W2048, mixed fills, and paged decode B8 H32/32 ps16 M128, fills
 16-2048, at hd 64 and 112, and both again at a serving step's fills: the
-engine trace's first 8 prompts, 32 tokens into their decode; WKV6 at B1
+engine trace's first 8 prompts, 32 tokens into their decode; each of
+these attention cases also at StableLM-2-12B's hd 160 over 16 kv heads,
+H32/16, GQA group 2; WKV6 at B1
 H32 T1024 and B8 H32 T1 hd 64 and at the rwkv6 engine's prefills, B1 T16,
 B2 T17, B1 T48 and B1 T119; the SSD chunk at B2 H112 T1024 cl256 P64 N64
 in float32 and bf16 and at the zamba2 engine's prefill buckets in bf16,
@@ -38,7 +40,10 @@ and times each around the replay of a CUDA graph of 20 calls, in turns
 (DIR, this tree, this tree, DIR), beside ``scaled_dot_product_attention``
 with the same mask (attention only) and the least time the card could
 take; RMSNorm's calls also launched eagerly (the host's cost per call,
-where it exceeds the kernel's). Needs one NVIDIA card.
+where it exceeds the kernel's). Before the times it prints ptxas'
+registers and spill bytes of every instance whose counts differ between
+the two builds. A case that DIR's build refuses (a head dim or group
+from after that tree) is named and left out. Needs one NVIDIA card.
 """
 import functools
 import json
@@ -105,6 +110,19 @@ def plain_only_rmsnorm(csrc):
     return rmsnorm
 
 
+# the attention cases' (head dim, kv heads) over 32 q heads
+ATTN = ((64, 32), (112, 32), (160, 16))
+
+
+def ptxas_counts(name, csrc=None):
+    """{instance: (registers, spill bytes)} of one build of ``name``, the
+    anonymous namespace's per-file hash taken out of the mangled names so
+    two trees' instances line up."""
+    import re
+    return {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", k): (e["regs"], e["spill"])
+            for k, e in chip_smoke._ptxas_instances(name, "", csrc).items()}
+
+
 def rms_check(label, got, want):
     """y of an RMSNorm call (the second of (s, y)) against the plain
     version, at ``chip_smoke.TOL`` for bf16."""
@@ -139,27 +157,39 @@ def main() -> int:
         return 2
     build.build(names, csrc=base)
     build.build(names)
+    print(f"\n[ab] ptxas (registers, spill bytes), base -> new, of the "
+          f"instances that differ ({card})")
+    for n in names:
+        b, w = ptxas_counts(n, base), ptxas_counts(n)
+        diff = sorted(k for k in set(b) | set(w) if b.get(k) != w.get(k))
+        same = sum(1 for k in set(b) & set(w) if b[k] == w[k])
+        print(f"  {n}: {same} instances the same, {len(diff)} differ")
+        for k in diff:
+            print(f"    {k}: {b.get(k)} -> {w.get(k)}")
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases = []
-    if "chunked_prefill_attention" in names:
-        args = chip_smoke.chunk_inputs(32, 32, [1024], 256, bf, gen)
+    for hd, hkv in ((64, 32), (160, 16)) if (
+            "chunked_prefill_attention" in names) else ():
+        args = chip_smoke.chunk_inputs(32, hkv, [1024], 256, bf, gen, hd=hd)
         flops, nbytes = chip_smoke.paged_traffic(
-            args[3], args[4], args[5], 16, 32, 32, 64, 2, S=256)
-        cases.append(dict(label="chunk B1 H32/32 S256 hist768 hd64",
+            args[3], args[4], args[5], 16, 32, hkv, hd, 2, S=256)
+        cases.append(dict(label=f"chunk B1 H32/{hkv} S256 hist768 hd{hd}",
                           kernel=CP.chunked_prefill_attention,
                           plain=REF.chunked_prefill_attention, args=args,
                           sdpa=chip_smoke.chunk_sdpa(*args), qpos=args[4],
                           flops=flops, nbytes=nbytes))
-    for hd in (64, 112) if "flash_attention" in names else ():
-        q, k, v, pos = chip_smoke.flash_inputs(8, 32, 32, 512, bf, gen, hd)
+    for hd, hkv in ATTN if "flash_attention" in names else ():
+        q, k, v, pos = chip_smoke.flash_inputs(8, 32, hkv, 512, bf, gen, hd)
         flops, nbytes, mask = chip_smoke.flash_work(q, k, v, pos)
         cases.append(dict(
-            label=f"flash B8 H32/32 S512 hd{hd}", kernel=FA.flash_attention,
+            label=f"flash B8 H32/{hkv} S512 hd{hd}",
+            kernel=FA.flash_attention,
             plain=REF.flash_attention, args=(q, k, v, pos, pos),
-            sdpa=lambda a=(q, k, v), m=mask: torch.nn.functional.
-            scaled_dot_product_attention(*a, attn_mask=m),
+            sdpa=lambda a=(q, k, v), m=mask, g=hkv != 32: torch.nn.
+            functional.scaled_dot_product_attention(*a, attn_mask=m,
+                                                    enable_gqa=g),
             qpos=pos, flops=flops, nbytes=nbytes))
     # the decode kernels also at a serving step's fills: the first 8 prompts
     # of chip_smoke.py's engine trace (one of 1,024 tokens, the rest 16-119)
@@ -167,22 +197,23 @@ def main() -> int:
     serving = [len(r.prompt) + 32
                for r in chip_smoke.engine_requests(32000)[:8]]
     for fills, tag in ((None, ""), (serving, " serving")):
-        for hd in (64, 112) if "decode_attention" in names else ():
-            args = chip_smoke.decode_inputs(8, 32, 32, 2048, bf, gen, hd,
+        for hd, hkv in ATTN if "decode_attention" in names else ():
+            args = chip_smoke.decode_inputs(8, 32, hkv, 2048, bf, gen, hd,
                                             fills)
             flops, nbytes = chip_smoke.decode_work(*args[:2], *args[3:])
             cases.append(dict(
-                label=f"decode B8 H32/32 W2048 hd{hd}{tag}",
+                label=f"decode B8 H32/{hkv} W2048 hd{hd}{tag}",
                 kernel=DA.decode_attention, plain=REF.decode_attention,
                 args=args, sdpa=chip_smoke.decode_sdpa(*args), qpos=None,
                 flops=flops, nbytes=nbytes))
-        for hd in (64, 112) if "paged_decode_attention" in names else ():
+        for hd, hkv in ATTN if "paged_decode_attention" in names else ():
             args = chip_smoke.paged_inputs(
-                8, 32, 32, fills or chip_smoke.paged_fills(), bf, gen, hd=hd)
+                8, 32, hkv, fills or chip_smoke.paged_fills(), bf, gen,
+                hd=hd)
             flops, nbytes = chip_smoke.paged_traffic(
-                args[3], args[4], args[5], 16, 32, 32, hd, 2)
+                args[3], args[4], args[5], 16, 32, hkv, hd, 2)
             cases.append(dict(
-                label=f"paged B8 H32/32 ps16 M128 hd{hd}{tag}",
+                label=f"paged B8 H32/{hkv} ps16 M128 hd{hd}{tag}",
                 kernel=PD.paged_decode_attention,
                 plain=REF.paged_decode_attention, args=args,
                 sdpa=chip_smoke.paged_sdpa(*args), qpos=None, flops=flops,
@@ -245,6 +276,11 @@ def main() -> int:
         call = lambda c=c: c["kernel"](*c["args"])  # noqa: E731
         runs = {"base": c.get("base_call") or through(base, call),
                 "new": through(None, call)}
+        try:
+            runs["base"]()
+        except RuntimeError as e:   # an earlier tree without this shape
+            print(f"{c['label']:42s} not taken by DIR's build: {e}")
+            continue
         want = c["plain"](*c["args"])
         errs, wide = [], []
         for who in ("base", "new"):

@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
                             [llama3b] [llama3b-paged] [llama7b]
-                            [internlm2] [minicpm]
+                            [internlm2] [minicpm] [stablelm]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -19,8 +19,9 @@ groups). The dense paths serve ``chip_smoke.py``'s dense trace (12
 requests of the shared-system-prompt trace, 32 new tokens each):
 ``llama-paper-3b`` (head dim 100) on the contiguous engine
 (``llama3b``) and on the paged main path (``llama3b-paged``), and
-``llama-paper-7b``, ``internlm2-20b`` (GQA group 3) and ``minicpm-2b``
-(padded heads, the identity map) on the paged main path. With no
+``llama-paper-7b``, ``internlm2-20b`` (GQA group 3), ``minicpm-2b``
+(padded heads, the identity map) and ``stablelm-12b`` (the parallel block
+with qk-norm, head dim 160) on the paged main path. With no
 argument it profiles the first four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
@@ -155,7 +156,8 @@ def main() -> int:
              "llama3b-paged": ("llama-paper-3b", True),
              "llama7b": ("llama-paper-7b", True),
              "internlm2": ("internlm2-20b", True),
-             "minicpm": ("minicpm-2b", True)}
+             "minicpm": ("minicpm-2b", True),
+             "stablelm": ("stablelm-12b", True)}
     paths = sys.argv[1:] or known
     unknown = set(paths) - set(known) - set(dense)
     if unknown:

@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
    at the main paths' shapes (attention at head dims 64 and 112, and the
    paged path's of the dense configurations of phase 4: llama-paper-3b's
    head dim 100, llama-paper-7b's 32 heads of 128, internlm2-20b's GQA
-   group 3 and minicpm-2b's 48 padded heads of 64; the SSD
+   group 3, minicpm-2b's 48 padded heads of 64 and stablelm-12b's head
+   dim 160 at GQA group 2; the SSD
    chunk at Zamba2's full width, WKV6 at RWKV6's prefill and decode
    shapes, RMSNorm in each of its prologues: the row as it is, the
    residual add, Zamba2's concat with and without the add, Mamba2's gate,
@@ -41,9 +42,9 @@ Phases (any failure raises and the script exits non-zero):
    registers and spills and their tensor-core (HMMA) instruction counts
    from ``cuobjdump -sass`` (no spill and some HMMA, or it fails; none in
    the float32 instances); then every instance of the two decode
-   kernels' split-KV core (70 each: hd 8-128 with 100, groups 1-8 with
-   3): registers, and no spill or it fails, the hd 100 and group 3
-   instances listed; then every instance of ``wkv6`` (20) and
+   kernels' split-KV core (80 each: hd 8-160 with 100, groups 1-8 with
+   3): registers, and no spill or it fails, the hd 100, hd 160 and group
+   3 instances listed; then every instance of ``wkv6`` (20) and
    ``ssd_chunk`` (40): registers, no spill, and HMMA in every SSD
    instance, or it fails; then
    every instance of ``rmsnorm_kernel`` (60): registers, no spill, or it
@@ -72,8 +73,12 @@ Phases (any failure raises and the script exits non-zero):
    decode) and on the paged main path (chunked prefill + paged decode),
    then ``llama-paper-7b``, ``internlm2-20b`` (GQA group 3) and
    ``minicpm-2b`` (36 heads padded to 48: the group-1 kernels with the
-   identity map) on the paged main path, each model freed before the
-   next, launch counts, prefix hits and the free stack asserted. Small
+   identity map) on the paged main path, then ``stablelm-12b`` (40
+   ``parallel`` blocks with qk-norm, 25% rotary, head dim 160 at group 2,
+   12.667 B parameters) on the contiguous engine and on the paged main
+   path, each model freed before the next, launch counts (RMSNorm: 2 per
+   block, 4 per ``parallel`` block with its q and k norms, and the final
+   norm, a forward), prefix hits and the free stack asserted. Small
    float32 configs (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also
    served on the card and on the CPU (the plain path) and must agree
    token for token;
@@ -109,11 +114,18 @@ N_MAMBA, N_SHARED = 68, 13  # zamba2-7b: mamba2 layers, shared-attention sites
 N_RWKV = 24               # rwkv6-1.6b
 # the dense configurations of phase 4's last part -> layers (full depth)
 N_DENSE = {"llama-paper-3b": 26, "llama-paper-7b": 32, "internlm2-20b": 48,
-           "minicpm-2b": 40}
+           "minicpm-2b": 40, "stablelm-12b": 40}
+# -> the reference's parameters at full width (the leaves of its
+# Model.init under jax.eval_shape, padded heads included)
+DENSE_PARAMS = {"llama-paper-3b": 3_426_473_600,
+                "llama-paper-7b": 6_738_415_616,
+                "internlm2-20b": 20_466_702_336,
+                "minicpm-2b": 3_008_289_024,
+                "stablelm-12b": 12_667_225_600}
 DENSE_REQUESTS, DENSE_NEW = 12, 32   # of the paged trace; new tokens each
-# rmsnorm launches per forward: two per dense (2 L + 1 on a dense model:
-# contiguous_checks, paged_checks), mamba2 (ln1, gate_norm) and shared
-# block, one final norm; rwkv6 blocks norm with LayerNorm
+# rmsnorm launches per forward: two per dense (dense_norms: 2 L + 1 on a
+# dense model, 4 L + 1 on a parallel one), mamba2 (ln1, gate_norm) and
+# shared block, one final norm; rwkv6 blocks norm with LayerNorm
 NORMS_ZAMBA = 2 * N_MAMBA + 2 * N_SHARED + 1
 NORMS_RWKV = 1
 WKV_REL = 1e-5            # WKV6: relative to the largest output
@@ -799,10 +811,10 @@ def tensor_core_report(card):
 
 
 def decode_report(card):
-    """Every instance of the two decode kernels (hd 8-128 x group 1-8 x
+    """Every instance of the two decode kernels (hd 8-160 x group 1-8 x
     float32 / bf16, one split-KV core): ptxas' registers, the range per
-    kernel and type, and each hd 100 and group 3 instance's; raises if an
-    instance spills or is missing."""
+    kernel and type, and each hd 100, hd 160 and group 3 instance's;
+    raises if an instance spills or is missing."""
     import re
 
     from repro_torch.kernels import build
@@ -823,7 +835,7 @@ def decode_report(card):
                     r"[1-9]\d* bytes spill", line):
                 spills.append((cur, line.strip()))
         want = {(t, hd, g) for t in ("bf16", "f32")
-                for hd in (8, 16, 32, 64, 100, 112, 128)
+                for hd in (8, 16, 32, 64, 100, 112, 128, 160)
                 for g in (1, 2, 3, 4, 8)}
         for t in ("f32", "bf16"):
             r = {k[1:]: v for k, v in regs.items() if k[0] == t}
@@ -834,23 +846,25 @@ def decode_report(card):
                   f"{r.get((112, 1))}); {n_spill} spill" if r else
                   f"  {stem} {t}: no instance")
         for t in ("f32", "bf16"):
-            print(f"  {stem} {t} hd 100 (g1-8) and group 3 (hd 8-128) "
-                  "registers: " + ", ".join(
+            print(f"  {stem} {t} hd 100 and 160 (g1-8) and group 3 (hd "
+                  "8-160) registers: " + ", ".join(
                       f"hd{hd} g{g} {r}" for (tt, hd, g), r in sorted(
-                          regs.items()) if tt == t and (hd == 100 or g == 3)))
+                          regs.items())
+                      if tt == t and (hd in (100, 160) or g == 3)))
         if set(regs) != want or spills:
             raise AssertionError(f"{stem}: instances {sorted(want - set(regs))}"
                                  f" missing, spills {spills}")
 
 
-def _ptxas_instances(lib, stem):
+def _ptxas_instances(lib, stem, csrc=None):
     """{entry: {"regs": n, "spill": bytes}} of the entries of library
-    ``lib`` whose mangled name holds ``stem``, from ptxas' report."""
+    ``lib`` (built from ``csrc``, by default this tree's sources) whose
+    mangled name holds ``stem``, from ptxas' report."""
     import re
 
     from repro_torch.kernels import build
     out, cur = {}, None
-    for line in build.ptxas_log(lib).splitlines():
+    for line in build.ptxas_log(lib, csrc).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1) if stem in m.group(1) else None
@@ -958,7 +972,9 @@ def phase_kernels(card):
             ("flash B8 H32/32 S512 hd112 bf16", (8, 32, 32, 512, bf, 112)),
             ("flash B2 H32/32 S128 hd112 f32", (2, 32, 32, 128, f32, 112)),
             ("flash B8 H32/32 S512 hd100 bf16", (8, 32, 32, 512, bf, 100)),
-            ("flash B2 H32/32 S128 hd100 f32", (2, 32, 32, 128, f32, 100))]:
+            ("flash B2 H32/32 S128 hd100 f32", (2, 32, 32, 128, f32, 100)),
+            ("flash B8 H32/16 S512 hd160 bf16", (8, 32, 16, 512, bf, 160)),
+            ("flash B2 H32/16 S128 hd160 f32", (2, 32, 16, 128, f32, 160))]:
         flash[label] = flash_case(FA, REF, *args[:4], args[4], gen, *args[5:])
     decode = {}
     for label, args in [
@@ -972,7 +988,9 @@ def phase_kernels(card):
             ("decode B8 H32/32 W2048 hd128 bf16",
              (8, 32, 32, 2048, bf, 128)),
             ("decode B8 H48/16 W2048 hd128 bf16",
-             (8, 48, 16, 2048, bf, 128))]:
+             (8, 48, 16, 2048, bf, 128)),
+            ("decode B8 H32/16 W2048 hd160 bf16",
+             (8, 32, 16, 2048, bf, 160))]:
         decode[label] = decode_case(DA, REF, *args[:4], args[4], gen,
                                     *args[5:])
     from repro_torch.kernels import chunked_prefill as CP
@@ -993,7 +1011,9 @@ def phase_kernels(card):
              (8, 32, 32, fills, bf, 128)),
             ("paged B8 H48/48 ps16 M128 bf16", (8, 48, 48, fills, bf)),
             ("paged B8 H48/16 ps16 M128 hd128 bf16",
-             (8, 48, 16, fills, bf, 128))]:
+             (8, 48, 16, fills, bf, 128)),
+            ("paged B8 H32/16 ps16 M128 hd160 bf16",
+             (8, 32, 16, fills, bf, 160))]:
         paged[label] = paged_case(PD, REF, *args[:5], gen, hd=args[5]
                                   if len(args) > 5 else 64)
     chunk = {}
@@ -1013,7 +1033,11 @@ def phase_kernels(card):
              (32, 32, [1024], 256, bf, 128)),
             ("chunk B1 H48/48 S256 hist768 bf16", (48, 48, [1024], 256, bf)),
             ("chunk B1 H48/16 S256 hist768 hd128 bf16",
-             (48, 16, [1024], 256, bf, 128))]:
+             (48, 16, [1024], 256, bf, 128)),
+            ("chunk B1 H32/16 S256 hist768 hd160 bf16",
+             (32, 16, [1024], 256, bf, 160)),
+            ("chunk B2 H32/16 S256 packed hd160 bf16",
+             (32, 16, [768, 100], 256, bf, 160))]:
         chunk[label] = chunk_case(CP, REF, *args[:5], gen,
                                   hd=args[5] if len(args) > 5 else 64)
     from repro_torch.kernels import ssd as SSD
@@ -1042,17 +1066,25 @@ def phase_kernels(card):
         wkv[label] = wkv6_case(WKV, REF, *args, gen)
     # RMSNorm: every prologue at the main paths' rows, a decode step's 8
     # and a prefill's 1,024 (llama d 2048; zamba2 d 3584, its shared block's
-    # concat of two 3584 segments and its gate over d_inner 7168)
+    # concat of two 3584 segments and its gate over d_inner 7168;
+    # stablelm-12b's ln1 add and ln2 at d 5120, and its qk-norm over head
+    # dim 160: q's 32 heads x a 256-token chunk, q's and k's 32 and 16
+    # heads x a decode step's 8)
     rms = {}
     for label, args in [
             ("rmsnorm R1024 d2048 bf16", ("plain", 1024, 2048, bf)),
             ("rmsnorm R8 d2048 bf16", ("plain", 8, 2048, bf)),
             ("rmsnorm R8 d7168 bf16", ("plain", 8, 7168, bf)),
             ("rmsnorm R37 d2048 f32", ("plain", 37, 2048, f32)),
+            ("rmsnorm R8 d5120 bf16", ("plain", 8, 5120, bf)),
+            ("rmsnorm R8192 d160 bf16", ("plain", 8192, 160, bf)),
+            ("rmsnorm R256 d160 bf16", ("plain", 256, 160, bf)),
+            ("rmsnorm R128 d160 bf16", ("plain", 128, 160, bf)),
             ("add R8 d2048 bf16", ("add", 8, 2048, bf)),
             ("add R1024 d2048 bf16", ("add", 1024, 2048, bf)),
             ("add R8 d3584 bf16", ("add", 8, 3584, bf)),
             ("add R37 d2048 f32", ("add", 37, 2048, f32)),
+            ("add R8 d5120 bf16", ("add", 8, 5120, bf)),
             ("cat R8 d3584+3584 bf16", ("cat", 8, 3584, bf)),
             ("add+cat R8 d3584+3584 bf16", ("add+cat", 8, 3584, bf)),
             ("add+cat R1024 d3584+3584 bf16", ("add+cat", 1024, 3584, bf)),
@@ -1281,11 +1313,20 @@ def serve(card, label, ecfg, reqs, model, params, new_tokens=64):
     return engine, st, counts
 
 
-def contiguous_checks(label, L, engine, st, counts):
+def dense_norms(cfg):
+    """RMSNorm launches per forward of a dense model, from its config: ln1
+    and ln2 of every block, the q and k norms of a ``parallel`` block's
+    qk-norm, and the final norm."""
+    return 1 + sum(4 if kind == "parallel" else 2
+                   for kind in cfg.block_pattern)
+
+
+def contiguous_checks(label, cfg, engine, st, counts):
     """The contiguous path's launch counts: flash in every layer of every
     prefill launch, decode in every layer of every micro-step (and only
-    whole forwards), one RMSNorm per norm (2 L + 1 a forward), no paged
-    kernel."""
+    whole forwards), one RMSNorm per norm (``dense_norms`` a forward), no
+    paged kernel."""
+    L, norms = cfg.n_layers, dense_norms(cfg)
     pb = engine.prefill_batches
     checks = [
         (counts["flash_attention"] >= L * pb,
@@ -1295,9 +1336,9 @@ def contiguous_checks(label, L, engine, st, counts):
          and counts["decode_attention"] % L == 0,
          f"decode launches {counts['decode_attention']} vs {L} x "
          f"{st['steps']} micro-steps"),
-        (counts["rmsnorm"] == (2 * L + 1) * (
+        (counts["rmsnorm"] == norms * (
             pb + counts["decode_attention"] // L),
-         f"rmsnorm launches {counts['rmsnorm']} != {2 * L + 1} x "
+         f"rmsnorm launches {counts['rmsnorm']} != {norms} x "
          f"({pb} + {counts['decode_attention'] // L}) forwards"),
         (counts["paged_decode_attention"] == 0
          and counts["chunked_prefill_attention"] == 0,
@@ -1308,16 +1349,17 @@ def contiguous_checks(label, L, engine, st, counts):
             raise AssertionError(f"{label}: {what}")
 
 
-def paged_checks(label, L, engine, st, counts):
+def paged_checks(label, cfg, engine, st, counts):
     """The paged main path's launch counts (chunk and paged decode in every
     layer of every chunk launch and micro-step, no contiguous kernel, one
-    RMSNorm per norm), prefix hits and the whole free stack."""
+    RMSNorm per norm: ``dense_norms`` a forward), prefix hits and the
+    whole free stack."""
+    L, norms = cfg.n_layers, dense_norms(cfg)
     print(f"  pages: total {st['pages_total']}, peak reserved "
           f"{st['peak_pages_reserved']} ({st['peak_kv_rows_reserved']} KV "
           f"rows), free at the end {st['free_pages']}; prefix hit tokens "
           f"{st['prefix_hit_tokens']} over {st['prefix_shared_requests']} "
           f"requests")
-    norms = 2 * L + 1
     checks = [
         (st["prefix_hit_tokens"] > 0, "no prefix hit"),
         (st["free_pages"] == st["pages_total"], "pages not returned"),
@@ -1365,13 +1407,13 @@ def phase_engine(card):
 
     engine, st, counts = serve(card, "contiguous", contiguous,
                                engine_requests(cfg.vocab), model, params)
-    contiguous_checks("contiguous run", N_LAYERS, engine, st, counts)
+    contiguous_checks("contiguous run", cfg, engine, st, counts)
     del engine
 
     engine, st, pcounts = serve(card, "paged + chunked prefill + prefix "
                                 "sharing", paged, paged_requests(cfg.vocab),
                                 model, params)
-    paged_checks("paged run", N_LAYERS, engine, st, pcounts)
+    paged_checks("paged run", cfg, engine, st, pcounts)
     return {"flash_attention": counts["flash_attention"],
             "decode_attention": counts["decode_attention"],
             "paged_decode_attention": pcounts["paged_decode_attention"],
@@ -1509,16 +1551,19 @@ def phase_dense(card):
     the contiguous engine and on the paged main path, then
     ``llama-paper-7b``, ``internlm2-20b`` (48 q heads on 8 kv heads
     duplicated to 16: GQA group 3) and ``minicpm-2b`` (36 heads padded to
-    48, group 1 with the identity map) on the paged main path. Each model
-    is freed before the next. Returns each kernel's launches on these
-    paths."""
+    48, group 1 with the identity map) on the paged main path, and
+    ``stablelm-12b`` (40 ``parallel`` blocks: qk-norm, 25% rotary, 32 q
+    heads of 160 on 8 kv heads duplicated to 16, GQA group 2) on the
+    contiguous engine and on the paged main path. Each model is freed
+    before the next. Returns each kernel's launches on these paths."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
     runs = [("llama-paper-3b", "contiguous"), ("llama-paper-3b", "paged"),
             ("llama-paper-7b", "paged"), ("internlm2-20b", "paged"),
-            ("minicpm-2b", "paged")]
+            ("minicpm-2b", "paged"), ("stablelm-12b", "contiguous"),
+            ("stablelm-12b", "paged")]
     total = {}
     model = params = loaded = None
     for arch, path in runs:
@@ -1533,13 +1578,18 @@ def phase_dense(card):
             gen = torch.Generator(device="cuda")
             gen.manual_seed(0)
             params, loaded = model.init(gen), arch
+            n_params = sum(t.numel() for t in _leaves(params))
+            if n_params != DENSE_PARAMS[arch]:
+                raise AssertionError(f"{arch}: {n_params} parameters on the "
+                                     f"card, the reference has "
+                                     f"{DENSE_PARAMS[arch]}")
             weights = sum(t.numel() * t.element_size()
                           for t in _leaves(params))
             print(f"\n[dense] {arch}: {L} layers, d_model {cfg.d_model}, "
                   f"heads {cfg.n_heads}/{cfg.n_kv_heads} padded to "
                   f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded}, head dim "
-                  f"{cfg.head_dim_}, parameters {weights / 1e9:.3f} GB on "
-                  f"the card ({card})")
+                  f"{cfg.head_dim_}, {n_params} parameters, "
+                  f"{weights / 1e9:.3f} GB on the card ({card})")
         ecfg = (EngineConfig(**base) if path == "contiguous" else
                 EngineConfig(**base, paged=True, page_size=16,
                              prefill_chunk=256, prefill_pack=2,
@@ -1554,9 +1604,9 @@ def phase_dense(card):
                                    dense_requests(cfg.vocab), model, params,
                                    new_tokens=DENSE_NEW)
         if path == "contiguous":
-            contiguous_checks(label, L, engine, st, counts)
+            contiguous_checks(label, cfg, engine, st, counts)
         else:
-            paged_checks(label, L, engine, st, counts)
+            paged_checks(label, cfg, engine, st, counts)
         del engine
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
@@ -1618,7 +1668,7 @@ def main() -> int:
     # the dense configurations' paths, read but not reported in the line:
     # the line keeps each kernel's launches on the path timed in phase 3
     dense = phase_dense(card)
-    print(f"\n[dense] launches over the five dense runs: {dense}")
+    print(f"\n[dense] launches over the seven dense runs: {dense}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

@@ -4,7 +4,9 @@ Covers the configurations the port serves so far: the paper's own dense
 ``llama-paper-{1b,3b,7b}`` (MHA; 3b at head dim 100), ``llama3.2-1b``
 (GQA), ``internlm2-20b`` (GQA group 3 after its kv heads are duplicated
 to 16), ``minicpm-2b`` (36 MHA heads padded to 48, muP-style scaling,
-tied embeddings), the hybrid ``zamba2-7b`` (Mamba2 + one weight-shared
+tied embeddings), ``stablelm-12b`` (the parallel block with qk-norm, 25%
+partial rotary, head dim 160, GQA group 2 after its kv heads are
+duplicated to 16), the hybrid ``zamba2-7b`` (Mamba2 + one weight-shared
 attention block) and the attention-free ``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
 ``smoke`` (a few layers, narrow widths, float32; for CPU tests) and
 ``long`` (full with a sliding window; full itself for ``rwkv6-1.6b``).
@@ -14,8 +16,8 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = ["llama-paper-1b", "llama-paper-3b", "llama-paper-7b",
-            "llama3.2-1b", "internlm2-20b", "minicpm-2b", "zamba2-7b",
-            "rwkv6-1.6b"]
+            "llama3.2-1b", "internlm2-20b", "minicpm-2b", "stablelm-12b",
+            "zamba2-7b", "rwkv6-1.6b"]
 
 _MODULES = {
     "llama-paper-1b": "repro_torch.configs.llama_paper",
@@ -24,6 +26,7 @@ _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }

@@ -22,7 +22,8 @@ from repro_torch.kernels.flash_attention import (DTYPES, check_bf16_rows,
                                                  check_common)
 from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
-HEAD_DIMS = (16, 32, 64, 100, 128)   # 16: the reference's kernel sweep
+# 16: the reference's kernel sweep; 160: StableLM-2-12B
+HEAD_DIMS = (16, 32, 64, 100, 128, 160)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

@@ -62,6 +62,14 @@
 //   products run 7 k16 steps and 14 n8 tiles of O, whose columns past 100
 //   are never stored. Its registers are hd 112's; it issues twice the
 //   copies.
+// - hd 160 (StableLM-2-12B): 10 k16 steps and 20 n8 tiles of O, 16-byte
+//   pieces (a 320-byte row, 20 pieces). The warp's live arrays grow to
+//   Q's fragments (40 registers), O (80) and S (32); ptxas fits them in
+//   245 registers (flash) and 240 (chunked prefill) with no spill, under
+//   the 255 that __launch_bounds__(128, 2) leaves, so the instance is the
+//   same code as the others. (Reading Q's fragments from shared memory
+//   each k16 step instead took 219 / 211 registers and was no faster on
+//   the H100: chip_kernel_ab.py, PERF.md.)
 // - Before the key loop the block marks the tiles that hold a key some
 //   valid query of the block may see (0 <= k_pos <= max q_pos, and inside
 //   the window or chunk of the smallest q_pos); the loop visits only those,
@@ -75,9 +83,9 @@
 // - Shared memory per block: Q 64 x (hd+8) bf16, two stages of K and V
 //   64 x (hd+8) each, two stages of 64 key positions, 8 ints of reduction,
 //   the tile bits. At hd 128: 17,408 + 69,632 + 512 + 32 + 4 per 32 tiles
-//   ~ 87.6 KB, so two
-//   blocks fit an SM (227 KB); __launch_bounds__(128, 2) leaves each thread
-//   up to 255 registers.
+//   ~ 87.6 KB, at hd 160 (rows of 168): 21,504 + 86,016 + 548 ~ 108.1 KB,
+//   so two blocks fit an SM (227 KB); __launch_bounds__(128, 2) leaves
+//   each thread up to 255 registers.
 // Next step: wgmma with TMA loads into a ring of stages and, for flash, a
 // producer warp that keeps the loads in flight.
 //
@@ -337,7 +345,7 @@ template <int HD, class Keys>
 __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
                                                unsigned char* smem) {
   constexpr int HDP = depth<HD>();
-  static_assert(HDP <= 128, "head dim <= 128");
+  static_assert(HDP <= 160, "head dim <= 160");
   using L = Layout<HD>;
   constexpr int LD = L::LD;
   constexpr int KSTEPS = HDP / 16;  // k16 steps of Q·Kᵀ

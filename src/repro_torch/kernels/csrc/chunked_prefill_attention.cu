@@ -363,10 +363,12 @@ extern "C" int chunked_prefill_attention_fwd(
   if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
   if (dtype == 0 && hd == 100) return (int)launch_f32<100>(a, st);
   if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
+  if (dtype == 0 && hd == 160) return (int)launch_f32<160>(a, st);
   if (dtype == 1 && hd == 16) return (int)launch_bf16<16>(a, st);
   if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
   if (dtype == 1 && hd == 64) return (int)launch_bf16<64>(a, st);
   if (dtype == 1 && hd == 100) return (int)launch_bf16<100>(a, st);
   if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
+  if (dtype == 1 && hd == 160) return (int)launch_bf16<160>(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -71,7 +71,10 @@
 //   lanes with two and two with one, so no lane idles a phase), scores
 //   reduce over them with xor shuffles, and the same thread later reads
 //   the same chunks of V. Every thread reads back only the bytes its own
-//   cp.async wrote, so cp.async.wait_group alone orders the loop.
+//   cp.async wrote, so cp.async.wait_group alone orders the loop. hd 160
+//   bf16 (StableLM-2-12B): 20 chunks on 16 lanes, so 12 lanes idle on the
+//   second chunk (as hd 100's 25 on 16), two rows a lane, 16 keys a tile
+//   below group 4; float32: 40 chunks on 32 lanes.
 // - Two compares a key: with k_pos <= q_pos the conditions reduce to
 //   lo <= k_pos <= q_pos, lo = first_key(q_pos) computed once a block. No
 //   division per key; the paged policy finds a row's page with a shift
@@ -600,8 +603,9 @@ cudaError_t launch_cluster(const Args& a, int W, int Hkv, int B,
 }
 
 // The instances every decode kernel takes: hd {8, 16, 32, 64, 100, 112,
-// 128} x group {1, 2, 3, 4, 8} x {float32, bf16} (hd 100: LLaMA-3B; group
-// 3: InternLM2-20B's 48 query heads on 16 kv heads). Launch<T, HD, G>::run(a, stream)
+// 128, 160} x group {1, 2, 3, 4, 8} x {float32, bf16} (hd 100: LLaMA-3B;
+// group 3: InternLM2-20B's 48 query heads on 16 kv heads; hd 160:
+// StableLM-2-12B, group 2). Launch<T, HD, G>::run(a, stream)
 // is the file's launch of one instance.
 template <template <typename, int, int> class Launch, typename T, int HD,
           typename Args>
@@ -628,6 +632,7 @@ cudaError_t by_head_dim(const Args& a, int hd, int group,
     case 100: return by_group<Launch, T, 100>(a, group, stream);
     case 112: return by_group<Launch, T, 112>(a, group, stream);
     case 128: return by_group<Launch, T, 128>(a, group, stream);
+    case 160: return by_group<Launch, T, 160>(a, group, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -320,6 +320,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0 && hd == 100) return (int)launch_f32<100>(a, st);
   if (dtype == 0 && hd == 112) return (int)launch_f32<112>(a, st);
   if (dtype == 0 && hd == 128) return (int)launch_f32<128>(a, st);
+  if (dtype == 0 && hd == 160) return (int)launch_f32<160>(a, st);
   if (dtype == 1 && hd == 8) return (int)launch_bf16<8>(a, st);
   if (dtype == 1 && hd == 16) return (int)launch_bf16<16>(a, st);
   if (dtype == 1 && hd == 32) return (int)launch_bf16<32>(a, st);
@@ -327,5 +328,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && hd == 100) return (int)launch_bf16<100>(a, st);
   if (dtype == 1 && hd == 112) return (int)launch_bf16<112>(a, st);
   if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
+  if (dtype == 1 && hd == 160) return (int)launch_bf16<160>(a, st);
   return (int)cudaErrorInvalidValue;
 }

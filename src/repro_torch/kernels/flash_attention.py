@@ -22,9 +22,9 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# 100: LLaMA-3B; 112: Zamba2's shared attention; 8 and 16: the
-# reference's kernel sweeps
-HEAD_DIMS = (8, 16, 32, 64, 100, 112, 128)
+# 100: LLaMA-3B; 112: Zamba2's shared attention; 160: StableLM-2-12B; 8
+# and 16: the reference's kernel sweeps
+HEAD_DIMS = (8, 16, 32, 64, 100, 112, 128, 160)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

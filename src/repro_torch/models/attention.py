@@ -104,9 +104,12 @@ def kernel_head_group(cfg, device_type: str) -> Optional[int]:
     return group
 
 
-def attn_init(gen, cfg, device, d_in: Optional[int] = None) -> Dict:
+def attn_init(gen, cfg, device, d_in: Optional[int] = None,
+              qk_norm: bool = False) -> Dict:
     """``d_in`` overrides the input width (the Zamba2 shared block takes
-    concat(h, emb), 2 * d_model wide)."""
+    concat(h, emb), 2 * d_model wide). ``qk_norm`` adds the RMSNorm scales
+    ``q_norm`` and ``k_norm`` over the head dim, shared by all heads
+    (StableLM-2's ``parallel`` block)."""
     dt = L.dtype_of(cfg)
     d = d_in if d_in is not None else cfg.d_model
     hd = cfg.head_dim_
@@ -129,7 +132,11 @@ def attn_init(gen, cfg, device, d_in: Optional[int] = None) -> Dict:
             pad = (n_kvp - n_kv) * hd
             wk = torch.nn.functional.pad(wk, (0, pad))
             wv = torch.nn.functional.pad(wv, (0, pad))
-    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    if qk_norm:
+        p["q_norm"] = L.rmsnorm_init(hd, dt, device)
+        p["k_norm"] = L.rmsnorm_init(hd, dt, device)
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -323,6 +330,11 @@ def _qkv(p, cfg, x, positions):
     q = _split_heads(x @ p["wq"], n_qp, hd)
     k = _split_heads(x @ p["wk"], n_kvp, hd)
     v = _split_heads(x @ p["wv"], n_kvp, hd)
+    if "q_norm" in p:
+        # qk-norm before RoPE, one norm launch each on the card over the
+        # (B*S*H, hd) rows
+        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = L.apply_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
     return q, k, v

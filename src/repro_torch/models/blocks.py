@@ -1,8 +1,10 @@
 """Per-layer blocks (the port of ``repro.models.blocks``) for the kinds the
 port serves: ``dense`` (pre-norm self-attention + SwiGLU MLP on a
-sequential residual), ``mamba2`` (the Mamba2 SSD block), ``shared``
-(Zamba2's weight-shared attention + MLP block on concat(h, embedding))
-and ``rwkv6`` (RWKV6 time-mix + channel-mix, attention-free)."""
+sequential residual), ``parallel`` (StableLM-2: attention with qk-norm and
+the MLP side by side on one pre-norm, added together), ``mamba2`` (the
+Mamba2 SSD block), ``shared`` (Zamba2's weight-shared attention + MLP
+block on concat(h, embedding)) and ``rwkv6`` (RWKV6 time-mix +
+channel-mix, attention-free)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +17,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-PORTED_KINDS = ("dense", "mamba2", "shared", "rwkv6")
+PORTED_KINDS = ("dense", "parallel", "mamba2", "shared", "rwkv6")
 
 
 @dataclasses.dataclass
@@ -61,7 +63,8 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
                         "w_up": L.dense_init(gen, 2 * d, cfg.d_ff, dt, device),
                         "w_down": L.dense_init(gen, cfg.d_ff, d, dt, device)}}
     return {"ln1": L.rmsnorm_init(d, dt, device),
-            "attn": A.attn_init(gen, cfg, device),
+            "attn": A.attn_init(gen, cfg, device,
+                                qk_norm=(kind == "parallel")),
             "ln2": L.rmsnorm_init(d, dt, device),
             "mlp": L.swiglu_init(gen, d, cfg.d_ff, dt, device)}
 
@@ -124,5 +127,10 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
     a, cache = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
                                 chunk, cache, ctx.mode,
                                 page_tbl=ctx.page_tbl)
+    if kind == "parallel":
+        # the MLP reads the same x; the reference adds x + (a + f), a + f
+        # first, so the next norm's pending add forms the same value
+        h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x, _res(cfg, a + L.swiglu(p["mlp"], h2))
     x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
     return x, _res(cfg, L.swiglu(p["mlp"], h2))

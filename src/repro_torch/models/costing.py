@@ -43,7 +43,7 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
     kv_per_tok = 0.0
     state_bytes = 0.0
     for i, kind in enumerate(cfg.block_pattern):
-        if kind in ("dense", "shared"):
+        if kind in ("dense", "parallel", "shared"):
             if cfg.layer_uses_chunked_attn(i):
                 continue               # ring cache, O(1) amortized growth
             kv_per_tok += 2 * cfg.n_kv_heads_padded * hd * dtype_bytes

@@ -14,7 +14,7 @@ Hot path, as in the reference:
   * admissions are batched: every waiting request that fits a free slot
     prefills in one launch per power-of-two length bucket (right padding
     plus position masking, for models whose blocks mask pads exactly:
-    dense, shared and mamba2), or per exact prompt length for a model
+    dense, parallel, shared and mamba2), or per exact prompt length for a model
     with a block that takes no mask (rwkv6), padded to a power-of-two
     batch; the new caches enter the pool in one indexed copy per leaf;
   * decode runs ``sync_every`` fused micro-steps (decode -> sample ->

@@ -56,7 +56,8 @@ def _pos(B, S, gen, pad):
     (2, 130, 112, 40, None, True), (1, 150, 100, None, None, True),
     (2, 150, 100, None, None, True), (3, 150, 100, None, None, True),
     (3, 150, 32, None, None, True), (3, 150, 64, None, None, True),
-    (3, 150, 128, None, None, True),
+    (3, 150, 128, None, None, True), (2, 150, 160, None, None, True),
+    (1, 77, 160, None, None, True), (4, 96, 160, 40, None, True),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, group, S, hd,
                                     window, chunk, pad):
@@ -88,6 +89,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, group, S, hd,
     (4, 64, 128, None, None), (2, 96, 64, 20, None), (1, 64, 64, None, 16),
     (8, 2048, 64, None, None), (2, 200, 32, None, None),
     (1, 300, 112, None, None), (2, 96, 112, 20, None),
+    (2, 300, 160, None, None), (1, 96, 160, None, None),
+    (4, 200, 160, 20, None),
 ])
 def test_decode_kernel_matches_plain(cuda_device, dtype, group, W, hd,
                                      window, chunk):
@@ -164,6 +167,7 @@ def _paged_case(rng, B, Hkv, ps, M, hd, S=None, shared=True):
 @pytest.mark.parametrize("group,ps,M,hd", [
     (1, 16, 8, 64), (2, 16, 16, 64), (4, 8, 12, 128), (8, 16, 4, 32),
     (2, 8, 130, 64), (1, 16, 12, 112), (2, 16, 20, 112),
+    (2, 16, 20, 160), (1, 16, 12, 160), (4, 8, 12, 160),
 ])
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, group, ps, M,
                                            hd):
@@ -191,7 +195,8 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, group, ps, M,
     (2, 16, 10, 48, 64, 40), (1, 16, 12, 77, 100, None),
     (3, 16, 12, 77, 100, None), (3, 16, 12, 77, 16, None),
     (3, 16, 12, 77, 32, None), (3, 16, 12, 77, 64, None),
-    (3, 16, 12, 77, 128, None),
+    (3, 16, 12, 77, 128, None), (2, 16, 12, 77, 160, None),
+    (1, 16, 12, 77, 160, None), (4, 16, 12, 77, 160, 40),
 ])
 def test_chunked_prefill_kernel_matches_plain(cuda_device, dtype, group, ps,
                                               M, S, hd, window):
@@ -246,6 +251,9 @@ def _check_bf16(got, plain, args, rows):
     (3, 150, 100, None, None, "offset", "ragged"),  # GQA group 3
     (3, 150, 64, None, None, "heads", "ragged"),
     (3, 150, 128, None, None, "heads", "ragged"),
+    (2, 150, 160, None, None, "heads", "ragged"),  # StableLM-2's hd 160
+    (2, 129, 160, None, None, "fused", "ragged"),
+    (1, 200, 160, None, 48, "heads", "none"),
 ])
 def test_flash_bf16_tensor_core_cases(cuda_device, group, S, hd, window,
                                       chunk, layout, pads):
@@ -299,6 +307,9 @@ def test_flash_bf16_tensor_core_cases(cuda_device, group, S, hd, window,
     (3, 16, 12, 77, 100, None, None, "offset"),  # GQA group 3
     (3, 16, 12, 77, 64, None, None, "ragged"),
     (3, 16, 12, 77, 128, None, None, "ragged"),
+    (2, 16, 12, 77, 160, None, None, "ragged"),  # StableLM-2's hd 160
+    (2, 16, 12, 48, 160, None, None, "hole"),
+    (2, 16, 10, 40, 160, None, None, "fused"),
 ])
 def test_chunked_prefill_bf16_tensor_core_cases(cuda_device, group, ps, M,
                                                 S, hd, window, chunk, case):
@@ -637,6 +648,7 @@ def test_wkv6_kernel_matches_plain(cuda_device, dtype, B, H, T, hd):
     (37, 64, False), (37, 2048, False), (8, 3584, False), (37, 7168, False),
     (1030, 2048, False),   # a 1024-token prefill's rows, and some
     (19, 100, False),      # d not a multiple of the 16-byte vector
+    (1230, 160, False),    # qk-norm: (B S H, head dim 160) rows
     (21, 2048, True),      # rows of a wider tensor (row stride != d)
 ])
 def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, R, d, strided):
@@ -694,7 +706,7 @@ def _fused_case(variant, R, d, dtype, dev, gen, extra=8):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R", [1, 8, 1024])
-@pytest.mark.parametrize("d", [64, 100, 2048, 3584, 7168])
+@pytest.mark.parametrize("d", [64, 100, 160, 2048, 3584, 7168])
 @pytest.mark.parametrize("variant", ["add", "cat", "add+cat", "gate"])
 def test_fused_rmsnorm_kernel_matches_plain(cuda_device, variant, d, R,
                                             dtype):
@@ -1109,7 +1121,7 @@ def test_ssd_kernel_reference_sweep(cuda_device, dtype, B, H, T, P, N, cl):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 100, 112])
+@pytest.mark.parametrize("hd", [64, 100, 112, 160])
 @pytest.mark.parametrize("case", ["last_span", "one_span", "wrapped",
                                   "shared_page", "no_valid_key"])
 def test_decode_kernels_split_cases(cuda_device, dtype, hd, case):
@@ -1186,10 +1198,12 @@ def test_decode_kernels_split_cases(cuda_device, dtype, hd, case):
 
 
 # ---------------------------------------------------------------------------
-# head dim 100 (LLaMA-3B) and GQA group 3 (InternLM2-20B): every new instance
+# head dim 100 (LLaMA-3B), GQA group 3 (InternLM2-20B) and head dim 160
+# (StableLM-2-12B): every new instance
 # ---------------------------------------------------------------------------
-# decode cores: hd 100 at every group, group 3 at every other head dim
-NEW_DECODE = ([(100, g) for g in (1, 2, 3, 4, 8)]
+# decode cores: hd 100 and hd 160 (StableLM-2-12B) at every group, group 3
+# at every other head dim
+NEW_DECODE = ([(hd, g) for hd in (100, 160) for g in (1, 2, 3, 4, 8)]
               + [(hd, 3) for hd in (8, 16, 32, 64, 112, 128)])
 
 
@@ -1288,11 +1302,13 @@ def test_hd100_bf16_rows_need_8_byte_alignment(cuda_device):
     assert ops.launch_counts() == before
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "internlm2-20b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "internlm2-20b",
+                                  "stablelm-12b"])
 def test_dense_smoke_engine_on_card_matches_cpu(cuda_device, arch):
     """minicpm-2b (the padded heads through the group-1 kernels with the
-    identity map) and internlm2-20b smoke at head dim 32 (the smoke's own
-    24 has no kernel: widths changed to 4 heads of 32 for MiniCPM), float32
+    identity map), internlm2-20b and stablelm-12b (the parallel block with
+    qk-norm and 25% rotary) smoke at head dim 32 (MiniCPM's own 24 has no
+    kernel: widths changed to 4 heads of 32 for MiniCPM), float32
     on the paged + chunked + prefix-sharing rung: the card's tokens equal
     the CPU's (the expanded map), every kernel of the path ran."""
     import dataclasses

@@ -1,23 +1,30 @@
 """The dense configurations the port added for the paper's LLaMA-3B and
--7B, InternLM2-20B and MiniCPM-2B, against the JAX package on the CPU:
+-7B, InternLM2-20B, MiniCPM-2B and StableLM-2-12B, against the JAX package
+on the CPU:
 
-* head dim 100 (LLaMA-3B) and GQA group 3 (InternLM2-20B) in the plain
-  flash, decode, paged-decode and chunked-prefill attention (the CPU path
-  of ``kernels/ops.py``) against the JAX ops through the Pallas kernels
-  in interpret mode and through the jnp oracles: float32 atol/rtol 1e-4,
-  bf16 2e-2 as the reference's sweep (``tests/test_kernels.py``);
-* logits of two-layer models at head dim 100 and at group 3 (prefill,
-  decode around the ring, and chunk mode over a paged pool) against the
-  JAX ``Model`` on its own parameters (``params_from_jax``), atol 1e-4;
+* head dim 100 (LLaMA-3B), GQA group 3 (InternLM2-20B) and head dim 160
+  at group 2 (StableLM-2-12B) in the plain flash, decode, paged-decode
+  and chunked-prefill attention (the CPU path of ``kernels/ops.py``)
+  against the JAX ops through the Pallas kernels in interpret mode and
+  through the jnp oracles: float32 atol/rtol 1e-4, bf16 2e-2 as the
+  reference's sweep (``tests/test_kernels.py``);
+* partial rotary (``rotary_pct`` 0.25 and 0.4) against the reference's
+  ``apply_rope``;
+* logits of two-layer models at head dim 100, at group 3 and of the
+  ``parallel`` block at head dim 160 (qk-norm, 25% rotary, group 2)
+  (prefill, decode around the ring, and chunk mode over a paged pool)
+  against the JAX ``Model`` on its own parameters (``params_from_jax``),
+  atol 1e-4;
 * MiniCPM's padded head map: the card runs its 48 padded heads through
   the group-1 kernels with the identity map (``kernel_head_group``); run
   through the plain versions here, that path gives logits bit-identical
   to the reference's expanded map, and the check on the padded heads' wo
   rows raises on a tree where they are not zero;
-* ``minicpm-2b`` and ``internlm2-20b`` smoke served by the paged engine
-  (chunked prefill and prefix sharing) against the JAX engine: identical
-  tokens, every non-wall-clock ``stats()`` key to 1e-12 relative
-  (modeled J and gCO2 included).
+* ``minicpm-2b``, ``internlm2-20b`` and ``stablelm-12b`` smoke served by
+  the paged engine (chunked prefill and prefix sharing), and
+  ``stablelm-12b`` by the contiguous engine, against the JAX engine:
+  identical tokens, every non-wall-clock ``stats()`` key to 1e-12
+  relative (modeled J and gCO2 included).
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import dataclasses
@@ -33,6 +40,7 @@ import jax.numpy as jnp
 from repro.configs import get_config as jax_get_config
 from repro.kernels import ops as JOPS
 from repro.models import Model as JModel
+from repro.models import layers as JL
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
@@ -41,6 +49,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops as TOPS
 from repro_torch.models import Model
 from repro_torch.models import attention as TA
+from repro_torch.models import layers as TL
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import check_head_padding
 from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -70,8 +79,9 @@ def _close(got, want, dtype, rows=None):
 
 # ------------------------------------------------------------------ kernels
 # (hd, group): LLaMA-3B's head dim on MHA, group 3 at a narrow head dim,
-# and both at once
-SHAPES = pytest.mark.parametrize("hd,group", [(100, 1), (32, 3), (100, 3)])
+# both at once, and StableLM-2-12B's head dim 160 at its group 2
+SHAPES = pytest.mark.parametrize("hd,group", [(100, 1), (32, 3), (100, 3),
+                                              (160, 2)])
 DTYPES = pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 IMPLS = pytest.mark.parametrize("impl", ["pallas_interpret", "ref"])
 
@@ -186,21 +196,42 @@ def test_chunked_prefill_plain_matches_jax(impl, dtype, hd, group):
     _close(got, want, dtype, rows)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rotary_pct", [0.25, 0.4])
+def test_partial_rotary_matches_jax(rotary_pct, dtype):
+    """Head dim 160: 40 rotated dims at 0.25 (StableLM-2), 64 at 0.4; the
+    rest pass through unchanged."""
+    rng = np.random.default_rng(int(rotary_pct * 100))
+    x = rng.standard_normal((2, 9, 3, 160), dtype=np.float32)
+    pos = rng.integers(0, 5000, (2, 9)).astype(np.int32)
+    jx, tx = _both(x, dtype)
+    want = JL.apply_rope(jx, jnp.asarray(pos), rotary_pct, 10000.0)
+    got = TL.apply_rope(tx, T(pos), rotary_pct, 10000.0)
+    _close(got, want, dtype)
+    rot = int(160 * rotary_pct)
+    assert torch.equal(got[..., rot:], tx[..., rot:])
+
+
 # ------------------------------------------------------------------- models
-# two-layer float32 models: head dim 100 (llama-paper-3b's, 2 heads of 100)
-# and group 3 (6 q heads over 2 kv heads of 32)
+# two-layer float32 models: head dim 100 (llama-paper-3b's, 2 heads of 100),
+# group 3 (6 q heads over 2 kv heads of 32), and StableLM-2's parallel block
+# at head dim 160 (4 q heads over 2 kv heads: qk-norm, 40 rotated dims)
 SMALL = {
-    "hd100": ("llama-paper-3b", dict(d_model=200, n_heads=2, n_kv_heads=2)),
-    "group3": ("internlm2-20b", dict(d_model=192, n_heads=6, n_kv_heads=2)),
+    "hd100": ("llama-paper-3b", dict(d_model=200, n_heads=2, n_kv_heads=2),
+              100),
+    "group3": ("internlm2-20b", dict(d_model=192, n_heads=6, n_kv_heads=2),
+               32),
+    "parallel160": ("stablelm-12b",
+                    dict(d_model=640, n_heads=4, n_kv_heads=2), 160),
 }
 
 
 def _small(name, impl="ref"):
-    arch, widths = SMALL[name]
+    arch, widths, hd = SMALL[name]
     jcfg = dataclasses.replace(jax_get_config(arch, "smoke"), attn_impl=impl,
                                **widths)
     cfg = dataclasses.replace(get_config(arch, "smoke"), **widths)
-    assert cfg.head_dim_ == (100 if name == "hd100" else 32)
+    assert cfg.head_dim_ == hd
     jmodel = JModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
@@ -419,11 +450,13 @@ def _serve(engine, make_req, trace):
 
 @pytest.mark.parametrize("arch,head_map", [
     ("minicpm-2b", "expand"), ("minicpm-2b", "padded"),
-    ("internlm2-20b", "expand")])
+    ("internlm2-20b", "expand"), ("stablelm-12b", "expand"),
+    ("stablelm-12b", "contiguous")])
 def test_paged_engine_matches_jax_engine(arch, head_map, monkeypatch):
     """Chunked prefill in chunks of 16, two slots a launch, prefix sharing:
     tokens and every non-wall-clock stats() key as the JAX engine's.
-    MiniCPM also through the card's padded-head map."""
+    MiniCPM also through the card's padded-head map; StableLM-2 also on
+    the contiguous engine (monolithic prefill, no pool)."""
     jmodel = JModel(jax_get_config(arch, "smoke"))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     cfg = get_config(arch, "smoke")
@@ -431,9 +464,13 @@ def test_paged_engine_matches_jax_engine(arch, head_map, monkeypatch):
                              cfg, "cpu")
     if head_map == "padded":
         _padded_map(monkeypatch)
+    paged = head_map != "contiguous"
+    ecfg = ECFG if paged else {k: v for k, v in ECFG.items()
+                               if k in ("max_batch", "max_len", "profile",
+                                        "region")}
     trace = _trace(cfg.vocab)
-    jeng = JServingEngine(jmodel, jparams, JEngineConfig(**ECFG))
-    teng = ServingEngine(Model(cfg, "cpu"), params, EngineConfig(**ECFG),
+    jeng = JServingEngine(jmodel, jparams, JEngineConfig(**ecfg))
+    teng = ServingEngine(Model(cfg, "cpu"), params, EngineConfig(**ecfg),
                          device="cpu")
     want = _serve(jeng, JRequest, trace)
     got = _serve(teng, Request, trace)
@@ -448,6 +485,7 @@ def test_paged_engine_matches_jax_engine(arch, head_map, monkeypatch):
     for key, val in js.items():
         if not key.startswith(WALL_CLOCK):
             assert ts[key] == pytest.approx(val, rel=1e-12, abs=0.0), key
-    assert ts["prefix_hit_tokens"] > 0
-    assert teng.free_pages == teng.num_pages
     assert teng.host_syncs == jeng.host_syncs
+    if paged:
+        assert ts["prefix_hit_tokens"] > 0
+        assert teng.free_pages == teng.num_pages

@@ -48,7 +48,11 @@ Phases (any failure raises and the script exits non-zero):
    ``ssd_chunk`` (40): registers, no spill, and HMMA in every SSD
    instance, or it fails; then
    every instance of ``rmsnorm_kernel`` (60): registers, no spill, or it
-   fails;
+   fails. The contiguous decode kernel's MLA instances (hd 24 with hd_v 16
+   at group 4, float32 and bf16) are listed with the decode instances, and
+   ``ops.mla_decode_attention`` runs the reference's MLA case (B2, H4 over
+   one latent head, W24) through them against the plain version, timed
+   beside its bound and SDPA at Ev 16 with the same mask;
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. ``llama-paper-1b`` at full width and depth in
@@ -81,13 +85,24 @@ Phases (any failure raises and the script exits non-zero):
    norm, a forward), prefix hits and the free stack asserted. Small
    float32 configs (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also
    served on the card and on the CPU (the plain path) and must agree
-   token for token;
+   token for token. The front door: llama3.2-1b smoke in float32 through
+   ``AsyncServingServer`` on the card and on the CPU (two priority classes,
+   the second preempting; ``max_queue`` with reject_lowest and
+   ``pressure_clamp``; a (2, 0) tenant quota; a deadline-0.0 request; one
+   fault at each launch site) must agree on tokens, finish reasons and
+   every front-door counter, and its preempted requests must equal an
+   unpreempted card run; then ``llama-paper-1b`` at full width and depth
+   on the paged main path, 16 requests in two waves through the server,
+   with the planned shed, rate-limited, deadline and retry counts, a
+   preemption, every response terminal, the whole pool back and the
+   chunk, paged-decode and RMSNorm launches asserted;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: with ``torch.cuda.is_available()`` false it exits 2
 and prints no result.
 """
+import asyncio
 import functools
 import gc
 import json
@@ -322,15 +337,18 @@ def decode_inputs(B, Hq, Hkv, W, dtype, gen, hd=64, fills=None):
     return q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), q_pos, k_pos
 
 
-def decode_work(q, k, q_pos, k_pos):
-    """(operations, bytes) of one decode call: the valid keys' K and V rows
-    read once, q read and out written once, the positions."""
+def decode_work(q, k, q_pos, k_pos, hd_v=None):
+    """(operations, bytes) of one decode call: the valid keys' K rows (hd)
+    and V rows (``hd_v``, by default hd) read once, q read and out written
+    once, the positions."""
     Hq, Hkv, hd = q.shape[1], k.shape[1], q.shape[-1]
+    hd_v = hd if hd_v is None else hd_v
     valid = float(((k_pos >= 0) & (k_pos <= q_pos[:, None])).sum().item())
     e = q.element_size()
-    flops = valid * Hq * 4.0 * hd
-    nbytes = (valid * Hkv * 2 * hd * e + 2 * q.numel() * e
-              + k_pos.numel() * 4 + q_pos.numel() * 4)
+    flops = valid * Hq * 2.0 * (hd + hd_v)
+    nbytes = (valid * Hkv * (hd + hd_v) * e + q.numel() * e
+              + q.numel() // hd * hd_v * e + k_pos.numel() * 4
+              + q_pos.numel() * 4)
     return flops, nbytes
 
 
@@ -358,6 +376,59 @@ def decode_case(DA, REF, B, Hq, Hkv, W, dtype, gen, hd=64):
                     graph=True)
     lib = time_ms(decode_sdpa(q, kt, vt, q_pos, k_pos), graph=True)
     eager = time_ms(lambda: DA.decode_attention(q, kt, vt, q_pos, k_pos))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
+
+
+def mla_case(DA, REF, dtype, gen):
+    """The reference's MLA decode case (``tests/test_kernels.py::
+    test_mla_decode_attention_matches_naive``: B2, H4 over one latent
+    head, W24, kvr 16 + rope 8, nope 12, 17 valid keys) as
+    ``ops.mla_decode_attention`` lays it out: q = [q_lat | q_rope]
+    pre-scaled, k = [ckv | k_rope] as one kv head (hd 24), v = ckv (hd_v
+    16). The kernel's (24, 16) group-4 instance against the plain version;
+    the library column is SDPA with the same mask at Ev 16 (None where it
+    refuses unequal head dims)."""
+    dev = "cuda"
+    B, H, W, kvr, rope, nope = 2, 4, 24, 16, 8, 12
+    q_lat = torch.randn(B, H, kvr, generator=gen, device=dev).to(dtype)
+    q_rope = torch.randn(B, H, rope, generator=gen, device=dev).to(dtype)
+    ckv = torch.randn(B, W, kvr, generator=gen, device=dev).to(dtype)
+    k_rope = torch.randn(B, W, rope, generator=gen, device=dev).to(dtype)
+    ar = torch.arange(W, dtype=torch.int32, device=dev)
+    k_pos = torch.where(ar < 17, ar, torch.full_like(ar, -1))[None].repeat(
+        B, 1)
+    q_pos = torch.full((B,), 16, dtype=torch.int32, device=dev)
+    q = torch.cat([q_lat, q_rope], -1) * (math.sqrt(kvr + rope)
+                                          / math.sqrt(nope + rope))
+    k = torch.cat([ckv, k_rope], -1)[:, None]
+    v = ckv[:, None]
+    from repro_torch.kernels import ops
+    got = ops.mla_decode_attention(q_lat, q_rope, ckv, k_rope, q_pos, k_pos,
+                                   qk_dim=nope + rope)
+    want = REF.decode_attention(q, k, v, q_pos, k_pos)
+    rows = torch.ones_like(want, dtype=torch.bool)
+    err = check_close(f"mla decode B{B} H{H}/1 W{W} hd 24/16 {dtype}", got,
+                      want, rows, dtype)
+    if (DA.decode_attention(q, k, v, q_pos, k_pos) != got).any():
+        raise AssertionError("mla decode: ops.mla_decode_attention differs "
+                             "from the decode kernel on its layout")
+    wide = check_wide(got, REF.decode_attention, (q, k, v, q_pos, k_pos),
+                      rows, dtype)
+    bms, by = bound_ms(*decode_work(q, k, q_pos, k_pos, hd_v=kvr), dtype)
+    ms = time_ms(lambda: DA.decode_attention(q, k, v, q_pos, k_pos),
+                 graph=True)
+    plain = time_ms(lambda: REF.decode_attention(q, k, v, q_pos, k_pos),
+                    graph=True)
+    try:
+        sdpa = decode_sdpa(q, k, v, q_pos, k_pos)
+        sdpa()
+    except RuntimeError as e:       # the library column only: the kernel
+        print(f"  mla decode {dtype}: SDPA refuses Ev != E ({e})")
+        lib = None
+    else:
+        lib = time_ms(sdpa, graph=True)
+    eager = time_ms(lambda: DA.decode_attention(q, k, v, q_pos, k_pos))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
@@ -812,9 +883,10 @@ def tensor_core_report(card):
 
 def decode_report(card):
     """Every instance of the two decode kernels (hd 8-160 x group 1-8 x
-    float32 / bf16, one split-KV core): ptxas' registers, the range per
-    kernel and type, and each hd 100, hd 160 and group 3 instance's;
-    raises if an instance spills or is missing."""
+    float32 / bf16, one split-KV core, hd_v == hd; and the contiguous
+    kernel's MLA pair, hd 24 with hd_v 16 at group 4): ptxas' registers,
+    the range per kernel and type, and each hd 100, hd 160, group 3 and
+    MLA instance's; raises if an instance spills or is missing."""
     import re
 
     from repro_torch.kernels import build
@@ -824,10 +896,13 @@ def decode_report(card):
         regs, spills, cur = {}, [], None
         for line in build.ptxas_log(lib).splitlines():
             m = re.search(r"Compiling entry function '\S*" + stem
-                          + r"I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", line)
+                          + r"I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E"
+                          r"(?:Li(\d+)E)?", line)
             if m:
                 cur = ("bf16" if m.group(1) != "f" else "f32",
                        int(m.group(2)), int(m.group(3)))
+                if m.group(4) and int(m.group(4)) != cur[1]:
+                    cur += (int(m.group(4)),)        # hd_v != hd
             elif cur and "registers" in line:
                 regs[cur] = int(re.search(r"Used (\d+) registers",
                                           line).group(1))
@@ -837,6 +912,8 @@ def decode_report(card):
         want = {(t, hd, g) for t in ("bf16", "f32")
                 for hd in (8, 16, 32, 64, 100, 112, 128, 160)
                 for g in (1, 2, 3, 4, 8)}
+        if lib == "decode_attention":
+            want |= {(t, 24, 4, 16) for t in ("bf16", "f32")}
         for t in ("f32", "bf16"):
             r = {k[1:]: v for k, v in regs.items() if k[0] == t}
             n_spill = sum(1 for k, _ in spills if k[0] == t)
@@ -848,9 +925,14 @@ def decode_report(card):
         for t in ("f32", "bf16"):
             print(f"  {stem} {t} hd 100 and 160 (g1-8) and group 3 (hd "
                   "8-160) registers: " + ", ".join(
-                      f"hd{hd} g{g} {r}" for (tt, hd, g), r in sorted(
+                      f"hd{k[1]} g{k[2]} {r}" for k, r in sorted(
                           regs.items())
-                      if tt == t and (hd in (100, 160) or g == 3)))
+                      if len(k) == 3 and k[0] == t
+                      and (k[1] in (100, 160) or k[2] == 3)))
+            mla = {k: v for k, v in regs.items() if len(k) == 4 and k[0] == t}
+            if mla:
+                print(f"  {stem} {t} hd 24 / hd_v 16 g4 (MLA) registers: "
+                      + ", ".join(str(v) for v in mla.values()))
         if set(regs) != want or spills:
             raise AssertionError(f"{stem}: instances {sorted(want - set(regs))}"
                                  f" missing, spills {spills}")
@@ -993,6 +1075,9 @@ def phase_kernels(card):
              (8, 32, 16, 2048, bf, 160))]:
         decode[label] = decode_case(DA, REF, *args[:4], args[4], gen,
                                     *args[5:])
+    # MLA decode (hd 24, hd_v 16 at group 4): the reference sweep's case
+    mla = {f"mla decode B2 H4/1 W24 hd24/16 {n}": mla_case(DA, REF, t, gen)
+           for n, t in (("f32", f32), ("bf16", bf))}
     from repro_torch.kernels import chunked_prefill as CP
     from repro_torch.kernels import paged_decode_attention as PD
     fills = paged_fills()
@@ -1096,7 +1181,7 @@ def phase_kernels(card):
     print(f"{'case':34s} {'max_abs_err':>11s} {'err_vs_f32':>10s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'sdpa_ms':>9s} {'bound_ms':>9s} "
           "x_bound bound_by")
-    cases = (list(flash.items()) + list(decode.items())
+    cases = (list(flash.items()) + list(decode.items()) + list(mla.items())
              + list(paged.items()) + list(chunk.items()) + list(ssd.items())
              + list(wkv.items()) + list(rms.items()))
     for label, r in cases:
@@ -1142,13 +1227,21 @@ def phase_kernels(card):
                   f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}"
                   f"x SDPA), {r['ms'] / r['bound_ms']:.1f}x its bound "
                   f"{r['bound_ms']:.5f} ms; past TOL_WIDE {r['wide'][1]}")
+    print(f"\n[mla decode] ops.mla_decode_attention through the decode "
+          f"kernel's (24, 16) group-4 instance, graph replay ({card})")
+    for label, r in mla.items():
+        lib = ("—" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"  {label:38s} {r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, SDPA (Ev "
+              f"16, same mask) {lib}, max abs err {r['max_abs_err']:.3e}")
     bad = [f"{label}: {r['wide'][1]} elements" for label, r in cases
            if r["wide"][1]]
     if bad:
         raise AssertionError(f"bf16 kernels past atol {TOL_WIDE[0]} rtol "
                              f"{TOL_WIDE[1]} of the float32 plain version: "
                              f"{bad}")
-    for r in (flash, decode, paged, chunk, ssd, wkv, rms):
+    for r in (flash, decode, mla, paged, chunk, ssd, wkv, rms):
         for case in r.values():
             del case["wide"]
     # each kernel at the shapes of the path whose launches are reported:
@@ -1217,6 +1310,149 @@ def smoke_agreement():
             raise AssertionError(f"smoke {arch} {name} tokens differ: cpu "
                                  f"{toks['cpu']} cuda {toks['cuda']}")
         print(f"[smoke] {arch} smoke f32, {name}: cuda tokens == cpu tokens")
+    smoke_frontdoor()
+
+
+# the front door's traffic: wave A (class 0) arrives at once, wave B (class
+# 1) right after quantum FRONTDOOR_Q of the server's drive loop. In wave A,
+# tenant "acme" sends three requests over a (2, 0) quota (the third is
+# rate limited), one request carries deadline_s = 0.0 (cancelled at the
+# first sweep), and the bounded queue sheds what arrives with it full
+# (reject_lowest: a class-1 arrival displaces the newest class-0 request).
+# A fault fires once at each launch site: page_alloc at quantum 1 (wave A's
+# first admission), prefill_chunk and decode_scan at the quanta below.
+FRONTDOOR_QUOTA = {"acme": (2, 0.0)}
+FRONTDOOR_FAULTS = {"smoke": (("page_alloc", 1), ("prefill_chunk", 4),
+                              ("decode_scan", 11)),
+                    "full": (("page_alloc", 1), ("prefill_chunk", 4),
+                             ("decode_scan", 12))}
+FRONTDOOR_Q = {"smoke": 8, "full": 10}
+
+
+def frontdoor_waves(prompts, new_tokens, n_first, acme, deadline):
+    """Request kwargs of the two waves: rids 0.. in prompt order, the first
+    ``n_first`` class 0 (tenant "acme" on the rids in ``acme``, deadline
+    0.0 on rid ``deadline``), the rest class 1."""
+    reqs = [dict(rid=rid, prompt=list(p), max_new_tokens=new_tokens,
+                 priority=0 if rid < n_first else 1,
+                 tenant="acme" if rid in acme else None,
+                 deadline_s=0.0 if rid == deadline else None)
+            for rid, p in enumerate(prompts)]
+    return reqs[:n_first], reqs[n_first:]
+
+
+def serve_frontdoor(engine, first, late, q_late, plans):
+    """Drive ``engine`` through ``AsyncServingServer``: wave ``first`` at
+    once, wave ``late`` right after quantum ``q_late`` (the step signals
+    the event loop as it starts that quantum, so the submissions queue on
+    the server's lock and land between it and the next, on any device),
+    ``plans`` = (site, quantum) faults firing once each. Returns
+    {rid: Response}; a FaultError escapes."""
+    from repro_torch.serving import (AsyncServingServer, FaultInjector,
+                                     FaultPlan, Request)
+    engine.faults = FaultInjector([FaultPlan(site, q, absolute=True)
+                                   for site, q in plans])
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        at = asyncio.Event()
+        step = engine.step
+
+        def hooked(*a, **k):
+            if engine._quantum + 1 == q_late:
+                loop.call_soon_threadsafe(at.set)
+            return step(*a, **k)
+
+        engine.step = hooked
+        srv = AsyncServingServer(engine)
+        for r in first:
+            await srv.submit(Request(**r))
+        await asyncio.wait_for(at.wait(), 900)
+        for r in late:
+            await srv.submit(Request(**r))
+        await srv.drain()
+        return {rid: await srv.result(rid) for rid in engine.responses}
+
+    try:
+        return asyncio.run(go())
+    finally:
+        del engine.step
+
+
+FRONT_COUNTERS = ("shed_count", "rate_limited", "deadline_cancelled",
+                  "preemption_count", "clamped_requests", "fault_retries",
+                  "queue_depth", "timeout_requests")
+
+
+def front_counters(st):
+    return {k: v for k, v in st.items()
+            if k in FRONT_COUNTERS or k.startswith(("shed_class_",
+                                                    "fault_retries_"))}
+
+
+def smoke_frontdoor():
+    """The front door on llama3.2-1b smoke in float32, served through
+    ``AsyncServingServer`` on the card and on the CPU from the same
+    weights: paged + chunked prefill + prefix sharing + preemption, two
+    classes (wave B preempts), ``max_queue`` 6 with reject_lowest and
+    ``pressure_clamp``, a (2, 0) tenant quota, one deadline 0.0 request,
+    one fault at each launch site. Tokens, finish reasons and every
+    front-door counter agree; the card's preempted requests equal an
+    unpreempted card run of their original requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("llama3.2-1b", "smoke")
+    rng = np.random.default_rng(9)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    prompts = [system + rng.integers(2, cfg.vocab, int(n)).tolist()
+               if i % 2 == 0 else rng.integers(2, cfg.vocab, int(n)).tolist()
+               for i, n in enumerate([9, 20, 3, 14, 25, 6, 11, 17,
+                                      5, 12, 7, 30, 9, 4])]
+    first, late = frontdoor_waves(prompts, 20, 8, acme=(2, 3, 4),
+                                  deadline=1)
+    ecfg = EngineConfig(max_batch=4, max_len=128, paged=True, page_size=16,
+                        prefill_chunk=16, prefill_pack=2, prefix_sharing=True,
+                        preemption=True, max_queue=6,
+                        shed_policy="reject_lowest", pressure_clamp=8,
+                        tenant_quota=FRONTDOOR_QUOTA, max_retries=3)
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                            device=dev)
+        resp = serve_frontdoor(eng, first, late, FRONTDOOR_Q["smoke"],
+                               FRONTDOOR_FAULTS["smoke"])
+        got[dev] = ({rid: (r.tokens, r.finish_reason, r.preemptions)
+                     for rid, r in resp.items()},
+                    front_counters(eng.stats()))
+    if got["cpu"] != got["cuda"]:
+        raise AssertionError(f"smoke front door differs: cpu {got['cpu']} "
+                             f"cuda {got['cuda']}")
+    toks, counters = got["cuda"]
+    want = dict(shed_count=2, rate_limited=1, deadline_cancelled=1,
+                fault_retries=3)
+    if ({k: counters[k] for k in want} != want
+            or counters["preemption_count"] < 1):
+        raise AssertionError(f"smoke front door counters {counters}, "
+                             f"planned {want} and a preemption")
+    # the preempted requests, served unpreempted on the card
+    victims = [r for r in first + late if toks[r["rid"]][2] > 0]
+    oracle = ServingEngine(Model(cfg, "cuda"), _to(cpu_params, "cuda"),
+                           EngineConfig(max_batch=16, max_len=128,
+                                        paged=True, page_size=16,
+                                        prefill_chunk=16), device="cuda")
+    for r in victims:
+        oracle.submit(Request(rid=r["rid"], prompt=r["prompt"],
+                              max_new_tokens=r["max_new_tokens"]))
+    for r in oracle.run():
+        if toks[r.rid][0] != r.tokens[:len(toks[r.rid][0])]:
+            raise AssertionError(f"smoke front door: preempted request "
+                                 f"{r.rid} differs from its unpreempted run")
+    print(f"[smoke] llama3.2-1b smoke f32, front door through "
+          f"AsyncServingServer: cuda == cpu on tokens, finish reasons and "
+          f"counters {counters}; {len(victims)} preempted requests equal "
+          f"their unpreempted card run")
 
 
 def _to(tree, dev):
@@ -1414,12 +1650,130 @@ def phase_engine(card):
                                 "sharing", paged, paged_requests(cfg.vocab),
                                 model, params)
     paged_checks("paged run", cfg, engine, st, pcounts)
+    del engine
+    phase_frontdoor(card, model, params)
     return {"flash_attention": counts["flash_attention"],
             "decode_attention": counts["decode_attention"],
             "paged_decode_attention": pcounts["paged_decode_attention"],
             "chunked_prefill_attention":
                 pcounts["chunked_prefill_attention"],
             "rmsnorm": counts["rmsnorm"]}
+
+
+def phase_frontdoor(card, model, params):
+    """The front door on the paged main path of ``llama-paper-1b`` at full
+    width and depth in bf16, driven through ``AsyncServingServer``: the 16
+    requests of ``paged_requests`` (64 new tokens each) in two waves, wave
+    A rids 0-11 (class 0; tenant "acme" on rids 2, 4, 6 over a (2, 0)
+    quota, deadline 0.0 on rid 1, ``max_queue`` 10 with reject_lowest, so
+    rid 11 is shed) and wave B rids 12-15 (class 1, preempting), one fault
+    at each launch site. Asserts the planned counters, a preemption, every
+    response terminal, the whole pool back with no pin, and the kernels'
+    launches; reports how many requests' tokens equal a plain paged run of
+    the same requests (bf16 rounding may differ with batch composition)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = model.cfg
+    L, norms = cfg.n_layers, dense_norms(cfg)
+    reqs = paged_requests(cfg.vocab)
+    first, late = frontdoor_waves([r.prompt for r in reqs], 64, 12,
+                                  acme=(2, 4, 6), deadline=1)
+    base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC",
+                paged=True, page_size=16, prefill_chunk=256, prefill_pack=2,
+                prefix_sharing=True)
+    ecfg = EngineConfig(**base, preemption=True, max_queue=10,
+                        shed_policy="reject_lowest", pressure_clamp=16,
+                        tenant_quota=FRONTDOOR_QUOTA, max_retries=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, params, ecfg)
+    recompute = [0]
+    meter = engine._meter_prefill
+
+    def counted(batch, seq, useful_seq=None, skip=0, phase="prefill"):
+        if phase == "recompute":       # prompt tokens a resume recomputes
+            recompute[0] += batch * seq - skip
+        return meter(batch, seq, useful_seq=useful_seq, skip=skip,
+                     phase=phase)
+
+    engine._meter_prefill = counted
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    resp = serve_frontdoor(engine, first, late, FRONTDOOR_Q["full"],
+                           FRONTDOOR_FAULTS["full"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = engine.stats()
+    gen_tokens = sum(r.n_tokens for r in resp.values())
+    print(f"\n[frontdoor] llama-paper-1b full width bf16, {L} layers, paged "
+          f"main path + preemption, served through AsyncServingServer: "
+          f"{len(reqs)} requests in two waves (12 class 0, 4 class 1), "
+          f"{gen_tokens} generated ({card})")
+    print(f"  wall {wall:.3f} s, {gen_tokens / wall:.1f} generated tokens/s "
+          f"({card})")
+    print(f"  preemptions {st['preemption_count']}, recompute tokens "
+          f"{recompute[0]} (modeled recompute {st['preempted_recompute_j']:.4e}"
+          f" J), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    print(f"  front door: {front_counters(st)}; faults fired "
+          f"{engine.faults.fired}")
+    print(f"  prefill chunks {st['prefill_chunks']}, decode chunks "
+          f"{st['decode_chunks']}, micro-steps with work {st['steps']}, "
+          f"host syncs {st['host_syncs']}; launches: {counts}")
+    planned = dict(shed_count=1, rate_limited=1, deadline_cancelled=1,
+                   fault_retries=3)
+    reasons = {rid: r.finish_reason for rid, r in resp.items()}
+    alloc = engine.caches["paged"]
+    checks = [
+        ({k: st[k] for k in planned} == planned,
+         f"counters {front_counters(st)}, planned {planned}"),
+        (st["preemption_count"] >= 1, "no preemption"),
+        (sorted({s for s, _ in engine.faults.fired})
+         == ["decode_scan", "page_alloc", "prefill_chunk"],
+         f"faults fired {engine.faults.fired}"),
+        (all(r.finished for r in resp.values())
+         and {reasons[1], reasons[6], reasons[11]}
+         == {"deadline", "rate_limited", "shed"}
+         and all(reasons[rid] == "length" for rid in reasons
+                 if rid not in (1, 6, 11)),
+         f"finish reasons {reasons}"),
+        (all(resp[rid].n_tokens == 64 for rid in reasons
+             if reasons[rid] == "length"), "a served request short of 64"),
+        (all(0 <= t < cfg.vocab for r in resp.values() for t in r.tokens),
+         "token out of vocab"),
+        (engine.free_pages == engine.num_pages and not engine._pins
+         and not engine._prefix_index, "pages, pins or index left"),
+        (int(alloc["top"]) + int((alloc["ref"] > 0).sum())
+         == engine.num_pages and bool((alloc["tbl"] == -1).all())
+         and bool((alloc["ref"] == 0).all()), "device free stack not whole"),
+        (counts["chunked_prefill_attention"] == L * st["prefill_chunks"] > 0,
+         f"chunked prefill launches {counts['chunked_prefill_attention']} "
+         f"!= {L} x {st['prefill_chunks']} chunks"),
+        (counts["paged_decode_attention"] == L * st["steps"] > 0,
+         f"paged decode launches {counts['paged_decode_attention']} != "
+         f"{L} x {st['steps']} micro-steps"),
+        (counts["rmsnorm"] == norms * (st["prefill_chunks"] + st["steps"]),
+         f"rmsnorm launches {counts['rmsnorm']} != {norms} x "
+         f"({st['prefill_chunks']} + {st['steps']})"),
+        (counts["decode_attention"] == counts["flash_attention"] == 0,
+         f"contiguous kernels ran on the paged path: {counts}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"frontdoor run: {what}")
+    served = [r for r in first + late if reasons[r["rid"]] == "length"]
+    plain = ServingEngine(model, params, EngineConfig(**base))
+    for r in served:
+        plain.submit(Request(rid=r["rid"], prompt=r["prompt"],
+                             max_new_tokens=64))
+    same = sum(resp[r.rid].tokens == r.tokens for r in plain.run())
+    n_pre = sum(1 for r in resp.values() if r.preemptions)
+    print(f"  tokens equal to a plain paged run of the same requests: "
+          f"{same} of {len(served)} served ({n_pre} of them preempted; "
+          f"reported, not asserted: bf16 rounding may differ with batch "
+          f"composition)")
+    return counts
 
 
 def phase_zamba(card):

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -120,11 +121,21 @@ def ptxas_log(name: str, csrc: Path | None = None) -> str:
     return _target(name, csrc).with_suffix(".log").read_text()
 
 
-@functools.lru_cache(maxsize=None)
+_LOCK = threading.Lock()
+
+
 def library(name: str, csrc: Path | None = None):
     """The entry point of ``<csrc>/<name>.cu`` (by default this
     package's), built if needed, with every ``argtypes`` set (pointers and
-    the stream as ``c_void_p``)."""
+    the stream as ``c_void_p``). Safe across threads: the async server
+    runs the engine's steps on an executor thread, and a library's first
+    use may come from there while another thread asks for it."""
+    with _LOCK:
+        return _library(name, csrc)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str, csrc: Path | None = None):
     path = build([name], csrc)[name]
     lib = ctypes.CDLL(str(path))
     sym, argtypes = ARGTYPES[name]

@@ -22,6 +22,12 @@
 // query with no valid key at all writes 0 (the oracle would average the
 // masked values; the documented difference).
 //
+// The value rows may be narrower than the key rows (HDV < HD: MLA's latent
+// values beside [latent | rope] keys): q·k runs over HD, p·V, the merges
+// and the output over HDV, in the same pieces on the same lanes of a row,
+// so a lane still reads back only what its own copies wrote. Every caller
+// but decode_attention.cu's (24, 16) instances has HDV == HD.
+//
 // What bounds the kernels on the H100: bytes. Each K/V element feeds 2*G
 // multiply-adds (G = query heads per kv head; both main paths are MHA,
 // G 1), far below the CUDA cores' ridge (~20 operations a byte) and the
@@ -171,7 +177,7 @@ __host__ __device__ constexpr int pow2_floor(int n) {
 // lower groups' tier (s[NK][3], o[3][NCH][VEC]); nothing here assumes G is
 // a power of two (the shuffles reduce over a row's LPR lanes and a warp's
 // row groups, never over G).
-template <typename T, int HD, int G>
+template <typename T, int HD, int G, int HDV = HD>
 struct Geom {
   static constexpr int CB = piece_bytes<HD, (int)sizeof(T)>();  // bytes
   static constexpr int VEC = CB / (int)sizeof(T);    // elements a chunk
@@ -183,20 +189,28 @@ struct Geom {
                                                      // lane a tile
   static constexpr int KW = RPW * NK;                // rows a warp a tile
   static constexpr int TK = WARPS * KW;              // keys a tile
-  static constexpr size_t STAGE = (size_t)2 * TK * HD * sizeof(T);  // K + V
+  static constexpr size_t STAGE = (size_t)TK * (HD + HDV) * sizeof(T);  // K
+                                                     // + V
+  // V rows (HDV elements) in the same pieces, on the same LPR lanes a row
+  static constexpr int CHV = HDV / VEC;              // chunks a V row
+  static constexpr int NCHV = (CHV + LPR - 1) / LPR; // V chunks a lane
+  static constexpr bool V_EVEN = CHV == LPR * NCHV;  // every lane has them
   static_assert(HD % VEC == 0 && VEC % 4 == 0 && NCH <= 2 && NK >= 1,
                 "head dim");
+  static_assert(piece_bytes<HDV, (int)sizeof(T)>() == CB && HDV % VEC == 0 &&
+                    NCHV <= NCH,
+                "value head dim: the key rows' pieces, at most their count");
 };
 
 // Dynamic shared memory of one block: the K/V stages, then q in f32. The
 // merge's partials (four warps', then the block's) reuse the stages.
-template <typename T, int HD, int G>
+template <typename T, int HD, int G, int HDV = HD>
 struct Smem {
-  using Gm = Geom<T, HD, G>;
-  // warps: m[WARPS][G], l[WARPS][G], o[WARPS][G][HD]; block: m[G], l[G],
-  // o[G][HD]
+  using Gm = Geom<T, HD, G, HDV>;
+  // warps: m[WARPS][G], l[WARPS][G], o[WARPS][G][HDV]; block: m[G], l[G],
+  // o[G][HDV]
   static constexpr size_t PARTIALS =
-      (size_t)(2 * WARPS * G + WARPS * G * HD + 2 * G + G * HD) * 4;
+      (size_t)(2 * WARPS * G + WARPS * G * HDV + 2 * G + G * HDV) * 4;
   static constexpr size_t RING = STAGES * Gm::STAGE;
   // q's float4 reads: a 16-byte boundary (group 3's partials are not)
   static constexpr size_t Q = ((RING > PARTIALS ? RING : PARTIALS) + 15) /
@@ -218,7 +232,7 @@ inline int cluster_size(int W) {
 template <typename T>
 struct Tile {
   const T* q;         // (G, hd) contiguous
-  T* out;             // (G, hd) contiguous
+  T* out;             // (G, hd_v) contiguous
   const int* kpos;    // (W,) logical positions of the slot, -1 = empty
   int W, qpos, window, chunk;
   float scale_log2;   // softmax scale * log2(e)
@@ -226,19 +240,21 @@ struct Tile {
 
 // One block of the cluster of one (batch, kv head): blockIdx.x is its rank
 // in the cluster (grid.x = cluster size). THREADS threads; dynamic shared
-// memory Smem<T, HD, G>::bytes.
-template <typename T, int HD, int G, class Rows>
+// memory Smem<T, HD, G, HDV>::bytes. q·k runs over HD, p·V and the output
+// over HDV (MLA's latent value, HDV < HD; every other caller HDV == HD).
+template <typename T, int HD, int G, int HDV = HD, class Rows>
 __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
                                             unsigned char* smem) {
-  using Gm = Geom<T, HD, G>;
-  using S = Smem<T, HD, G>;
+  using Gm = Geom<T, HD, G, HDV>;
+  using S = Smem<T, HD, G, HDV>;
   constexpr int CB = Gm::CB, VEC = Gm::VEC, CH = Gm::CH, LPR = Gm::LPR;
-  constexpr int NCH = Gm::NCH;
+  constexpr int NCH = Gm::NCH, CHV = Gm::CHV, NCHV = Gm::NCHV;
+  constexpr bool V_EVEN = Gm::V_EVEN;
   using Ch = Chunk<T, VEC>;
   constexpr int RPW = Gm::RPW, NK = Gm::NK, KW = Gm::KW, TK = Gm::TK;
   constexpr unsigned FULL = 0xffffffffu;
   T* k_s = reinterpret_cast<T*>(smem);               // [STAGES][TK][HD]
-  T* v_s = k_s + STAGES * TK * HD;                   // [STAGES][TK][HD]
+  T* v_s = k_s + STAGES * TK * HD;                   // [STAGES][TK][HDV]
   float* q_s = reinterpret_cast<float*>(smem + S::Q);  // [G][HD]
 
   namespace cg = cooperative_groups;
@@ -330,27 +346,27 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
       const T *kr, *vr;
       kv.rows(ok ? w : 0, ok ? loc[i] : 0, kr, vr);
       T* ks = k_s + (stage * TK + row_of(i)) * HD;
-      T* vs = v_s + (stage * TK + row_of(i)) * HD;
+      T* vs = v_s + (stage * TK + row_of(i)) * HDV;
 #pragma unroll
       for (int n = 0; n < NCH; ++n) {
         const int c = j + LPR * n;
-        if (NCH == 1 || c < CH) {
+        if (NCH == 1 || c < CH)
           cp_async_piece<CB>(smem_u32(ks + c * VEC), kr + (ok ? c * VEC : 0),
                              ok);
+        if (n < NCHV && (V_EVEN || c < CHV))
           cp_async_piece<CB>(smem_u32(vs + c * VEC), vr + (ok ? c * VEC : 0),
                              ok);
-        }
       }
     }
   };
 
-  float m[G], l[G], o[G][NCH][VEC];
+  float m[G], l[G], o[G][NCHV][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n)
+    for (int n = 0; n < NCHV; ++n)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) o[g][n][e] = 0.f;
   }
@@ -379,7 +395,7 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
     }
     if (__any_sync(FULL, any)) {
       const T* kt = k_s + stage * TK * HD;
-      const T* vt = v_s + stage * TK * HD;
+      const T* vt = v_s + stage * TK * HDV;
       // scores: this lane's chunks of its rows, then summed over the row's
       // LPR lanes
       float s[NK][G];
@@ -447,20 +463,20 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
         l[g] = l[g] * corr + ls;
         m[g] = mn;
 #pragma unroll
-        for (int n = 0; n < NCH; ++n)
+        for (int n = 0; n < NCHV; ++n)
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[g][n][e] *= corr;
       }
 
-      // o += p · V on the same chunks of the same rows
+      // o += p · V on the chunks of the same rows this lane copied
 #pragma unroll
-      for (int n = 0; n < NCH; ++n) {
+      for (int n = 0; n < NCHV; ++n) {
         const int c = j + LPR * n;
-        if (NCH == 1 || c < CH) {
+        if (V_EVEN || c < CHV) {
 #pragma unroll
           for (int i = 0; i < NK; ++i) {
             float vc[VEC];
-            Ch::load(vt + row_of(i) * HD + c * VEC, vc);
+            Ch::load(vt + row_of(i) * HDV + c * VEC, vc);
 #pragma unroll
             for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -490,14 +506,14 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
     const float f = m[g] == -INFINITY ? 0.f : exp2_approx(m[g] - mw);
     l[g] *= f;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n)
+    for (int n = 0; n < NCHV; ++n)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) o[g][n][e] *= f;
 #pragma unroll
     for (int off = LPR; off < 32; off <<= 1) {
       l[g] += __shfl_xor_sync(FULL, l[g], off);
 #pragma unroll
-      for (int n = 0; n < NCH; ++n)
+      for (int n = 0; n < NCHV; ++n)
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
           o[g][n][e] += __shfl_xor_sync(FULL, o[g][n][e], off);
@@ -508,21 +524,21 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
   // merge 2: the block's four warps, through the (now idle) stages
   float* wm = reinterpret_cast<float*>(smem);  // [WARPS][G]
   float* wl = wm + WARPS * G;                  // [WARPS][G]
-  float* wo = wl + WARPS * G;                  // [WARPS][G][HD]
-  float* bm = wo + WARPS * G * HD;             // [G]
+  float* wo = wl + WARPS * G;                  // [WARPS][G][HDV]
+  float* bm = wo + WARPS * G * HDV;            // [G]
   float* bl = bm + G;                          // [G]
-  float* bo = bl + G;                          // [G][HD]
+  float* bo = bl + G;                          // [G][HDV]
   __syncthreads();  // every warp is done with the stages
   if (rg == 0) {
 #pragma unroll
-    for (int n = 0; n < NCH; ++n) {
+    for (int n = 0; n < NCHV; ++n) {
       const int c = j + LPR * n;
-      if (NCH == 1 || c < CH)
+      if (V_EVEN || c < CHV)
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
           for (int e = 0; e < VEC; ++e)
-            wo[(warp * G + g) * HD + c * VEC + e] = o[g][n][e];
+            wo[(warp * G + g) * HDV + c * VEC + e] = o[g][n][e];
     }
     if (j == 0)
 #pragma unroll
@@ -532,8 +548,8 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
       }
   }
   __syncthreads();
-  for (int x = tid; x < G * HD; x += THREADS) {
-    const int g = x / HD, d = x % HD;
+  for (int x = tid; x < G * HDV; x += THREADS) {
+    const int g = x / HDV, d = x % HDV;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wm[w * G + g]);
@@ -543,7 +559,7 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
       const float mw = wm[w * G + g];
       const float f = mw == -INFINITY ? 0.f : exp2_approx(mw - M);
       L += f * wl[w * G + g];
-      O += f * wo[(w * G + g) * HD + d];
+      O += f * wo[(w * G + g) * HDV + d];
     }
     bo[x] = O;
     if (d == 0) {
@@ -556,8 +572,8 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
   // shared memory
   cluster.sync();
   if (rank == 0) {
-    for (int x = tid; x < G * HD; x += THREADS) {
-      const int g = x / HD;
+    for (int x = tid; x < G * HDV; x += THREADS) {
+      const int g = x / HDV;
       float M = -INFINITY;
       for (int c = 0; c < n_blocks; ++c)
         M = fmaxf(M, cluster.map_shared_rank(bm, c)[g]);
@@ -578,10 +594,11 @@ __device__ __forceinline__ void decode_tile(const Tile<T>& p, const Rows& kv,
 // Launch ``Kernel`` (one instance of a file's decode kernel) on grid (C,
 // Hkv, B) in clusters of C blocks along x: one cudaLaunchKernelEx, no
 // attribute call after the first launch on a device (allow_smem).
-template <auto Kernel, typename T, int HD, int G, typename Args>
+template <auto Kernel, typename T, int HD, int G, int HDV = HD,
+          typename Args>
 cudaError_t launch_cluster(const Args& a, int W, int Hkv, int B,
                            cudaStream_t stream) {
-  constexpr size_t smem = Smem<T, HD, G>::bytes;
+  constexpr size_t smem = Smem<T, HD, G, HDV>::bytes;
   cudaError_t err = allow_smem<Kernel>(smem);
   if (err != cudaSuccess) return err;
   const int C = cluster_size<T, HD, G>(W);

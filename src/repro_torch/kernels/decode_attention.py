@@ -7,6 +7,10 @@ the whole GQA group against each K/V row once. K and V are read through
 their strides, so the model passes ``cache["k"].transpose(1, 2)`` — a view
 of the (B, W, Hkv, hd) cache — and no per-step copy of the cache is ever
 made.
+
+The value head dim may differ from the key's, as in the reference: the
+instances with ``hd_v != hd`` are those of ``PAIRS`` (MLA decode over the
+latent cache, ``ops.mla_decode_attention``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
 
 # 3: InternLM2-20B (48 query heads on 8 kv heads duplicated to 16)
 GROUPS = (1, 2, 3, 4, 8)
+# (hd, hd_v) -> groups of the instances with hd_v != hd: the reference's
+# MLA sweep (tests/test_kernels.py), kvr 16 + rope 8 over one latent head
+PAIRS = {(24, 16): (4,)}
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
@@ -42,9 +49,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"match q {tuple(q.shape)}")
     if Hq % Hkv or Hq // Hkv not in GROUPS:
         raise ValueError(f"GQA group {Hq}/{Hkv} not in {GROUPS}")
-    if hd not in HEAD_DIMS or hd_v != hd:
-        raise ValueError(f"head dims ({hd}, {hd_v}) not supported; the "
-                         f"kernel takes hd == hd_v in {HEAD_DIMS}")
+    group = Hq // Hkv
+    if not ((hd == hd_v and hd in HEAD_DIMS)
+            or group in PAIRS.get((hd, hd_v), ())):
+        raise ValueError(f"head dims ({hd}, {hd_v}) at group {group} not "
+                         f"supported; the kernel takes hd == hd_v in "
+                         f"{HEAD_DIMS}, or (hd, hd_v) -> groups {PAIRS}")
     if q_pos.shape != (B,) or k_pos.shape != (B, W):
         raise ValueError("positions must be (B,) and (B, W)")
     if W < 1:

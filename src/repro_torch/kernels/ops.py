@@ -9,6 +9,7 @@ show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -81,6 +82,28 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
                                              q_pos, k_pos, window, chunk)
     return _ref.chunked_prefill_attention(q, k_pages, v_pages, block_tbl,
                                           q_pos, k_pos, window, chunk)
+
+
+def mla_decode_attention(q_lat, q_rope, ckv, k_rope, q_pos, k_pos,
+                         window: Optional[int] = None,
+                         chunk: Optional[int] = None,
+                         qk_dim: Optional[int] = None):
+    """MLA-absorbed decode as MQA decode over the latent cache (the port of
+    the reference's ``ops.mla_decode_attention``).
+
+    q_lat: (B,H,kvr) latent queries (q_nope @ w_uk); q_rope: (B,H,r);
+    ckv: (B,W,kvr); k_rope: (B,W,r). Returns o_lat (B,H,kvr), the latent
+    attention output (the caller applies w_uv). Exact: scores = q_lat.ckv
+    + q_rope.k_rope, softmax, value = ckv, i.e. one kv head of dim kvr+r
+    with a kvr-dim value. ``decode_attention`` scales by 1/sqrt(kvr+r);
+    MLA wants 1/sqrt(``qk_dim``) (nope + rope), so q is pre-scaled by
+    sqrt(kvr+r)/sqrt(qk_dim)."""
+    q = torch.cat([q_lat, q_rope], dim=-1)                # (B,H,kvr+r)
+    k = torch.cat([ckv, k_rope], dim=-1)[:, None]         # (B,1,W,kvr+r)
+    v = ckv[:, None]                                      # (B,1,W,kvr)
+    d = q.shape[-1]
+    q = q * (math.sqrt(d) / math.sqrt(d if qk_dim is None else qk_dim))
+    return decode_attention(q, k, v, q_pos, k_pos, window, chunk)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None,

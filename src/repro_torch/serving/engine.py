@@ -46,6 +46,22 @@ The KV memory ladder, each rung requiring the previous, as the reference:
     unshared token, admission reserves only the unshared worst case, and
     a chunk writing into a page with refcount > 1 copies it first. The
     shared tokens' compute is subtracted from the metered prefill.
+
+The front door, as in the reference (``serving/server.py`` drives it
+asynchronously): a bounded admission queue that sheds by policy
+(``max_queue``, ``shed_policy``) and clamps low-class budgets under
+pressure (``pressure_clamp``); per-tenant token buckets checked at submit
+(``tenant_quota``); request deadlines, swept at the top of every quantum
+wherever the request is; priority preemption (``preemption``, requires
+chunked prefill): a high-class request short of a slot or pages evicts
+the lowest armed slot of a strictly lower class, whose indexed prefix
+stays resident under a host-side pin while the request, its tokens folded
+into its prompt, waits at the front of its class (``serving/preempt.py``);
+and fault recovery at the three launch sites (``page_alloc``,
+``prefill_chunk``, ``decode_scan``; ``serving/faults.py``): an injected
+fault fires before the site touches any device tensor, so the launch
+never happened, and the site retries after 2**fails quanta, raising
+``FaultError`` past ``max_retries`` consecutive failures.
 """
 from __future__ import annotations
 
@@ -65,7 +81,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.costing import workload_of
 from repro_torch.models.model import Model
 from repro_torch.serving import paged as PG
-from repro_torch.serving import sampling
+from repro_torch.serving import preempt, sampling
+from repro_torch.serving.faults import FaultError, InjectedFault
 from repro_torch.serving.request import Request, Response
 
 
@@ -128,11 +145,12 @@ class EngineConfig:
     """Every serving knob of the reference ``repro.serving.EngineConfig``,
     with the same fields and defaults, so a config written for one engine
     means the same to the other. The port serves the contiguous default
-    path and the paged ladder (``paged``, ``prefill_chunk`` with
-    ``prefill_pack``, ``prefix_sharing``). Knobs of later slices
-    (``preemption``, ``max_queue``, ``shards`` > 1, deferral,
-    ``tenant_quota``) raise NotImplementedError when set away from their
-    defaults; see ``_LATER_SLICES``.
+    path, the paged ladder (``paged``, ``prefill_chunk`` with
+    ``prefill_pack``, ``prefix_sharing``) and the front door (``max_queue``,
+    ``shed_policy``, ``pressure_clamp``, ``preemption``, ``max_retries``,
+    ``tenant_quota``). The fleet's knobs (``shards`` > 1, deferral) raise
+    NotImplementedError when set away from their defaults; see
+    ``_LATER_SLICES``.
     """
     max_batch: int = 8                 # decode slot count
     max_len: int = 512                 # cache allocation per slot
@@ -256,9 +274,6 @@ class EngineConfig:
 # Knobs of later slices of the port: (field, default, ROADMAP Queue 1 item).
 # Any of them set away from its default raises NotImplementedError.
 _LATER_SLICES = (
-    ("preemption", False, "Front door"),
-    ("max_queue", None, "Front door"),
-    ("tenant_quota", None, "Front door"),
     ("shards", 1, "Fleet"),
     ("defer_below_priority", None, "Fleet"),
 )
@@ -314,6 +329,56 @@ class ServingEngine:
         self.prefill_chunks = 0                        # chunked-prefill launches
         self.peak_active = 0                           # max concurrent requests
         self._wait_samples: Dict[int, List[float]] = {}  # class -> waits (s)
+        # front-door mirrors: the Request occupying each slot (eviction and
+        # deadline cancellation mutate it in place) and its priority class
+        self._slot_req: List[Optional[Request]] = [None] * B
+        self._slot_prio = [0] * B
+        self._has_deadlines = False    # skip the sweep when nobody set one
+        # scheduling-quantum counter (one per step()): the fault injector's
+        # clock and the backoff schedule's time base
+        self._quantum = 0
+        self._run_q0 = 0               # quantum at the current run()'s start
+        self.faults = None             # Optional[faults.FaultInjector]
+        self._backoff: Dict[str, Tuple[int, int]] = {}   # site -> (fails, retry_at)
+        self.fault_retries = 0
+        self.fault_retry_site: Dict[str, int] = {}       # site -> retries
+        # per-tenant token buckets: tenant -> [tokens, last_refill_t]
+        self._tenant_buckets: Dict[str, List[float]] = {}
+        self.rate_limited = 0
+        self.shed_count = 0
+        self._shed_by_class: Dict[int, int] = {}
+        self.preemption_count = 0
+        self.deadline_cancelled = 0
+        self.clamped_requests = 0
+        self.preempted_recompute_j = 0.0
+        # preemption pins: rid -> physical pages whose references moved out
+        # of the evicted slot (kept resident and indexed for the resume's
+        # prefix hit); dropped after re-adoption, cancel or shed
+        self._pins: Dict[int, List[int]] = {}
+        if cfg.shed_policy not in ("reject_newest", "reject_lowest"):
+            raise ValueError(f"unknown shed_policy {cfg.shed_policy!r}")
+        if cfg.max_queue is not None and cfg.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if cfg.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if cfg.routing not in ("free_pages", "carbon"):
+            raise ValueError(f"unknown routing {cfg.routing!r}")
+        if cfg.defer_horizon_h < 1:
+            raise ValueError("defer_horizon_h must be >= 1")
+        if not (0.0 < cfg.defer_deadline_frac < 1.0):
+            raise ValueError("defer_deadline_frac must be in (0, 1)")
+        if cfg.tenant_quota is not None:
+            for name, spec in cfg.tenant_quota.items():
+                try:
+                    cap, refill = spec
+                except (TypeError, ValueError):
+                    raise ValueError(
+                        f"tenant_quota[{name!r}] must be (capacity, "
+                        f"refill_per_s), got {spec!r}") from None
+                if cap < 1 or refill < 0:
+                    raise ValueError(
+                        f"tenant_quota[{name!r}]: capacity must be >= 1 "
+                        "and refill_per_s >= 0")
 
         self.paged = cfg.paged
         if cfg.paged:
@@ -355,6 +420,12 @@ class ServingEngine:
             # FCFS queue of (request, slot) mid-prefill; req.prefill_pos
             # counts the prompt tokens already in the pool
             self._prefilling: deque = deque()
+        if cfg.preemption and not self.chunked:
+            raise ValueError(
+                "preemption requires chunked prefill (prefill_chunk set): "
+                "a preempted request resumes through the chunked admission "
+                "path, adopting its pinned prefix and recomputing only the "
+                "unshared tail")
 
         self.sharing = cfg.prefix_sharing
         if self.sharing:
@@ -404,8 +475,9 @@ class ServingEngine:
 
     # ------------------------------------------------------------ lifecycle
     def submit(self, req: Request) -> None:
-        """Validate, register and enqueue a request. Raises ValueError for
-        requests that are malformed rather than merely unschedulable."""
+        """Validate, register, and enqueue (or shed) a request. Raises
+        ValueError for requests that are malformed rather than merely
+        unschedulable."""
         if not req.prompt:
             raise ValueError(f"request {req.rid}: empty prompt")
         if req.max_new_tokens <= 0:
@@ -420,20 +492,109 @@ class ServingEngine:
                 "represented (shorten it or raise max_len)")
         if req.rid in self.responses:
             raise ValueError(f"request {req.rid}: duplicate rid")
-        if req.deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines are not ported yet (ROADMAP Queue 1, "
-                "Front door)")
         req.t_submit = time.perf_counter()
+        if req.deadline_s is not None:
+            self._has_deadlines = True
         self._req_slo[req.rid] = req.slo_s
         self.responses[req.rid] = Response(rid=req.rid, tokens=[],
                                            priority=req.priority)
-        # priority-ordered insert, FCFS within a class
+        if self._rate_limit(req):
+            # over quota: terminal before the request owns anything — no
+            # queue position, no max_queue charge, no slot, no pages
+            resp = self.responses[req.rid]
+            resp.finished = True
+            resp.finish_reason = "rate_limited"
+            self.rate_limited += 1
+            return
+        mq = self.cfg.max_queue
+        if mq is not None and len(self.queue) >= mq:
+            victim = self._pick_shed_victim(req)
+            if victim is req:
+                self._shed(req)
+                return
+            self.queue.remove(victim)
+            self._shed(victim)
+        self._enqueue(req)
+
+    def _rate_limit(self, req: Request) -> bool:
+        """Charge ``req``'s tenant one bucket token; True when the bucket
+        is empty (the submission is shed as rate_limited). A tenant without
+        a quota of its own takes the ``"*"`` default; ``tenant=None`` is
+        never limited. Refill is continuous at ``refill_per_s`` against the
+        host wall clock, capped at ``capacity``; with refill 0 the bucket
+        is a hard budget of ``capacity`` submissions."""
+        quota = self.cfg.tenant_quota
+        if quota is None or req.tenant is None:
+            return False
+        spec = quota.get(req.tenant, quota.get("*"))
+        if spec is None:
+            return False
+        cap, refill = float(spec[0]), float(spec[1])
+        now = time.perf_counter()
+        bucket = self._tenant_buckets.get(req.tenant)
+        if bucket is None:
+            bucket = [cap, now]
+            self._tenant_buckets[req.tenant] = bucket
+        bucket[0] = min(cap, bucket[0] + (now - bucket[1]) * refill)
+        bucket[1] = now
+        if bucket[0] < 1.0:
+            return True
+        bucket[0] -= 1.0
+        return False
+
+    def _enqueue(self, req: Request, resume: bool = False) -> None:
+        """Priority-ordered insert, FCFS within a class. ``resume`` inserts
+        at the FRONT of the request's class band: a preempted request
+        already waited its turn once."""
         q = self.queue
-        i = len(q)
-        while i > 0 and q[i - 1].priority < req.priority:
-            i -= 1
+        if resume:
+            i = 0
+            while i < len(q) and q[i].priority > req.priority:
+                i += 1
+        else:
+            i = len(q)
+            while i > 0 and q[i - 1].priority < req.priority:
+                i -= 1
         q.insert(i, req)
+
+    def _pick_shed_victim(self, incoming: Request) -> Request:
+        if self.cfg.shed_policy == "reject_newest":
+            return incoming
+        # reject_lowest: shed the NEWEST request of the LOWEST waiting
+        # class — unless the incoming request is at or below that class
+        lowest = min(r.priority for r in self.queue)
+        if incoming.priority <= lowest:
+            return incoming
+        for r in reversed(self.queue):
+            if r.priority == lowest:
+                return r
+        return incoming                # unreachable: lowest came from queue
+
+    def _shed(self, req: Request) -> None:
+        resp = self.responses[req.rid]
+        resp.finished = True
+        resp.finish_reason = "shed"
+        self.shed_count += 1
+        self._shed_by_class[req.priority] = (
+            self._shed_by_class.get(req.priority, 0) + 1)
+        self._drop_pin(req.rid)        # a shed resumee abandons its pin
+
+    def _drop_pin(self, rid: int) -> None:
+        """Release a preemption pin: decref the pinned pages on the device
+        and mirror the last-holder-credits-once flow on the host (pins exist
+        only with prefix sharing: the pin IS an index residency)."""
+        pins = self._pins.pop(rid, None)
+        if not pins:
+            return
+        pages = np.full((self.max_pages_slot,), -1, np.int32)
+        pages[:len(pins)] = pins
+        self.caches["paged"] = PG.decref_pages(self.caches["paged"],
+                                               self._tensor(pages))
+        for p in pins:
+            self._page_ref[p] -= 1
+            if self._page_ref[p] <= 0:
+                self._drop_index_page(p)
+                self.free_pages += 1   # the pin was the last holder
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_rid) if r < 0]
@@ -543,7 +704,185 @@ class ServingEngine:
             self.free_pages += ret
             self._slot_pages[s] = 0
 
+    # ---------------------------------------------------------------- faults
+    # The three injectable launch sites (serving/faults.py) follow one
+    # discipline: the injection point sits BEFORE any device mutation, so
+    # a fault means the launch never happened — the site's work stays
+    # queued (admission re-queues its takes explicitly; prefill and decode
+    # work was never dequeued) and is retried after 2**fails quanta.
+    # max_retries consecutive failures raise FaultError out of run() with
+    # every reservation returned.
+
+    def _inject(self, site: str) -> None:
+        if self.faults is not None:
+            self.faults.check(site, self._quantum, self._run_q0)
+
+    def _site_ready(self, site: str) -> bool:
+        return self._backoff.get(site, (0, 0))[1] <= self._quantum
+
+    def _site_failed(self, site: str) -> None:
+        fails = self._backoff.get(site, (0, 0))[0] + 1
+        self.fault_retries += 1
+        self.fault_retry_site[site] = self.fault_retry_site.get(site, 0) + 1
+        if fails > self.cfg.max_retries:
+            raise FaultError(
+                f"site {site!r} failed {fails} consecutive launches "
+                f"(max_retries={self.cfg.max_retries}); in-flight requests "
+                "are re-queued and reservations returned")
+        self._backoff[site] = (fails, self._quantum + 2 ** fails)
+
+    def _site_ok(self, site: str) -> None:
+        self._backoff.pop(site, None)
+
+    def _faults_pending(self) -> bool:
+        return bool(self._backoff)
+
+    # ------------------------------------------------------------ preemption
+    def _try_preempt(self, req: Request) -> bool:
+        """Evict ONE armed slot of a strictly lower priority class so
+        ``req`` (the queue head) can be admitted; True if a slot was freed.
+        Admission re-evaluates the head afterwards, so repeated calls evict
+        at most one victim per shortfall, lowest class first."""
+        if not self.cfg.preemption:
+            return False
+        progress = [(r.max_new_tokens - self.slot_budget[s])
+                    if r is not None else 0
+                    for s, r in enumerate(self._slot_req)]
+        victim = preempt.pick_victim(self._slot_armed, self._slot_prio,
+                                     progress, req.priority)
+        if victim is None:
+            return False
+        self._evict_slot(victim)
+        return True
+
+    def _evict_slot(self, slot: int) -> None:
+        """Evict the ARMED ``slot`` mid-decode (``serving/preempt.py`` holds
+        the contract): disarm its device state, release its pages except
+        the leading indexed run (whose references move to a host pin, so
+        the computed prefix stays resident and adoptable), fold the tokens
+        generated so far into the request's prompt and requeue it at the
+        front of its class. The disarmed slot's next decode writes go to
+        the trash page (its table row is cleared here, and the fused step
+        routes inactive slots there). Resume is ordinary re-admission: the
+        folded prompt's leading pages hit the pinned prefix index, so only
+        the unshared tail is recomputed, metered as 'recompute'."""
+        req = self._slot_req[slot]
+        resp = self.responses[req.rid]
+        preempt.fold_for_resume(req, resp, self.slot_budget[slot])
+        pinned: List[int] = []
+        if self.sharing:
+            held = set(self._slot_shared_in.get(slot, []))
+            held |= set(self._slot_own_idx.get(slot, []))
+            pinned = preempt.pinned_run(self._prompt_page_keys(req),
+                                        self._prefix_index, held)
+        mask = np.zeros((self.cfg.max_batch,), bool)
+        mask[slot] = True
+        n_keep = np.zeros((self.cfg.max_batch,), np.int32)
+        n_keep[slot] = len(pinned)
+        self.caches["paged"] = PG.release_slots_keep(
+            self.caches["paged"], self._tensor(mask).bool(),
+            self._tensor(n_keep))
+        sampling.disarm_slots(self.state, self._tensor([slot]))
+        self._account_eviction(slot, pinned)
+        if pinned:
+            self._pins[req.rid] = pinned
+        self._clear_slot(slot)
+        self.preemption_count += 1
+        self._enqueue(req, resume=True)
+
+    def _account_eviction(self, slot: int, pinned: List[int]) -> None:
+        """Host mirror of ``release_slots_keep``: the pinned pages'
+        references move to the pin (``_page_ref`` unchanged — the device
+        refcount did not move either); everything else follows the
+        ordinary popper-charges-once / last-holder-credits-once flows."""
+        ret = self._slot_pages[slot]
+        if self.sharing:
+            keep = set(pinned)
+            for p in self._slot_own_idx.pop(slot, []):
+                if p in keep:
+                    ret -= 1           # stays resident under the pin
+                    continue
+                self._page_ref[p] -= 1
+                if self._page_ref[p] <= 0:
+                    self._drop_index_page(p)
+                else:
+                    ret -= 1           # survives under someone else's map
+            for p in self._slot_shared_in.pop(slot, []):
+                if p in keep:
+                    continue           # adopted reference moved to the pin
+                self._page_ref[p] -= 1
+                if self._page_ref[p] <= 0:
+                    self._drop_index_page(p)
+                    ret += 1           # last holder frees the original
+        self.free_pages += ret
+        self._slot_pages[slot] = 0
+
+    def _clear_slot(self, slot: int) -> None:
+        self.slot_rid[slot] = -1
+        self.slot_budget[slot] = 0
+        self.slot_eos[slot] = None
+        self._slot_ctx[slot] = 0.0
+        self._slot_armed[slot] = False
+        self._slot_req[slot] = None
+        self._slot_prio[slot] = 0
+
+    # ------------------------------------------------------------- deadlines
+    def _cancel(self, rid: int, reason: str) -> None:
+        resp = self.responses[rid]
+        resp.finished = True
+        resp.finish_reason = reason
+        if reason == "deadline":
+            self.deadline_cancelled += 1
+        self._drop_pin(rid)
+
+    def _sweep_deadlines(self) -> None:
+        """Cancel every request whose deadline expired, wherever it is:
+        queued (dropped), mid-chunked-prefill (slot and reservation
+        released), or armed mid-decode (disarmed, pages reclaimed in this
+        same quantum). Runs at the top of each quantum, so a cancelled
+        slot's pages are reusable by this quantum's own admission."""
+        now = time.perf_counter()
+
+        def expired(r: Request) -> bool:
+            return (r.deadline_s is not None
+                    and now - r.t_submit > r.deadline_s)
+
+        for req in [r for r in self.queue if expired(r)]:
+            self.queue.remove(req)
+            self._cancel(req.rid, "deadline")
+        if self.chunked:
+            for req, slot in [p for p in self._prefilling
+                              if expired(p[0])]:
+                self._prefilling.remove((req, slot))
+                self._clear_slot(slot)
+                self._release_slots([slot])
+                self._cancel(req.rid, "deadline")
+        doomed = [s for s in range(self.cfg.max_batch)
+                  if self._slot_armed[s] and self._slot_req[s] is not None
+                  and expired(self._slot_req[s])]
+        for s in doomed:
+            sampling.disarm_slots(self.state, self._tensor([s]))
+            rid = self.slot_rid[s]
+            self._clear_slot(s)
+            self._release_slots([s])
+            self._cancel(rid, "deadline")
+
     # ------------------------------------------------------------ admission
+    def _apply_pressure_clamp(self, req: Request) -> None:
+        """Graceful degradation under queue pressure: once the admission
+        queue is at least half full, clamp the decode budget of requests
+        BELOW the best waiting class to ``pressure_clamp`` tokens. Applied
+        at admission (not submit), so a queue that drains before the
+        request's turn leaves it unclamped."""
+        clamp = self.cfg.pressure_clamp
+        if (clamp is None or self.cfg.max_queue is None
+                or 2 * len(self.queue) < self.cfg.max_queue):
+            return
+        top = max(r.priority for r in self.queue)
+        if req.priority < top and req.max_new_tokens > clamp:
+            req.max_new_tokens = clamp
+            self.clamped_requests += 1
+
     def _admit(self) -> int:
         """Admit waiting requests into free slots, FCFS. Returns the number
         admitted.
@@ -553,14 +892,29 @@ class ServingEngine:
         that does not fit the REMAINING pool keeps waiting (no overtaking);
         one that can never fit the table or the TOTAL pool is rejected.
         Chunked mode only claims the slot and pages here; the prompt runs
-        chunk by chunk in ``_prefill_quantum``."""
+        chunk by chunk in ``_prefill_quantum``.
+
+        With ``preemption`` on, a shortfall (no free slot, or not enough
+        free pages) for the queue head evicts ONE armed lower-priority slot
+        per retry instead of waiting. The reservation pass sits behind the
+        ``page_alloc`` fault site: an injected fault returns every
+        reservation and puts the takes back at the queue head, so a failed
+        admission is indistinguishable from one that never ran."""
         if self._over_budget() and self.active > 0:
             return 0                   # defer admissions; drain active work
+        if self.queue and self.paged and not self._site_ready("page_alloc"):
+            return 0                   # backing off a faulted reservation
         free = self.free_slots()
         take: List[Request] = []
         share: Dict[int, Tuple[int, List[int], int]] = {}
-        while self.queue and len(take) < len(free):
+        while self.queue:
             req = self.queue[0]
+            if len(take) >= len(free):
+                if not self._try_preempt(req):
+                    break              # no slot and nobody to evict
+                free = self.free_slots()
+                continue
+            self._apply_pressure_clamp(req)
             if self.paged:
                 L = len(req.prompt)
                 ps = self.cfg.page_size
@@ -582,10 +936,26 @@ class ServingEngine:
                     resv = n_total - first_tok // ps
                     share[req.rid] = (n_pg, phys, first_tok)
                 if resv > self.free_pages:
+                    if self._try_preempt(req):
+                        free = self.free_slots()
+                        continue       # evicted pages now in the pool
                     break              # keep waiting (FCFS, no overtaking)
                 self.free_pages -= resv
                 self._resv[req.rid] = resv
             take.append(self.queue.popleft())
+        if take and self.paged:
+            try:
+                self._inject("page_alloc")
+            except InjectedFault:
+                # the reservation "failed": undo it exactly — every page
+                # back, the takes back at the queue head in order; nothing
+                # on the device moved yet
+                for req in reversed(take):
+                    self.free_pages += self._resv.pop(req.rid)
+                    self.queue.appendleft(req)
+                self._site_failed("page_alloc")
+                return 0
+            self._site_ok("page_alloc")
         if self.paged:
             self.peak_pages_reserved = max(self.peak_pages_reserved,
                                            self.num_pages - self.free_pages)
@@ -599,6 +969,8 @@ class ServingEngine:
                 self.slot_eos[slot] = req.eos_id
                 self._slot_ctx[slot] = 0.0
                 self._slot_pages[slot] = self._resv.pop(req.rid)
+                self._slot_req[slot] = req
+                self._slot_prio[slot] = req.priority
                 self._stamp_admit(req)
                 req.prefill_pos = 0
                 self._prefilling.append((req, slot))
@@ -606,6 +978,12 @@ class ServingEngine:
             if self.sharing:
                 for req, slot in zip(take, slots):
                     self._adopt_prefix(req, slot, *share[req.rid])
+                    # a resumed request re-adopted its pinned prefix through
+                    # the index (the increfs above): the pin's own
+                    # references go now, adopt then release, so the pages
+                    # never pass through refcount zero
+                    if req.rid in self._pins:
+                        self._drop_pin(req.rid)
             return len(take)
         # bucket prompts: padded power-of-two buckets when the model masks
         # pad tokens exactly, exact-length groups otherwise. Buckets are
@@ -685,6 +1063,8 @@ class ServingEngine:
             self.slot_eos[slot] = req.eos_id
             self._slot_ctx[slot] = float(len(req.prompt))
             self._slot_armed[slot] = True
+            self._slot_req[slot] = req
+            self._slot_prio[slot] = req.priority
         self._release_slots(released)
 
     def _adopt_prefix(self, req: Request, slot: int, n_pg: int,
@@ -766,8 +1146,19 @@ class ServingEngine:
         token count fits ``prefill_chunk``. Returns the launches (0 or 1)."""
         if not self._prefilling:
             return 0
+        if not self._site_ready("prefill_chunk"):
+            return 0                   # backing off a faulted chunk launch
         C = self.cfg.prefill_chunk
         packed = pack_chunks(self._prefilling, C, self.cfg.prefill_pack)
+        try:
+            self._inject("prefill_chunk")
+        except InjectedFault:
+            # the launch never ran: the packed requests are still at the
+            # head of ``_prefilling`` with prefill_pos untouched, so the
+            # SAME chunks relaunch after backoff
+            self._site_failed("prefill_chunk")
+            return 0
+        self._site_ok("prefill_chunk")
         n = len(packed)
         tokens = np.zeros((n, C), np.int32)
         mask = np.zeros((n, C), np.int32)
@@ -814,20 +1205,35 @@ class ServingEngine:
                 self._register_prefix(req, slot, rows_h[i])
             # chunking changes the schedule, not the modeled energy: the
             # request's prefill is attributed once, at its true prompt
-            # length; the shared tokens' compute never ran and is skipped
-            rep = self._meter_prefill(1, len(req.prompt),
-                                      skip=req.shared_prefix_tokens)
+            # length; the shared tokens' compute never ran and is skipped.
+            # A preempted request's resume is charged to "recompute", so
+            # every other request's modeled J/token is invariant to the
+            # preemption policy
+            rep = self._meter_prefill(
+                1, len(req.prompt), skip=req.shared_prefix_tokens,
+                phase="recompute" if req.preemptions else "prefill")
             resp = self.responses[req.rid]
             resp.prefill_s += rep.t_total
             resp.energy_j += rep.energy_j
+            if req.preemptions:
+                resp.recompute_j += rep.energy_j
+                self.preempted_recompute_j += rep.energy_j
             tok = int(first_h[i])
             resp.tokens.append(tok)
             resp.t_emit.append(now)
             budget = req.max_new_tokens - 1
-            if budget <= 0:
+            # a fresh request's prefill token is never EOS-checked (EOS
+            # only ends decode); a RESUMED request's first token is a
+            # mid-decode emission of the original request and honors EOS,
+            # for parity with the unpreempted run
+            eos_hit = (req.preemptions > 0 and req.eos_id is not None
+                       and tok == req.eos_id)
+            if budget <= 0 or eos_hit:
                 resp.finished = True   # prefill token was the whole budget
-                resp.finish_reason = "length"
+                resp.finish_reason = "eos" if eos_hit else "length"
                 self.slot_rid[slot] = -1
+                self._slot_req[slot] = None
+                self._slot_prio[slot] = 0
                 released.append(slot)
                 continue
             arm.append((slot, tok, budget,
@@ -849,7 +1255,20 @@ class ServingEngine:
         for all armed slots; a single host sync at the end. Slots still
         mid-chunked-prefill ride along inert (device ``active`` false,
         cursors frozen). Finished slots' pages return to the pool at the
-        chunk boundary."""
+        chunk boundary. Returns whether a chunk launched (False while the
+        ``decode_scan`` site backs off a fault: armed slots keep their
+        state and relaunch later)."""
+        if not self._site_ready("decode_scan"):
+            return False               # backing off a faulted scan launch
+        try:
+            self._inject("decode_scan")
+        except InjectedFault:
+            # nothing launched: cur_tokens, state and caches hold their
+            # pre-chunk values, so the relaunch after backoff samples the
+            # identical chunk — no token lost or emitted twice
+            self._site_failed("decode_scan")
+            return False
+        self._site_ok("decode_scan")
         budgets = [self.slot_budget[s] for s in range(self.cfg.max_batch)
                    if self._slot_armed[s]]
         n = min(self.cfg.sync_every, max(max(budgets), 1),
@@ -894,6 +1313,8 @@ class ServingEngine:
                     resp.finish_reason = "eos" if eos_hit else "length"
                     self.slot_rid[slot] = -1
                     self._slot_armed[slot] = False
+                    self._slot_req[slot] = None
+                    self._slot_prio[slot] = 0
                     released.append(int(slot))
             self._steps += 1
         # page reclamation at the chunk boundary (finished slots coasted on
@@ -902,18 +1323,30 @@ class ServingEngine:
         return True
 
     def step(self, max_steps: int = 10_000) -> bool:
-        """Run ONE scheduling quantum: admission, at most one prefill chunk
-        (chunked mode), one fused decode chunk. Returns whether anything
-        progressed."""
+        """Run ONE scheduling quantum: deadline sweep (when any request
+        declared one), admission, at most one prefill chunk (chunked
+        mode), one fused decode chunk. Returns whether anything
+        progressed. The async server drives this directly, interleaving
+        submissions and streaming tokens between quanta."""
+        self._quantum += 1
+        if self._has_deadlines:
+            self._sweep_deadlines()
         admitted = self._admit()
         chunks = self._prefill_quantum() if self.chunked else 0
         decoded = self._decode_chunk(max_steps) if self.decoding else False
         return bool(admitted or chunks or decoded)
 
     def _resolve_stall(self) -> None:
-        """The quantum made no progress, nothing is armed, yet requests
-        wait: with the ENTIRE pool free the head request can never fit and
-        is failed; anything else is a leaked reservation."""
+        """The quantum made no progress, nothing is armed, no fault site is
+        backing off, yet requests wait: either preemption pins hold the
+        missing pages (spill them: the resume just recomputes more) or,
+        with the ENTIRE pool free, the head request can never fit and is
+        failed; anything else is a leaked reservation. Shared by run() and
+        the async server's drive loop."""
+        if self.paged and self._pins and self.free_pages < self.num_pages:
+            for rid in list(self._pins):
+                self._drop_pin(rid)
+            return
         if not self.paged or self.free_pages == self.num_pages:
             self._reject(self.queue.popleft())
         else:
@@ -924,10 +1357,15 @@ class ServingEngine:
     def run(self, max_steps: int = 10_000) -> List[Response]:
         """Drive until the queue drains and all slots finish. Exhausting
         ``max_steps`` marks every unfinished response ``"timeout"``
-        without finishing it."""
+        without finishing it (a later run() with more steps clears the
+        mark by finishing them). A fault site past ``max_retries`` raises
+        ``FaultError`` with every reservation returned."""
+        self._run_q0 = self._quantum
         while (self.queue or self.active) and self._steps < max_steps:
-            if self.step(max_steps) or self.decoding:
+            if self.step(max_steps):
                 continue
+            if self.decoding or self._faults_pending():
+                continue               # armed slots or a site in backoff
             if self.queue:
                 self._resolve_stall()
         if self._steps >= max_steps:
@@ -948,10 +1386,9 @@ class ServingEngine:
         return self.decode_chunks + self.prefill_batches
 
     def stats(self) -> Dict[str, float]:
-        """The reference engine's ``stats()`` keys. Counters of features
-        of later slices (shedding, deferral, preemption, deadlines, faults,
-        rate limits) are kept at 0 so the two engines' stats compare key
-        for key."""
+        """The reference engine's ``stats()`` keys. The deferral counters
+        (a later slice) are kept at 0 so the two engines' stats compare
+        key for key."""
         t = self.meter.totals
         pf = self.meter.phase("prefill")
         dc = self.meter.phase("decode")
@@ -1001,13 +1438,13 @@ class ServingEngine:
             "deferred_requests": 0,
             "deferred_released": 0,
             "deferred_forced_releases": 0,
-            "shed_count": 0,
-            "preemption_count": 0,
-            "deadline_cancelled": 0,
-            "clamped_requests": 0,
-            "fault_retries": 0,
-            "rate_limited": 0,
-            "preempted_recompute_j": 0.0,
+            "shed_count": self.shed_count,
+            "preemption_count": self.preemption_count,
+            "deadline_cancelled": self.deadline_cancelled,
+            "clamped_requests": self.clamped_requests,
+            "fault_retries": self.fault_retries,
+            "rate_limited": self.rate_limited,
+            "preempted_recompute_j": self.preempted_recompute_j,
             "timeout_requests": sum(
                 1 for r in self.responses.values()
                 if not r.finished and r.finish_reason == "timeout"),
@@ -1017,6 +1454,10 @@ class ServingEngine:
             out[f"queue_wait_p99_s_class_{p}"] = (
                 float(np.percentile(waits, 99)) if len(waits) > 1
                 else float(np.median(waits)))
+        for p, n_shed in sorted(self._shed_by_class.items()):
+            out[f"shed_class_{p}"] = n_shed
+        for site, n in sorted(self.fault_retry_site.items()):
+            out[f"fault_retries_{site}"] = n
         out.update({
             "requests": len(self.responses),
             "peak_active": self.peak_active,

@@ -187,13 +187,13 @@ def _decrefs(pages: torch.Tensor, P: int) -> torch.Tensor:
                      pages, 1, accumulate=True)
 
 
-def release_slots(alloc: Dict, released: torch.Tensor) -> Dict:
-    """Decref every page mapped by the ``released`` (B,) bool slots and
-    clear their table rows; pages reaching refcount zero go back on the
-    free stack (shared prefix pages survive until their last holder)."""
+def _release(alloc: Dict, released: torch.Tensor,
+             rel: torch.Tensor) -> Dict:
+    """Decref the table entries marked in ``rel`` (B, M), clear the
+    ``released`` slots' rows; pages reaching refcount zero go back on the
+    free stack."""
     tbl = alloc["tbl"]
     P = alloc["free"].shape[0]
-    rel = released[:, None] & (tbl >= 0)
     drops = _decrefs(torch.where(rel, tbl, P), P)
     free, top, ref = _return_pages(alloc["free"], alloc["top"], alloc["ref"],
                                    drops)
@@ -201,9 +201,36 @@ def release_slots(alloc: Dict, released: torch.Tensor) -> Dict:
     return {"tbl": tbl, "free": free, "top": top, "ref": ref}
 
 
+def release_slots(alloc: Dict, released: torch.Tensor) -> Dict:
+    """Decref every page mapped by the ``released`` (B,) bool slots and
+    clear their table rows; pages reaching refcount zero go back on the
+    free stack (shared prefix pages survive until their last holder)."""
+    return _release(alloc, released, released[:, None] & (alloc["tbl"] >= 0))
+
+
+def release_slots_keep(alloc: Dict, released: torch.Tensor,
+                       n_keep: torch.Tensor) -> Dict:
+    """Release the ``released`` (B,) bool slots but KEEP the references of
+    each slot's first ``n_keep[slot]`` logical pages — the release for
+    preemption. The kept pages' references are transferred to the engine's
+    host-side pin (the evicted request's indexed prefix must stay resident
+    and adoptable for its resume), so they are neither decrefed nor freed
+    here; every later logical page decrefs normally. The whole table row
+    is cleared either way. ``n_keep``: (B,) int32, 0 for slots not being
+    preempted or with nothing indexed."""
+    tbl = alloc["tbl"]
+    logical = torch.arange(tbl.shape[1], dtype=_I32, device=tbl.device)
+    return _release(alloc, released, released[:, None] & (tbl >= 0)
+                    & (logical[None, :] >= n_keep[:, None]))
+
+
 def decref_pages(alloc: Dict, pages: torch.Tensor) -> Dict:
     """Drop one reference from each physical page in ``pages`` ((K,)
-    int32, -1 padded); pages reaching refcount zero return to the stack."""
+    int32, -1 padded); pages reaching refcount zero return to the stack.
+    This releases a preemption pin: the resumed request adopts the pinned
+    run first (``map_shared_pages`` increfs), then the pin's transferred
+    references drop here — or drop without adoption when the preempted
+    request is cancelled or shed."""
     P = alloc["free"].shape[0]
     drops = _decrefs(torch.where(pages >= 0, pages, P), P)
     free, top, ref = _return_pages(alloc["free"], alloc["top"], alloc["ref"],

@@ -133,6 +133,21 @@ def arm_slots(cur_tokens: torch.Tensor, state: Dict[str, torch.Tensor],
     state["eos"][sl] = eos_ids
 
 
+def disarm_slots(state: Dict[str, torch.Tensor], slots: torch.Tensor) -> None:
+    """Deactivate ``slots`` mid-decode (preemption eviction or deadline
+    cancellation), in place: the inverse of ``arm_slots``. A disarmed slot
+    stops sampling at the next fused chunk exactly like a slot whose
+    ``done`` flag fired — budget zeroed so any stale read sees a spent
+    slot. The caller snapshots the remaining budget from its host mirror
+    BEFORE disarming (resume needs it)."""
+    sl = slots.long()
+    # index_fill_: a scalar assigned through a tensor index would be
+    # copied from the host and wait for the stream
+    state["active"].index_fill_(0, sl, False)
+    state["budget"].index_fill_(0, sl, 0)
+    state["eos"].index_fill_(0, sl, -1)
+
+
 def prefill_bucket(length: int, min_bucket: int = 8) -> int:
     """Power-of-two length bucket (>= min_bucket): bounds the number of
     distinct prefill shapes to log2(max prompt length)."""

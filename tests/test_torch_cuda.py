@@ -15,6 +15,7 @@ output, in either input type (both versions compute in float32; under
 the model's decay the state's terms reach ~100 while some outputs cancel
 to ~0.1)."""
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -1341,3 +1342,62 @@ def test_dense_smoke_engine_on_card_matches_cpu(cuda_device, arch):
     assert toks["cpu"] == toks[str(cuda_device)]
     assert counts["paged_decode_attention"] > 0
     assert counts["chunked_prefill_attention"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_kernel_matches_plain(cuda_device, dtype):
+    """``tests/test_kernels.py::test_mla_decode_attention_matches_naive``'s
+    case (B2, H4 over one latent head, W24, kvr 16 + rope 8, nope 12, 17
+    valid keys) through the decode kernel's (24, 16) group-4 instance,
+    against the plain version on the same card tensors: float32 at the
+    reference test's rtol = atol = 1e-4, bf16 under ``TOL``."""
+    B, H, W, kvr, rope, nope = 2, 4, 24, 16, 8, 12
+    rng = np.random.default_rng(165)
+    dev = cuda_device
+    q_lat = _normal(rng, (B, H, kvr), dtype, dev)
+    q_rope = _normal(rng, (B, H, rope), dtype, dev)
+    ckv = _normal(rng, (B, W, kvr), dtype, dev)
+    k_rope = _normal(rng, (B, W, rope), dtype, dev)
+    kp = np.tile(np.where(np.arange(W) < 17, np.arange(W), -1), (B, 1))
+    kpos = torch.from_numpy(kp.astype(np.int32)).to(dev)
+    qpos = torch.full((B,), 16, dtype=torch.int32, device=dev)
+    args = (q_lat, q_rope, ckv, k_rope, qpos, kpos)
+    got = _launched("decode_attention", lambda: ops.mla_decode_attention(
+        *args, qk_dim=nope + rope))
+    assert got.shape == (B, H, kvr) and got.dtype == dtype
+    q = torch.cat([q_lat, q_rope], -1) * (math.sqrt(kvr + rope)
+                                          / math.sqrt(nope + rope))
+    want = ref.decode_attention(q, torch.cat([ckv, k_rope], -1)[:, None],
+                                ckv[:, None], qpos, kpos)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_decode_kernel_refuses_other_head_dim_pairs(cuda_device):
+    """hd_v != hd only where an instance exists: (24, 16) at group 4."""
+    dev = cuda_device
+    qpos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kpos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    for hd, hd_v, Hq in ((24, 16, 2), (32, 16, 4), (24, 8, 4), (24, 24, 4)):
+        q = torch.randn(1, Hq, hd, device=dev)
+        k = torch.randn(1, 1, 8, hd, device=dev)
+        v = torch.randn(1, 1, 8, hd_v, device=dev)
+        with pytest.raises(ValueError, match="head dims"):
+            ops.decode_attention(q, k, v, qpos, kpos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d", [(8, 128), (37, 256), (5, 512)])
+def test_rmsnorm_kernel_reference_sweep(cuda_device, dtype, R, d):
+    """``tests/test_kernels.py::test_rmsnorm_kernel_sweep``'s shapes: x ~
+    N(0, 1), scale ~ 1 + N(0, 0.1), both in the working type, against the
+    plain version (statistics in float32) at the reference's tolerance."""
+    rng = np.random.default_rng(R + d)
+    dev = cuda_device
+    x = _normal(rng, (R, d), dtype, dev)
+    scale = (torch.from_numpy(rng.standard_normal(d, dtype=np.float32))
+             * 0.1 + 1.0).to(dtype).to(dev)
+    got = _launched("rmsnorm", lambda: ops.rmsnorm(x, scale))
+    want = ref.rmsnorm(x, scale, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=SWEEP_TOL[dtype], rtol=SWEEP_TOL[dtype])

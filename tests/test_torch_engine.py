@@ -93,15 +93,17 @@ def test_engine_matches_reference(setup):
 @pytest.mark.parametrize("knob", [
     dict(prefill_chunk=16),                     # chunked without paged
     dict(paged=True, page_size=24),             # max_len 64 % 24 != 0
-    dict(preemption=True),
+    dict(preemption=True),                      # preemption without chunks
     dict(paged=True, prefix_sharing=True),      # sharing without chunks
-    dict(max_queue=4), dict(shards=2),
-    dict(defer_below_priority=1), dict(tenant_quota={"*": (1.0, 0.0)}),
+    dict(max_queue=0), dict(shards=2),
+    dict(defer_below_priority=1), dict(tenant_quota={"*": (0.5, 0.0)}),
 ])
 def test_later_slice_knobs_raise(setup, knob):
-    """Knobs of later slices raise NotImplementedError; a misuse of the
-    paged ladder the port serves raises the reference's ValueError, with
-    the reference's message."""
+    """Knobs of later slices (the fleet's) raise NotImplementedError; a
+    misuse of the paged ladder or the front door the port serves raises
+    the reference's ValueError, with the reference's message (the front
+    door's: preemption without chunked prefill, max_queue < 1, a tenant
+    quota of capacity < 1)."""
     jmodel, jparams, model, params, _, _ = setup
     if set(knob) & {field for field, _, _ in _LATER_SLICES}:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -114,6 +116,22 @@ def test_later_slice_knobs_raise(setup, knob):
         ServingEngine(model, params, EngineConfig(**ECFG, **knob),
                       device="cpu")
     assert str(got.value) == str(want.value)
+
+
+def test_submit_accepts_deadline(setup):
+    """``deadline_s`` is served (the front door): a deadline far longer
+    than the run changes nothing, and both engines take it."""
+    jmodel, jparams, model, params, _, _ = setup
+    got = {}
+    for eng, make in ((JServingEngine(jmodel, jparams, JEngineConfig(**ECFG)),
+                       JRequest),
+                      (ServingEngine(model, params, EngineConfig(**ECFG),
+                                     device="cpu"), Request)):
+        eng.submit(make(rid=0, prompt=[5, 6, 7], max_new_tokens=4,
+                        deadline_s=3600.0))
+        got[make] = [(r.tokens, r.finish_reason) for r in eng.run()]
+        assert eng.stats()["deadline_cancelled"] == 0
+    assert got[Request] == got[JRequest] and got[Request][0][1] == "length"
 
 
 def test_engine_config_fields_match_reference():

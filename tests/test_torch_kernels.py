@@ -114,6 +114,55 @@ def test_decode_plain_matches_jax(impl, group, W, window, chunk):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def _mla_case(rng):
+    """``tests/test_kernels.py::test_mla_decode_attention_matches_naive``'s
+    case: B2, H4 over one latent head, W24, kvr 16 + rope 8, nope 12, 17
+    valid keys; inputs from a numpy seed. Returns (q_nope, q_rope, ckv,
+    k_rope, w_uk, q_pos, k_pos) as numpy."""
+    B, H, W, kvr, rope, nope = 2, 4, 24, 16, 8, 12
+    q_nope = rng.standard_normal((B, H, nope), dtype=np.float32)
+    q_rope = rng.standard_normal((B, H, rope), dtype=np.float32)
+    ckv = rng.standard_normal((B, W, kvr), dtype=np.float32)
+    k_rope = rng.standard_normal((B, W, rope), dtype=np.float32)
+    w_uk = rng.standard_normal((kvr, H, nope), dtype=np.float32) * 0.3
+    n_valid = 17
+    k_pos = np.tile(np.where(np.arange(W) < n_valid, np.arange(W), -1),
+                    (B, 1)).astype(np.int32)
+    q_pos = np.full((B,), n_valid - 1, np.int32)
+    return q_nope, q_rope, ckv, k_rope, w_uk, q_pos, k_pos
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "ref"])
+def test_mla_decode_plain_matches_jax_and_naive(impl):
+    """The port's plain ``ops.mla_decode_attention`` (the CPU path: the
+    plain decode with hd 24, hd_v 16) against the JAX op (Pallas interpret
+    at block_k 8 as the reference test, and its oracle) and against the
+    naive expanded MLA: keys expanded per head through w_uk, softmax over
+    the valid positions at 1/sqrt(nope + rope). float32, rtol = atol = 1e-4
+    (the reference test's)."""
+    q_nope, q_rope, ckv, k_rope, w_uk, q_pos, k_pos = _mla_case(
+        np.random.default_rng(165))
+    nope, rope = q_nope.shape[-1], q_rope.shape[-1]
+    q_lat = np.einsum("bhn,rhn->bhr", q_nope, w_uk)
+    kw = dict(block_k=8) if impl == "pallas_interpret" else {}
+    want = np.asarray(JOPS.mla_decode_attention(
+        jnp.asarray(q_lat), jnp.asarray(q_rope), jnp.asarray(ckv),
+        jnp.asarray(k_rope), jnp.asarray(q_pos), jnp.asarray(k_pos),
+        impl=impl, qk_dim=nope + rope, **kw))
+    got = TOPS.mla_decode_attention(
+        *(torch.from_numpy(x) for x in (q_lat, q_rope, ckv, k_rope, q_pos,
+                                        k_pos)), qk_dim=nope + rope).numpy()
+    assert got.shape == (2, 4, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    k_nope = np.einsum("bwr,rhn->bwhn", ckv, w_uk)
+    s = (np.einsum("bhn,bwhn->bhw", q_nope, k_nope)
+         + np.einsum("bhr,bwr->bhw", q_rope, k_rope)) / math.sqrt(nope + rope)
+    s = np.where((k_pos >= 0)[:, None, :], s, -1e9)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    naive = np.einsum("bhw,bwr->bhr", w / w.sum(-1, keepdims=True), ckv)
+    np.testing.assert_allclose(got, naive, rtol=1e-4, atol=1e-4)
+
+
 def test_fully_masked_rows_are_finite():
     """A pad query (q_pos = -1) masks every key; its row must stay finite."""
     q = torch.randn(1, 2, 5, 16)
@@ -136,6 +185,8 @@ def test_launch_counts_untouched_on_cpu():
     TOPS.paged_decode_attention(q[:, :, 0], pages, pages, tbl, pos[:, 3],
                                 k_pos)
     TOPS.chunked_prefill_attention(q, pages, pages, tbl, pos, k_pos)
+    TOPS.mla_decode_attention(q[:, :, 0], q[:, :, 0, :8], q[:, 0], q[:, 1, :, :8],
+                              pos[:, 3], pos, qk_dim=20)
     x = torch.randn(1, 8, 2, 16)                     # (B, T, H, P)
     TOPS.ssd_scan(x, torch.rand(1, 8, 2), -torch.rand(2), x, x, chunk=4)
     xt = x.transpose(1, 2)                           # (B, H, T, hd) views
@@ -296,15 +347,16 @@ def _split_decode(q, k, v, q_pos, k_pos, window, chunk, C, tile):
     of whole tiles (one per block of a cluster). A span whose positions
     prove every key masked contributes (m, l, o) = (-inf, 0, 0); any other
     scores a valid key q.k/sqrt(hd), a masked one -1e9 and one past the
-    edge -inf, with the masked rows' V zero-filled. The spans merge with
+    edge -inf, with the masked rows' V (of hd_v) zero-filled. The spans
+    merge with
     weights exp(m - M), 0 where m is -inf, and the denominator is clamped
     at 1e-30, so a query with no valid key writes 0."""
     B, Hq, hd = q.shape
-    Hkv, W = k.shape[1], k.shape[2]
+    Hkv, W, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
     n_all = -(-W // tile)
     per = -(-n_all // C)
-    out = torch.zeros(B, Hq, hd)
+    out = torch.zeros(B, Hq, hd_v)
     for b in range(B):
         qp = int(q_pos[b])
         lo = _first_key(qp, window, chunk)
@@ -323,7 +375,7 @@ def _split_decode(q, k, v, q_pos, k_pos, window, chunk, C, tile):
                 if not bool(valid.any()):
                     ms.append(torch.tensor(-math.inf))
                     ls.append(torch.tensor(0.0))
-                    os_.append(torch.zeros(hd))
+                    os_.append(torch.zeros(hd_v))
                     continue
                 rows = idx.clamp(max=W - 1)
                 s = (kk[rows] @ q[b, h]) / math.sqrt(hd)
@@ -466,3 +518,39 @@ def test_split_decode_arithmetic_with_empty_spans(case):
         else:
             assert (got[b] == 0).all()
     assert any(valid) == (case != "all_empty")
+
+
+@pytest.mark.parametrize("C,tile", [(1, 32), (1, 64), (3, 8)])
+def test_split_decode_arithmetic_mla(C, tile):
+    """The core at hd 24, hd_v 16, group 4 (MLA's instances: tiles of 32
+    keys in float32, 64 in bf16, one block for W 24; and a split): q·k over
+    24, p·V over the 16 latent dims, equal to the plain
+    ``ops.mla_decode_attention`` on the reference's MLA case, float32,
+    atol/rtol 1e-5."""
+    q_nope, q_rope, ckv, k_rope, w_uk, q_pos, k_pos = _mla_case(
+        np.random.default_rng(166))
+    nope, rope = q_nope.shape[-1], q_rope.shape[-1]
+    q_lat = torch.from_numpy(np.einsum("bhn,rhn->bhr", q_nope, w_uk))
+    q_rope, ckv, k_rope, qp, kp = (torch.from_numpy(x) for x in
+                                   (q_rope, ckv, k_rope, q_pos, k_pos))
+    q = torch.cat([q_lat, q_rope], -1) * (math.sqrt(24) / math.sqrt(nope + rope))
+    k = torch.cat([ckv, k_rope], -1)[:, None]
+    got = _split_decode(q, k, ckv[:, None], qp, kp, None, None, C, tile)
+    want = TOPS.mla_decode_attention(q_lat, q_rope, ckv, k_rope, qp, kp,
+                                     qk_dim=nope + rope)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("hd,hd_v,Hq", [(24, 16, 2), (32, 16, 4), (24, 8, 4),
+                                        (24, 24, 4)])
+def test_decode_wrapper_refuses_head_dim_pairs_without_instance(hd, hd_v, Hq):
+    """The CUDA wrapper takes hd_v != hd only where an instance exists, (24,
+    16) at group 4, and raises before any build or launch on every other
+    pair (and on hd 24 with hd_v == hd, which no instance has)."""
+    from repro_torch.kernels import decode_attention as DA
+    q = torch.randn(1, Hq, hd)
+    k = torch.randn(1, 1, 8, hd)
+    v = torch.randn(1, 1, 8, hd_v)
+    pos = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dims"):
+        DA.decode_attention(q, k, v, pos[:, 0], pos)

@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
                             [llama3b] [llama3b-paged] [llama7b]
-                            [internlm2] [minicpm] [stablelm]
+                            [internlm2] [minicpm] [stablelm] [fleet]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -21,8 +21,11 @@ requests of the shared-system-prompt trace, 32 new tokens each):
 (``llama3b``) and on the paged main path (``llama3b-paged``), and
 ``llama-paper-7b``, ``internlm2-20b`` (GQA group 3), ``minicpm-2b``
 (padded heads, the identity map) and ``stablelm-12b`` (the parallel block
-with qk-norm, head dim 160) on the paged main path. With no
-argument it profiles the first four. Prints the three timed
+with qk-norm, head dim 160) on the paged main path. The fleet path serves
+``chip_smoke.py``'s fleet trace (48 requests of 32 new tokens in two
+waves, 16 of them deferred) on ``llama-paper-1b`` through
+``ShardedServingEngine``: 4 shards of 8 slots on the card, carbon routing
+over three grid regions. With no argument it profiles the first four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
 warm wall per decode micro-step, the kernel launches per micro-step by
@@ -55,15 +58,25 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
 
-def profile(card, label, model, params, ecfg, requests) -> None:
+def profile(card, label, model, params, ecfg, requests, engine_cls=None,
+            drive=None) -> None:
+    """``engine_cls`` (default ``ServingEngine``) serves ``requests()``;
+    ``drive(engine, reqs)``, if given, submits and runs them (its submits
+    are timed with the run)."""
     from repro_torch.serving import ServingEngine
+    engine_cls = engine_cls or ServingEngine
 
     def serve():
-        engine = ServingEngine(model, params, ecfg)
-        for r in requests():
-            engine.submit(r)
+        engine = engine_cls(model, params, ecfg)
+        reqs = requests()
+        if drive is None:
+            for r in reqs:
+                engine.submit(r)
         t0 = time.perf_counter()
-        engine.run()
+        if drive is None:
+            engine.run()
+        else:
+            drive(engine, reqs)
         torch.cuda.synchronize()
         return engine, time.perf_counter() - t0
 
@@ -73,7 +86,12 @@ def profile(card, label, model, params, ecfg, requests) -> None:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         engine, wall = serve()
-    rows = [e for e in prof.key_averages()
+    # the trace's summary, built once: over a served trace's ~10^6 events
+    # it takes minutes
+    t0 = time.perf_counter()
+    avgs = prof.key_averages()
+    summary_s = time.perf_counter() - t0
+    rows = [e for e in avgs
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not rows:
         raise RuntimeError("the profiler recorded no device events")
@@ -106,7 +124,8 @@ def profile(card, label, model, params, ecfg, requests) -> None:
             torch.cuda.set_sync_debug_mode("default")
     print(f"\n[profile] {label} ({card})")
     print(f"  wall: cold {cold_wall:.3f} s, warm {warm_wall:.3f} s, warm "
-          f"under the profiler {wall:.3f} s")
+          f"under the profiler {wall:.3f} s (its summary took "
+          f"{summary_s:.1f} s)")
     print(f"  device busy {busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.1%}"
           f" of the profiled wall; idle share {1 - busy_us / 1e6 / wall:.1%}")
     print(f"  host waits for the device (sync debug mode) {len(waits)}; "
@@ -117,8 +136,7 @@ def profile(card, label, model, params, ecfg, requests) -> None:
           f"{engine.prefill_chunks}, decode micro-steps {st['steps']}, warm "
           f"wall per micro-step (prefill included) "
           f"{warm_wall / max(st['steps'], 1) * 1e3:.2f} ms")
-    calls = {e.key: e.count for e in prof.key_averages()
-             if e.key in LAUNCH_CALLS}
+    calls = {e.key: e.count for e in avgs if e.key in LAUNCH_CALLS}
     n_launch = sum(calls.values())
     print(f"  kernel launches {n_launch} ({calls}), "
           f"{n_launch / max(st['steps'], 1):.1f} per micro-step (prefill "
@@ -137,7 +155,7 @@ def profile(card, label, model, params, ecfg, requests) -> None:
             print(f"    {t / 1e3:10.2f} ms  x{sum(e.count for e in hits):6d}"
                   f"  {stem}")
     print("  top host ops by CPU time (self):")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host = sorted(avgs, key=lambda e: -e.self_cpu_time_total)
     for e in host[:10]:
         print(f"    {e.self_cpu_time_total / 1e3:10.2f} ms  x{e.count:6d}  "
               f"{e.key[:90]}")
@@ -150,7 +168,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
-    known = ["contiguous", "paged", "zamba2", "rwkv"]
+    known = ["contiguous", "paged", "zamba2", "rwkv", "fleet"]
     # path -> (config, paged main path)
     dense = {"llama3b": ("llama-paper-3b", False),
              "llama3b-paged": ("llama-paper-3b", True),
@@ -158,7 +176,7 @@ def main() -> int:
              "internlm2": ("internlm2-20b", True),
              "minicpm": ("minicpm-2b", True),
              "stablelm": ("stablelm-12b", True)}
-    paths = sys.argv[1:] or known
+    paths = sys.argv[1:] or known[:4]
     unknown = set(paths) - set(known) - set(dense)
     if unknown:
         print(f"chip_profile: unknown paths {sorted(unknown)}", file=sys.stderr)
@@ -173,7 +191,7 @@ def main() -> int:
         gen.manual_seed(0)
         return cfg, model, model.init(gen)
 
-    if {"contiguous", "paged"} & set(paths):
+    if {"contiguous", "paged", "fleet"} & set(paths):
         cfg, model, params = load("llama-paper-1b")
         if "contiguous" in paths:
             profile(card, "contiguous", model, params, EngineConfig(**base),
@@ -184,6 +202,13 @@ def main() -> int:
                                  prefill_chunk=256, prefill_pack=2,
                                  prefix_sharing=True),
                     lambda: chip_smoke.paged_requests(cfg.vocab))
+        if "fleet" in paths:
+            from repro_torch.serving import ShardedServingEngine
+            profile(card, "fleet (4 shards x 8 slots, carbon routing, "
+                    "deferral)", model, params, chip_smoke.fleet_config(),
+                    lambda: chip_smoke.fleet_requests(cfg.vocab),
+                    engine_cls=ShardedServingEngine,
+                    drive=chip_smoke.drive_fleet)
         del model, params
         torch.cuda.empty_cache()
     if "zamba2" in paths:

@@ -14,7 +14,10 @@ Phases (any failure raises and the script exits non-zero):
    paged path's of the dense configurations of phase 4: llama-paper-3b's
    head dim 100, llama-paper-7b's 32 heads of 128, internlm2-20b's GQA
    group 3, minicpm-2b's 48 padded heads of 64 and stablelm-12b's head
-   dim 160 at GQA group 2; the SSD
+   dim 160 at GQA group 2; both paged kernels at the fleet's shapes,
+   4 shards x 8 slots over one pool of 4 x 1,024 pages and its trash page
+   through ``paged.model_table``'s table, idle -1 rows included, also
+   against each shard's own call on its own pool; the SSD
    chunk at Zamba2's full width, WKV6 at RWKV6's prefill and decode
    shapes, RMSNorm in each of its prologues: the row as it is, the
    residual add, Zamba2's concat with and without the add, Mamba2's gate,
@@ -95,7 +98,24 @@ Phases (any failure raises and the script exits non-zero):
    on the paged main path, 16 requests in two waves through the server,
    with the planned shed, rate-limited, deadline and retry counts, a
    preemption, every response terminal, the whole pool back and the
-   chunk, paged-decode and RMSNorm launches asserted;
+   chunk, paged-decode and RMSNorm launches asserted. The fleet
+   (``ShardedServingEngine``: S shards as a leading axis of the device
+   state, one forward over their rows a micro-step and a chunk):
+   llama3.2-1b smoke in float32, 4 shards of 2 slots, sharing,
+   preemption and carbon routing over QC, CISO, PACE, CISO, on the card
+   and on the CPU (agree on tokens, finish reasons, the shard of every
+   request and every stats() key but the wall-clock ones; the card
+   fleet's tokens equal the single paged engine's); then
+   ``phase_fleet``, ``llama-paper-1b`` at full width and depth, 4 shards
+   of 8 slots and 1,024 pages each, carbon routing at the diurnal CI and
+   deferral of class 0: 48 requests of 32 new tokens in two waves, every
+   response terminal, placements on three shards or more (QC's at least
+   PACE's), prefix hits, all 16 deferred released (forced and at the
+   window), ``audit()`` and every free stack whole, 22 / 22 / 45
+   paged-decode, chunk and RMSNorm launches a micro-step, chunk and
+   forward, one fused call a decode chunk and the host's waits for the
+   device under CUDA's sync debug mode equal to the decode chunks and
+   first-token fetches, per-shard gCO2 summing to the fleet's;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -111,6 +131,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -516,13 +537,19 @@ def paged_sdpa(q, kp, vp, tbl, q_pos, k_pos):
 
 
 def paged_case(PD, REF, B, Hq, Hkv, lens, dtype, gen, ps=16, M=128, hd=64):
-    q, kp, vp, tbl, q_pos, k_pos = paged_inputs(B, Hq, Hkv, lens, dtype, gen,
-                                                ps, M, hd)
+    args = paged_inputs(B, Hq, Hkv, lens, dtype, gen, ps, M, hd)
+    return paged_check(PD, REF, f"paged B{B} H{Hq}/{Hkv} M{M} hd{hd} "
+                       f"{dtype}", *args)
+
+
+def paged_check(PD, REF, name, q, kp, vp, tbl, q_pos, k_pos):
+    """One paged decode launch held against the plain version (TOL, and
+    TOL_WIDE for bf16), timed beside its bound and SDPA."""
+    dtype, ps, (B, Hq, hd), Hkv = q.dtype, kp.shape[2], q.shape, kp.shape[0]
     got = PD.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
     want = REF.paged_decode_attention(q, kp, vp, tbl, q_pos, k_pos)
     rows = torch.ones_like(want, dtype=torch.bool)
-    err = check_close(f"paged B{B} H{Hq}/{Hkv} M{M} hd{hd} {dtype}", got, want,
-                      rows, dtype)
+    err = check_close(name, got, want, rows, dtype)
     wide = check_wide(got, REF.paged_decode_attention,
                       (q, kp, vp, tbl, q_pos, k_pos), rows, dtype)
     flops, nbytes = paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd,
@@ -570,12 +597,21 @@ def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128,
     the last min(S, len) are its chunk (the history before them)."""
     B = len(lens)
     args = chunk_inputs(Hq, Hkv, lens, S, dtype, gen, ps, M, hd)
+    return chunk_check(CP, REF, f"chunk B{B} H{Hq}/{Hkv} S{S} hd{hd} "
+                       f"{dtype}", args)
+
+
+def chunk_check(CP, REF, name, args):
+    """One chunked-prefill launch held against the plain version (TOL,
+    and TOL_WIDE for bf16) on its valid query rows, timed beside its bound
+    and SDPA."""
     qt, kp, vp, tbl, q_pos, k_pos = args
+    dtype, ps, Hkv = qt.dtype, kp.shape[2], kp.shape[0]
+    _, Hq, S, hd = qt.shape
     got = CP.chunked_prefill_attention(*args)
     want = REF.chunked_prefill_attention(*args)
     rows = (q_pos >= 0)[:, None, :, None].expand_as(want)
-    err = check_close(f"chunk B{B} H{Hq}/{Hkv} S{S} hd{hd} {dtype}", got,
-                      want, rows, dtype)
+    err = check_close(name, got, want, rows, dtype)
     wide = check_wide(got, REF.chunked_prefill_attention, args, rows, dtype)
     flops, nbytes = paged_traffic(tbl, q_pos, k_pos, ps, Hq, Hkv, hd,
                                   qt.element_size(), S=S)
@@ -586,6 +622,93 @@ def chunk_case(CP, REF, Hq, Hkv, lens, S, dtype, gen, ps=16, M=128,
     eager = time_ms(lambda: CP.chunked_prefill_attention(*args))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
+
+
+def fleet_inputs(Hq, Hkv, fills, dtype, gen, chunk=None, ps=16, M=128,
+                 hd=64):
+    """One launch of a paged kernel on the fleet's path, its operands built
+    as ``ShardedServingEngine`` builds them: S shards of B slots
+    (``fills``: S lists of B token counts, 0 an idle slot), each shard
+    with its own ``FLEET_PAGES`` pages taken from a shuffled permutation,
+    one unmapped (-1) logical page inside its slot 0 and one page mapped by
+    its slots 0 and 1; the allocator's (S, B, M) table of shard-local ids
+    made into the (S*B, M) table of pool page ids by ``paged.model_table``;
+    one (Hkv, S*P + 1, ps, hd) pool. Decode (``chunk`` None): every one of
+    the S*B rows, an idle slot's row all -1 with one valid key, the token
+    its decode step writes into the trash page. Chunked prefill (``chunk``
+    = C): the rows of the slots with tokens, the last min(C, fill) of each
+    its chunk. Returns the kernel's operands and the shard-local table."""
+    from repro_torch.serving import paged as PG
+    dev = "cuda"
+    S, B, P = len(fills), len(fills[0]), FLEET_PAGES
+    local = torch.full((S, B, M), -1, dtype=torch.int32)
+    k_pos = torch.full((S * B, M * ps), -1, dtype=torch.int32)
+    q_pos = torch.full((S * B,) if chunk is None else (S * B, chunk), -1,
+                       dtype=torch.int32)
+    for s, lens in enumerate(fills):
+        perm = torch.randperm(P, generator=torch.Generator().manual_seed(
+            100 + s)).to(torch.int32)
+        pi = 0
+        for b, L in enumerate(lens):
+            r = s * B + b
+            if L == 0:                          # idle: one key, the trash
+                k_pos[r, 0], q_pos[r] = 0, 0
+                continue
+            npg = -(-L // ps)
+            local[s, b, :npg] = perm[pi:pi + npg]
+            pi += npg
+            k_pos[r, :L] = torch.arange(L, dtype=torch.int32)
+            if chunk is None:
+                q_pos[r] = L - 1
+            else:
+                nv = min(chunk, L)
+                q_pos[r, :nv] = torch.arange(L - nv, L, dtype=torch.int32)
+        if lens[0] > 3 * ps:
+            local[s, 0, 1] = -1                 # unmapped page in slot 0
+            k_pos[s * B, ps:2 * ps] = -1
+        if chunk is None and lens[1] > ps:
+            local[s, 1, 0] = local[s, 0, 0]     # one page, two slots
+    alloc = PG.init_allocator(B, M, P, dev, shards=S)
+    alloc["tbl"] = local.to(dev)
+    tbl = PG.model_table(alloc)
+    rows = torch.tensor([s * B + b for s, lens in enumerate(fills)
+                         for b, L in enumerate(lens)
+                         if chunk is None or L > 0], device=dev)
+    kp = torch.randn(Hkv, S * P + 1, ps, hd, generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn(Hkv, S * P + 1, ps, hd, generator=gen,
+                     device=dev).to(dtype)
+    n = rows.numel()
+    if chunk is None:
+        q = torch.randn(n, Hq, hd, generator=gen, device=dev).to(dtype)
+    else:
+        q = torch.randn(n, chunk, Hq, hd, generator=gen,
+                        device=dev).to(dtype).transpose(1, 2)
+    return ((q, kp, vp, tbl[rows].contiguous(), q_pos.to(dev)[rows],
+             k_pos.to(dev)[rows]), local.to(dev), rows)
+
+
+def fleet_per_shard(fn, name, args, local, rows, B):
+    """``fn`` on each shard's own pool (its P pages and the trash page)
+    with its shard-local table, as a single engine of that shard would
+    call it: the fleet launch's rows must agree with these to TOL (a
+    launch over other rows may split its work otherwise)."""
+    q, kp, vp, _, q_pos, k_pos = args
+    S, P = local.shape[0], (kp.shape[1] - 1) // local.shape[0]
+    full = fn(*args)
+    for s in range(S):
+        sel = ((rows >= s * B) & (rows < (s + 1) * B)).nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        own = [torch.cat([x[:, s * P:(s + 1) * P], x[:, -1:]], dim=1)
+               for x in (kp, vp)]
+        got = fn(q[sel], *own, local[s][rows[sel] - s * B], q_pos[sel],
+                 k_pos[sel])
+        valid = q_pos[sel] >= 0                 # chunk: pad queries out
+        valid = (valid[:, None, None] if q_pos.dim() == 1
+                 else valid[:, None, :, None])
+        check_close(f"{name}, shard {s}'s own call", full[sel], got,
+                    valid.expand_as(got), q.dtype)
 
 
 def ssd_inputs(B, H, T, cl, P, N, dtype, gen):
@@ -1125,6 +1248,27 @@ def phase_kernels(card):
              (32, 16, [768, 100], 256, bf, 160))]:
         chunk[label] = chunk_case(CP, REF, *args[:5], gen,
                                   hd=args[5] if len(args) > 5 else 64)
+    # the fleet's launches at phase_fleet's shapes: 4 shards x 8 slots
+    # over one (Hkv, 4*1024 + 1, 16, 64) pool through paged.model_table's
+    # table, idle (-1) rows and packed chunk lanes included, each also
+    # held against every shard's own call on its own pool
+    dfills = torch.randint(16, 2049, (FLEET_S, FLEET_B), generator=torch
+                           .Generator().manual_seed(5))
+    dfills[0, 0], dfills[:, 1] = 2048, dfills[:, 1].clamp(min=64)
+    dfills[:, 6:], dfills[3, 4:] = 0, 0         # idle slots
+    cfills = [[256, 100, 0, 0, 0, 0, 0, 0], [0, 0, 512, 0, 0, 0, 60, 0],
+              [0, 1024, 0, 0, 0, 0, 0, 0], [0, 0, 0, 2048, 0, 0, 0, 160]]
+    name = f"paged fleet S{FLEET_S}xB{FLEET_B} P{FLEET_PAGES} H32/32 bf16"
+    args, local, rows = fleet_inputs(32, 32, dfills.tolist(), bf, gen)
+    fleet_per_shard(PD.paged_decode_attention, name, args, local, rows,
+                    FLEET_B)
+    paged[name] = paged_check(PD, REF, name, *args)
+    name = f"chunk fleet S{FLEET_S} n7 P{FLEET_PAGES} H32/32 S256 bf16"
+    args, local, rows = fleet_inputs(32, 32, cfills, bf, gen, chunk=256)
+    fleet_per_shard(CP.chunked_prefill_attention, name, args, local, rows,
+                    FLEET_B)
+    chunk[name] = chunk_check(CP, REF, name, args)
+    del args, local
     from repro_torch.kernels import ssd as SSD
     ssd = {}
     for label, args in [
@@ -1311,6 +1455,7 @@ def smoke_agreement():
                                  f"{toks['cpu']} cuda {toks['cuda']}")
         print(f"[smoke] {arch} smoke f32, {name}: cuda tokens == cpu tokens")
     smoke_frontdoor()
+    smoke_fleet()
 
 
 # the front door's traffic: wave A (class 0) arrives at once, wave B (class
@@ -1652,6 +1797,7 @@ def phase_engine(card):
     paged_checks("paged run", cfg, engine, st, pcounts)
     del engine
     phase_frontdoor(card, model, params)
+    phase_fleet(card, model, params)
     return {"flash_attention": counts["flash_attention"],
             "decode_attention": counts["decode_attention"],
             "paged_decode_attention": pcounts["paged_decode_attention"],
@@ -1773,6 +1919,274 @@ def phase_frontdoor(card, model, params):
           f"{same} of {len(served)} served ({n_pre} of them preempted; "
           f"reported, not asserted: bf16 rounding may differ with batch "
           f"composition)")
+    return counts
+
+
+# the fleet: S shards of B slots on the one card, carbon routing across the
+# paper's three grid regions (QC 31, CISO 262, PACE 647 gCO2/kWh)
+FLEET_REGIONS = ("QC", "CISO", "PACE", "CISO")
+FLEET_S, FLEET_B, FLEET_PAGES = 4, 8, 1024   # shards, slots, pages a shard
+FLEET_NEW = 32                               # new tokens a request
+# deferred (class 0) requests: forced out of the deferral queue once
+# FLEET_FRAC of their deadline has passed on the wall clock — 0.5 s for
+# the short deadline, while the urgent work runs; the long deadline's are
+# released when the virtual clock reaches the greenest window
+FLEET_FRAC, FLEET_SHORT, FLEET_LONG = 0.01, 50.0, 1e5
+# the first wave (class 1 rids 0 and 1, and the deferred class 0) is served
+# for FLEET_WAVE quanta, so that rid 0 has registered the system prompt's
+# pages, before the other 30 class-1 requests arrive and adopt them
+FLEET_WAVE = 4
+
+
+def smoke_fleet():
+    """The fleet on llama3.2-1b smoke in float32, on the card and on the
+    CPU from the same weights: 4 shards of 2 slots, the paged main path
+    with prefix sharing and preemption, carbon routing over
+    ``FLEET_REGIONS``. Ten class-0 requests (every other one opening with
+    a 32-token system prompt) fill the fleet; four class-1 requests arrive
+    after six quanta and preempt. The card and the CPU agree on tokens,
+    finish reasons, the shard of every request and every stats() key
+    that is not a wall-clock reading; the card fleet's tokens equal the
+    single paged engine's on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import (EngineConfig, Request, ServingEngine,
+                                     ShardedServingEngine)
+    cfg = get_config("llama3.2-1b", "smoke")
+    rng = np.random.default_rng(13)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    low = [dict(rid=i, prompt=(system if i % 2 == 0 else [])
+                + rng.integers(2, cfg.vocab, int(n)).tolist(),
+                max_new_tokens=40)
+           for i, n in enumerate([9, 20, 3, 14, 25, 6, 11, 17, 5, 12])]
+    high = [dict(rid=10 + i, prompt=rng.integers(2, cfg.vocab,
+                                                 int(n)).tolist(),
+                 max_new_tokens=12, priority=1)
+            for i, n in enumerate([7, 30, 9, 4])]
+    ecfg = EngineConfig(max_batch=2, max_len=128, paged=True, page_size=16,
+                        prefill_chunk=16, prefill_pack=2, prefix_sharing=True,
+                        preemption=True, shards=FLEET_S, routing="carbon",
+                        shard_regions=FLEET_REGIONS)
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        eng = ShardedServingEngine(Model(cfg, dev), _to(cpu_params, dev),
+                                   ecfg, device=dev)
+        for r in low:
+            eng.submit(Request(**r))
+        for _ in range(6):
+            eng.step()
+        for r in high:
+            eng.submit(Request(**r))
+        eng.run()
+        eng.audit()
+        got[dev] = ({rid: (r.tokens, r.finish_reason)
+                     for rid, r in eng.responses.items()},
+                    dict(eng._req_shard),
+                    {k: v for k, v in eng.stats().items()
+                     if not k.startswith("queue_wait_")})
+    if got["cpu"] != got["cuda"]:
+        raise AssertionError(f"smoke fleet differs: cpu {got['cpu']} cuda "
+                             f"{got['cuda']}")
+    toks, shards, st = got["cuda"]
+    if st["preemption_count"] < 1 or len(set(shards.values())) < 3:
+        raise AssertionError(f"smoke fleet: preemptions "
+                             f"{st['preemption_count']}, shards {shards}")
+    single = ServingEngine(Model(cfg, "cuda"), _to(cpu_params, "cuda"),
+                           EngineConfig(max_batch=16, max_len=128,
+                                        paged=True, page_size=16,
+                                        prefill_chunk=16), device="cuda")
+    for r in low + high:
+        single.submit(Request(**r))
+    for r in single.run():
+        if toks[r.rid][0] != r.tokens:
+            raise AssertionError(f"smoke fleet: request {r.rid} differs "
+                                 "from the single paged engine")
+    print(f"[smoke] llama3.2-1b smoke f32, fleet of {FLEET_S} shards x 2 "
+          f"over {FLEET_REGIONS}, carbon routing, sharing + preemption: "
+          f"cuda == cpu on tokens, finish reasons, shards {shards} and "
+          f"stats ({st['preemption_count']} preemptions); cuda tokens == "
+          f"the single paged engine's")
+
+
+def fleet_requests(vocab):
+    """48 requests of ``FLEET_NEW`` new tokens: 32 of class 1, 16 of them
+    opening with one 512-token system prompt (16-256-token suffixes), 16
+    Alpaca-like prompts of 16-1024 tokens; then 16 of class 0, deferred:
+    8 with ``FLEET_SHORT`` deadlines (forced out of the deferral queue),
+    then 8 with ``FLEET_LONG`` ones (released at the greenest window)."""
+    from repro_torch.serving import Request
+    from repro_torch.training.data import alpaca_like_prompts
+    rng = np.random.default_rng(11)
+    system = rng.integers(2, vocab, SYSTEM_PROMPT).tolist()
+    shared = [system + rng.integers(2, vocab, int(n)).tolist()
+              for n in rng.integers(16, 257, 16)]
+    other = [np.resize(p, max(len(p), 16)).tolist()
+             for p in alpaca_like_prompts(seed=2, n=32, vocab=vocab,
+                                          max_len=1024)]
+    urgent = [p for pair in zip(shared, other[:16]) for p in pair]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=FLEET_NEW, priority=1)
+            for i, p in enumerate(urgent)]
+    reqs += [Request(rid=32 + i, prompt=p, max_new_tokens=FLEET_NEW,
+                     priority=0,
+                     deadline_s=FLEET_SHORT if i < 8 else FLEET_LONG)
+             for i, p in enumerate(other[16:])]
+    return reqs
+
+
+def drive_fleet(engine, reqs):
+    """Serve ``fleet_requests`` on ``engine`` in its two waves (rids 0 and
+    1 and the deferred class first, the rest after ``FLEET_WAVE``
+    quanta); returns the responses."""
+    first = [r for r in reqs if r.rid < 2 or r.priority == 0]
+    for r in first:
+        engine.submit(r)
+    for _ in range(FLEET_WAVE):
+        engine.step()
+    for r in reqs:
+        if r.rid >= 2 and r.priority > 0:
+            engine.submit(r)
+    return engine.run()
+
+
+def fleet_config():
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(max_batch=FLEET_B, max_len=2048, paged=True,
+                        page_size=16, num_pages=FLEET_PAGES,
+                        prefill_chunk=256, prefill_pack=2,
+                        prefix_sharing=True, preemption=True,
+                        profile="h100_sxm", shards=FLEET_S,
+                        shard_regions=FLEET_REGIONS, routing="carbon",
+                        use_diurnal_ci=True, defer_below_priority=1,
+                        defer_deadline_frac=FLEET_FRAC)
+
+
+def phase_fleet(card, model, params):
+    """The fleet at full width and depth: ``llama-paper-1b`` in bf16, 4
+    shards of 8 slots (32 on the card) and 1,024 pages of 16 tokens each,
+    the paged main path with chunked prefill (256, pack 2), prefix
+    sharing and preemption, carbon routing over ``FLEET_REGIONS`` at the
+    diurnal CI, and deferral of class 0 (``fleet_requests``, in two waves:
+    ``FLEET_WAVE``). Asserts every response terminal, prefix hits,
+    placements on three shards or more with QC's at least PACE's, 16
+    deferred and all released (forced and at the window both), ``audit()``
+    and every shard's whole free stack, the paged-decode, chunk and
+    RMSNorm launches per micro-step and per chunk equal to one forward's
+    (22, 22, 45), one fused decode call per decode chunk, the host's waits
+    for the device (counted under CUDA's sync debug mode) one per decode
+    chunk and one per first-token fetch for the whole fleet, and per-shard
+    gCO2 summing to the fleet's total."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ShardedServingEngine
+    from repro_torch.serving import sharded as sharded_mod
+    cfg = model.cfg
+    L, norms = cfg.n_layers, dense_norms(cfg)
+    reqs = fleet_requests(cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ShardedServingEngine(model, params, fleet_config())
+    fused = sharded_mod.sampling.fused_decode_steps
+    n_fused = [0]
+
+    def counted(*a, **k):
+        n_fused[0] += 1
+        return fused(*a, **k)
+
+    # every point where the host waits for the device warns once under
+    # CUDA's sync debug mode: the run's real host syncs, counted
+    waits = [0]
+
+    def record(message, *_):
+        if "called a synchronizing CUDA operation" in str(message):
+            waits[0] += 1
+
+    sharded_mod.sampling.fused_decode_steps = counted
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            resp = drive_fleet(engine, reqs)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            sharded_mod.sampling.fused_decode_steps = fused
+    st = engine.stats()
+    engine.audit()
+    S = engine.S
+    gen_tokens = sum(r.n_tokens for r in resp)
+    placed = [st[f"shard{s}_requests"] for s in range(S)]
+    grams = [st[f"shard{s}_carbon_g"] for s in range(S)]
+    print(f"\n[fleet] llama-paper-1b full width bf16, {L} layers, {S} "
+          f"shards x {engine.B} slots over {FLEET_REGIONS}, carbon routing "
+          f"(diurnal CI), paged main path + sharing + preemption + "
+          f"deferral: {len(reqs)} requests, {gen_tokens} generated ({card})")
+    print(f"  wall {wall:.3f} s, {gen_tokens / wall:.1f} generated tokens/s, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    print(f"  placements per shard {placed}; modeled gCO2 per shard "
+          f"{[f'{g:.6e}' for g in grams]}, fleet {st['total_carbon_g']:.6e}"
+          f" (h100_sxm profile) ({card})")
+    print(f"  deferred {st['deferred_requests']}, released "
+          f"{st['deferred_released']} ({st['deferred_forced_releases']} "
+          f"forced), virtual clock {engine.clock.hours:.3f} h; preemptions "
+          f"{st['preemption_count']}, prefix hit tokens "
+          f"{st['prefix_hit_tokens']}")
+    print(f"  prefill chunks {st['prefill_chunks']}, decode chunks "
+          f"{st['decode_chunks']} ({n_fused[0]} fused calls), micro-steps "
+          f"with work {st['steps']}, host syncs {st['host_syncs']} "
+          f"({waits[0]} host waits for the device under the sync debug "
+          f"mode); launches: {counts}")
+    qc = sum(placed[s] for s in range(S) if FLEET_REGIONS[s] == "QC")
+    pace = sum(placed[s] for s in range(S) if FLEET_REGIONS[s] == "PACE")
+    alloc = {k: v.cpu() for k, v in engine.caches["paged"].items()}
+    window = st["deferred_released"] - st["deferred_forced_releases"]
+    checks = [
+        (all(r.finished and r.finish_reason == "length"
+             and r.n_tokens == FLEET_NEW for r in resp),
+         "a response not finished by length at its full budget"),
+        (all(0 <= t < cfg.vocab for r in resp for t in r.tokens),
+         "token out of vocab"),
+        (st["prefix_hit_tokens"] > 0, "no prefix hit"),
+        (sum(1 for n in placed if n) >= 3 and qc >= pace,
+         f"placements {placed}: fewer than three shards or QC < PACE"),
+        (st["deferred_requests"] == 16 and st["deferred_released"] == 16
+         and st["deferred_forced_releases"] > 0 and window > 0,
+         f"deferral: {st['deferred_requests']} deferred, "
+         f"{st['deferred_released']} released, "
+         f"{st['deferred_forced_releases']} forced"),
+        (bool((alloc["top"] == engine.num_pages).all())
+         and bool((alloc["tbl"] == -1).all())
+         and bool((alloc["ref"] == 0).all())
+         and engine.free_pages == [engine.num_pages] * S
+         and not engine._pins, "a shard's free stack is not whole"),
+        (counts["paged_decode_attention"] == L * st["steps"] > 0,
+         f"paged decode launches {counts['paged_decode_attention']} != "
+         f"{L} x {st['steps']} micro-steps"),
+        (counts["chunked_prefill_attention"] == L * st["prefill_chunks"] > 0,
+         f"chunked prefill launches {counts['chunked_prefill_attention']} "
+         f"!= {L} x {st['prefill_chunks']} chunks"),
+        (counts["rmsnorm"] == norms * (st["prefill_chunks"] + st["steps"]),
+         f"rmsnorm launches {counts['rmsnorm']} != {norms} x "
+         f"({st['prefill_chunks']} + {st['steps']})"),
+        (counts["decode_attention"] == counts["flash_attention"] == 0,
+         f"contiguous kernels ran on the fleet: {counts}"),
+        (n_fused[0] == st["decode_chunks"]
+         and waits[0] == st["decode_chunks"] + st["prefill_batches"],
+         f"{n_fused[0]} fused calls, {waits[0]} host waits for "
+         f"{st['decode_chunks']} decode chunks + {st['prefill_batches']} "
+         "first-token fetches"),
+        (math.isclose(sum(grams), st["total_carbon_g"], rel_tol=1e-12),
+         f"per-shard gCO2 {grams} do not sum to {st['total_carbon_g']}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"fleet run: {what}")
     return counts
 
 

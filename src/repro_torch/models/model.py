@@ -174,7 +174,10 @@ class Model:
         page_tbl = None
         if mode in ("decode", "chunk") and caches is not None \
                 and "paged" in caches:
-            page_tbl = caches["paged"]["tbl"]
+            # (rows, M); an allocator's own table, (1, B, M) for a single
+            # engine, reads as its (B, M) one (a fleet hands the model
+            # ``serving.paged.model_table``'s pool page ids)
+            page_tbl = caches["paged"]["tbl"].flatten(0, -2)
 
         x = L.embed(params["embed"], cfg, tokens)
         emb_orig = x if "shared" in self.kinds else None

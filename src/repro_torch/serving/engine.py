@@ -61,7 +61,13 @@ and fault recovery at the three launch sites (``page_alloc``,
 ``prefill_chunk``, ``decode_scan``; ``serving/faults.py``): an injected
 fault fires before the site touches any device tensor, so the launch
 never happened, and the site retries after 2**fails quanta, raising
-``FaultError`` past ``max_retries`` consecutive failures.
+``FaultError`` past ``max_retries`` consecutive failures; and temporal
+deferral (``defer_below_priority``): batch-class requests wait, owning
+nothing, for the CI forecaster's greenest window on the meter's virtual
+clock, or until deadline pressure forces their release.
+
+The data-parallel fleet (``serving/sharded.py``) borrows this engine's
+host-side policy and its chunk launch; ``shards`` is ignored here.
 """
 from __future__ import annotations
 
@@ -75,7 +81,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.energy import decode_counts, prefill_counts, step_energy
+from repro_torch.core.forecast import CIForecaster
 from repro_torch.core.hardware import HardwareProfile, get_profile
+from repro_torch.core.intensity import Region, ci_trace
 from repro_torch.core.meter import CarbonMeter
 from repro_torch.device import resolve_device
 from repro_torch.models.costing import workload_of
@@ -146,11 +154,13 @@ class EngineConfig:
     with the same fields and defaults, so a config written for one engine
     means the same to the other. The port serves the contiguous default
     path, the paged ladder (``paged``, ``prefill_chunk`` with
-    ``prefill_pack``, ``prefix_sharing``) and the front door (``max_queue``,
+    ``prefill_pack``, ``prefix_sharing``), the front door (``max_queue``,
     ``shed_policy``, ``pressure_clamp``, ``preemption``, ``max_retries``,
-    ``tenant_quota``). The fleet's knobs (``shards`` > 1, deferral) raise
-    NotImplementedError when set away from their defaults; see
-    ``_LATER_SLICES``.
+    ``tenant_quota``) and temporal deferral (``defer_below_priority``,
+    ``defer_horizon_h``, ``defer_deadline_frac``). The fleet's knobs
+    (``shards``, ``shard_profiles``, ``shard_regions``, ``routing``) are
+    read by ``ShardedServingEngine``; this single-device engine ignores
+    ``shards``, as the reference's does.
     """
     max_batch: int = 8                 # decode slot count
     max_len: int = 512                 # cache allocation per slot
@@ -187,8 +197,9 @@ class EngineConfig:
     # never any request's chunk boundaries, so greedy parity and the
     # per-request metering are exactly invariant to this knob.
     prefill_pack: int = 1
-    # mesh-sharded serving (ShardedServingEngine): data-parallel shard
-    # count. The base ServingEngine is single-device and ignores it.
+    # fleet serving (ShardedServingEngine): the shard count, S shards of
+    # max_batch slots and num_pages pages each on one device. The base
+    # ServingEngine ignores it.
     shards: int = 1
     # ---- front-door robustness (async server, PR 6) ----
     # bounded admission queue: a submission arriving with the queue at
@@ -271,29 +282,12 @@ class EngineConfig:
     tenant_quota: Optional[Dict[str, Tuple[float, float]]] = None
 
 
-# Knobs of later slices of the port: (field, default, ROADMAP Queue 1 item).
-# Any of them set away from its default raises NotImplementedError.
-_LATER_SLICES = (
-    ("shards", 1, "Fleet"),
-    ("defer_below_priority", None, "Fleet"),
-)
-
-
-def _check_slice(cfg: EngineConfig) -> None:
-    for field, default, item in _LATER_SLICES:
-        if getattr(cfg, field) != default:
-            raise NotImplementedError(
-                f"EngineConfig.{field}={getattr(cfg, field)!r} is not ported "
-                f"yet (ROADMAP Queue 1, {item})")
-
-
 class ServingEngine:
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  device: Union[str, torch.device] = "cuda"):
         dev = resolve_device(device)
         if dev != model.device:
             raise ValueError(f"engine device {dev} but model on {model.device}")
-        _check_slice(cfg)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -379,6 +373,16 @@ class ServingEngine:
                     raise ValueError(
                         f"tenant_quota[{name!r}]: capacity must be >= 1 "
                         "and refill_per_s >= 0")
+        # temporal deferral: held requests own NOTHING (no slot, no pages,
+        # no queue position) until the CI forecaster's greenest window
+        # opens at the virtual clock, or deadline pressure forces release
+        self.deferred: deque = deque()
+        self.deferred_rids: set = set()
+        self._defer_release_h: Dict[int, float] = {}
+        self._forecasters: Dict[str, CIForecaster] = {}
+        self.deferred_total = 0
+        self.deferred_released = 0
+        self.deferred_forced = 0
 
         self.paged = cfg.paged
         if cfg.paged:
@@ -506,6 +510,12 @@ class ServingEngine:
             resp.finish_reason = "rate_limited"
             self.rate_limited += 1
             return
+        dbp = self.cfg.defer_below_priority
+        if dbp is not None and req.priority < dbp:
+            # batch-class work waits for the low-CI window; held requests
+            # own nothing, so they bypass the bounded admission queue
+            self._defer(req)
+            return
         mq = self.cfg.max_queue
         if mq is not None and len(self.queue) >= mq:
             victim = self._pick_shed_victim(req)
@@ -625,6 +635,99 @@ class ServingEngine:
         wait = req.t_admit - req.t_submit
         self.responses[req.rid].queue_wait_s = wait
         self._wait_samples.setdefault(req.priority, []).append(wait)
+
+    # ---------------------------------------------------- temporal deferral
+    # Batch-class requests wait for the grid's greenest window (paper §4's
+    # temporal lever): the CI forecaster picks the lowest-mean-CI window in
+    # the look-ahead horizon at submit time, the request is parked owning
+    # nothing, and it re-enters the FCFS queue when the engine's virtual
+    # clock reaches that window — or earlier, when defer_deadline_frac of
+    # its deadline budget has elapsed (the rest is reserved for service).
+
+    def _clock_hours(self) -> float:
+        """Virtual time in hours — the deferral time base."""
+        return self.meter.clock_hours
+
+    def _advance_clock_to(self, hours: float) -> None:
+        self.meter.clock_hours = max(self.meter.clock_hours, hours)
+
+    def _defer_regions(self) -> List[Region]:
+        return [self.meter.region]
+
+    def _forecaster(self, region: Region) -> CIForecaster:
+        fc = self._forecasters.get(region.name)
+        if fc is None:
+            # fit on two synthetic days of the region's diurnal trace —
+            # the stand-in for yesterday's telemetry feed
+            hours = np.arange(0.0, 48.0)
+            fc = CIForecaster().fit(hours, ci_trace(region, hours))
+            self._forecasters[region.name] = fc
+        return fc
+
+    def _defer(self, req: Request) -> None:
+        """Park ``req`` until the greenest forecast window across the
+        engine's regions opens (fixed at submit — a day-ahead commitment,
+        so release order within a class stays FCFS)."""
+        now_h = self._clock_hours()
+        best = now_h
+        best_ci = None
+        for region in self._defer_regions():
+            start, mean_ci = self._forecaster(region).greenest_window(
+                now_h, horizon_h=self.cfg.defer_horizon_h)
+            if best_ci is None or mean_ci < best_ci:
+                best, best_ci = start, mean_ci
+        self._defer_release_h[req.rid] = best
+        self.deferred.append(req)
+        self.deferred_rids.add(req.rid)
+        self.deferred_total += 1
+
+    def _release_deferred(self) -> int:
+        """Move due (window open) or forced (deadline pressure) requests
+        from the deferral queue into the admission queue. Releases are
+        prefix-closed per priority class: if request i of a class is
+        released, everything of that class ahead of it is too — deferral
+        can never reorder same-class FCFS."""
+        if not self.deferred:
+            return 0
+        now_h = self._clock_hours()
+        now_s = time.perf_counter()
+        frac = self.cfg.defer_deadline_frac
+        last_eligible: Dict[int, int] = {}
+        forced_rids: set = set()
+        for i, req in enumerate(self.deferred):
+            due = now_h >= self._defer_release_h[req.rid]
+            forced = (req.deadline_s is not None
+                      and now_s - req.t_submit >= frac * req.deadline_s)
+            if due or forced:
+                last_eligible[req.priority] = i
+                if forced and not due:
+                    forced_rids.add(req.rid)
+        if not last_eligible:
+            return 0
+        kept: deque = deque()
+        released = 0
+        for i, req in enumerate(self.deferred):
+            if i <= last_eligible.get(req.priority, -1):
+                self.deferred_rids.discard(req.rid)
+                self._defer_release_h.pop(req.rid, None)
+                self.deferred_released += 1
+                if req.rid in forced_rids:
+                    self.deferred_forced += 1
+                self._enqueue(req)
+                released += 1
+            else:
+                kept.append(req)
+        self.deferred = kept
+        return released
+
+    def _fast_forward_deferred(self) -> None:
+        """Nothing runnable remains but deferred work is parked: move the
+        virtual clock forward to the earliest release window and release.
+        (The modeled clock only advances with work, so an otherwise idle
+        engine jumps to the window instead of busy-waiting toward it.)"""
+        h = min(self._defer_release_h[r.rid] for r in self.deferred)
+        self._advance_clock_to(h)
+        self._release_deferred()
 
     def _tensor(self, values) -> torch.Tensor:
         """An int32 tensor on the engine's device. On the card the values
@@ -1113,31 +1216,38 @@ class ServingEngine:
 
     # ------------------------------------------------------ chunked prefill
     def _chunk_launch(self, tokens: np.ndarray, mask: np.ndarray,
-                      slots: torch.Tensor):
+                      lanes: np.ndarray, pos0: np.ndarray, n_tok: np.ndarray,
+                      rows: np.ndarray):
         """One chunked-prefill launch on the device: allocate the chunk's
         pages, copy-on-write any shared page it writes (with sharing), run
         the chunk through the model against a gathered slot view (its KV
         goes into the pool, its queries see each slot's whole logical
         history), and sample a candidate next token (meaningful after the
-        LAST chunk only). Returns (tokens (n,), block-table rows (n, M)) on
-        the device; nothing here syncs with the host."""
+        LAST chunk only). ``lanes``, ``pos0`` and ``n_tok`` are the
+        allocator's lanes — the slots, each one's first chunk token (its
+        write cursor) and token count: (n,) here, (S, n) on the fleet,
+        where a shard's idle lane is the sentinel slot B with 0 tokens;
+        ``rows`` are the per-slot tree rows of ``tokens``' rows. Returns
+        (tokens (n,), shard-local block-table rows (n, M)) on the device;
+        nothing here syncs with the host."""
         ps = self.cfg.page_size
         tok, msk = self._tensor(tokens), self._tensor(mask)
-        nv = msk.sum(dim=1).to(torch.int32)              # (n,) valid tokens
-        t0 = self.caches["t"][slots.long()]
-        start_pg = torch.div(t0 + ps - 1, ps, rounding_mode="floor")
-        end_pg = torch.div(t0 + nv + ps - 1, ps, rounding_mode="floor")
         self.caches["paged"] = PG.alloc_chunk_pages(
-            self.caches["paged"], slots, start_pg, end_pg)
+            self.caches["paged"], self._tensor(lanes),
+            self._tensor(-(-pos0 // ps)),
+            self._tensor(-(-(pos0 + n_tok) // ps)))
         if self.sharing:
-            PG.cow_chunk_pages(self.caches, slots, t0, nv, ps,
+            PG.cow_chunk_pages(self.caches, self._tensor(lanes),
+                               self._tensor(pos0), self._tensor(n_tok), ps,
                                span=tokens.shape[1] // ps + 1)
-        view = PG.gather_slot_view(self.caches, slots)
+        rows_t = self._tensor(rows)
+        view = PG.gather_slot_view(self.caches, rows_t)
         last, view = self.model.prefill_chunk(self.params, view, tok, msk)
-        PG.scatter_slot_view(self.caches, view, slots)
+        PG.scatter_slot_view(self.caches, view, rows_t)
         first = sampling.sample(last[:, :self.model.cfg.vocab], self._gen,
                                 self.cfg.temperature)
-        return first, self.caches["paged"]["tbl"][slots.long()]
+        tbl = self.caches["paged"]["tbl"]
+        return first, tbl.reshape(-1, tbl.shape[-1])[rows_t.long()]
 
     def _prefill_quantum(self) -> int:
         """Run AT MOST ONE prefill launch — the prefill half of a
@@ -1165,8 +1275,11 @@ class ServingEngine:
         for i, (_, _, _, piece) in enumerate(packed):
             tokens[i, :len(piece)] = piece
             mask[i, :len(piece)] = 1
+        slots = np.array([slot for _, slot, _, _ in packed], np.int32)
         first, tbl_rows = self._chunk_launch(
-            tokens, mask, self._tensor([slot for _, slot, _, _ in packed]))
+            tokens, mask, slots,
+            np.array([pos0 for _, _, pos0, _ in packed], np.int32),
+            mask.sum(axis=1, dtype=np.int32), slots)
         self.prefill_chunks += 1
         finished: List[int] = []
         for i, (req, slot, pos0, piece) in enumerate(packed):
@@ -1323,18 +1436,19 @@ class ServingEngine:
         return True
 
     def step(self, max_steps: int = 10_000) -> bool:
-        """Run ONE scheduling quantum: deadline sweep (when any request
-        declared one), admission, at most one prefill chunk (chunked
-        mode), one fused decode chunk. Returns whether anything
-        progressed. The async server drives this directly, interleaving
+        """Run ONE scheduling quantum: deferral release, deadline sweep
+        (when any request declared one), admission, at most one prefill
+        chunk (chunked mode), one fused decode chunk. Returns whether
+        anything progressed. The async server drives this directly, interleaving
         submissions and streaming tokens between quanta."""
         self._quantum += 1
+        released = self._release_deferred() if self.deferred else 0
         if self._has_deadlines:
             self._sweep_deadlines()
         admitted = self._admit()
         chunks = self._prefill_quantum() if self.chunked else 0
         decoded = self._decode_chunk(max_steps) if self.decoding else False
-        return bool(admitted or chunks or decoded)
+        return bool(released or admitted or chunks or decoded)
 
     def _resolve_stall(self) -> None:
         """The quantum made no progress, nothing is armed, no fault site is
@@ -1361,13 +1475,17 @@ class ServingEngine:
         mark by finishing them). A fault site past ``max_retries`` raises
         ``FaultError`` with every reservation returned."""
         self._run_q0 = self._quantum
-        while (self.queue or self.active) and self._steps < max_steps:
+        while ((self.queue or self.active or self.deferred)
+               and self._steps < max_steps):
             if self.step(max_steps):
                 continue
             if self.decoding or self._faults_pending():
                 continue               # armed slots or a site in backoff
             if self.queue:
                 self._resolve_stall()
+            elif self.deferred:
+                # only parked work remains: move to the greenest window
+                self._fast_forward_deferred()
         if self._steps >= max_steps:
             for r in self.responses.values():
                 if not r.finished:
@@ -1386,9 +1504,7 @@ class ServingEngine:
         return self.decode_chunks + self.prefill_batches
 
     def stats(self) -> Dict[str, float]:
-        """The reference engine's ``stats()`` keys. The deferral counters
-        (a later slice) are kept at 0 so the two engines' stats compare
-        key for key."""
+        """The reference engine's ``stats()`` keys."""
         t = self.meter.totals
         pf = self.meter.phase("prefill")
         dc = self.meter.phase("decode")
@@ -1434,10 +1550,10 @@ class ServingEngine:
             })
         out.update({
             "queue_depth": len(self.queue),
-            "deferred_depth": 0,
-            "deferred_requests": 0,
-            "deferred_released": 0,
-            "deferred_forced_releases": 0,
+            "deferred_depth": len(self.deferred),
+            "deferred_requests": self.deferred_total,
+            "deferred_released": self.deferred_released,
+            "deferred_forced_releases": self.deferred_forced,
             "shed_count": self.shed_count,
             "preemption_count": self.preemption_count,
             "deadline_cancelled": self.deadline_cancelled,

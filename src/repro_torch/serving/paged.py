@@ -6,26 +6,32 @@ allocator, layout, insertion and prefix-sharing parts of
 Layout (per layer; head-major so appends and gathers are flat row
 indexing, and one (page, head) pair is one kernel read)::
 
-    k_pages / v_pages : (Hkv, num_pages + 1, page_size, hd)
-    pos_ids           : (B, W) int32  — LOGICAL positions, -1 = empty
-    length            : (B,)  int32
+    k_pages / v_pages : (Hkv, S * num_pages + 1, page_size, hd)
+    pos_ids           : (S*B, W) int32  — LOGICAL positions, -1 = empty
+    length            : (S*B,)  int32
 
 (a recurrent layer keeps its fixed-size, slot-addressed state instead),
 plus ONE shared allocator at ``caches["paged"]`` (every layer of a slot
 has identical occupancy, so one block table serves all layers)::
 
-    tbl  : (B, max_pages) int32 physical page per logical page, -1 = none
-    free : (num_pages,)   int32 stack; free[:top] are free page ids
-    top  : ()             int32 free-page count
-    ref  : (num_pages,)   int32 per-page reference count
+    tbl  : (S, B, max_pages) int32 physical page per logical page, -1 = none
+    free : (S, num_pages)    int32 stacks; free[s, :top[s]] are free ids
+    top  : (S,)              int32 free-page counts
+    ref  : (S, num_pages)    int32 per-page reference counts
 
-Page ``num_pages`` is the TRASH page: writes of slots with no page mapped
-land there and gathers of unmapped logical pages read from there, always
-masked because the logical ``pos_ids`` entry is -1.
+S is the number of shards: a single engine's is 1; the fleet
+(``serving/sharded.py``) serves S shards of B slots on one device, its
+per-slot rows flat, shard s at rows [s*B, (s+1)*B). Each shard's page ids
+are its own, 0..P-1 (P = ``num_pages``); shard s's page p is pool page
+s*P + p, and ``model_table`` gives the model one (S*B, M) table of pool
+page ids. The pool's last page, S*P, is the TRASH page: writes of slots
+with no page mapped land there and gathers of unmapped logical pages read
+from there, always masked because the logical ``pos_ids`` entry is -1.
 
-Allocator invariants, as in the reference: ``ref[p]`` equals the number
-of block-table entries mapping ``p``; ``top`` + #uniquely-mapped pages ==
-``num_pages``; a page returns to the stack exactly at decref-to-zero.
+Allocator invariants, as in the reference, per shard: ``ref[s, p]``
+equals the number of the shard's block-table entries mapping ``p``;
+``top[s]`` + #uniquely-mapped pages == ``num_pages``; a page returns to
+its shard's stack exactly at decref-to-zero.
 
 Every allocator function is a pure function of fixed-shape device tensors
 and returns a new allocator dict, like the reference; none syncs with the
@@ -43,7 +49,7 @@ allocator dict at ``caches["paged"]`` is replaced by a new one.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -58,67 +64,117 @@ def _drop_set(dst: torch.Tensor, idx: torch.Tensor, val,
     """``dst[idx] = val`` (or ``+=`` with ``accumulate``) where an index
     equal to ``len(dst)`` is dropped, as the reference's ``mode="drop"``
     drops its one out-of-range index. Returns a new tensor."""
-    ext = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    row = tuple(dst.shape[1:])
+    ext = torch.cat([dst, dst.new_zeros((1,) + row)])
     idx = idx.reshape(-1).long()
     if not torch.is_tensor(val):
-        val = torch.full(idx.shape, val, dtype=dst.dtype, device=dst.device)
-    ext.index_put_((idx,), val.reshape(-1).to(dst.dtype),
+        val = torch.full(idx.shape + row, val, dtype=dst.dtype,
+                         device=dst.device)
+    ext.index_put_((idx,), val.reshape(idx.shape + row).to(dst.dtype),
                    accumulate=accumulate)
     return ext[:-1]
 
 
+# --------------------------------------------------------------- allocator
+#
+# Every allocator function takes the allocator with its leading SHARD axis
+# (tbl (S, B, M), free (S, P), top (S,), ref (S, P); a single engine's is
+# S = 1) and runs all shards at once, each against its own free stack. An
+# argument with one entry per slot or per lane is read as (S, -1): a
+# single engine passes its (B,) or (n,) vectors as they are. On the fleet,
+# a lane with nothing to do is the sentinel slot B (one past the shard's
+# slots), whose table writes land in a scratch row that is cut off, and a
+# page id P is a dropped index (``_put_pages``).
+
+
 def _cumrank(x: torch.Tensor) -> torch.Tensor:
-    """0-based pop order of the True entries of ``x`` (flattened)."""
-    return torch.cumsum(x.reshape(-1).to(_I32), 0, dtype=_I32) - 1
+    """0-based pop order of the True entries of each shard's ``x[s]``
+    (flattened), shape (S, -1)."""
+    return torch.cumsum(x.reshape(x.shape[0], -1).to(_I32), 1,
+                        dtype=_I32) - 1
 
 
 def _count(x: torch.Tensor) -> torch.Tensor:
-    return x.to(_I32).sum().to(_I32)
+    """(S,) count of the True entries of each shard's ``x[s]``."""
+    return x.reshape(x.shape[0], -1).to(_I32).sum(1).to(_I32)
 
 
-# --------------------------------------------------------------- allocator
+def _put_pages(dst: torch.Tensor, idx: torch.Tensor, val,
+               accumulate: bool = False) -> torch.Tensor:
+    """Per shard, ``dst[s, idx[s]] = val`` (``+=`` with ``accumulate``)
+    for dst (S, P); an index P is dropped. Returns a new tensor."""
+    S = dst.shape[0]
+    ext = torch.cat([dst, dst.new_zeros((S, 1))], dim=1)
+    idx = idx.reshape(S, -1).long()
+    if not torch.is_tensor(val):
+        val = torch.full(idx.shape, val, dtype=dst.dtype, device=dst.device)
+    val = val.reshape(idx.shape).to(dst.dtype)
+    if accumulate:
+        ext.scatter_add_(1, idx, val)
+    else:
+        ext.scatter_(1, idx, val)
+    return ext[:, :-1]
+
+
+def _put_rows(tbl: torch.Tensor, slots: torch.Tensor, fn) -> torch.Tensor:
+    """Per shard, rewrite the table rows ``slots[s]`` (S, n) as
+    ``fn(rows)`` of the current rows (S, n, M); a sentinel slot B reads a
+    row of -1 and writes into a scratch row that is cut off. Returns a new
+    table."""
+    S, B, M = tbl.shape
+    ext = torch.cat([tbl, tbl.new_full((S, 1, M), -1)], dim=1)
+    idx = (torch.arange(S, device=tbl.device)[:, None], slots.long())
+    ext[idx] = fn(ext[idx])
+    return ext[:, :B]
 
 
 def init_allocator(max_batch: int, max_pages_per_slot: int, num_pages: int,
-                   device) -> Dict[str, torch.Tensor]:
+                   device, shards: int = 1) -> Dict[str, torch.Tensor]:
+    """A fresh allocator of ``shards`` shards (a single engine's: 1)."""
+    S = shards
     return {
-        "tbl": torch.full((max_batch, max_pages_per_slot), -1, dtype=_I32,
-                          device=device),
-        "free": torch.arange(num_pages, dtype=_I32, device=device),
-        "top": torch.full((), num_pages, dtype=_I32, device=device),
-        "ref": torch.zeros((num_pages,), dtype=_I32, device=device),
+        "tbl": torch.full((S, max_batch, max_pages_per_slot), -1,
+                          dtype=_I32, device=device),
+        "free": torch.arange(num_pages, dtype=_I32, device=device)
+        .repeat(S, 1),
+        "top": torch.full((S,), num_pages, dtype=_I32, device=device),
+        "ref": torch.zeros((S, num_pages), dtype=_I32, device=device),
     }
 
 
 def _set_ref(ref: torch.Tensor, pages: torch.Tensor,
              ok: torch.Tensor) -> torch.Tensor:
     """Mark freshly popped pages as singly referenced."""
-    P = ref.shape[0]
-    return _drop_set(ref, torch.where(ok, pages, P), 1)
+    P = ref.shape[1]
+    return _put_pages(ref, torch.where(ok, pages, P), 1)
 
 
 def _pop(free: torch.Tensor, top: torch.Tensor, need: torch.Tensor):
-    """LIFO pops for the True entries of ``need`` (any shape): (page ids,
-    ok) of ``need``'s shape, ``ok`` False where the stack would underflow."""
-    P = free.shape[0]
-    take = (top - 1 - _cumrank(need)).reshape(need.shape)
-    pages = free[take.clamp(0, P - 1).long()]
-    return pages, need & (take >= 0)
+    """Per shard, LIFO pops for the True entries of ``need`` (S, ...) from
+    free (S, P) / top (S,): (page ids, ok) of ``need``'s shape, ``ok``
+    False where the shard's stack would underflow."""
+    S, P = free.shape
+    take = top[:, None] - 1 - _cumrank(need)
+    pages = torch.gather(free, 1, take.clamp(0, P - 1).long())
+    return pages.reshape(need.shape), need & (take >= 0).reshape(need.shape)
 
 
 def alloc_decode_pages(alloc: Dict, lengths: torch.Tensor,
                        active: torch.Tensor, page_size: int) -> Dict:
     """Pop one page for every ACTIVE slot whose next token starts a new
-    logical page. lengths: (B,) tokens already cached; active: (B,) bool."""
+    logical page. lengths: tokens already cached; active: bool; one entry
+    a slot, (S*B,) or (S, B)."""
     tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
-    B, M = tbl.shape
+    S, B, M = tbl.shape
+    lengths, active = lengths.reshape(S, B), active.reshape(S, B)
     lp = torch.div(lengths, page_size, rounding_mode="floor")
     need = active & (torch.remainder(lengths, page_size) == 0) & (lp < M)
     pages, ok = _pop(free, top, need)
-    bidx = torch.arange(B, device=tbl.device)
+    sidx = torch.arange(S, device=tbl.device)[:, None]
+    bidx = torch.arange(B, device=tbl.device)[None, :]
     lp_c = lp.clamp(0, M - 1).long()
     tbl = tbl.clone()
-    tbl[bidx, lp_c] = torch.where(ok, pages, tbl[bidx, lp_c])
+    tbl[sidx, bidx, lp_c] = torch.where(ok, pages, tbl[sidx, bidx, lp_c])
     return {"tbl": tbl, "free": free, "top": top - _count(ok),
             "ref": _set_ref(alloc["ref"], pages, ok)}
 
@@ -128,11 +184,13 @@ def alloc_prefill_pages(alloc: Dict, slots: torch.Tensor,
     """Bulk-pop ``n_pages[i]`` pages for slot ``slots[i]`` and rewrite the
     slot's whole block-table row (stale entries become -1)."""
     tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
-    M = tbl.shape[1]
-    need = torch.arange(M, device=tbl.device)[None, :] < n_pages[:, None]
+    S, _, M = tbl.shape
+    slots, n_pages = slots.reshape(S, -1), n_pages.reshape(S, -1)
+    need = (torch.arange(M, device=tbl.device)
+            < n_pages[..., None])                      # (S, n, M)
     pages, ok = _pop(free, top, need)
-    tbl = tbl.clone()
-    tbl[slots.long()] = torch.where(ok, pages, torch.full_like(pages, -1))
+    tbl = _put_rows(tbl, slots, lambda rows: torch.where(
+        ok, pages, torch.full_like(pages, -1)))
     return {"tbl": tbl, "free": free, "top": top - _count(ok),
             "ref": _set_ref(alloc["ref"], pages, ok)}
 
@@ -140,102 +198,143 @@ def alloc_prefill_pages(alloc: Dict, slots: torch.Tensor,
 def alloc_chunk_pages(alloc: Dict, slots: torch.Tensor,
                       start_pg: torch.Tensor, end_pg: torch.Tensor) -> Dict:
     """Pop pages for the logical page range [start_pg[i], end_pg[i]) of
-    slot ``slots[i]``, keeping the slot's other entries."""
+    slot ``slots[i]``, keeping the slot's other entries. On the fleet all
+    three are (S, n); a sentinel lane has an empty range."""
     tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
-    M = tbl.shape[1]
-    ar = torch.arange(M, device=tbl.device)[None, :]
-    need = (ar >= start_pg[:, None]) & (ar < end_pg[:, None])    # (n, M)
-    pages, ok = _pop(free, top, need)
-    sl = slots.long()
-    tbl = tbl.clone()
-    tbl[sl] = torch.where(ok, pages, tbl[sl])
+    S, _, M = tbl.shape
+    slots, start_pg, end_pg = (x.reshape(S, -1)
+                               for x in (slots, start_pg, end_pg))
+    ar = torch.arange(M, device=tbl.device)
+    need = (ar >= start_pg[..., None]) & (ar < end_pg[..., None])
+    pages, ok = _pop(free, top, need)                  # (S, n, M)
+    tbl = _put_rows(tbl, slots, lambda rows: torch.where(ok, pages, rows))
     return {"tbl": tbl, "free": free, "top": top - _count(ok),
             "ref": _set_ref(alloc["ref"], pages, ok)}
 
 
 def map_shared_pages(alloc: Dict, slot: torch.Tensor,
                      pages: torch.Tensor) -> Dict:
-    """Map a resident page run (``pages``: (max_pages,), -1 padded) into
-    logical pages 0.. of ``slot``'s table row, increfing each page."""
+    """Map a resident page run (``pages``: max_pages entries a shard, -1
+    padded) into logical pages 0.. of ``slot``'s table row (one slot a
+    shard), increfing each page. On the fleet, a shard with nothing to map
+    passes the sentinel slot and a row of -1."""
     tbl, ref = alloc["tbl"], alloc["ref"]
-    P = ref.shape[0]
+    S, P = ref.shape
+    slot, pages = slot.reshape(S, 1), pages.reshape(S, -1)
     m = pages >= 0
-    s = slot.long().reshape(1)   # a 0-d index would be read on the host
-    tbl = tbl.clone()
-    tbl[s] = torch.where(m, pages, tbl[s])
-    ref = _drop_set(ref, torch.where(m, pages, P), 1, accumulate=True)
+    tbl = _put_rows(tbl, slot, lambda rows: torch.where(
+        m[:, None], pages[:, None], rows))
+    ref = _put_pages(ref, torch.where(m, pages, P), 1, accumulate=True)
     return {"tbl": tbl, "free": alloc["free"], "top": alloc["top"],
             "ref": ref}
 
 
 def _return_pages(free: torch.Tensor, top: torch.Tensor, ref: torch.Tensor,
                   drops: torch.Tensor):
-    """Apply per-page decref counts ``drops``; pages reaching zero go back
-    on the stack in page order. Returns (free, top, ref)."""
-    P = ref.shape[0]
+    """Per shard, apply per-page decref counts ``drops`` (S, P); pages
+    reaching zero go back on the shard's stack in page order. Returns
+    (free, top, ref)."""
+    S, P = ref.shape
     ref = ref - drops
     freed = (drops > 0) & (ref <= 0)
-    dest = torch.where(freed, top + _cumrank(freed), P)
-    free = _drop_set(free, dest, torch.arange(P, dtype=_I32,
-                                              device=free.device))
+    dest = torch.where(freed, top[:, None] + _cumrank(freed), P)
+    ids = torch.arange(P, dtype=_I32, device=free.device).expand(S, P)
+    free = _put_pages(free, dest, ids)
     return free, top + _count(freed), ref.clamp(min=0)
 
 
 def _decrefs(pages: torch.Tensor, P: int) -> torch.Tensor:
-    """Per-page count of the entries of ``pages`` (P = dropped)."""
-    return _drop_set(torch.zeros((P,), dtype=_I32, device=pages.device),
-                     pages, 1, accumulate=True)
+    """Per shard, the count of each page among ``pages[s]`` (P =
+    dropped): (S, P)."""
+    S = pages.shape[0]
+    return _put_pages(torch.zeros((S, P), dtype=_I32, device=pages.device),
+                      pages, 1, accumulate=True)
 
 
-def _release(alloc: Dict, released: torch.Tensor,
-             rel: torch.Tensor) -> Dict:
-    """Decref the table entries marked in ``rel`` (B, M), clear the
-    ``released`` slots' rows; pages reaching refcount zero go back on the
-    free stack."""
-    tbl = alloc["tbl"]
-    P = alloc["free"].shape[0]
+def _release(a: Dict, released: torch.Tensor, rel: torch.Tensor) -> Dict:
+    """Decref the table entries marked in ``rel`` (S, B, M), clear the
+    ``released`` (S, B) slots' rows; pages reaching refcount zero go back
+    on their shard's free stack."""
+    tbl = a["tbl"]
+    P = a["free"].shape[1]
     drops = _decrefs(torch.where(rel, tbl, P), P)
-    free, top, ref = _return_pages(alloc["free"], alloc["top"], alloc["ref"],
-                                   drops)
-    tbl = torch.where(released[:, None], torch.full_like(tbl, -1), tbl)
+    free, top, ref = _return_pages(a["free"], a["top"], a["ref"], drops)
+    tbl = torch.where(released[..., None], torch.full_like(tbl, -1), tbl)
     return {"tbl": tbl, "free": free, "top": top, "ref": ref}
 
 
 def release_slots(alloc: Dict, released: torch.Tensor) -> Dict:
-    """Decref every page mapped by the ``released`` (B,) bool slots and
-    clear their table rows; pages reaching refcount zero go back on the
-    free stack (shared prefix pages survive until their last holder)."""
-    return _release(alloc, released, released[:, None] & (alloc["tbl"] >= 0))
+    """Decref every page mapped by the ``released`` bool slots (one entry
+    a slot) and clear their table rows; pages reaching refcount zero go
+    back on the free stack (shared prefix pages survive until their last
+    holder)."""
+    released = released.reshape(alloc["tbl"].shape[:2])
+    return _release(alloc, released,
+                    released[..., None] & (alloc["tbl"] >= 0))
 
 
 def release_slots_keep(alloc: Dict, released: torch.Tensor,
                        n_keep: torch.Tensor) -> Dict:
-    """Release the ``released`` (B,) bool slots but KEEP the references of
+    """Release the ``released`` bool slots but KEEP the references of
     each slot's first ``n_keep[slot]`` logical pages — the release for
     preemption. The kept pages' references are transferred to the engine's
     host-side pin (the evicted request's indexed prefix must stay resident
     and adoptable for its resume), so they are neither decrefed nor freed
     here; every later logical page decrefs normally. The whole table row
-    is cleared either way. ``n_keep``: (B,) int32, 0 for slots not being
-    preempted or with nothing indexed."""
+    is cleared either way. ``n_keep``: int32, 0 for slots not being
+    preempted or with nothing indexed. Both have one entry a slot."""
     tbl = alloc["tbl"]
-    logical = torch.arange(tbl.shape[1], dtype=_I32, device=tbl.device)
-    return _release(alloc, released, released[:, None] & (tbl >= 0)
-                    & (logical[None, :] >= n_keep[:, None]))
+    released = released.reshape(tbl.shape[:2])
+    n_keep = n_keep.reshape(tbl.shape[:2])
+    logical = torch.arange(tbl.shape[2], dtype=_I32, device=tbl.device)
+    return _release(alloc, released, released[..., None] & (tbl >= 0)
+                    & (logical >= n_keep[..., None]))
 
 
 def decref_pages(alloc: Dict, pages: torch.Tensor) -> Dict:
-    """Drop one reference from each physical page in ``pages`` ((K,)
-    int32, -1 padded); pages reaching refcount zero return to the stack.
-    This releases a preemption pin: the resumed request adopts the pinned
-    run first (``map_shared_pages`` increfs), then the pin's transferred
-    references drop here — or drop without adoption when the preempted
-    request is cancelled or shed."""
-    P = alloc["free"].shape[0]
+    """Drop one reference from each physical page in ``pages`` (int32, -1
+    padded, the same number a shard); pages reaching refcount zero return
+    to the stack. This releases a preemption pin: the resumed request
+    adopts the pinned run first (``map_shared_pages`` increfs), then the
+    pin's transferred references drop here — or drop without adoption when
+    the preempted request is cancelled or shed."""
+    S, P = alloc["free"].shape
+    pages = pages.reshape(S, -1)
     drops = _decrefs(torch.where(pages >= 0, pages, P), P)
-    free, top, ref = _return_pages(alloc["free"], alloc["top"], alloc["ref"],
-                                   drops)
+    free, top, ref = _return_pages(alloc["free"], alloc["top"],
+                                   alloc["ref"], drops)
     return {"tbl": alloc["tbl"], "free": free, "top": top, "ref": ref}
+
+
+def _page_base(alloc: Dict) -> torch.Tensor:
+    """(S, 1, 1) pool page id of each shard's page 0: s*P."""
+    tbl = alloc["tbl"]
+    S, P = alloc["free"].shape
+    return (torch.arange(S, dtype=_I32, device=tbl.device) * P)[:, None,
+                                                                 None]
+
+
+def model_table(alloc: Dict, active: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """The (S*B, M) block table the model reads. The pools hold the S
+    shards' pages side by side, ``(Hkv, S*P + 1, ps, hd)``, shard s at
+    pages [s*P, (s+1)*P), and one trash page last: the shard-local ids
+    become pool ids ``s*P + p``, so one kernel launch serves every
+    shard's rows, and -1 stays -1 (the kernels and writes send it to the
+    trash page; every such row is masked). A single engine's table (S = 1)
+    is its own. With ``active``, inactive slots' rows are cleared: the
+    batch-shape-invariant decode write of a slot parked mid-prefill lands
+    in the trash page instead of its next unwritten row, which may lie in
+    a page it shares with another slot (an adopter of a whole shared
+    prompt, waiting for its copy-on-write chunk). Its attention output is
+    discarded."""
+    tbl = alloc["tbl"]
+    S, B, M = tbl.shape
+    keep = tbl >= 0
+    if active is not None:
+        keep = keep & active.reshape(S, B, 1)
+    return torch.where(keep, tbl + _page_base(alloc),
+                       torch.full_like(tbl, -1)).reshape(S * B, M)
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
@@ -246,12 +345,16 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
 
 
 def paginate_cache(cache: Dict, max_batch: int, page_size: int,
-                   num_pages: int) -> Dict:
+                   num_pages: int, shards: int = 1) -> Dict:
     """Turn a contiguous slot-pool cache (``Model.init_cache``) into the
     paged layout, in place, and attach the shared allocator at
     ``cache["paged"]``. Only attention layers (``k``/``v`` leaves) are
     paged; a recurrent layer's fixed-size state (mamba2 ``conv``,
-    ``state``, ``length``) stays slot-addressed."""
+    ``state``, ``length``) stays slot-addressed. ``shards`` = S makes the
+    fleet's tree from a cache of S * ``max_batch`` slots: its per-slot
+    rows stay flat, shard s at rows [s*B, (s+1)*B); each pool holds the S
+    shards' pages side by side and one trash page, (Hkv, S*P + 1, ps, hd)
+    (``model_table``); and the allocator has S shards."""
     widths = {layer["k"].shape[1] for layer in cache["layers"]
               if "k" in layer}
     if len(widths) != 1:
@@ -265,17 +368,17 @@ def paginate_cache(cache: Dict, max_batch: int, page_size: int,
         k, v = layer["k"], layer["v"]
         H = k.shape[2]
         cache["layers"][i] = {
-            "k_pages": torch.zeros((H, num_pages + 1, page_size,
+            "k_pages": torch.zeros((H, shards * num_pages + 1, page_size,
                                     k.shape[3]), dtype=k.dtype,
                                    device=k.device),
-            "v_pages": torch.zeros((H, num_pages + 1, page_size,
+            "v_pages": torch.zeros((H, shards * num_pages + 1, page_size,
                                     v.shape[3]), dtype=v.dtype,
                                    device=v.device),
             "pos_ids": layer["pos_ids"],          # stays LOGICAL: (B, W)
             "length": layer["length"],
         }
     cache["paged"] = init_allocator(max_batch, W // page_size, num_pages,
-                                    cache["t"].device)
+                                    cache["t"].device, shards=shards)
     return cache
 
 
@@ -299,7 +402,7 @@ def insert_prefill_paged(pool: Dict, src: Dict, slots: torch.Tensor,
     n_pages = torch.div(true_len + page_size - 1, page_size,
                         rounding_mode="floor")
     pool["paged"] = alloc_prefill_pages(pool["paged"], slots, n_pages)
-    row_tbl = pool["paged"]["tbl"][sl]                   # (n, M)
+    row_tbl = model_table(pool["paged"])[sl]             # (n, M)
     M = row_tbl.shape[1]
     for dst, s in zip(pool["layers"], src["layers"]):
         if "k_pages" not in dst:
@@ -339,6 +442,17 @@ def begin_chunked_prefill(pool: Dict, slots: torch.Tensor) -> Dict:
     return pool
 
 
+def _slot_rows(alloc: Dict, slots: torch.Tensor) -> torch.Tensor:
+    """Flat per-slot tree rows of the allocator lanes ``slots`` (read as
+    (S, n)): shard s's slot b at row s*B + b, a fleet's sentinel lane at
+    S*B, past the rows."""
+    S, B = alloc["tbl"].shape[:2]
+    slots = slots.reshape(S, -1)
+    base = torch.arange(S, dtype=slots.dtype, device=slots.device)[:, None]
+    return torch.where(slots < B, slots + base * B,
+                       torch.full_like(slots, S * B)).reshape(-1)
+
+
 def map_shared_prefix(pool: Dict, slot: torch.Tensor, pages: torch.Tensor,
                       n_shared: torch.Tensor, start_tok: torch.Tensor) -> Dict:
     """Adopt a resident prefix into a freshly admitted slot: incref the
@@ -346,16 +460,20 @@ def map_shared_prefix(pool: Dict, slot: torch.Tensor, pages: torch.Tensor,
     history, and set the write cursors to ``start_tok``, the first token
     the slot will compute (< n_shared only when the whole prompt is
     shared: the last prompt token is recomputed for first-token logits,
-    into a shared page that ``cow_chunk_pages`` privatizes first)."""
+    into a shared page that ``cow_chunk_pages`` privatizes first). Every
+    argument has one entry a shard, as in ``map_shared_pages``; a fleet's
+    sentinel lane writes nothing."""
+    rows = _slot_rows(pool["paged"], slot)
     pool["paged"] = map_shared_pages(pool["paged"], slot, pages)
-    s = slot.long().reshape(1)   # a 0-d index would be read on the host
+    n_shared, start_tok = n_shared.reshape(-1), start_tok.reshape(-1)
     for layer in pool["layers"]:
         W = layer["pos_ids"].shape[-1]
         ar = torch.arange(W, dtype=_I32, device=pages.device)
-        layer["pos_ids"][s] = torch.where(ar < n_shared, ar,
-                                          torch.full_like(ar, -1))
-        layer["length"][s] = start_tok
-    pool["t"][s] = start_tok
+        layer["pos_ids"].copy_(_drop_set(
+            layer["pos_ids"], rows,
+            torch.where(ar < n_shared[:, None], ar, torch.full_like(ar, -1))))
+        layer["length"].copy_(_drop_set(layer["length"], rows, start_tok))
+    pool["t"].copy_(_drop_set(pool["t"], rows, start_tok))
     return pool
 
 
@@ -363,39 +481,47 @@ def cow_chunk_pages(pool: Dict, slots: torch.Tensor, start_tok: torch.Tensor,
                     n_tok: torch.Tensor, page_size: int, span: int) -> Dict:
     """Copy-on-write for the logical pages the next chunk write touches.
 
-    slots/start_tok/n_tok: (n,) int32 — the chunk writes tokens
-    [start_tok, start_tok + n_tok) of each slot; ``span`` bounds the pages
-    one chunk can touch. A touched page mapped with refcount > 1 is
-    privatized before the write: pop a fresh page, copy its rows in every
+    slots/start_tok/n_tok: int32 lanes, read as (S, n) (a fleet's
+    sentinel lane has ``n_tok`` 0) — the chunk writes tokens [start_tok, start_tok
+    + n_tok) of each slot; ``span`` bounds the pages one chunk can touch.
+    A touched page mapped with refcount > 1 is privatized before the
+    write: pop a fresh page from its shard's stack, copy its rows in every
     layer's pools, swap the table entry, decref the original (returning
     it to the stack if that was its last reference)."""
-    alloc = pool["paged"]
-    tbl, free, top, ref = (alloc["tbl"], alloc["free"], alloc["top"],
-                           alloc["ref"])
-    B, M = tbl.shape
-    P = free.shape[0]
+    a = pool["paged"]
+    tbl, free, top, ref = a["tbl"], a["free"], a["top"], a["ref"]
+    S, B, M = tbl.shape
+    P = free.shape[1]
+    slots, start_tok, n_tok = (x.reshape(S, -1)
+                               for x in (slots, start_tok, n_tok))
     dev = tbl.device
-    lp = (torch.div(start_tok, page_size, rounding_mode="floor")[:, None]
-          + torch.arange(span, dtype=_I32, device=dev)[None, :])
+    lp = (torch.div(start_tok, page_size, rounding_mode="floor")[..., None]
+          + torch.arange(span, dtype=_I32, device=dev))   # (S, n, span)
     last = torch.div(start_tok + n_tok.clamp(min=1) - 1, page_size,
                      rounding_mode="floor")
-    valid = (n_tok[:, None] > 0) & (lp <= last[:, None]) & (lp < M)
-    sl = slots.long()[:, None]
-    phys = tbl[sl, lp.clamp(0, M - 1).long()]            # (n, span)
-    do = valid & (phys >= 0) & (ref[phys.clamp(0, P - 1).long()] > 1)
+    valid = (n_tok[..., None] > 0) & (lp <= last[..., None]) & (lp < M)
+    # the table with a scratch row (sentinel slot B) and column (entries
+    # that touch nothing), cut off after the swap
+    ext = torch.full((S, B + 1, M + 1), -1, dtype=_I32, device=dev)
+    ext[:, :B, :M] = tbl
+    sidx = torch.arange(S, device=dev)[:, None, None].expand(lp.shape)
+    sl = slots.long()[..., None].expand(lp.shape)
+    col = torch.where(valid, lp, torch.full_like(lp, M)).long()
+    phys = ext[sidx, sl, col]                            # (S, n, span)
+    held = torch.gather(ref, 1, phys.clamp(0, P - 1).reshape(S, -1).long())
+    do = valid & (phys >= 0) & (held.reshape(phys.shape) > 1)
     fresh, ok = _pop(free, top, do)
-    # table swap; entries past the table go to a scratch column, cut off
-    ext = torch.cat([tbl, tbl.new_full((B, 1), -1)], dim=1)
-    col = torch.where(lp < M, lp, torch.full_like(lp, M)).long()
-    ext[sl.expand_as(col), col] = torch.where(ok, fresh, phys)
-    tbl = ext[:, :M].contiguous()
+    ext[sidx, sl, col] = torch.where(ok, fresh, phys)
+    tbl = ext[:, :B, :M].contiguous()
     dec = _decrefs(torch.where(ok, phys, P), P)
     new_top = top - _count(ok)
     free, new_top, ref = _return_pages(free, new_top, ref, dec)
     ref = _set_ref(ref, fresh, ok)
     pool["paged"] = {"tbl": tbl, "free": free, "top": new_top, "ref": ref}
-    src_pg = torch.where(ok, phys, 0).reshape(-1)
-    dst_pg = torch.where(ok, fresh, -1).reshape(-1)      # -1 = dropped
+    # pool page ids: shard s's page p is page s*P + p of each pool
+    base = _page_base(a)
+    src_pg = torch.where(ok, phys + base, 0).reshape(-1)
+    dst_pg = torch.where(ok, fresh + base, -1).reshape(-1)  # -1 = dropped
     for layer in pool["layers"]:
         copy_page_rows(layer["k_pages"], src_pg, dst_pg)
         copy_page_rows(layer["v_pages"], src_pg, dst_pg)
@@ -439,7 +565,7 @@ def gather_slot_view(pool: Dict, slots: torch.Tensor) -> Dict:
                     "pos_ids": layer["pos_ids"][sl],
                     "length": layer["length"][sl]}
                    for layer in pool["layers"]],
-        "paged": {"tbl": pool["paged"]["tbl"][sl]},
+        "paged": {"tbl": model_table(pool["paged"])[sl]},
     }
 
 
@@ -452,15 +578,3 @@ def scatter_slot_view(pool: Dict, view: Dict, slots: torch.Tensor) -> Dict:
         layer["length"][sl] = v["length"]
     pool["t"][sl] = view["t"]
     return pool
-
-
-def inactive_table(alloc: Dict, active: torch.Tensor) -> Dict:
-    """The allocator with every INACTIVE slot's table row cleared, for one
-    decode micro-step of a chunked engine: the batch-shape-invariant decode
-    write of a slot parked mid-prefill lands in the trash page instead of
-    its next unwritten row, which may lie in a page it shares with another
-    slot (an adopter of a whole shared prompt, waiting for its
-    copy-on-write chunk). Its attention output is discarded."""
-    tbl = alloc["tbl"]
-    return {**alloc, "tbl": torch.where(active[:, None], tbl,
-                                        torch.full_like(tbl, -1))}

@@ -71,8 +71,14 @@ def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
     write cursors at their pre-step values (``paged.freeze_inactive_
     cursors``), so a slot parked mid-chunked-prefill keeps its logical
     position exact while decode runs around it, and routes their garbage
-    writes of the step to the trash page (``paged.inactive_table``).
-    Nothing in the loop syncs with the host.
+    writes of the step to the trash page (``paged.model_table``).
+
+    The fleet's tree (``ShardedServingEngine``) is S shards' B slots each:
+    its per-slot rows and ``cur_tokens``/``state`` are flat (S*B, ...),
+    its allocator has S shards (a single engine's has 1), and each
+    micro-step is ONE forward over the S*B rows through
+    ``paged.model_table``'s (S*B, M) table of pool page ids. Nothing in
+    the loop syncs with the host.
     """
     from repro_torch.serving import paged as PG
     vocab = model.cfg.vocab
@@ -84,11 +90,14 @@ def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
                 caches["paged"], caches["t"], active, page_size)
         if freeze_inactive:
             old = PG.snapshot_cursors(caches)
-            alloc = caches["paged"]
-            caches["paged"] = PG.inactive_table(alloc, active)
+        alloc = caches.get("paged")
+        if alloc is not None:
+            caches["paged"] = {"tbl": PG.model_table(
+                alloc, active if freeze_inactive else None)}
         logits, caches = model.decode_step(params, caches, cur_tokens)
-        if freeze_inactive:
+        if alloc is not None:
             caches["paged"] = alloc
+        if freeze_inactive:
             PG.freeze_inactive_cursors(old, caches, active)
         nxt = sample(logits[:, :vocab], generator, temperature)
         nxt = torch.where(active, nxt, cur_tokens[:, 0])

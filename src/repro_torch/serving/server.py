@@ -40,7 +40,7 @@ kernels launch on that thread's current stream (the default stream, as
 the event loop's thread would use), the engine's ``torch.Generator`` is
 touched only there, under the lock, and a kernel library built on first
 use from that thread is built once (``kernels/build.library`` holds a
-lock). The fleet's deferral and shard loss are not ported yet.
+lock). The fleet's shard loss is not ported yet.
 """
 from __future__ import annotations
 
@@ -54,9 +54,13 @@ _END = object()                        # per-stream end-of-tokens sentinel
 
 
 class AsyncServingServer:
-    """Wrap a ``ServingEngine`` (anything with ``submit``/``step``/
-    ``queue``/``active``/``decoding``/``responses`` and the stall and
-    fault helpers) behind an asyncio streaming API."""
+    """Wrap a ``ServingEngine`` or ``ShardedServingEngine`` (anything with
+    ``submit``/``step``/``queue``/``active``/``decoding``/``deferred``/
+    ``responses`` and the stall/fault/deferral helpers) behind an asyncio
+    streaming API. Deferred (low-CI-window) work keeps the drive loop
+    alive: when ONLY parked requests remain it moves the virtual clock to
+    the release window instead of going idle, so a client awaiting a
+    deferred result never hangs."""
 
     def __init__(self, engine, max_steps: int = 100_000):
         self.engine = engine
@@ -128,7 +132,7 @@ class AsyncServingServer:
             while True:
                 async with self._lock:
                     eng = self.engine
-                    if not (eng.queue or eng.active
+                    if not (eng.queue or eng.active or eng.deferred
                             or eng._faults_pending()):
                         self._pump()
                         return         # idle; next submit restarts us
@@ -143,8 +147,13 @@ class AsyncServingServer:
                     progressed = await loop.run_in_executor(
                         None, eng.step, self.max_steps)
                     if (not progressed and not eng.decoding
-                            and not eng._faults_pending() and eng.queue):
-                        eng._resolve_stall()
+                            and not eng._faults_pending()):
+                        if eng.queue:
+                            eng._resolve_stall()
+                        elif eng.deferred:
+                            # only parked work remains: move the virtual
+                            # clock to the greenest window and release
+                            eng._fast_forward_deferred()
                     self._pump()
                 # cooperative point: queued submit()s take the lock here
                 await asyncio.sleep(0)

@@ -385,6 +385,141 @@ def test_bf16_prefill_kernels_refuse_misaligned_rows(cuda_device):
     assert after["flash_attention"] == before["flash_attention"] + 2
 
 
+def _fleet_pool(rng, S, B, Hkv, ps, M, hd, dtype, dev, Sq=None):
+    """S shards' pools of ``_paged_case`` side by side, as the fleet holds
+    them: (Hkv, S*P + 1, ps, hd), shard s's P pages at [s*P, (s+1)*P) and
+    one trash page last; each shard's table of its own page ids (-1
+    entries included, and in the last shard a slot with nothing mapped
+    past its first page) made pool page ids by ``paged.model_table`` and
+    flattened to (S*B, M)."""
+    from repro_torch.serving import paged
+    cases = [_paged_case(rng, B, Hkv, ps, M, hd, S=Sq) for _ in range(S)]
+    P = B * M
+    tbl = np.stack([c[2] for c in cases])                 # (S, B, M)
+    tbl[-1, -1, 1:] = -1
+    kpos = np.stack([c[4] for c in cases])                # (S, B, M*ps)
+    kpos[-1, -1, ps:] = -1
+    qpos = np.stack([c[3] for c in cases])
+    qpos[-1, -1] = np.minimum(qpos[-1, -1], ps - 1)
+    if Sq is not None:
+        qpos[-1, -1, 1:] = -1
+    kp, vp = (np.concatenate([c[i][:, :P] for c in cases]
+                             + [cases[-1][i][:, P:]], axis=1)
+              for i in (0, 1))                      # (Hkv, S*P + 1, ..)
+    to = functools.partial(torch.as_tensor, device=dev)
+    alloc = {"tbl": to(tbl), "free": to(np.zeros((S, P), np.int32))}
+    flat = paged.model_table(alloc)
+    kp, vp = (to(x).to(dtype) for x in (kp, vp))
+    return (kp, vp, tbl, flat, to(qpos.reshape((S * B,) + qpos.shape[2:])),
+            to(kpos.reshape(S * B, -1)), P)
+
+
+def _shard_pool(pool, s, P):
+    """Shard s's own (Hkv, P+1, ps, hd) pool: its pages and the trash."""
+    return torch.cat([pool[:, s * P:(s + 1) * P], pool[:, -1:]], dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,ps,M,hd", [(2, 16, 8, 64), (4, 8, 12, 128),
+                                           (1, 16, 6, 64)])
+def test_paged_decode_kernel_over_a_fleet_pool(cuda_device, dtype, group, ps,
+                                               M, hd):
+    """The fleet's decode: ONE launch over S*B rows of a 4-shard pool
+    through the translated table equals four per-shard launches on each
+    shard's own pool and table, and the plain version."""
+    S, B, Hkv = 4, 3, 2
+    rng = np.random.default_rng(group * 10 + ps + M)
+    pool_k, pool_v, tbl, flat, qp, kpos, P = _fleet_pool(
+        rng, S, B, Hkv, ps, M, hd, dtype, cuda_device)
+    q = torch.from_numpy(rng.standard_normal(
+        (S * B, Hkv * group, hd), dtype=np.float32)).to(dtype).to(cuda_device)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, pool_k, pool_v, flat, qp, kpos)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    want = ref.paged_decode_attention(q, pool_k, pool_v, flat, qp, kpos)
+    for s in range(S):
+        r = slice(s * B, (s + 1) * B)
+        own = ops.paged_decode_attention(
+            q[r], _shard_pool(pool_k, s, P), _shard_pool(pool_v, s, P),
+            torch.as_tensor(tbl[s], device=cuda_device), qp[r], kpos[r])
+        torch.testing.assert_close(got[r].float(), own.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,ps,M,Sq,hd", [(2, 16, 8, 48, 64),
+                                              (4, 8, 12, 33, 128)])
+def test_chunked_prefill_kernel_over_a_fleet_pool(cuda_device, dtype, group,
+                                                  ps, M, Sq, hd):
+    """The fleet's chunk launch: ONE launch over the rows of a 4-shard
+    pool through the translated table equals per-shard launches and the
+    plain version (pad queries write 0)."""
+    S, B, Hkv = 4, 3, 2
+    rng = np.random.default_rng(group * 10 + ps + M + Sq)
+    pool_k, pool_v, tbl, flat, qp, kpos, P = _fleet_pool(
+        rng, S, B, Hkv, ps, M, hd, dtype, cuda_device, Sq=Sq)
+    q = torch.from_numpy(rng.standard_normal(
+        (S * B, Sq, Hkv * group, hd), dtype=np.float32)).to(dtype).to(
+            cuda_device).transpose(1, 2)
+    before = ops.launch_counts()["chunked_prefill_attention"]
+    got = ops.chunked_prefill_attention(q, pool_k, pool_v, flat, qp, kpos)
+    assert ops.launch_counts()["chunked_prefill_attention"] == before + 1
+    want = ref.chunked_prefill_attention(q, pool_k, pool_v, flat, qp, kpos)
+    for s in range(S):
+        r = slice(s * B, (s + 1) * B)
+        own = ops.chunked_prefill_attention(
+            q[r], _shard_pool(pool_k, s, P), _shard_pool(pool_v, s, P),
+            torch.as_tensor(tbl[s], device=cuda_device), qp[r], kpos[r])
+        valid = (qp[r] >= 0)[:, None, :, None].expand_as(own)
+        torch.testing.assert_close(got[r].float()[valid],
+                                   own.float()[valid], atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+    torch.cuda.synchronize()
+    rows = (qp >= 0)[:, None, :, None].expand_as(want)
+    torch.testing.assert_close(got.float()[rows], want.float()[rows],
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert (got.float()[~rows] == 0).all()
+
+
+def test_fleet_on_card_matches_cpu(cuda_device):
+    """The smoke config's fleet (4 shards of 2 slots, sharing, carbon
+    routing) on the card and on the CPU from the same weights: identical
+    tokens and placements; each micro-step launched the paged-decode
+    kernel once per layer for every shard."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import (EngineConfig, Request,
+                                     ShardedServingEngine)
+    cfg = get_config("llama3.2-1b", "smoke")
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(6)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    prompts = [system + rng.integers(2, cfg.vocab, n).tolist()
+               for n in (3, 20, 0, 9)]
+    prompts += [rng.integers(2, cfg.vocab, n).tolist() for n in (40, 7, 12)]
+    ecfg = EngineConfig(max_batch=2, max_len=128, paged=True, page_size=16,
+                        prefill_chunk=16, prefill_pack=2, prefix_sharing=True,
+                        shards=4, routing="carbon",
+                        shard_regions=("QC", "CISO", "PACE", "CISO"))
+    got = {}
+    for dev in ("cpu", cuda_device):
+        eng = ShardedServingEngine(Model(cfg, dev), _to(cpu_params, dev),
+                                   ecfg, device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        ops.reset_launches()
+        got[str(dev)] = ({r.rid: r.tokens for r in eng.run()},
+                         dict(eng._req_shard))
+        counts = ops.launch_counts()
+        steps = eng.stats()["steps"]
+    assert got["cpu"] == got[str(cuda_device)]
+    assert counts["paged_decode_attention"] == cfg.n_layers * steps > 0
+    assert counts["chunked_prefill_attention"] > 0
+
+
 def test_paged_kernels_refuse_what_they_do_not_take(cuda_device):
     q = torch.randn(1, 2, 48, device=cuda_device)         # hd 48: no kernel
     pages = torch.randn(2, 3, 4, 48, device=cuda_device)

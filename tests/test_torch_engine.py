@@ -23,7 +23,6 @@ from repro_torch.configs import get_config
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import EngineConfig, Request, ServingEngine
-from repro_torch.serving.engine import _LATER_SLICES
 
 ARCH = "llama3.2-1b"          # GQA smoke: 4 q heads over 2 kv heads
 ECFG = dict(max_batch=4, max_len=64, profile="h100_sxm", region="QC")
@@ -99,23 +98,25 @@ def test_engine_matches_reference(setup):
     dict(defer_below_priority=1), dict(tenant_quota={"*": (0.5, 0.0)}),
 ])
 def test_later_slice_knobs_raise(setup, knob):
-    """Knobs of later slices (the fleet's) raise NotImplementedError; a
-    misuse of the paged ladder or the front door the port serves raises
-    the reference's ValueError, with the reference's message (the front
+    """A misuse of the paged ladder or the front door raises the
+    reference's ValueError, with the reference's message (the front
     door's: preemption without chunked prefill, max_queue < 1, a tenant
-    quota of capacity < 1)."""
+    quota of capacity < 1). The fleet's knobs, ported now, build on both
+    engines: the single-device engine ignores ``shards``, as the
+    reference's does, and honours ``defer_below_priority``."""
     jmodel, jparams, model, params, _, _ = setup
-    if set(knob) & {field for field, _, _ in _LATER_SLICES}:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    try:
+        JServingEngine(jmodel, jparams, JEngineConfig(**ECFG, **knob))
+    except ValueError as want:
+        with pytest.raises(ValueError) as got:
             ServingEngine(model, params, EngineConfig(**ECFG, **knob),
                           device="cpu")
+        assert str(got.value) == str(want)
         return
-    with pytest.raises(ValueError) as want:
-        JServingEngine(jmodel, jparams, JEngineConfig(**ECFG, **knob))
-    with pytest.raises(ValueError) as got:
-        ServingEngine(model, params, EngineConfig(**ECFG, **knob),
-                      device="cpu")
-    assert str(got.value) == str(want.value)
+    assert set(knob) <= {"shards", "defer_below_priority"}
+    eng = ServingEngine(model, params, EngineConfig(**ECFG, **knob),
+                        device="cpu")
+    assert eng.cfg == EngineConfig(**ECFG, **knob)
 
 
 def test_submit_accepts_deadline(setup):
@@ -199,7 +200,7 @@ def _both(setup, ecfg, trace, eos):
 
 
 def _assert_pool_clean(teng):
-    alloc = teng.caches["paged"]
+    alloc = {k: v[0] for k, v in teng.caches["paged"].items()}   # S = 1
     P = alloc["free"].shape[0]
     assert int(alloc["top"]) == P
     assert (alloc["tbl"] == -1).all() and (alloc["ref"] == 0).all()
@@ -265,6 +266,8 @@ COW = dict(ECFG, max_batch=2, max_len=64, sync_every=4, paged=True,
 
 def _alloc(eng):
     a = {k: np.asarray(v) for k, v in eng.caches["paged"].items()}
+    if isinstance(eng, ServingEngine):
+        a = {k: v[0] for k, v in a.items()}      # the port's S = 1 axis
     top = int(a["top"])
     return a["tbl"], a["free"][:top], top, a["ref"]
 

@@ -63,6 +63,8 @@ def _pin_invariants(eng):
     every page conserved (``top`` + #referenced == P), no duplicate and no
     referenced page on the free stack."""
     a = {k: np.asarray(v) for k, v in eng.caches["paged"].items()}
+    if not isinstance(eng, JServingEngine):
+        a = {k: v[0] for k, v in a.items()}      # the port's S = 1 axis
     tbl, free, top, ref = a["tbl"], a["free"], int(a["top"]), a["ref"]
     P = ref.shape[0]
     counts = np.zeros((P,), int)
@@ -135,7 +137,7 @@ def sides():
 
 def _assert_pool_clean(teng):
     """``tests/test_torch_engine.py``'s check: the whole pool back."""
-    alloc = teng.caches["paged"]
+    alloc = {k: v[0] for k, v in teng.caches["paged"].items()}   # S = 1
     P = alloc["free"].shape[0]
     assert int(alloc["top"]) == P
     assert (alloc["tbl"] == -1).all() and (alloc["ref"] == 0).all()

@@ -215,7 +215,7 @@ def test_allocator_script_matches_jax():
             state["j"] = getattr(JPG, fn_name)(state["j"], *jargs, **kw)
             state["t"] = getattr(TPG, fn_name)(state["t"], *targs, **kw)
         j = {k: np.asarray(v) for k, v in state["j"].items()}
-        t = {k: v.numpy() for k, v in state["t"].items()}
+        t = {k: v.numpy()[0] for k, v in state["t"].items()}   # S = 1
         top = int(j["top"])
         assert int(t["top"]) == top, fn_name
         np.testing.assert_array_equal(t["tbl"], j["tbl"], err_msg=fn_name)
@@ -236,7 +236,7 @@ def test_allocator_script_matches_jax():
     steps = []
     both("alloc_prefill_pages", np.array([0], i32), np.array([3], i32))
     shared = np.full((M,), -1, i32)
-    shared[:2] = state["t"]["tbl"][0, :2].numpy()
+    shared[:2] = state["t"]["tbl"][0, 0, :2].numpy()
     both("map_shared_pages", np.array(1, i32), shared)
     both("map_shared_pages", np.array(2, i32), shared)
     both("alloc_chunk_pages", np.array([1, 2], i32), np.array([2, 2], i32),
@@ -254,7 +254,7 @@ def test_allocator_script_matches_jax():
     both("release_slots", np.array([False, True, False]))
     both("alloc_prefill_pages", np.array([0], i32), np.array([2], i32))
     pin = np.full((M,), -1, i32)
-    pin[:1] = state["t"]["tbl"][0, :1].numpy()
+    pin[:1] = state["t"]["tbl"][0, 0, :1].numpy()
     both("map_shared_pages", np.array(1, i32), pin)
     both("release_slots", np.array([True, True, False]))
     both("release_slots", np.array([False, False, True]))
@@ -262,11 +262,11 @@ def test_allocator_script_matches_jax():
     # a pinned run: its references leave the table (as a preempted slot's
     # do) and decref_pages returns the pages exactly once
     both("alloc_prefill_pages", np.array([2], i32), np.array([2], i32))
-    run = state["t"]["tbl"][2].numpy().copy()
+    run = state["t"]["tbl"][0, 2].numpy().copy()
     pin_refs = np.bincount(run[run >= 0], minlength=P)
     state["j"] = dict(state["j"], tbl=state["j"]["tbl"].at[2].set(-1))
     state["t"] = dict(state["t"], tbl=state["t"]["tbl"].clone())
-    state["t"]["tbl"][2] = -1
+    state["t"]["tbl"][0, 2] = -1
     both("map_shared_pages", np.array(0, i32), run, pinned=pin_refs)
     both("decref_pages", run)
     both("release_slots", np.array([True, False, False]))

@@ -115,7 +115,26 @@ Phases (any failure raises and the script exits non-zero):
    paged-decode, chunk and RMSNorm launches a micro-step, chunk and
    forward, one fused call a decode chunk and the host's waits for the
    device under CUDA's sync debug mode equal to the decode chunks and
-   first-token fetches, per-shard gCO2 summing to the fleet's;
+   first-token fetches, per-shard gCO2 summing to the fleet's. The
+   fleet's admin paths: ``smoke_fleet_admin``, the smoke fleet and trace
+   with a drain, a power cap at the midpoint of idle and TDP draw, an
+   unreachable shard loss and two rejoins at fixed quanta
+   (``ADMIN_SMOKE``), on the card and on the CPU (agree as
+   ``smoke_fleet``; the card's tokens equal the fault-free fleet's on the
+   card); then ``phase_fleet_admin``, ``phase_fleet``'s fleet without
+   deferral serving its 32 class-1 requests, fault-free (the oracle) and
+   then with ``ADMIN_FULL``'s drain of shard 3, cap of shard 2, loss of
+   shard 1 and both rejoins: ``audit()`` after every event, migrations
+   with ``migrate`` J on both endpoints, migrated requests equal to the
+   oracle, the lost shard's part of the cache bit-identical (checksums)
+   until its rejoin, launches one forward's a micro-step and a chunk,
+   every free stack whole, and the host's waits equal to ``host_syncs``
+   plus the counted fetches. The card's own draw (``nvidia-smi``
+   ``power.draw.instant``, else ``power.draw``, every 100 ms in a side
+   process, written to ``chiprun_out/power_*.csv``) is integrated with
+   ``PowerTrace`` over the requests' window around phase 4's paged run
+   (beside its modeled J) and the admin run (measured J only: the meter
+   prices four modeled devices there);
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -123,6 +142,7 @@ It needs the card: with ``torch.cuda.is_available()`` false it exits 2
 and prints no result.
 """
 import asyncio
+import dataclasses
 import functools
 import gc
 import json
@@ -189,6 +209,123 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+POWER_MS = 100            # nvidia-smi's sampling period (-lms)
+POWER_MIN = 10            # fewest in-window samples a measured J needs
+# preferred first: power.draw.instant is the instantaneous reading;
+# power.draw is a one-second average on Hopper drivers
+POWER_FIELDS = ("power.draw.instant", "power.draw")
+
+
+def parse_watts(text: str):
+    """Watts from one ``nvidia-smi`` CSV reading ("412.07 W", "412.07"),
+    or None when the driver reports none ("[N/A]", "[Not Supported]")."""
+    try:
+        return float(text.strip().split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def write_power_csv(path, rows) -> None:
+    """The ``t_s,watts`` CSV that ``PowerTrace.from_csv`` reads, one row a
+    parsed reading (rows whose watts are None are left out)."""
+    with open(path, "w") as f:
+        f.write("t_s,watts\n")
+        for t, w in rows:
+            if w is not None:
+                f.write(f"{t:.6f},{w:.6f}\n")
+
+
+def power_field() -> str:
+    """The first of ``POWER_FIELDS`` that this driver answers with a
+    number."""
+    for field in POWER_FIELDS:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={field}",
+             "--format=csv,noheader,nounits", "-i", "0"],
+            capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and parse_watts(out.stdout) is not None:
+            return field
+    raise AssertionError(f"nvidia-smi reads none of {POWER_FIELDS}")
+
+
+class PowerSampler:
+    """``nvidia-smi`` as a side process, one reading of card 0 every
+    ``POWER_MS`` ms, each stamped with the host's ``time.perf_counter()``
+    (the clock of the requests' ``t_submit`` and ``t_emit``) as it
+    arrives. ``stop()`` ends the process, fails if it exited non-zero
+    before, and returns the rows."""
+
+    def __init__(self, field: str):
+        import threading
+        self.field = field
+        self.rows = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={field}",
+             "--format=csv,noheader,nounits", "-i", "0",
+             "-lms", str(POWER_MS)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.rows.append((time.perf_counter(), parse_watts(line)))
+
+    def stop(self):
+        rc = self.proc.poll()
+        if rc is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.reader.join(timeout=10)
+        if rc is not None:
+            raise AssertionError(f"nvidia-smi power sampler exited {rc}: "
+                                 f"{self.proc.stderr.read()[-500:]}")
+        return self.rows
+
+
+def measured_power(card, label, sampler, reqs, responses, gen_tokens,
+                   modeled_j=None) -> float:
+    """Integrate the sampler's trace, through ``PowerTrace.from_csv`` of
+    the CSV it writes under ``chiprun_out/``, over
+    ``ActiveWindow.from_requests`` of the run's requests (submit to last
+    token); print the field, the in-window samples, mean W, measured J,
+    the modeled J and their ratio when given, and J per generated token,
+    on a line with the card's name and power limit. Fails on fewer than
+    ``POWER_MIN`` in-window samples. Returns the measured J."""
+    from repro_torch.core.power_trace import ActiveWindow, PowerTrace
+    rows = sampler.stop()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    slug = "".join(ch if ch.isalnum() else "_" for ch in label)
+    path = os.path.join(ROOT, "chiprun_out", f"power_{slug}.csv")
+    write_power_csv(path, rows)
+    trace = PowerTrace.from_csv(path)
+    by_rid = {r.rid: r for r in responses}
+    starts = [r.t_submit for r in reqs]
+    window = ActiveWindow.from_requests(
+        starts, [by_rid[r.rid].t_emit[-1] - r.t_submit for r in reqs])
+    inside = [w for t, w in zip(trace.t_s, trace.watts)
+              if window.contains(t)]
+    span = window.t1 - window.t0
+    if len(inside) < POWER_MIN:
+        raise AssertionError(
+            f"{label}: {len(inside)} power samples in the {span:.3f} s "
+            f"window (< {POWER_MIN}); {len(trace)} in all")
+    joules = trace.energy_j(window)
+    modeled = ("" if modeled_j is None else
+               f", modeled {modeled_j:.1f} J (h100_sxm profile), measured / "
+               f"modeled {joules / modeled_j:.3f}")
+    print(f"  measured power ({card}): {sampler.field} every {POWER_MS} ms, "
+          f"{len(inside)} samples in the {span:.3f} s window, mean "
+          f"{sum(inside) / len(inside):.1f} W, measured "
+          f"{joules:.1f} J{modeled}, {joules / gen_tokens:.4f} J per "
+          f"generated token (CSV {os.path.relpath(path, ROOT)})")
+    return joules
 
 
 @functools.lru_cache(maxsize=None)
@@ -1456,6 +1593,7 @@ def smoke_agreement():
         print(f"[smoke] {arch} smoke f32, {name}: cuda tokens == cpu tokens")
     smoke_frontdoor()
     smoke_fleet()
+    smoke_fleet_admin()
 
 
 # the front door's traffic: wave A (class 0) arrives at once, wave B (class
@@ -1646,14 +1784,18 @@ def paged_requests(vocab):
             for i, p in enumerate(order)]
 
 
-def serve(card, label, ecfg, reqs, model, params, new_tokens=64):
+def serve(card, label, ecfg, reqs, model, params, new_tokens=64,
+          power=None):
     """Serve ``reqs`` once (``new_tokens`` each), the launch counts set to
-    0 just before and read just after; returns (engine, stats, counts)."""
+    0 just before and read just after; with ``power`` (an ``nvidia-smi``
+    field) the card's draw is sampled around the run and integrated over
+    its requests (``measured_power``). Returns (engine, stats, counts)."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(model, params, ecfg)
+    sampler = PowerSampler(power) if power else None
     for r in reqs:
         engine.submit(r)
     ops.reset_launches()
@@ -1691,6 +1833,9 @@ def serve(card, label, ecfg, reqs, model, params, new_tokens=64):
           f"{st['prefill_g_per_token']:.4e} g/token; decode "
           f"{st['decode_j_per_token']:.4e} J/token "
           f"{st['decode_g_per_token']:.4e} g/token ({card})")
+    if sampler is not None:
+        measured_power(card, label, sampler, reqs, responses, gen_tokens,
+                       modeled_j=st["total_energy_j"])
     return engine, st, counts
 
 
@@ -1793,11 +1938,12 @@ def phase_engine(card):
 
     engine, st, pcounts = serve(card, "paged + chunked prefill + prefix "
                                 "sharing", paged, paged_requests(cfg.vocab),
-                                model, params)
+                                model, params, power=power_field())
     paged_checks("paged run", cfg, engine, st, pcounts)
     del engine
     phase_frontdoor(card, model, params)
     phase_fleet(card, model, params)
+    phase_fleet_admin(card, model, params)
     return {"flash_attention": counts["flash_attention"],
             "decode_attention": counts["decode_attention"],
             "paged_decode_attention": pcounts["paged_decode_attention"],
@@ -1938,6 +2084,23 @@ FLEET_FRAC, FLEET_SHORT, FLEET_LONG = 0.01, 50.0, 1e5
 FLEET_WAVE = 4
 
 
+def smoke_fleet_trace(vocab):
+    """The smoke fleet's traffic: ten class-0 requests of 40 new tokens
+    (every other one opening with a 32-token system prompt), then four of
+    class 1 and 12 new tokens. Returns (class 0, class 1) as Request
+    keyword dicts."""
+    rng = np.random.default_rng(13)
+    system = rng.integers(2, vocab, 32).tolist()
+    low = [dict(rid=i, prompt=(system if i % 2 == 0 else [])
+                + rng.integers(2, vocab, int(n)).tolist(),
+                max_new_tokens=40)
+           for i, n in enumerate([9, 20, 3, 14, 25, 6, 11, 17, 5, 12])]
+    high = [dict(rid=10 + i, prompt=rng.integers(2, vocab, int(n)).tolist(),
+                 max_new_tokens=12, priority=1)
+            for i, n in enumerate([7, 30, 9, 4])]
+    return low, high
+
+
 def smoke_fleet():
     """The fleet on llama3.2-1b smoke in float32, on the card and on the
     CPU from the same weights: 4 shards of 2 slots, the paged main path
@@ -1953,16 +2116,7 @@ def smoke_fleet():
     from repro_torch.serving import (EngineConfig, Request, ServingEngine,
                                      ShardedServingEngine)
     cfg = get_config("llama3.2-1b", "smoke")
-    rng = np.random.default_rng(13)
-    system = rng.integers(2, cfg.vocab, 32).tolist()
-    low = [dict(rid=i, prompt=(system if i % 2 == 0 else [])
-                + rng.integers(2, cfg.vocab, int(n)).tolist(),
-                max_new_tokens=40)
-           for i, n in enumerate([9, 20, 3, 14, 25, 6, 11, 17, 5, 12])]
-    high = [dict(rid=10 + i, prompt=rng.integers(2, cfg.vocab,
-                                                 int(n)).tolist(),
-                 max_new_tokens=12, priority=1)
-            for i, n in enumerate([7, 30, 9, 4])]
+    low, high = smoke_fleet_trace(cfg.vocab)
     ecfg = EngineConfig(max_batch=2, max_len=128, paged=True, page_size=16,
                         prefill_chunk=16, prefill_pack=2, prefix_sharing=True,
                         preemption=True, shards=FLEET_S, routing="carbon",
@@ -2187,6 +2341,307 @@ def phase_fleet(card, model, params):
     for ok, what in checks:
         if not ok:
             raise AssertionError(f"fleet run: {what}")
+    return counts
+
+
+# the fleet's admin paths: at fixed quanta of a served trace, one shard
+# drains, one is power-capped at the midpoint of its profile's idle and TDP
+# draw, one is lost (unreachable: its slots fold), then the lost and the
+# drained shards rejoin. (quantum, action, shard); a rejoin waits for its
+# shard to be dead (a drain ends when its slots have moved)
+ADMIN_SMOKE = ((8, "drain", 3), (9, "cap", 2), (10, "fail", 1),
+               (14, "rejoin", 1), (15, "rejoin", 3))
+ADMIN_FULL = ((6, "drain", 3), (8, "cap", 2), (10, "fail", 1),
+              (16, "rejoin", 1), (18, "rejoin", 3))
+
+
+def midpoint_cap(engine, s) -> float:
+    prof = engine.shard_profile[s]
+    return prof.idle_w + 0.5 * (prof.tdp_w - prof.idle_w)
+
+
+def drive_admin(engine, waves, events, on_event=None):
+    """Serve ``waves`` ((quantum, requests): submitted once that many
+    quanta have run) on ``engine``, applying ``events`` (``ADMIN_SMOKE``
+    or ``ADMIN_FULL``) between quanta, ``audit()`` after each, then run
+    to the end. ``on_event(action, shard)`` is called just after a
+    ``fail`` and just before a ``rejoin``. Returns the responses."""
+    pending = sorted(events)
+    waves = sorted(waves, key=lambda w: w[0])
+    q = 0
+    while pending or waves:
+        if q > 10_000:
+            raise AssertionError(f"admin events never applied: {pending}")
+        for wq, reqs in [w for w in waves if w[0] <= q]:
+            for r in reqs:
+                engine.submit(r)
+            waves.remove((wq, reqs))
+        for ev in [e for e in pending if e[0] <= q]:
+            _, action, s = ev
+            if action == "rejoin":
+                if not engine.health.is_dead(s):
+                    continue           # its drain has not ended yet
+                if on_event is not None:
+                    on_event(action, s)
+                engine.rejoin(s)
+            elif action == "drain":
+                engine.drain(s)
+            elif action == "cap":
+                engine.power_cap(s, midpoint_cap(engine, s))
+            else:
+                engine.fail_shard(s, reachable=False)
+                if on_event is not None:
+                    on_event(action, s)
+            engine.audit()
+            pending.remove(ev)
+        if not (pending or waves):
+            break
+        engine.step()
+        q += 1
+    return engine.run()
+
+
+def smoke_fleet_admin():
+    """``smoke_fleet``'s fleet and trace on the card and on the CPU from
+    the same weights, with ``ADMIN_SMOKE``'s drain, power cap, loss and
+    rejoins: the card and the CPU agree on tokens, finish reasons, the
+    shard of every request and every stats() key that is not a wall-clock
+    reading, and the card's tokens equal the fault-free fleet's on the
+    card for every request (float32: a folded request's re-prefill
+    rounds like the decode that made its rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ShardedServingEngine
+    cfg = get_config("llama3.2-1b", "smoke")
+    low, high = smoke_fleet_trace(cfg.vocab)
+    ecfg = EngineConfig(max_batch=2, max_len=128, paged=True, page_size=16,
+                        prefill_chunk=16, prefill_pack=2, prefix_sharing=True,
+                        preemption=True, shards=FLEET_S, routing="carbon",
+                        shard_regions=FLEET_REGIONS)
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    got = {}
+    for dev, events in (("cpu", ADMIN_SMOKE), ("cuda", ADMIN_SMOKE),
+                        ("clean", ())):
+        d = "cpu" if dev == "cpu" else "cuda"
+        eng = ShardedServingEngine(Model(cfg, d), _to(cpu_params, d), ecfg,
+                                   device=d)
+        drive_admin(eng, [(0, [Request(**r) for r in low]),
+                          (6, [Request(**r) for r in high])], events)
+        eng.audit()
+        got[dev] = ({rid: (r.tokens, r.finish_reason)
+                     for rid, r in eng.responses.items()},
+                    dict(eng._req_shard),
+                    {k: v for k, v in eng.stats().items()
+                     if not k.startswith("queue_wait_")})
+    if got["cpu"] != got["cuda"]:
+        raise AssertionError(f"smoke fleet admin differs: cpu {got['cpu']} "
+                             f"cuda {got['cuda']}")
+    toks, shards, st = got["cuda"]
+    want = got["clean"][0]
+    bad = [rid for rid in want if toks[rid][0] != want[rid][0]]
+    if bad:
+        raise AssertionError(f"smoke fleet admin: requests {bad} differ "
+                             "from the fault-free fleet on the card")
+    if not (st["migrations"] >= 1 and st["shard_down_events"] == 2
+            and st["shard_rejoins"] == 2 and st["live_shards"] == FLEET_S):
+        raise AssertionError(
+            f"smoke fleet admin: migrations {st['migrations']}, shard "
+            f"downs {st['shard_down_events']}, rejoins "
+            f"{st['shard_rejoins']}, live {st['live_shards']}")
+    print(f"[smoke] llama3.2-1b smoke f32, fleet of {FLEET_S} shards x 2, "
+          f"drain / cap / loss / rejoins at quanta "
+          f"{[e[0] for e in ADMIN_SMOKE]}: cuda == cpu on tokens, finish "
+          f"reasons, shards and stats ({st['migrations']} migrations of "
+          f"{st['migrated_pages']} pages, {st['shard_evacuated']} evacuated, "
+          f"{st['preemption_count']} preemptions, {st['power_cap_events']} "
+          f"cap); cuda tokens == the fault-free fleet's")
+
+
+def shard_checksums(engine, s) -> torch.Tensor:
+    """Two int64 checksums (the sum, and the sum weighted by position) of
+    every part of shard ``s`` in the device cache: its allocator rows, its
+    cursor rows and its pages of every pool, the shared trash page
+    excluded. One tensor on the device."""
+    B, P = engine.B, engine.num_pages
+    c = engine.caches
+    parts = [v[s] for v in c["paged"].values()] + [c["t"][s * B:(s + 1) * B]]
+    for layer in c["layers"]:
+        for name, v in layer.items():
+            parts.append(v[:, s * P:(s + 1) * P]
+                         if name in ("k_pages", "v_pages")
+                         else v[s * B:(s + 1) * B])
+    sums = []
+    for x in parts:
+        bits = x.contiguous().view(
+            torch.int16 if x.element_size() == 2 else torch.int32)
+        bits = bits.reshape(-1).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums += [bits.sum(), (bits * w).sum()]
+    return torch.stack(sums)
+
+
+def phase_fleet_admin(card, model, params):
+    """The fleet's admin paths at full width and depth: ``phase_fleet``'s
+    fleet (``llama-paper-1b`` bf16, 4 shards x 8 slots x 1,024 pages,
+    carbon routing over ``FLEET_REGIONS``, sharing, preemption) without
+    deferral, serving the 32 class-1 requests of ``fleet_requests`` in its
+    two waves, first fault-free (the oracle), then with ``ADMIN_FULL``'s
+    drain of shard 3, power cap of shard 2, unreachable loss of shard 1
+    and both rejoins. Asserts ``audit()`` after every event, migrations
+    with ``migrate`` J on both endpoints, every migrated request that was
+    never folded equal to the oracle token for token (its pages are
+    copied bit for bit), the dead shard's part of the device cache
+    bit-identical (checksums) from its loss to its rejoin, 22 / 22 / 45
+    paged-decode, chunk and RMSNorm launches a micro-step, chunk and
+    forward, every shard's whole free stack at the end, and the host's
+    waits for the device under CUDA's sync debug mode equal to
+    ``host_syncs`` plus the counted table, row, audit and checksum
+    fetches. Folded requests re-prefill in bf16, which need not round like
+    the decode that made their rows: how many differ from the oracle is
+    printed, not asserted. The card's draw is sampled around the admin
+    run; the meter prices four modeled devices while one card runs, so
+    only the measured J is printed."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ShardedServingEngine
+    cfg = model.cfg
+    L, norms = cfg.n_layers, dense_norms(cfg)
+    ecfg = dataclasses.replace(fleet_config(), defer_below_priority=None)
+
+    def trace():
+        reqs = [r for r in fleet_requests(cfg.vocab) if r.priority > 0]
+        return reqs, [(0, [r for r in reqs if r.rid < 2]),
+                      (FLEET_WAVE, [r for r in reqs if r.rid >= 2])]
+
+    reqs, waves = trace()
+    oracle = ShardedServingEngine(model, params, ecfg)
+    drive_admin(oracle, waves, ())
+    want = {rid: r.tokens for rid, r in oracle.responses.items()}
+    del oracle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reqs, waves = trace()
+    engine = ShardedServingEngine(model, params, ecfg)
+    migrate = engine._migrate_slot
+    moved = []
+
+    def logged(s, b, d, src_row):
+        moved.append(engine._slot_req[s][b].rid)
+        return migrate(s, b, d, src_row)
+
+    engine._migrate_slot = logged
+    evacuate = engine._evacuate_shard
+    lost = set()                     # on a shard when it was lost
+
+    def logged_evacuate(s, reachable=True):
+        lost.update(r for r in engine.slot_rid[s] if r >= 0)
+        return evacuate(s, reachable)
+
+    engine._evacuate_shard = logged_evacuate
+    sums = {}
+    own = [0]                        # this phase's own fetches (checksums)
+
+    def on_event(action, s):
+        own[0] += 1
+        sums.setdefault(s, []).append(shard_checksums(engine, s).cpu())
+
+    waits = [0]
+
+    def record(message, *_):
+        if "called a synchronizing CUDA operation" in str(message):
+            waits[0] += 1
+
+    sampler = PowerSampler(power_field())
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            resp = drive_admin(engine, waves, ADMIN_FULL, on_event)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    st = engine.stats()
+    gen_tokens = sum(r.n_tokens for r in resp)
+    print(f"\n[fleet admin] llama-paper-1b full width bf16, {L} layers, "
+          f"{engine.S} shards x {engine.B} slots, {len(reqs)} requests, "
+          f"{gen_tokens} generated; events at quanta "
+          f"{[e[:2] for e in ADMIN_FULL]} ({card})")
+    measured_power(card, "fleet admin", sampler, reqs, resp, gen_tokens)
+    print(f"  wall {wall:.3f} s, {gen_tokens / wall:.1f} generated tokens/s, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    mig_j = [m.phase("migrate").energy_j for m in engine.meters]
+    folded = sorted(lost | {r.rid for r in resp if r.preemptions > 0})
+    clean_moved = sorted(set(moved) - set(folded))
+    differ = {r.rid: next(i for i, (a, b) in enumerate(zip(r.tokens,
+                                                           want[r.rid]))
+                          if a != b)
+              for r in resp if r.rid in folded and r.tokens != want[r.rid]}
+    print(f"  migrations {st['migrations']} ({st['migrated_pages']} pages; "
+          f"requests {sorted(set(moved))}), migrate J per shard "
+          f"{[f'{j:.4e}' for j in mig_j]}; evacuated "
+          f"{st['shard_evacuated']}, shard downs {st['shard_down_events']}, "
+          f"rejoins {st['shard_rejoins']}, cap events "
+          f"{st['power_cap_events']}, preemptions {st['preemption_count']}, "
+          f"placements {[st[f'shard{s}_requests'] for s in range(engine.S)]}")
+    others = [r.rid for r in resp if r.rid not in folded
+              and r.rid not in moved and r.tokens != want[r.rid]]
+    print(f"  migrated, never lost: {clean_moved} (asserted equal to the "
+          f"oracle); folded or restarted {folded}: {len(differ)} differ "
+          f"from the oracle (request: first differing token {differ}; "
+          f"reported, not asserted: bf16 re-prefill); others differing "
+          f"{others} (reported)")
+    print(f"  prefill chunks {st['prefill_chunks']}, micro-steps "
+          f"{st['steps']}, decode chunks {st['decode_chunks']}, host syncs "
+          f"{st['host_syncs']} + fetches {engine.fetches} + {own[0]} "
+          f"checksum fetches; {waits[0]} host waits under the sync debug "
+          f"mode; launches: {counts}")
+    alloc = {k: v.cpu() for k, v in engine.caches["paged"].items()}
+    dead = sums.get(1, [])
+    checks = [
+        (all(r.finished and r.finish_reason == "length"
+             and r.n_tokens == FLEET_NEW for r in resp),
+         "a response not finished by length at its full budget"),
+        (st["migrations"] >= 1 and mig_j[3] > 0.0
+         and any(j > 0.0 for s, j in enumerate(mig_j) if s != 3),
+         f"migrations {st['migrations']}, migrate J {mig_j}"),
+        (all(r.tokens == want[r.rid] for r in resp if r.rid in clean_moved),
+         f"a migrated request differs from the oracle ({clean_moved})"),
+        (len(dead) == 2 and torch.equal(dead[0], dead[1]),
+         "shard 1's part of the cache changed between its loss and rejoin"),
+        (st["shard_down_events"] == 2 and st["shard_rejoins"] == 2
+         and st["live_shards"] == engine.S,
+         f"shard downs {st['shard_down_events']}, rejoins "
+         f"{st['shard_rejoins']}, live {st['live_shards']}"),
+        (counts["paged_decode_attention"] == L * st["steps"] > 0,
+         f"paged decode launches {counts['paged_decode_attention']} != "
+         f"{L} x {st['steps']}"),
+        (counts["chunked_prefill_attention"] == L * st["prefill_chunks"] > 0,
+         f"chunk launches {counts['chunked_prefill_attention']} != {L} x "
+         f"{st['prefill_chunks']}"),
+        (counts["rmsnorm"] == norms * (st["prefill_chunks"] + st["steps"]),
+         f"rmsnorm launches {counts['rmsnorm']} != {norms} x "
+         f"({st['prefill_chunks']} + {st['steps']})"),
+        (bool((alloc["top"] == engine.num_pages).all())
+         and bool((alloc["tbl"] == -1).all())
+         and bool((alloc["ref"] == 0).all())
+         and engine.free_pages == [engine.num_pages] * engine.S,
+         "a shard's free stack is not whole"),
+        (waits[0] == st["host_syncs"] + sum(engine.fetches.values())
+         + own[0], f"{waits[0]} host waits != {st['host_syncs']} syncs + "
+         f"{engine.fetches} + {own[0]}"),
+    ]
+    engine.audit()
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"fleet admin run: {what}")
     return counts
 
 

@@ -43,9 +43,17 @@ that is cut off (``_drop_set``), or to the trash page for pool rows.
 Writes to the cache tree itself go in place: ``paginate_cache`` replaces
 each layer's contiguous k/v with zero pools, and ``insert_prefill_paged``,
 ``begin_chunked_prefill``, ``map_shared_prefix``, ``cow_chunk_pages``,
-``freeze_inactive_cursors`` and ``scatter_slot_view`` write the pools and
-the per-slot rows of the tree they are given (and return it). Only the
-allocator dict at ``caches["paged"]`` is replaced by a new one.
+``freeze_inactive_cursors``, ``scatter_slot_view``, ``scrub_pool``,
+``migrate_pages`` and ``migrate_slot`` write the pools and the per-slot
+rows of the tree they are given (and return it). Only the allocator dict
+at ``caches["paged"]`` is replaced by a new one.
+
+The fleet's shard loss and live migration (``serving/sharded.py``) add
+four pool programs: ``quarantine_table`` clears a dead shard's table so
+its rows write only to the trash page, ``scrub_pool`` resets a rejoining
+shard, and ``export_slot`` / ``migrate_pages`` are the two halves of a
+slot's move between two shards' halves of the pool, which
+``migrate_slot`` composes with the source's release.
 """
 from __future__ import annotations
 
@@ -304,6 +312,145 @@ def decref_pages(alloc: Dict, pages: torch.Tensor) -> Dict:
     free, top, ref = _return_pages(alloc["free"], alloc["top"],
                                    alloc["ref"], drops)
     return {"tbl": alloc["tbl"], "free": free, "top": top, "ref": ref}
+
+
+def quarantine_table(alloc: Dict, do: torch.Tensor) -> Dict:
+    """Route-invalidate the DEAD shards flagged in ``do`` (S,) bool: clear
+    their whole block tables to -1, so the writes of their slot rows that
+    keep riding every fleet forward land in the trash page, exactly like a
+    released slot's, instead of in real pages of their pool.
+
+    Deliberately NOT a release: ``ref``, ``free``, ``top`` and every KV
+    payload page stay bit-identical. The dead pool is unreachable, never
+    mutated; ``scrub_pool`` rebuilds it from nothing at rejoin."""
+    tbl = alloc["tbl"]
+    return dict(alloc, tbl=torch.where(do.reshape(-1, 1, 1),
+                                       torch.full_like(tbl, -1), tbl))
+
+
+def scrub_pool(pool: Dict, do: torch.Tensor) -> Dict:
+    """Reset the shards flagged in ``do`` (S,) bool to the ``init_allocator``
+    state (table -1, free = arange(P), top = P, ref = 0) and clear their B
+    per-slot cursor rows in every layer (``pos_ids`` -1, ``length`` and
+    ``t`` 0; a recurrent layer's slot state 0), in place: the REJOIN
+    primitive, since a dead shard's contents are untrusted. KV payload
+    pages are not zeroed: positions are logical, so stale rows are
+    unreachable behind ``pos_ids == -1``, as after a release. Every other
+    shard's allocator rows and cursor rows stay bit-identical, and no page
+    of the pool is written."""
+    a = pool["paged"]
+    S, B, M = a["tbl"].shape
+    fresh = init_allocator(B, M, a["free"].shape[1], do.device, shards=S)
+    pool["paged"] = {k: torch.where(do.reshape((S,) + (1,) * (v.dim() - 1)),
+                                    fresh[k], v) for k, v in a.items()}
+    rows = do[:, None].expand(S, B).reshape(-1)          # (S*B,)
+
+    def fill(leaf, value):
+        leaf.masked_fill_(rows.reshape((-1,) + (1,) * (leaf.dim() - 1)),
+                          value)
+
+    for layer in pool["layers"]:
+        for name, leaf in layer.items():
+            if name not in ("k_pages", "v_pages"):
+                fill(leaf, -1 if name == "pos_ids" else 0)
+    fill(pool["t"], 0)
+    return pool
+
+
+def export_slot(pool: Dict, row: torch.Tensor, src_pg: torch.Tensor) -> Dict:
+    """The SEND half of a page migration between two shards' halves of the
+    pool: copies of one slot's KV pages and per-slot rows. ``row``: (1,)
+    the slot's flat per-slot row s*B + b; ``src_pg``: its pages' POOL ids
+    s*P + p in logical order (-1 reads the trash page, whose rows are
+    never read back). Every paged layer gives ``k_rows``/``v_rows`` (Hkv,
+    n, ps, hd) and the slot's ``pos_ids``/``length``; every other leaf its
+    row. The payload mirrors the cache tree, so ``migrate_pages`` walks
+    both in step."""
+    rl = row.long()
+    layers = []
+    for layer in pool["layers"]:
+        if "k_pages" not in layer:
+            layers.append({k: v.index_select(0, rl) for k, v in layer.items()})
+            continue
+        trash = layer["k_pages"].shape[1] - 1
+        pg = torch.where(src_pg < 0, torch.full_like(src_pg, trash),
+                         src_pg).long()
+        layers.append({"k_rows": layer["k_pages"].index_select(1, pg),
+                       "v_rows": layer["v_pages"].index_select(1, pg),
+                       "pos_ids": layer["pos_ids"].index_select(0, rl),
+                       "length": layer["length"].index_select(0, rl)})
+    return {"t": pool["t"].index_select(0, rl), "layers": layers}
+
+
+def migrate_pages(pool: Dict, shard: int, slot: int, payload: Dict,
+                  n_pages: int) -> Dict:
+    """The RECEIVE half: pop ``n_pages`` pages off shard ``shard``'s free
+    stack and rewrite ``slot``'s whole table row to them
+    (``alloc_prefill_pages``, every other shard's lane the sentinel),
+    scatter the payload's KV rows into those pages (pool ids shard*P + p)
+    and restore the slot's per-slot rows, in place: the landed slot equals
+    the source slot, on private pages (ref 1). Re-indexing shared-prefix
+    runs in the destination is host policy."""
+    a = pool["paged"]
+    S, B, _ = a["tbl"].shape
+    P = a["free"].shape[1]
+    dev = a["tbl"].device
+    lane = torch.arange(S, device=dev) == shard
+    pool["paged"] = alloc_prefill_pages(
+        a, torch.where(lane, slot, B).to(_I32),
+        torch.where(lane, n_pages, 0).to(_I32))
+    row = pool["paged"]["tbl"][shard, slot]
+    rd = torch.full((1,), shard * B + slot, dtype=torch.long, device=dev)
+    for layer, pl in zip(pool["layers"], payload["layers"]):
+        if "k_pages" not in layer:
+            for k, v in layer.items():
+                v.index_copy_(0, rd, pl[k])
+            continue
+        n = pl["k_rows"].shape[1]
+        trash = layer["k_pages"].shape[1] - 1
+        dst = torch.where(row[:n] >= 0, row[:n] + shard * P,
+                          torch.full_like(row[:n], trash)).long()
+        layer["k_pages"].index_copy_(1, dst, pl["k_rows"])
+        layer["v_pages"].index_copy_(1, dst, pl["v_rows"])
+        layer["pos_ids"].index_copy_(0, rd, pl["pos_ids"])
+        layer["length"].index_copy_(0, rd, pl["length"])
+    pool["t"].index_copy_(0, rd, payload["t"])
+    return pool
+
+
+def migrate_slot(pool: Dict, cur_tokens: torch.Tensor,
+                 state: Dict[str, torch.Tensor], src: tuple, dst: tuple,
+                 src_pg: torch.Tensor) -> torch.Tensor:
+    """Move one slot between two shards of the fleet's pool, in place: the
+    one-card counterpart of the reference's cross-device migration
+    program. ``src`` = (s, b) and ``dst`` = (d, slot_d); ``src_pg`` holds
+    the source slot's n mapped SHARD-LOCAL pages in logical order. Copies
+    the pages (``export_slot``), releases the source row sharing-aware (a
+    page the slot shares survives under its other holders' references)
+    and disarms it, lands the pages on n fresh pages of shard d
+    (``migrate_pages``) and carries the slot's decode rows (current token,
+    ``active``, ``budget``, ``eos``). Returns the destination's new table
+    row (M,) of shard-local page ids."""
+    (s, b), (d, bd) = src, dst
+    a = pool["paged"]
+    S, B, _ = a["tbl"].shape
+    P = a["free"].shape[1]
+    dev = a["tbl"].device
+    rs = torch.full((1,), s * B + b, dtype=torch.long, device=dev)
+    rd = torch.full((1,), d * B + bd, dtype=torch.long, device=dev)
+    payload = export_slot(pool, rs, torch.where(src_pg >= 0, src_pg + s * P,
+                                                src_pg))
+    carry = {k: v.index_select(0, rs) for k, v in state.items()}
+    cur = cur_tokens.index_select(0, rs)
+    released = ((torch.arange(S, device=dev) == s)[:, None]
+                & (torch.arange(B, device=dev) == b)[None, :])
+    pool["paged"] = release_slots(a, released)
+    sampling.disarm_slots(state, rs)
+    migrate_pages(pool, d, bd, payload, int(src_pg.shape[0]))
+    cur_tokens.index_copy_(0, rd, cur)
+    for k, v in state.items():
+        v.index_copy_(0, rd, carry[k])
+    return pool["paged"]["tbl"][d, bd]
 
 
 def _page_base(alloc: Dict) -> torch.Tensor:

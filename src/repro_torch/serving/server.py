@@ -35,12 +35,19 @@ budget) stops the drive loop, marks every unfinished response with
 reason ``"error"``, ends all streams, and re-raises from ``result()`` /
 ``drain()`` — a wedged engine fails loudly, it never hangs clients.
 
+Shard loss is NOT an error at this layer: when the fleet's health
+watchdog turns a retry-exhausted launch site into a shard-down
+declaration, the fleet evacuates its in-flight work onto the survivors
+and keeps serving, so the server sees an ordinary (if slower) quantum.
+Only a fault the watchdog cannot localize, or the loss of the last live
+shard, still surfaces here as ``FaultError``.
+
 On the card, ``engine.step()`` runs on the executor's worker thread: its
 kernels launch on that thread's current stream (the default stream, as
 the event loop's thread would use), the engine's ``torch.Generator`` is
 touched only there, under the lock, and a kernel library built on first
 use from that thread is built once (``kernels/build.library`` holds a
-lock). The fleet's shard loss is not ported yet.
+lock).
 """
 from __future__ import annotations
 

@@ -40,10 +40,21 @@ by the slowest shard's modeled time each quantum; ``FleetMeterView`` sums
 them. Temporal deferral, the front door and fault recovery are the single
 engine's, borrowed.
 
-Shard loss (``fail_shard``, ``rejoin``, the watchdog's conversion of retry
-exhaustion into shard loss) and the admin paths (``drain``,
-``power_cap``, live migration) are not ported yet: they raise
-NotImplementedError naming ROADMAP Queue 1, item 5.
+A shard is a fault domain, as in the reference. ``fail_shard`` (an
+operator's declaration, a planned ``shard_down``, or the watchdog turning
+a launch site's retry exhaustion into the loss of the shards it touched)
+evacuates the shard's in-flight work onto the survivors, by page
+migration where the shard can still serve a copy and through the
+preemption fold otherwise, clears the dead shard's block table so its
+rows, which ride every fleet forward, write only to the trash page, and
+re-denominates its embodied rent onto the live shards; ``rejoin`` scrubs
+its half of the allocator and its cursor rows. The admin paths ride live
+KV-page migration (``paged.migrate_slot``: on one card an index copy from
+the source shard's pages of each pool to fresh pages of the
+destination's): ``drain`` moves a shard's slots to the survivors between
+quanta and hands the empty shard to ``fail_shard``, and ``power_cap``
+sheds a shard's lowest-priority slots until its modeled draw fits the
+cap. A copy is metered to the ``migrate`` phase on both endpoints.
 """
 from __future__ import annotations
 
@@ -54,11 +65,12 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.energy import decode_counts, step_energy
+from repro_torch.core.energy import decode_counts, migrate_counts, step_energy
 from repro_torch.core.hardware import HardwareProfile, get_profile
 from repro_torch.core.intensity import Region, ci_at_hour, get_region
 from repro_torch.core.meter import CarbonMeter, FleetMeterView, SharedClock
-from repro_torch.core.scheduler import FleetSlice, marginal_request_g
+from repro_torch.core.scheduler import (FleetSlice, marginal_request_g,
+                                        migration_cost_g)
 from repro_torch.models.costing import workload_of
 from repro_torch.models.model import Model
 from repro_torch.serving import paged as PG
@@ -67,13 +79,6 @@ from repro_torch.serving.engine import (EngineConfig, ServingEngine,
                                         _prefill_phase_counts, pack_chunks)
 from repro_torch.serving.faults import FaultError, HealthMonitor, InjectedFault
 from repro_torch.serving.request import Request, Response
-
-_LATER = "ROADMAP Queue 1, item 5: fleet shard loss and admin paths"
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_LATER})")
-
 
 class ShardedServingEngine:
     """Data-parallel fleet of ``cfg.shards`` serving shards behind one
@@ -189,10 +194,28 @@ class ShardedServingEngine:
         # per-(site, shard) retry counters: every faulted launch charges
         # the shards it touched (stats() splits fault_retries out by both)
         self._fault_retry_shard: Dict[Tuple[str, int], int] = {}
-        # the fleet's health watchdog: per-shard consecutive faulted
-        # launches. Shard loss (declaration, evacuation, rejoin) is not
-        # ported yet, so no shard dies
+        # the fleet's health watchdog: a shard is declared dead by a
+        # planned shard_down, an operator's fail_shard, or max_retries
+        # consecutive faulted launches that touched it while a survivor
+        # exists; declaration evacuates its in-flight work (fail_shard)
         self.health = HealthMonitor(S, cfg.max_retries)
+        self.shard_down_events = 0
+        self.shard_evacuated = 0       # requests moved off dead shards
+        self.shard_rejoins = 0
+        # live KV-page migration: draining shards take no new placements
+        # and page-copy their slots to the survivors between quanta;
+        # capped shards shed slots until their modeled draw fits
+        self._draining: set = set()
+        self._drain_deadline: Dict[int, Optional[float]] = {}
+        self._power_cap: List[Optional[float]] = [None] * S
+        self.migrations = 0            # completed slot migrations
+        self.migrated_pages = 0        # pages copied between shards
+        self.drain_events = 0
+        self.power_cap_events = 0
+        # the host's waits for the device outside ``host_syncs``: table
+        # fetches of a migration sweep, destination rows re-indexed after
+        # a migration, and audit()'s allocator fetches
+        self.fetches = {"table": 0, "row": 0, "audit": 0}
         # per-tenant rate limiting (submit() is borrowed, so the fleet
         # carries the same bucket state as the single-device engine)
         self._tenant_buckets: Dict[str, List[float]] = {}
@@ -322,6 +345,18 @@ class ShardedServingEngine:
                                   rep.energy_j)
         self._q_time[shard] += rep.t_total
         return rep
+
+    def _meter_migrate(self, src: int, dst: int, kv_tokens: float) -> None:
+        """Charge a page copy to the ``migrate`` phase on BOTH endpoints,
+        each at its own profile (prefill and decode J per token stay
+        invariant to migration policy); each side's modeled time joins its
+        own quantum total."""
+        counts = migrate_counts(self.workload, kv_tokens)
+        for s in (src, dst):
+            rep = step_energy(self.shard_profile[s], counts)
+            self.meters[s].record("migrate", rep.tokens, rep.t_total,
+                                  rep.energy_j)
+            self._q_time[s] += rep.t_total
 
     # ------------------------------------------------------- prefix sharing
     def _match_prefix(self, req: Request, s: int) -> Tuple[int, List[int]]:
@@ -491,22 +526,450 @@ class ShardedServingEngine:
         self._slot_req[s][slot] = None
         self._slot_prio[s][slot] = 0
 
-    # -------------------------------------- shard loss and admin: not ported
-    def fail_shard(self, s: int, reachable: bool = True) -> int:
-        raise _later("ShardedServingEngine.fail_shard")
+    # ------------------------------------------------- live KV-page migration
+    # The recompute-free counterpart of evacuation: a slot's mapped pages
+    # are COPIED to fresh pages of a survivor's half of the pool
+    # (paged.migrate_slot), its host mirrors move with it, and decode
+    # resumes on the destination from the same context: token for token
+    # the undisturbed run, zero recompute J. Shared-prefix runs migrate as
+    # private copies and re-register in the destination's index; the
+    # source's entries survive under their remaining holders or fall out
+    # with the last reference, as in an ordinary release. Three consumers:
+    # drain(), reachable evacuation (fail_shard), power_cap().
 
-    def rejoin(self, s: int) -> None:
-        raise _later("ShardedServingEngine.rejoin")
+    def _fetch_tbl(self) -> np.ndarray:
+        # writable copy: shed sweeps mark migrated rows cleared in place
+        self.fetches["table"] += 1
+        return np.array(self.caches["paged"]["tbl"].cpu().numpy())
 
-    def drain(self, s: int, deadline_s: Optional[float] = None) -> int:
-        raise _later("ShardedServingEngine.drain")
+    def _resv_for_move(self, s: int, b: int) -> int:
+        """Worst-case reservation the DESTINATION must hold for slot
+        (s, b): the request's whole prompt + budget page count, with no
+        sharing discount (migrated pages land as private copies)."""
+        req = self._slot_req[s][b]
+        return PG.pages_needed(
+            len(req.prompt) + max(req.max_new_tokens - 1, 0),
+            self.cfg.page_size)
 
-    def power_cap(self, s: int, watts: Optional[float]) -> int:
-        raise _later("ShardedServingEngine.power_cap")
+    def _pick_migration_dest(self, s: int, resv_d: int) -> Optional[int]:
+        """Best survivor to receive a slot from shard ``s``: live, not
+        draining, a free slot and room for the whole private reservation.
+        Most free pages, then lowest id; carbon routing breaks free-page
+        ties by the cheaper copy (``migration_cost_g`` at the
+        destination's profile and current CI)."""
+        carbon = self.cfg.routing == "carbon"
+        kv_tokens = float(resv_d * self.cfg.page_size)
+        best = None
+        for d in self.health.live:
+            if d == s or d in self._draining:
+                continue
+            if not self.free_slots(d) or self.free_pages[d] < resv_d:
+                continue
+            key: Tuple = (self.free_pages[d], -d)
+            if carbon:
+                region = self.shard_region[d]
+                ci = (ci_at_hour(region, self._clock_hours() % 24.0)
+                      if self.cfg.use_diurnal_ci else region.ci_g_per_kwh)
+                g, _ = migration_cost_g(self._slices[d], self.workload,
+                                        kv_tokens, ci=ci)
+                key = (self.free_pages[d], -g, -d)
+            if best is None or key > best[0]:
+                best = (key, d)
+        return None if best is None else best[1]
 
     def _migrate_slot(self, s: int, b: int, d: int,
                       src_row: np.ndarray) -> None:
-        raise _later("live KV-page migration (_migrate_slot)")
+        """Move slot (s, b) to shard ``d``: the device copies its pages
+        and decode rows and releases the source (``paged.migrate_slot``),
+        then the host mirrors move: the source is credited like a release
+        (sharing-aware), the destination claims a slot and the whole
+        private reservation. An armed slot re-registers its prompt pages
+        in the destination's prefix index from the NEW table row (one
+        fetch); a mid-prefill slot registers at prefill completion."""
+        req = self._slot_req[s][b]
+        rid = self.slot_rid[s][b]
+        n = int((src_row >= 0).sum())
+        slot_d = self.free_slots(d)[0]
+        resv_d = self._resv_for_move(s, b)
+        budget, eos = self.slot_budget[s][b], self.slot_eos[s][b]
+        ctx, armed = self._slot_ctx[s][b], self._slot_armed[s][b]
+        prio = self._slot_prio[s][b]
+        dst_row = PG.migrate_slot(self.caches, self.cur_tokens, self.state,
+                                  (s, b), (d, slot_d),
+                                  self._tensor(src_row[:n]))
+        # source credit: the device release already ran; the same
+        # popper-charges-once / last-holder-credits-once flows as
+        # _release_slots
+        ret = self._slot_pages[s][b]
+        if self.sharing:
+            for p in self._slot_own_idx[s].pop(b, []):
+                self._page_ref[s][p] -= 1
+                if self._page_ref[s][p] <= 0:
+                    self._drop_index_page(s, p)
+                else:
+                    ret -= 1           # survives under someone else's map
+            for p in self._slot_shared_in[s].pop(b, []):
+                self._page_ref[s][p] -= 1
+                if self._page_ref[s][p] <= 0:
+                    self._drop_index_page(s, p)
+                    ret += 1           # last holder frees the original
+        self.free_pages[s] += ret
+        self._slot_pages[s][b] = 0
+        self._clear_slot(s, b)
+        # destination claim: admission's mirror writes, but the slot
+        # arrives mid-flight (context, budget and armed state kept)
+        self.free_pages[d] -= resv_d
+        self.peak_pages_reserved[d] = max(
+            self.peak_pages_reserved[d],
+            self.num_pages - self.free_pages[d])
+        self.slot_rid[d][slot_d] = rid
+        self.slot_budget[d][slot_d] = budget
+        self.slot_eos[d][slot_d] = eos
+        self._slot_ctx[d][slot_d] = ctx
+        self._slot_armed[d][slot_d] = armed
+        self._slot_pages[d][slot_d] = resv_d
+        self._slot_req[d][slot_d] = req
+        self._slot_prio[d][slot_d] = prio
+        self._req_shard[rid] = d
+        if self.sharing:
+            # copy-then-reindex: the landed pages are private (ref 1); an
+            # armed slot's completed prompt registers them in the
+            # destination's index first-writer-wins, so later arrivals
+            # adopt from the survivor
+            self._slot_shared_in[d][slot_d] = []
+            self._slot_own_idx[d][slot_d] = []
+            if armed:
+                self.fetches["row"] += 1
+                self._register_prefix(req, d, slot_d,
+                                      dst_row.cpu().numpy())
+        if not armed:
+            self._prefilling[s].remove((req, b))
+            self._prefilling[d].append((req, slot_d))
+        self._meter_migrate(s, d, float(n * self.cfg.page_size))
+        self.migrations += 1
+        self.migrated_pages += n
+
+    # ------------------------------------------------------- graceful drain
+    def drain(self, s: int, deadline_s: Optional[float] = None) -> int:
+        """Gracefully drain shard ``s``: stop placing new work on it,
+        page-copy its armed and mid-prefill slots to the survivors between
+        quanta (token for token the undrained run, zero recompute J), then
+        hand the empty shard to ``fail_shard``. ``deadline_s`` (wall
+        clock) bounds the wait for destination capacity: past it the
+        remainder is evacuated (migrate what fits, fold the rest). Returns
+        the number of slots the immediate first sweep migrated."""
+        if not 0 <= s < self.S:
+            raise ValueError(f"shard {s} out of range for {self.S} shards")
+        if self.health.is_dead(s):
+            raise ValueError(f"shard {s} is dead")
+        if s in self._draining:
+            return 0
+        if not [d for d in self.health.live
+                if d != s and d not in self._draining]:
+            raise FaultError(
+                f"shard {s} is the last drainable shard — nowhere to "
+                "migrate; fleet state is untouched")
+        self._draining.add(s)
+        self._drain_deadline[s] = (
+            None if deadline_s is None
+            else time.perf_counter() + deadline_s)
+        self.drain_events += 1
+        return self._drain_quantum(s)
+
+    def _finish_drain(self, s: int) -> None:
+        """The drained shard is empty: declare it down. If the fleet is
+        down to one live shard, the drain aborts instead and the shard
+        stays live and placeable."""
+        self._draining.discard(s)
+        self._drain_deadline.pop(s, None)
+        if len(self.health.live) <= 1:
+            return
+        self.fail_shard(s)             # empty: evacuation is a no-op
+
+    def _drain_quantum(self, s: int) -> int:
+        """One drain sweep of shard ``s``: migrate every occupied slot a
+        survivor can take now; the rest keep decoding on ``s`` until
+        capacity frees. Finishes the drain when the shard is empty."""
+        moved = 0
+        occupied = [b for b in range(self.B) if self.slot_rid[s][b] >= 0]
+        tbl: Optional[np.ndarray] = None
+        for b in occupied:
+            d = self._pick_migration_dest(s, self._resv_for_move(s, b))
+            if d is None:
+                continue               # wait for capacity, keep decoding
+            if tbl is None:
+                # one fetch serves the sweep: migrating slot b clears
+                # only row b of the source
+                tbl = self._fetch_tbl()
+            self._migrate_slot(s, b, d, tbl[s][b])
+            moved += 1
+        if all(r < 0 for r in self.slot_rid[s]) and not self._prefilling[s]:
+            self._finish_drain(s)
+        return moved
+
+    def _drain_sweep(self) -> int:
+        """A quantum's drain progress for every draining shard; an expired
+        drain deadline evacuates the remainder through ``fail_shard``."""
+        moved = 0
+        now = time.perf_counter()
+        for s in sorted(self._draining):
+            if self.health.is_dead(s):
+                self._draining.discard(s)
+                self._drain_deadline.pop(s, None)
+                continue
+            ddl = self._drain_deadline.get(s)
+            if ddl is not None and now > ddl:
+                self._draining.discard(s)
+                self._drain_deadline.pop(s, None)
+                if len(self.health.live) > 1:
+                    self.fail_shard(s)
+                continue
+            moved += self._drain_quantum(s)
+        return moved
+
+    # ----------------------------------------------------- brown-out power cap
+    def power_cap(self, s: int, watts: Optional[float]) -> int:
+        """Impose (or, with ``watts=None``, lift) a brown-out power cap on
+        shard ``s``: it keeps serving but sheds its lowest-priority slots,
+        by migration where a survivor has room and by the preemption fold
+        otherwise, until its modeled draw fits, and placement refuses work
+        that would push it back over. Shed work is metered where it runs.
+        Returns the number of slots shed at once."""
+        if not 0 <= s < self.S:
+            raise ValueError(f"shard {s} out of range for {self.S} shards")
+        if watts is None:
+            self._power_cap[s] = None
+            return 0
+        idle = self.shard_profile[s].idle_w
+        if watts < idle:
+            raise ValueError(
+                f"cap {watts:.1f} W is below shard {s}'s idle draw "
+                f"{idle:.1f} W — an idle device already violates it")
+        self._power_cap[s] = float(watts)
+        self.power_cap_events += 1
+        return self._shed_to_cap(s)
+
+    def _modeled_draw(self, s: int) -> float:
+        """Shard ``s``'s modeled draw at its current load: the larger of
+        its decode-step and prefill-chunk power (the ``step_power`` model
+        the meters price), idle draw when empty."""
+        draw = self.shard_profile[s].idle_w
+        armed = [b for b in range(self.B) if self._slot_armed[s][b]]
+        if armed:
+            ctx = float(np.mean([self._slot_ctx[s][b] for b in armed]))
+            rep = step_energy(self.shard_profile[s],
+                              decode_counts(self.workload, len(armed),
+                                            max(ctx, 1.0)))
+            draw = max(draw, rep.power_w)
+        if self._prefilling[s]:
+            counts = _prefill_phase_counts(self.workload, 1,
+                                           self.cfg.prefill_chunk)
+            draw = max(draw, step_energy(self.shard_profile[s],
+                                         counts).power_w)
+        return draw
+
+    def _prospective_draw(self, s: int, req: Request) -> float:
+        """Shard ``s``'s draw if ``req`` were placed on it: one more armed
+        slot at the blended context, and its prefill chunk."""
+        armed = [b for b in range(self.B) if self._slot_armed[s][b]]
+        ctxs = [self._slot_ctx[s][b] for b in armed]
+        ctx = max(float(np.mean(ctxs + [float(len(req.prompt))])), 1.0)
+        rep = step_energy(self.shard_profile[s],
+                          decode_counts(self.workload, len(armed) + 1, ctx))
+        counts = _prefill_phase_counts(
+            self.workload, 1, min(len(req.prompt), self.cfg.prefill_chunk))
+        pf = step_energy(self.shard_profile[s], counts)
+        return max(rep.power_w, pf.power_w, self.shard_profile[s].idle_w)
+
+    def _shed_to_cap(self, s: int) -> int:
+        """Shed slots off capped shard ``s``, lowest priority and least
+        progress first, until its modeled draw fits: migrate where a
+        survivor has room, fold armed slots otherwise. Stops, still over
+        the cap, when only unmovable mid-prefill work remains."""
+        cap = self._power_cap[s]
+        shed = 0
+        tbl: Optional[np.ndarray] = None
+        while cap is not None and self._modeled_draw(s) > cap:
+            occupied = [b for b in range(self.B)
+                        if self.slot_rid[s][b] >= 0]
+            if not occupied:
+                break                  # idle draw alone: nothing to shed
+            victims = sorted(
+                occupied,
+                key=lambda b: (self._slot_prio[s][b],
+                               len(self.responses[
+                                   self.slot_rid[s][b]].tokens)))
+            moved = False
+            for b in victims:
+                d = self._pick_migration_dest(s, self._resv_for_move(s, b))
+                if d is not None:
+                    if tbl is None:
+                        tbl = self._fetch_tbl()
+                    self._migrate_slot(s, b, d, tbl[s][b])
+                    tbl[s][b] = -1     # row cleared by the migration
+                    shed += 1
+                    moved = True
+                    break
+                if self._slot_armed[s][b]:
+                    self._evict_slot(s, b)
+                    shed += 1
+                    moved = True
+                    break
+            if not moved:
+                break
+        return shed
+
+    def _absorb_admin(self, plan) -> None:
+        """Apply a planned admin event mid-run, skipping shards where it
+        is moot (dead, already draining, or the last drainable one): a
+        random campaign is survivable by construction."""
+        s = plan.shard
+        if self.health.is_dead(s) or s in self._draining:
+            return
+        if plan.site == "drain":
+            if [d for d in self.health.live
+                    if d != s and d not in self._draining]:
+                self.drain(s)
+            return
+        prof = self.shard_profile[s]
+        watts = (plan.watts if plan.watts is not None
+                 else prof.idle_w + 0.5 * (prof.tdp_w - prof.idle_w))
+        self.power_cap(s, max(watts, prof.idle_w))
+
+    # -------------------------------------------------------------- shard loss
+    # One lost shard strands every armed slot, reservation, pinned page and
+    # index entry on it. Declaration evacuates the in-flight work onto the
+    # survivors, invalidates every host mirror that could reach the dead
+    # pool (no adoption, release or decref targets it again; its rows ride
+    # later forwards writing only to the trash page), and the degraded
+    # fleet serves on with embodied rent re-denominated onto the live
+    # shards. rejoin() scrubs the shard and makes it placeable next quantum.
+
+    @property
+    def live_shards(self) -> List[int]:
+        return self.health.live
+
+    def fail_shard(self, s: int, reachable: bool = True) -> int:
+        """Declare shard ``s`` dead and evacuate its in-flight work onto
+        the survivors; returns the number of evacuated requests. Queued
+        and deferred work own nothing shard-local and stay. ``reachable``:
+        whether the shard can still serve a page copy (an operator's
+        declaration or a drain's hand-off) — its slots then page-migrate
+        where a survivor has room; a planned ``shard_down`` and the
+        watchdog pass False, and evacuation folds
+        (``preempt.evacuation_mode``). Raises FaultError if ``s`` is the
+        last live shard."""
+        if not 0 <= s < self.S:
+            raise ValueError(f"shard {s} out of range for {self.S} shards")
+        if self.health.is_dead(s):
+            return 0
+        if len(self.health.live) <= 1:
+            raise FaultError(
+                f"shard {s} is the last live shard — nowhere to "
+                "evacuate; queue and responses are intact")
+        self.health.declare_down(s, self._quantum)
+        self._draining.discard(s)      # a dying shard's drain is moot
+        self._drain_deadline.pop(s, None)
+        self._power_cap[s] = None
+        self.shard_down_events += 1
+        n = self._evacuate_shard(s, reachable)
+        # the dead device keeps depreciating: its embodied rent
+        # re-denominates onto the live shards' work
+        self.meter.set_live(self.health.live)
+        self.audit()
+        return n
+
+    def _evacuate_shard(self, s: int, reachable: bool = True) -> int:
+        """Move every in-flight request off shard ``s`` and invalidate its
+        host mirrors in one host-side pass. A REACHABLE shard's slots that
+        a survivor can hold page-migrate first; the rest, and everything
+        when unreachable, take the fold (armed) or restart (mid-prefill)
+        path. The shard's rows are disarmed and its table cleared
+        (``paged.quarantine_table``): nothing writes its pool again."""
+        migrated = 0
+        if reachable:
+            tbl: Optional[np.ndarray] = None
+            for b in [b for b in range(self.B)
+                      if self.slot_rid[s][b] >= 0]:
+                emitted = len(self.responses[self.slot_rid[s][b]].tokens)
+                d = self._pick_migration_dest(s, self._resv_for_move(s, b))
+                if preempt.evacuation_mode(reachable, emitted,
+                                           d is not None) != "migrate":
+                    continue
+                if tbl is None:
+                    tbl = self._fetch_tbl()
+                self._migrate_slot(s, b, d, tbl[s][b])
+                migrated += 1
+        armed = [b for b in range(self.B) if self._slot_armed[s][b]]
+        if armed:
+            sampling.disarm_slots(self.state, self._tensor(
+                self._rows((s, b) for b in armed)))
+        do = np.zeros((self.S,), bool)
+        do[s] = True
+        self.caches["paged"] = PG.quarantine_table(
+            self.caches["paged"], self._tensor(do).bool())
+        # pins are residencies in the dead pool: dropped with NO decref —
+        # the resumed requests re-prefill on a survivor
+        for rid in [r for r, (ps, _) in self._pins.items() if ps == s]:
+            del self._pins[rid]
+        # armed slots fold (emitted tokens into the prompt, budget = what
+        # remains; the resume prefill meters as recompute): greedy decode
+        # depends only on context, so the fault-free fleet is the token
+        # oracle. Mid-prefill requests emitted nothing and restart.
+        requeue: List[Request] = []
+        for b in armed:
+            req = self._slot_req[s][b]
+            preempt.fold_for_resume(req, self.responses[req.rid],
+                                    self.slot_budget[s][b])
+            requeue.append(req)
+            self._req_shard.pop(req.rid, None)
+            self._clear_slot(s, b)
+        for req, b in self._prefilling[s]:
+            req.prefill_pos = 0
+            req.prefix_keys = None
+            req.shared_prefix_tokens = 0
+            req.cow_pending = False
+            requeue.append(req)
+            self._req_shard.pop(req.rid, None)
+            self._clear_slot(s, b)
+        self._prefilling[s].clear()
+        # class-front re-admission, reversed so the list order survives
+        # the front inserts (armed before mid-prefill, FCFS within each)
+        for req in reversed(requeue):
+            self._enqueue(req, resume=True)
+        # the shard owes and owns nothing until rejoin; the mirror
+        # anticipates the rejoin scrub
+        for b in range(self.B):
+            if self.slot_rid[s][b] >= 0 or self._slot_req[s][b] is not None:
+                self._clear_slot(s, b)
+        self._slot_pages[s] = [0] * self.B
+        self.free_pages[s] = self.num_pages
+        if self.sharing:
+            self._prefix_index[s].clear()
+            self._page_key[s].clear()
+            self._page_ref[s].clear()
+            self._slot_shared_in[s].clear()
+            self._slot_own_idx[s].clear()
+        self.shard_evacuated += len(requeue) + migrated
+        return len(requeue) + migrated
+
+    def rejoin(self, s: int) -> None:
+        """Re-enter a recovered shard: its half of the allocator and its
+        cursor rows are scrubbed to the fresh state (``paged.scrub_pool``;
+        every other shard bit-identical), its host mirrors are already
+        fresh since declaration, and it is placeable from the next quantum
+        with an empty prefix index."""
+        if not 0 <= s < self.S:
+            raise ValueError(f"shard {s} out of range for {self.S} shards")
+        if not self.health.is_dead(s):
+            raise ValueError(f"shard {s} is not dead")
+        do = np.zeros((self.S,), bool)
+        do[s] = True
+        PG.scrub_pool(self.caches, self._tensor(do).bool())
+        self.health.declare_up(s, self._quantum)
+        self.shard_rejoins += 1
+        self.meter.set_live(self.health.live)
+        self.audit()
 
     # ------------------------------------------------------- fault sites
     def _site_shards(self, site: str) -> List[int]:
@@ -526,9 +989,8 @@ class ShardedServingEngine:
     def _site_failed(self, site: str) -> None:
         """Fleet twin of ``ServingEngine._site_failed``: same backoff and
         counters, and every faulted launch also charges the shards it
-        touched. Retry exhaustion raises FaultError when the suspects are
-        every live shard; when they leave a survivor, the reference turns
-        it into shard loss, which is not ported yet."""
+        touched. Retry exhaustion becomes the loss of the suspect shards
+        whenever they leave a survivor, and a FaultError otherwise."""
         touched = self._site_shards(site)
         fails = self._backoff.get(site, (0, 0))[0] + 1
         self.fault_retries += 1
@@ -539,8 +1001,15 @@ class ShardedServingEngine:
         suspect = self.health.record_fault(touched)
         if fails > self.cfg.max_retries:
             if suspect and len(suspect) < len(self.health.live):
-                raise _later(f"retry exhaustion at site {site!r} as the "
-                             f"loss of shards {suspect}")
+                # "this site would wedge the run" becomes "these shards
+                # are lost": evacuate, clear the site's backoff (the bad
+                # shards are out of the launch) and serve on
+                self._backoff.pop(site, None)
+                for s in suspect:
+                    # a shard that stopped answering cannot serve a page
+                    # copy, so its evacuation folds
+                    self.fail_shard(s, reachable=False)
+                return
             raise FaultError(
                 f"site {site!r} failed {fails} consecutive launches "
                 f"(max_retries={self.cfg.max_retries}) touching every "
@@ -568,10 +1037,20 @@ class ShardedServingEngine:
             entry, no pin;
           * fleet-wide, sum(top) + #referenced pages == S * num_pages.
 
+        Fleet-wide conservation counts from refcounts, so a dead shard's
+        frozen pool (its table cleared, its ref, free and top kept) and a
+        scrubbed one satisfy it too, and a migration that leaked or freed
+        twice a page on either endpoint breaks it.
+
         Costs one device->host copy of the fleet allocator, so it never
         sits on the hot path. Raises RuntimeError on any violation."""
-        a = {k: v.cpu().numpy() for k, v in self.caches["paged"].items()}
-        tbl, ref, top = a["tbl"], a["ref"], a["top"]
+        alloc = self.caches["paged"]
+        tbl, ref, top = (alloc[k] for k in ("tbl", "ref", "top"))
+        flat = torch.cat([tbl.reshape(-1), ref.reshape(-1), top]).cpu()
+        self.fetches["audit"] += 1
+        tbl, ref, top = (x.reshape(y.shape).numpy() for x, y in zip(
+            flat.split([tbl.numel(), ref.numel(), top.numel()]),
+            (tbl, ref, top)))
         n_pg = ref.shape[1]
         for s in range(self.S):
             if self.health.is_dead(s):
@@ -672,8 +1151,10 @@ class ShardedServingEngine:
         return slo_ok, g
 
     def _place(self, req: Request):
-        """Placement policy. Eligibility is policy-INDEPENDENT: shards
-        with a free slot whose pool fits the request's reservation.
+        """Placement policy. Eligibility is policy-INDEPENDENT: live shards
+        that are not draining, with a free slot whose pool fits the
+        request's reservation, and, under a power cap, whose draw with the
+        request would stay within it.
 
         ``routing="free_pages"`` (baseline): longest resident prefix of
         the prompt (sharing only), then most free pages, then lowest
@@ -698,8 +1179,13 @@ class ShardedServingEngine:
         carbon = self.cfg.routing == "carbon"
         best = None
         for s in self.health.live:
-            if not self.free_slots(s):
-                continue
+            if s in self._draining or not self.free_slots(s):
+                continue               # draining shards take no placements
+            if (self._power_cap[s] is not None
+                    and self._prospective_draw(s, req)
+                    > self._power_cap[s]):
+                continue               # capped: refuse work that would
+                                       # push its draw back over
             if self.sharing:
                 n_pg, phys = self._match_prefix(req, s)
                 first_tok = min(n_pg * ps, L - 1)
@@ -1036,22 +1522,33 @@ class ShardedServingEngine:
         admission, one fleet-wide chunk launch, one fused decode chunk.
         The fleet clock then advances by the SLOWEST shard's modeled time
         this quantum — shards run in parallel, so that max is the
-        quantum's wall time. A planned ``shard_down`` or admin event
-        raises NotImplementedError (shard loss is not ported yet)."""
+        quantum's wall time. Planned shard loss and admin events fire at
+        the quantum's start; each draining shard sweeps its slots to the
+        survivors and each capped shard sheds back under its cap before
+        admission."""
         self._quantum += 1
+        ev0 = self.shard_down_events
+        mig0 = self.migrations
         if self.faults is not None:
+            # a planned shard_down is a crashed device: not reachable,
+            # its evacuation folds; it never surfaces as an exception
             for s in self.faults.shard_down_fires(self._quantum,
                                                   self._run_q0):
-                self.fail_shard(s, reachable=False)
+                if not self.health.is_dead(s):
+                    self.fail_shard(s, reachable=False)
             for plan in self.faults.admin_fires(self._quantum,
                                                 self._run_q0):
-                if plan.site == "drain":
-                    self.drain(plan.shard)
-                else:
-                    self.power_cap(plan.shard, plan.watts)
+                self._absorb_admin(plan)
         released = self._release_deferred() if self.deferred else 0
         if self._has_deadlines:
             self._sweep_deadlines()
+        if self._draining:
+            self._drain_sweep()
+        for s in self.health.live:
+            # load that grew back over a live cap (a deepening context)
+            # sheds again
+            if self._power_cap[s] is not None:
+                self._shed_to_cap(s)
         admitted = self._admit()
         chunks = self._prefill_quantum()
         decoded = self._decode_chunk(max_steps) if self.decoding else False
@@ -1059,7 +1556,12 @@ class ShardedServingEngine:
         if dt > 0.0:
             self.clock.hours += dt / 3600.0
             self._q_time = [0.0] * self.S
-        return bool(released or admitted or chunks or decoded)
+        # a recovery event is progress: the watchdog can declare a shard
+        # dead inside a launch (after this quantum's admission), and the
+        # evacuees it re-queued must reach the next admission pass
+        return bool(released or admitted or chunks or decoded
+                    or self.shard_down_events != ev0
+                    or self.migrations != mig0)
 
     # the drive loop and the reports are the single engine's: a fleet
     # quantum is one step(), and decode_chunks + prefill_batches count the
@@ -1143,20 +1645,27 @@ class ShardedServingEngine:
             out[f"shard{s}_primary_mj"] = st.primary_mj
             out[f"shard{s}_adpe_mg"] = st.adpe_mg
             out[f"shard{s}_dead"] = 1.0 if self.health.is_dead(s) else 0.0
-        # shard loss and admin, not ported yet: the reference's keys, with
-        # no shard ever lost, drained, capped or migrated
+        # shard loss: the watchdog's state and the recovery counters
         out.update({
             "live_shards": len(self.health.live),
             "dead_shards": self.S - len(self.health.live),
-            "shard_down_events": 0,
-            "shard_evacuated": 0,
-            "shard_rejoins": 0,
-            "migrations": 0,
-            "migrated_pages": 0,
-            "drain_events": 0,
-            "migrate_j": self.meter.phase("migrate").energy_j,
-            "power_cap_events": 0,
+            "shard_down_events": self.shard_down_events,
+            "shard_evacuated": self.shard_evacuated,
+            "shard_rejoins": self.shard_rejoins,
         })
+        # live KV-page migration: drain and brown-out counters and the
+        # migrate phase's energy (its own phase, so prefill and decode J
+        # per token stay invariant)
+        out.update({
+            "migrations": self.migrations,
+            "migrated_pages": self.migrated_pages,
+            "drain_events": self.drain_events,
+            "migrate_j": self.meter.phase("migrate").energy_j,
+            "power_cap_events": self.power_cap_events,
+        })
+        for s in range(self.S):
+            if self._power_cap[s] is not None:
+                out[f"shard{s}_power_cap_w"] = self._power_cap[s]
         # front door (same keys as the single-device engine)
         out.update({
             "queue_depth": len(self.queue),

@@ -520,6 +520,205 @@ def test_fleet_on_card_matches_cpu(cuda_device):
     assert counts["chunked_prefill_attention"] > 0
 
 
+# the fleet's pool at full width (llama-paper-1b's 32 kv heads of 64, bf16):
+# 4 shards of 8 slots, 1,024 pages of 16 a shard, 128 pages a slot
+ADMIN = dict(S=4, B=8, P=1024, M=128, ps=16, Hkv=32, hd=64)
+
+
+def _admin_pool(dev, seed=0):
+    """A 4-shard fleet cache tree at ``ADMIN``'s shapes on ``dev``, two
+    layers of random bf16 pages, built by the allocator's own functions:
+    every slot holds 200-1,900 tokens on pages from LIFO pops but shard 0
+    slot 5, which adopts slot 3's first 8 pages (refcount 2), and shard 2
+    slot 4, which is free; each slot's cursor rows are its positions."""
+    from repro_torch.serving import paged
+    a = ADMIN
+    S, B, P, M, ps = a["S"], a["B"], a["P"], a["M"], a["ps"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    slots = torch.arange(B, dtype=torch.int32).repeat(S, 1)
+    slots[0, 5] = slots[2, 4] = B                  # sentinel lanes
+    lens = torch.randint(200, 1901, (S, B), generator=g)
+    lens[slots == B] = 0
+    alloc = paged.init_allocator(B, M, P, dev, shards=S)
+    alloc = paged.alloc_prefill_pages(
+        alloc, slots.to(dev),
+        ((lens + ps - 1) // ps).to(torch.int32).to(dev))
+    share = torch.full((S, M), -1, dtype=torch.int32, device=dev)
+    share[0, :8] = alloc["tbl"][0, 3, :8]
+    alloc = paged.map_shared_pages(
+        alloc, torch.tensor([5, B, B, B], dtype=torch.int32, device=dev),
+        share)
+    lens[0, 5] = 8 * ps
+    pos = torch.full((S * B, M * ps), -1, dtype=torch.int32)
+    for r, n in enumerate(lens.reshape(-1).tolist()):
+        pos[r, :n] = torch.arange(n)
+    layers = [{"k_pages": torch.randn(a["Hkv"], S * P + 1, ps, a["hd"],
+                                      generator=g).to(torch.bfloat16),
+               "v_pages": torch.randn(a["Hkv"], S * P + 1, ps, a["hd"],
+                                      generator=g).to(torch.bfloat16),
+               "pos_ids": pos.clone(),
+               "length": lens.reshape(-1).to(torch.int32)}
+              for _ in range(2)]
+    return {"t": layers[0]["length"].clone().to(dev),
+            "layers": _to(layers, dev), "paged": alloc}
+
+
+def _admin_state(dev):
+    from repro_torch.serving import sampling
+    n = ADMIN["S"] * ADMIN["B"]
+    cur = torch.arange(n, dtype=torch.int32, device=dev)[:, None] + 7
+    state = sampling.init_slot_state(n, dev)
+    state["active"].fill_(True)
+    state["budget"].fill_(9)
+    return cur, state
+
+
+def _admin_q(dev):
+    """One bf16 decode query a row of the fleet."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    return torch.randn(ADMIN["S"] * ADMIN["B"], ADMIN["Hkv"], ADMIN["hd"],
+                       generator=g).to(torch.bfloat16).to(dev)
+
+
+def _admin_decode(pool, q):
+    """Paged decode of every row of the fleet through its translated
+    table (one launch of layer 0's pool), each row's query at its last
+    position."""
+    from repro_torch.serving import paged
+    lay = pool["layers"][0]
+    return ops.paged_decode_attention(
+        q, lay["k_pages"], lay["v_pages"], paged.model_table(pool["paged"]),
+        (lay["length"] - 1).clamp(min=0), lay["pos_ids"])
+
+
+def test_fleet_admin_migrate_slot_card_equals_cpu(cuda_device):
+    """``paged.migrate_slot`` of shard 0 slot 3 (whose first 8 pages slot
+    5 shares) to shard 2 slot 4 on the card equals the same program on the
+    CPU bit for bit: every pool page, cursor row, allocator leaf, decode
+    row and the returned table row."""
+    from repro_torch.serving import paged
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pool = _admin_pool(dev)
+        cur, state = _admin_state(dev)
+        src = pool["paged"]["tbl"][0, 3]
+        n = int((src >= 0).sum())
+        row = paged.migrate_slot(pool, cur, state, (0, 3), (2, 4), src[:n])
+        out[str(dev)] = _to({"pool": pool, "cur": cur, "state": state,
+                             "row": row}, "cpu")
+
+    def walk(a, b, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}/{i}")
+        else:
+            assert torch.equal(a, b), path
+
+    walk(out["cpu"], out[str(cuda_device)])
+    assert out["cpu"]["row"][:n].ge(0).all()
+
+
+def test_fleet_admin_quarantine_and_scrub_leave_other_shards(cuda_device):
+    """On the card, ``quarantine_table`` of shard 1 then ``scrub_pool`` of
+    shards 1 and 3 change only those shards' allocator rows and cursor
+    rows; every page of every pool and every other shard's rows stay
+    bit-identical."""
+    from repro_torch.serving import paged
+    a = ADMIN
+    S, B, P = a["S"], a["B"], a["P"]
+    pool = _admin_pool(cuda_device, seed=1)
+    old = _to(pool, "cpu")
+    pool["paged"] = paged.quarantine_table(
+        pool["paged"], torch.tensor([False, True, False, False],
+                                    device=cuda_device))
+    q = _to(pool["paged"], "cpu")
+    assert (q["tbl"][1] == -1).all()
+    for s in (0, 2, 3):
+        assert torch.equal(q["tbl"][s], old["paged"]["tbl"][s])
+    for k in ("free", "top", "ref"):
+        assert torch.equal(q[k], old["paged"][k])
+    do = torch.tensor([False, True, False, True], device=cuda_device)
+    paged.scrub_pool(pool, do)
+    new = _to(pool, "cpu")
+    for s in range(S):
+        rows = slice(s * B, (s + 1) * B)
+        if s in (1, 3):
+            assert (new["paged"]["tbl"][s] == -1).all()
+            assert new["paged"]["free"][s].tolist() == list(range(P))
+            assert int(new["paged"]["top"][s]) == P
+            assert (new["paged"]["ref"][s] == 0).all()
+            assert (new["t"][rows] == 0).all()
+        else:
+            for k in ("tbl", "free", "top", "ref"):
+                assert torch.equal(new["paged"][k][s], old["paged"][k][s])
+            assert torch.equal(new["t"][rows], old["t"][rows])
+        for lay, ol in zip(new["layers"], old["layers"]):
+            if s in (1, 3):
+                assert (lay["pos_ids"][rows] == -1).all()
+                assert (lay["length"][rows] == 0).all()
+            else:
+                assert torch.equal(lay["pos_ids"][rows], ol["pos_ids"][rows])
+                assert torch.equal(lay["length"][rows], ol["length"][rows])
+    for lay, ol in zip(new["layers"], old["layers"]):
+        assert torch.equal(lay["k_pages"], ol["k_pages"])
+        assert torch.equal(lay["v_pages"], ol["v_pages"])
+
+
+def test_fleet_admin_migrated_slot_decodes_bit_identically(cuda_device):
+    """The paged-decode kernel's output for a slot is bit-identical before
+    the move (shard 0 slot 3, over pages it shares with slot 5) and after
+    it (shard 2 slot 4, over its private copies): the same rows in other
+    pages of the pool; every row the move did not touch is unchanged."""
+    from repro_torch.serving import paged
+    pool = _admin_pool(cuda_device, seed=2)
+    cur, state = _admin_state(cuda_device)
+    B = ADMIN["B"]
+    q = _admin_q(cuda_device)
+    before = _admin_decode(pool, q)
+    src = pool["paged"]["tbl"][0, 3]
+    n = int((src >= 0).sum())
+    paged.migrate_slot(pool, cur, state, (0, 3), (2, 4), src[:n])
+    q[2 * B + 4] = q[3]
+    after = _admin_decode(pool, q)
+    torch.cuda.synchronize()
+    assert torch.equal(after[2 * B + 4], before[3])
+    keep = [r for r in range(after.shape[0]) if r not in (3, 2 * B + 4)]
+    assert torch.equal(after[keep], before[keep])
+
+
+def test_fleet_admin_paged_kernel_with_a_dead_shard(cuda_device):
+    """A quarantined shard's 8 rows ride the fleet's launch with their
+    tables all -1 (every key page the trash page): the kernel over the
+    4-shard pool equals its plain version within TOL on every row that
+    holds a key, and every other shard's rows equal the launch before the
+    quarantine bit for bit."""
+    from repro_torch.serving import paged
+    pool = _admin_pool(cuda_device, seed=3)
+    B = ADMIN["B"]
+    q = _admin_q(cuda_device)
+    live = _admin_decode(pool, q)
+    pool["paged"] = paged.quarantine_table(
+        pool["paged"], torch.tensor([False, False, True, False],
+                                    device=cuda_device))
+    lay = pool["layers"][0]
+    tbl = paged.model_table(pool["paged"])
+    assert (tbl[2 * B:3 * B] == -1).all()
+    got = _admin_decode(pool, q)
+    want = ref.paged_decode_attention(q, lay["k_pages"], lay["v_pages"], tbl,
+                                      (lay["length"] - 1).clamp(min=0),
+                                      lay["pos_ids"])
+    torch.cuda.synchronize()
+    held = (lay["pos_ids"] >= 0).any(1)            # rows with a key
+    torch.testing.assert_close(got[held].float(), want[held].float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    rows = [r for r in range(tbl.shape[0]) if not 2 * B <= r < 3 * B]
+    assert torch.equal(got[rows], live[rows])
+
+
 def test_paged_kernels_refuse_what_they_do_not_take(cuda_device):
     q = torch.randn(1, 2, 48, device=cuda_device)         # hd 48: no kernel
     pages = torch.randn(2, 3, 4, 48, device=cuda_device)

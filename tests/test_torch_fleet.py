@@ -7,6 +7,10 @@ need no shard loss (``test_launch_faults_under_carbon_routing``,
 ``test_audit_catches_corruption``), ``test_sharded_engine_stats_match_
 documented_keys`` of ``tests/test_methodology_contract.py``, and
 ``tests/test_scheduler.py`` on the port's copy of ``core/scheduler.py``.
+The rest of ``tests/test_shard_loss.py`` and all of
+``tests/test_migration.py`` (shard loss, rejoin, drain, power caps, live
+migration) are held in ``tests/test_torch_fleet_admin.py``, which imports
+this file's ``Side``, ``result`` and ``agree``.
 
 The JAX fleet needs one host device per shard, and ``XLA_FLAGS`` must be
 set before the first jax import of a process, so every JAX fleet scenario
@@ -1033,7 +1037,9 @@ def test_sharded_fault_during_preemption(runs):
 
 def test_audit_catches_corruption(runs, side):
     """audit() is a real check: a drifted reservation mirror raises. (The
-    reference's second half, a pin into a dead pool, needs shard loss.)"""
+    reference's second half, a pin into a dead pool, is
+    ``test_torch_fleet_admin.py::test_audit_catches_corruption_dead_pool_
+    pin``.)"""
     want, got = pair(runs, "audit_run")
     agree(want["fleet"], got["fleet"])
     eng = _audited(side)
@@ -1158,36 +1164,6 @@ def test_one_forward_per_microstep_serves_every_shard(side, monkeypatch):
     assert set(calls["paged"]) == {S * eng.B}
     assert len(calls["chunk"]) == L * st["prefill_chunks"]
     assert calls["norm"] == (2 * L + 1) * (micro[0] + st["prefill_chunks"])
-
-
-def test_shard_loss_and_admin_raise_naming_the_roadmap(side):
-    """Shard loss and the admin paths are the next slice: each entry point
-    raises NotImplementedError naming ROADMAP Queue 1, item 5 — directly,
-    from a planned ``shard_down`` or admin event, and from a launch site's
-    retry exhaustion that would leave a survivor."""
-    eng = side.fleet(shards=2)
-    for call in (lambda: eng.fail_shard(0), lambda: eng.rejoin(0),
-                 lambda: eng.drain(1), lambda: eng.power_cap(0, 100.0),
-                 lambda: eng._migrate_slot(0, 0, 1, np.zeros(8, np.int32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            call()
-    for plan in (side.Plan("shard_down", at_quantum=1, shard=1),
-                 side.Plan("drain", at_quantum=1, shard=0),
-                 side.Plan("power_cap", at_quantum=1, shard=0)):
-        eng = side.fleet(shards=2)
-        eng.faults = side.Injector([plan])
-        side.submit(eng, _reqs(1, (5, 6)))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            eng.run()
-    # decode faults on the shard holding the only armed slot: its
-    # consecutive faults pass max_retries while shard 1 is idle
-    eng = side.fleet(shards=2, max_retries=1)
-    side.submit(eng, _reqs(2, (5,), max_new=20))
-    eng.run(max_steps=2)
-    eng.faults = side.Injector([side.Plan("decode_scan", at_quantum=1,
-                                          count=4)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        eng.run()
 
 
 # ------------------------------------------------------ tests/test_scheduler

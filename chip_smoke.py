@@ -14,7 +14,12 @@ Phases (any failure raises and the script exits non-zero):
    paged path's of the dense configurations of phase 4: llama-paper-3b's
    head dim 100, llama-paper-7b's 32 heads of 128, internlm2-20b's GQA
    group 3, minicpm-2b's 48 padded heads of 64 and stablelm-12b's head
-   dim 160 at GQA group 2; both paged kernels at the fleet's shapes,
+   dim 160 at GQA group 2, and Llama-4 Maverick's: flash with q heads
+   :40 of 48 at group 5 over the strided view ::2 of 16 duplicated kv
+   heads, chunk-local, at its long prompt's S 8,192 and a wave's S 512,
+   decode at group 5 on a chunk-local ring of 8,192 filled across a chunk
+   boundary and on the global layer's cache of 8,448, each against SDPA
+   with the same mask; both paged kernels at the fleet's shapes,
    4 shards x 8 slots over one pool of 4 x 1,024 pages and its trash page
    through ``paged.model_table``'s table, idle -1 rows included, also
    against each shard's own call on its own pool; the SSD
@@ -45,9 +50,9 @@ Phases (any failure raises and the script exits non-zero):
    registers and spills and their tensor-core (HMMA) instruction counts
    from ``cuobjdump -sass`` (no spill and some HMMA, or it fails; none in
    the float32 instances); then every instance of the two decode
-   kernels' split-KV core (80 each: hd 8-160 with 100, groups 1-8 with
-   3): registers, and no spill or it fails, the hd 100, hd 160 and group
-   3 instances listed; then every instance of ``wkv6`` (20) and
+   kernels' split-KV core (96 each: hd 8-160 with 100, groups 1-8 with 3
+   and 5): registers, and no spill or it fails, the hd 100, hd 160, group
+   3 and group 5 instances listed; then every instance of ``wkv6`` (20) and
    ``ssd_chunk`` (40): registers, no spill, and HMMA in every SSD
    instance, or it fails; then
    every instance of ``rmsnorm_kernel`` (60): registers, no spill, or it
@@ -86,9 +91,11 @@ Phases (any failure raises and the script exits non-zero):
    path, each model freed before the next, launch counts (RMSNorm: 2 per
    block, 4 per ``parallel`` block with its q and k norms, and the final
    norm, a forward), prefix hits and the free stack asserted. Small
-   float32 configs (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke) are also
-   served on the card and on the CPU (the plain path) and must agree
-   token for token. The front door: llama3.2-1b smoke in float32 through
+   float32 configs (llama3.2-1b, zamba2-7b and rwkv6-1.6b smoke, and
+   Llama-4 Maverick's smoke and its head map at small size,
+   ``maverick_map_config``, at capacity factors 2.0 and 0.5, where
+   prefill drops real tokens beside pad tokens) are also served on the
+   card and on the CPU (the plain path) and must agree token for token. The front door: llama3.2-1b smoke in float32 through
    ``AsyncServingServer`` on the card and on the CPU (two priority classes,
    the second preempting; ``max_queue`` with reject_lowest and
    ``pressure_clamp``; a (2, 0) tenant quota; a deadline-0.0 request; one
@@ -134,7 +141,17 @@ Phases (any failure raises and the script exits non-zero):
    process, written to ``chiprun_out/power_*.csv``) is integrated with
    ``PowerTrace`` over the requests' window around phase 4's paged run
    (beside its modeled J) and the admin run (measured J only: the meter
-   prices four modeled devices there);
+   prices four modeled devices there). Last, ``phase_maverick``:
+   Llama-4 Maverick at full width cut to depth 4 (chunk-local dense, moe
+   and dense blocks, then the global moe layer: 35.12 B parameters, 70.2
+   GB in bf16; 128 experts top-1 and a shared one; 40 / 8 heads padded to
+   48 / 16, run at group 5 over the kv view ::2) on the contiguous engine,
+   every earlier model freed first: 8 prompts of 64-512 tokens, then one
+   of 8,176 admitted alone that decodes across position 8,192, 32 new
+   tokens each, served twice with the same tokens; flash 4 a prefill
+   launch, decode 4 a micro-step, RMSNorm 9 a forward, finite logits, the
+   host's waits under CUDA's sync debug mode equal to ``host_syncs``, and
+   peak memory beside the weights and KV reckoning;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -179,6 +196,16 @@ DENSE_PARAMS = {"llama-paper-3b": 3_426_473_600,
                 "minicpm-2b": 3_008_289_024,
                 "stablelm-12b": 12_667_225_600}
 DENSE_REQUESTS, DENSE_NEW = 12, 32   # of the paged trace; new tokens each
+MAVERICK = "llama4-maverick-400b-a17b"
+# its depth-4 cut: chunk-local dense, chunk-local moe, chunk-local dense and
+# the global moe layer (global attention every 4th layer), full width
+N_MAVERICK = 4
+MAVERICK_PARAMS = 35_123_409_920     # the reference's param_counts at depth 4
+MAVERICK_LENS = (64, 100, 128, 200, 256, 300, 450, 512)   # the first wave
+MAVERICK_LONG = 8176       # a prompt of its own: decodes across 8,192
+MAVERICK_NEW = 32
+MAVERICK_MAX_LEN = 8448    # the global layer's cache; the rings hold 8,192
+MAVERICK_CHUNK = 8192
 # rmsnorm launches per forward: two per dense (dense_norms: 2 L + 1 on a
 # dense model, 4 L + 1 on a parallel one), mamba2 (ln1, gate_norm) and
 # shared block, one final norm; rwkv6 blocks norm with LayerNorm
@@ -430,14 +457,15 @@ def flash_inputs(B, Hq, Hkv, S, dtype, gen, hd=64):
             pos.contiguous())
 
 
-def flash_work(q, k, v, pos):
-    """(operations, bytes, mask) of one flash call: causal valid pairs;
-    the valid q rows and the K and V rows some valid query sees read once
-    (pad rows need not be read), out written once in full (pad rows 0),
-    the positions."""
+def flash_work(q, k, v, pos, chunk=None):
+    """(operations, bytes, mask) of one flash call: causal valid pairs
+    (inside one ``chunk`` when given); the valid q rows and the K and V
+    rows some valid query sees read once (pad rows need not be read), out
+    written once in full (pad rows 0), the positions."""
+    from repro_torch.kernels import ref as REF
     Hq, Hkv, hd = q.shape[1], k.shape[1], q.shape[-1]
-    mask = (pos[:, None, :, None] >= 0) & (pos[:, None, None, :] >= 0) & \
-        (pos[:, None, None, :] <= pos[:, None, :, None])
+    mask = (pos[:, None, :, None] >= 0) & REF.attention_mask(
+        pos[:, None, :, None], pos[:, None, None, :], None, chunk)
     pairs = float(mask.sum().item()) * Hq
     q_rows = float((pos >= 0).sum().item())
     kv_rows = float(mask.any(dim=2).sum().item())
@@ -495,13 +523,15 @@ def decode_inputs(B, Hq, Hkv, W, dtype, gen, hd=64, fills=None):
     return q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), q_pos, k_pos
 
 
-def decode_work(q, k, q_pos, k_pos, hd_v=None):
+def decode_work(q, k, q_pos, k_pos, hd_v=None, chunk=None):
     """(operations, bytes) of one decode call: the valid keys' K rows (hd)
-    and V rows (``hd_v``, by default hd) read once, q read and out written
-    once, the positions."""
+    and V rows (``hd_v``, by default hd) read once (inside the query's
+    ``chunk`` when given), q read and out written once, the positions."""
+    from repro_torch.kernels import ref as REF
     Hq, Hkv, hd = q.shape[1], k.shape[1], q.shape[-1]
     hd_v = hd if hd_v is None else hd_v
-    valid = float(((k_pos >= 0) & (k_pos <= q_pos[:, None])).sum().item())
+    valid = float(REF.attention_mask(q_pos[:, None], k_pos, None,
+                                     chunk).sum().item())
     e = q.element_size()
     flops = valid * Hq * 2.0 * (hd + hd_v)
     nbytes = (valid * Hkv * (hd + hd_v) * e + q.numel() * e
@@ -510,9 +540,11 @@ def decode_work(q, k, q_pos, k_pos, hd_v=None):
     return flops, nbytes
 
 
-def decode_sdpa(q, k, v, q_pos, k_pos):
+def decode_sdpa(q, k, v, q_pos, k_pos, chunk=None):
     """``scaled_dot_product_attention`` of one decode step, same mask."""
-    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None, :]
+    from repro_torch.kernels import ref as REF
+    mask = REF.attention_mask(q_pos[:, None], k_pos, None,
+                              chunk)[:, None, None, :]
     gqa = q.shape[1] != k.shape[1]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=gqa)
@@ -588,6 +620,83 @@ def mla_case(DA, REF, dtype, gen):
         lib = time_ms(sdpa, graph=True)
     eager = time_ms(lambda: DA.decode_attention(q, k, v, q_pos, k_pos))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
+
+
+def dup_heads(B, S, Hkv, hd, dtype, gen):
+    """Maverick's kv projection: (B, S, 2 Hkv, hd) with heads 2c and 2c + 1
+    equal (8 kv heads duplicated to 16); returns the kernels' view of copy
+    0 of each, (B, S, Hkv, hd), a stride and no copy."""
+    x = torch.randn(B, S, Hkv, 1, hd, generator=gen, device="cuda").to(dtype)
+    return x.expand(B, S, Hkv, 2, hd).reshape(B, S, 2 * Hkv, hd)[:, :, ::2]
+
+
+def maverick_flash_case(FA, REF, B, S, dtype, gen, chunk=MAVERICK_CHUNK):
+    """Maverick's prefill: q heads :40 of its 48 padded ones at group 5
+    against the strided view of its 16 duplicated kv heads (hd 128),
+    chunk-local, right-padded rows (row 0 full)."""
+    Hkv, hd = 8, 128
+    q = torch.randn(B, S, 48, hd, generator=gen, device="cuda").to(dtype)
+    qt = q[:, :, :5 * Hkv].transpose(1, 2)
+    kt = dup_heads(B, S, Hkv, hd, dtype, gen).transpose(1, 2)
+    vt = dup_heads(B, S, Hkv, hd, dtype, gen).transpose(1, 2)
+    lens = torch.randint(S // 4, S + 1, (B,), generator=gen, device="cuda")
+    lens[0] = S
+    ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
+    pos = torch.where(ar < lens[:, None], ar, torch.full_like(ar, -1))
+    pos = pos.contiguous()
+    plain = functools.partial(REF.flash_attention, chunk=chunk)
+    args = (qt, kt, vt, pos, pos)
+    got = FA.flash_attention(*args, chunk=chunk)
+    want = plain(*args)
+    rows = (pos >= 0)[:, None, :, None].expand_as(want)
+    name = f"flash B{B} H40/8 (kv ::2 of 16) S{S} chunk{chunk} {dtype}"
+    err = check_close(name, got, want, rows, dtype)
+    if (got[~rows] != 0).any():
+        raise AssertionError(f"{name}: a pad query's output is not 0")
+    del want
+    wide = check_wide(got, plain, args, rows, dtype)
+    flops, nbytes, mask = flash_work(qt, kt, vt, pos, chunk)
+    bms, by = bound_ms(flops, nbytes, dtype)
+    iters = 5 if S > 2048 else 20      # the plain version's scores: S^2 x 40
+    ms = time_ms(lambda: FA.flash_attention(*args, chunk=chunk), graph=True)
+    plain_ms = time_ms(lambda: plain(*args), iters=iters, graph=True)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), graph=True)
+    eager = time_ms(lambda: FA.flash_attention(*args, chunk=chunk))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
+
+
+def maverick_decode_case(DA, REF, B, W, fills, dtype, gen, chunk=None):
+    """Maverick's decode step: 40 q heads at group 5 against the strided
+    view of a (B, W, 16, 128) cache of duplicated kv heads; ``fills``:
+    tokens written per slot (a chunk-local ring past 8,192 evicts and
+    masks the last chunk's keys)."""
+    Hkv, hd = 8, 128
+    q = torch.randn(B, 5 * Hkv, hd, generator=gen, device="cuda").to(dtype)
+    kt = dup_heads(B, W, Hkv, hd, dtype, gen).transpose(1, 2)
+    vt = dup_heads(B, W, Hkv, hd, dtype, gen).transpose(1, 2)
+    k_pos = torch.full((B, W), -1, dtype=torch.int32)
+    for b, n in enumerate(fills):
+        t = torch.arange(max(0, n - W), n, dtype=torch.int32)
+        k_pos[b, (t % W).long()] = t
+    q_pos = torch.tensor([n - 1 for n in fills], dtype=torch.int32)
+    k_pos, q_pos = k_pos.to("cuda"), q_pos.to("cuda")
+    plain = functools.partial(REF.decode_attention, chunk=chunk)
+    args = (q, kt, vt, q_pos, k_pos)
+    got = DA.decode_attention(*args, chunk=chunk)
+    want = plain(*args)
+    rows = torch.ones_like(want, dtype=torch.bool)
+    err = check_close(f"decode B{B} H40/8 (kv ::2 of 16) W{W} chunk{chunk} "
+                      f"{dtype}", got, want, rows, dtype)
+    wide = check_wide(got, plain, args, rows, dtype)
+    bms, by = bound_ms(*decode_work(q, kt, q_pos, k_pos, chunk=chunk), dtype)
+    ms = time_ms(lambda: DA.decode_attention(*args, chunk=chunk), graph=True)
+    plain_ms = time_ms(lambda: plain(*args), graph=True)
+    lib = time_ms(decode_sdpa(q, kt, vt, q_pos, k_pos, chunk), graph=True)
+    eager = time_ms(lambda: DA.decode_attention(*args, chunk=chunk))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
@@ -1142,11 +1251,12 @@ def tensor_core_report(card):
 
 
 def decode_report(card):
-    """Every instance of the two decode kernels (hd 8-160 x group 1-8 x
-    float32 / bf16, one split-KV core, hd_v == hd; and the contiguous
-    kernel's MLA pair, hd 24 with hd_v 16 at group 4): ptxas' registers,
-    the range per kernel and type, and each hd 100, hd 160, group 3 and
-    MLA instance's; raises if an instance spills or is missing."""
+    """Every instance of the two decode kernels (hd 8-160 x groups 1-5
+    and 8 x float32 / bf16, one split-KV core, hd_v == hd; and the
+    contiguous kernel's MLA pair, hd 24 with hd_v 16 at group 4): ptxas'
+    registers, the range per kernel and type, and each hd 100, hd 160,
+    group 3, group 5 and MLA instance's; raises if an instance spills or is
+    missing."""
     import re
 
     from repro_torch.kernels import build
@@ -1171,7 +1281,7 @@ def decode_report(card):
                 spills.append((cur, line.strip()))
         want = {(t, hd, g) for t in ("bf16", "f32")
                 for hd in (8, 16, 32, 64, 100, 112, 128, 160)
-                for g in (1, 2, 3, 4, 8)}
+                for g in (1, 2, 3, 4, 5, 8)}
         if lib == "decode_attention":
             want |= {(t, 24, 4, 16) for t in ("bf16", "f32")}
         for t in ("f32", "bf16"):
@@ -1189,6 +1299,9 @@ def decode_report(card):
                           regs.items())
                       if len(k) == 3 and k[0] == t
                       and (k[1] in (100, 160) or k[2] == 3)))
+            print(f"  {stem} {t} group 5 (Maverick) registers: " + ", ".join(
+                f"hd{k[1]} {r}" for k, r in sorted(regs.items())
+                if len(k) == 3 and k[0] == t and k[2] == 5))
             mla = {k: v for k, v in regs.items() if len(k) == 4 and k[0] == t}
             if mla:
                 print(f"  {stem} {t} hd 24 / hd_v 16 g4 (MLA) registers: "
@@ -1338,6 +1451,28 @@ def phase_kernels(card):
     # MLA decode (hd 24, hd_v 16 at group 4): the reference sweep's case
     mla = {f"mla decode B2 H4/1 W24 hd24/16 {n}": mla_case(DA, REF, t, gen)
            for n, t in (("f32", f32), ("bf16", bf))}
+    # Llama-4 Maverick (phase 4's full-width path): flash at its long
+    # prompt's bucket and a short wave's, decode at group 5 on a
+    # chunk-local ring crossing 8,192 and on the global layer's cache
+    ring = [8177, 8192, 8193, 8200, 8208, 300, 4096, 12288]
+    maverick = {
+        "flash B1 H40/8 S8192 hd128 chunk bf16":
+            maverick_flash_case(FA, REF, 1, 8192, bf, gen),
+        "flash B4 H40/8 S512 hd128 chunk bf16":
+            maverick_flash_case(FA, REF, 4, 512, bf, gen),
+        "flash B2 H40/8 S256 hd128 chunk f32":
+            maverick_flash_case(FA, REF, 2, 256, f32, gen),
+        "decode B8 H40/8 W8192 hd128 chunk bf16":
+            maverick_decode_case(DA, REF, 8, MAVERICK_CHUNK, ring, bf, gen,
+                                 chunk=MAVERICK_CHUNK),
+        "decode B8 H40/8 W8448 hd128 bf16":
+            maverick_decode_case(DA, REF, 8, MAVERICK_MAX_LEN,
+                                 [8177, 8208, 64, 512, 1000, 4000, 8300,
+                                  8448], bf, gen),
+        "decode B8 H40/8 W2048 hd128 chunk f32":
+            maverick_decode_case(DA, REF, 8, 2048, [100, 1024, 1025, 2048,
+                                                    1500, 3000, 4000, 7],
+                                 f32, gen, chunk=1024)}
     from repro_torch.kernels import chunked_prefill as CP
     from repro_torch.kernels import paged_decode_attention as PD
     fills = paged_fills()
@@ -1463,6 +1598,7 @@ def phase_kernels(card):
           f"{'ms':>9s} {'plain_ms':>9s} {'sdpa_ms':>9s} {'bound_ms':>9s} "
           "x_bound bound_by")
     cases = (list(flash.items()) + list(decode.items()) + list(mla.items())
+             + list(maverick.items())
              + list(paged.items()) + list(chunk.items()) + list(ssd.items())
              + list(wkv.items()) + list(rms.items()))
     for label, r in cases:
@@ -1516,13 +1652,23 @@ def phase_kernels(card):
         print(f"  {label:38s} {r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, SDPA (Ev "
               f"16, same mask) {lib}, max abs err {r['max_abs_err']:.3e}")
+    print(f"\n[maverick] q heads :40 at group 5 over the kv view ::2 of its 16 "
+          f"duplicated heads (hd 128), chunk-local (8,192) or the global "
+          f"layer's cache, against SDPA with the same mask, graph replay "
+          f"({card})")
+    for label, r in maverick.items():
+        print(f"  {label:40s} {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}, {r['ms'] / r['bound_ms']:.1f}x), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+              f"({r['ms'] / r['library_ms']:.2f}x SDPA), max abs err "
+              f"{r['max_abs_err']:.3e}")
     bad = [f"{label}: {r['wide'][1]} elements" for label, r in cases
            if r["wide"][1]]
     if bad:
         raise AssertionError(f"bf16 kernels past atol {TOL_WIDE[0]} rtol "
                              f"{TOL_WIDE[1]} of the float32 plain version: "
                              f"{bad}")
-    for r in (flash, decode, mla, paged, chunk, ssd, wkv, rms):
+    for r in (flash, decode, mla, maverick, paged, chunk, ssd, wkv, rms):
         for case in r.values():
             del case["wide"]
     # each kernel at the shapes of the path whose launches are reported:
@@ -1546,12 +1692,28 @@ def phase_kernels(card):
 # --------------------------------------------------------------------------
 
 
+def maverick_map_config(cf):
+    """Maverick smoke with Maverick's head map at small size: 10 q / 2 kv
+    heads padded to 12 / 4 (map [0 1 0 1 0 3 2 3 2 3 0 0]), head dim 32,
+    (dense, moe) x 2, chunk 8 with a global layer every 2nd, capacity
+    factor ``cf`` (tests/test_torch_moe.py's ``small_configs``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MAVERICK, "smoke")
+    return dataclasses.replace(
+        cfg, name=f"maverick-map-cf{cf}", n_heads=10, n_kv_heads=2,
+        pad_heads_to_multiple=4, head_dim=32, attn_chunk=8,
+        global_attn_every=2,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
 def smoke_agreement():
     """Small float32 configs served on the card (kernels) and on the CPU
     (plain versions) from the same weights: llama3.2-1b on the contiguous
     path and on the paged + chunked + prefix-sharing rung, zamba2-7b on
-    the contiguous and paged paths, rwkv6-1.6b on the contiguous path.
-    Identical tokens."""
+    the contiguous and paged paths, rwkv6-1.6b on the contiguous path,
+    Llama-4 Maverick's smoke and ``maverick_map_config`` at capacity
+    factors 2.0 and 0.5 on the contiguous path (prompts wrapping the
+    8-slot rings). Identical tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -1576,8 +1738,22 @@ def smoke_agreement():
         ("rwkv6-1.6b", "contiguous"): (EngineConfig(max_batch=4, max_len=128),
                                        ragged),
     }
+    # Llama-4 Maverick's smoke and its head map at small size (10 / 2 heads
+    # padded to 12 / 4: group 5 over the kv view ::2 on the card), the
+    # second at capacity factor 0.5, where every prefill drops real tokens
+    # beside pad tokens, so the card's pad rows must route as the CPU's
+    mav = [(i, rng.integers(2, vocab, int(n)).tolist())
+           for i, n in enumerate([5, 19, 30, 9, 3, 14, 27])]
+    runs[(MAVERICK, "contiguous")] = (EngineConfig(max_batch=4, max_len=64),
+                                      mav)
+    runs[(MAVERICK, "head map, contiguous")] = (EngineConfig(
+        max_batch=4, max_len=64), mav)
+    runs[(MAVERICK, "head map cf 0.5, contiguous")] = (EngineConfig(
+        max_batch=4, max_len=64), mav)
     for (arch, name), (ecfg, reqs) in runs.items():
         cfg = get_config(arch, "smoke")
+        if "head map" in name:
+            cfg = maverick_map_config(0.5 if "0.5" in name else 2.0)
         cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
         toks = {}
         for dev in ("cpu", "cuda"):
@@ -1590,7 +1766,7 @@ def smoke_agreement():
         if toks["cpu"] != toks["cuda"]:
             raise AssertionError(f"smoke {arch} {name} tokens differ: cpu "
                                  f"{toks['cpu']} cuda {toks['cuda']}")
-        print(f"[smoke] {arch} smoke f32, {name}: cuda tokens == cpu tokens")
+        print(f"[smoke] {cfg.name} f32, {name}: cuda tokens == cpu tokens")
     smoke_frontdoor()
     smoke_fleet()
     smoke_fleet_admin()
@@ -2215,6 +2391,26 @@ def fleet_config():
                         defer_deadline_frac=FLEET_FRAC)
 
 
+def count_waits(run):
+    """(run's result, the host's waits for the device in it): CUDA's sync
+    debug mode warns at every synchronizing call."""
+    waits = [0]
+
+    def record(message, *_):
+        if "called a synchronizing CUDA operation" in str(message):
+            waits[0] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, waits[0]
+
+
 def phase_fleet(card, model, params):
     """The fleet at full width and depth: ``llama-paper-1b`` in bf16, 4
     shards of 8 slots (32 on the card) and 1,024 pages of 16 tokens each,
@@ -2246,30 +2442,17 @@ def phase_fleet(card, model, params):
         n_fused[0] += 1
         return fused(*a, **k)
 
-    # every point where the host waits for the device warns once under
-    # CUDA's sync debug mode: the run's real host syncs, counted
-    waits = [0]
-
-    def record(message, *_):
-        if "called a synchronizing CUDA operation" in str(message):
-            waits[0] += 1
-
     sharded_mod.sampling.fused_decode_steps = counted
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            ops.reset_launches()
-            t0 = time.perf_counter()
-            resp = drive_fleet(engine, reqs)
-            torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            sharded_mod.sampling.fused_decode_steps = fused
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        # the run's real host syncs, counted
+        resp, waits = count_waits(lambda: drive_fleet(engine, reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        sharded_mod.sampling.fused_decode_steps = fused
     st = engine.stats()
     engine.audit()
     S = engine.S
@@ -2294,7 +2477,7 @@ def phase_fleet(card, model, params):
     print(f"  prefill chunks {st['prefill_chunks']}, decode chunks "
           f"{st['decode_chunks']} ({n_fused[0]} fused calls), micro-steps "
           f"with work {st['steps']}, host syncs {st['host_syncs']} "
-          f"({waits[0]} host waits for the device under the sync debug "
+          f"({waits} host waits for the device under the sync debug "
           f"mode); launches: {counts}")
     qc = sum(placed[s] for s in range(S) if FLEET_REGIONS[s] == "QC")
     pace = sum(placed[s] for s in range(S) if FLEET_REGIONS[s] == "PACE")
@@ -2331,8 +2514,8 @@ def phase_fleet(card, model, params):
         (counts["decode_attention"] == counts["flash_attention"] == 0,
          f"contiguous kernels ran on the fleet: {counts}"),
         (n_fused[0] == st["decode_chunks"]
-         and waits[0] == st["decode_chunks"] + st["prefill_batches"],
-         f"{n_fused[0]} fused calls, {waits[0]} host waits for "
+         and waits == st["decode_chunks"] + st["prefill_batches"],
+         f"{n_fused[0]} fused calls, {waits} host waits for "
          f"{st['decode_chunks']} decode chunks + {st['prefill_batches']} "
          "first-token fetches"),
         (math.isclose(sum(grams), st["total_carbon_g"], rel_tol=1e-12),
@@ -2546,27 +2729,14 @@ def phase_fleet_admin(card, model, params):
         own[0] += 1
         sums.setdefault(s, []).append(shard_checksums(engine, s).cpu())
 
-    waits = [0]
-
-    def record(message, *_):
-        if "called a synchronizing CUDA operation" in str(message):
-            waits[0] += 1
-
     sampler = PowerSampler(power_field())
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            ops.reset_launches()
-            t0 = time.perf_counter()
-            resp = drive_admin(engine, waves, ADMIN_FULL, on_event)
-            torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    resp, waits = count_waits(
+        lambda: drive_admin(engine, waves, ADMIN_FULL, on_event))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
     st = engine.stats()
     gen_tokens = sum(r.n_tokens for r in resp)
     print(f"\n[fleet admin] llama-paper-1b full width bf16, {L} layers, "
@@ -2601,7 +2771,7 @@ def phase_fleet_admin(card, model, params):
     print(f"  prefill chunks {st['prefill_chunks']}, micro-steps "
           f"{st['steps']}, decode chunks {st['decode_chunks']}, host syncs "
           f"{st['host_syncs']} + fetches {engine.fetches} + {own[0]} "
-          f"checksum fetches; {waits[0]} host waits under the sync debug "
+          f"checksum fetches; {waits} host waits under the sync debug "
           f"mode; launches: {counts}")
     alloc = {k: v.cpu() for k, v in engine.caches["paged"].items()}
     dead = sums.get(1, [])
@@ -2634,8 +2804,8 @@ def phase_fleet_admin(card, model, params):
          and bool((alloc["ref"] == 0).all())
          and engine.free_pages == [engine.num_pages] * engine.S,
          "a shard's free stack is not whole"),
-        (waits[0] == st["host_syncs"] + sum(engine.fetches.values())
-         + own[0], f"{waits[0]} host waits != {st['host_syncs']} syncs + "
+        (waits == st["host_syncs"] + sum(engine.fetches.values())
+         + own[0], f"{waits} host waits != {st['host_syncs']} syncs + "
          f"{engine.fetches} + {own[0]}"),
     ]
     engine.audit()
@@ -2839,6 +3009,140 @@ def phase_dense(card):
     return total
 
 
+def maverick_requests(vocab):
+    """The first wave: 8 prompts of 64-512 tokens (four prefill buckets);
+    then one of 8,176 tokens, which waits for a slot and so is admitted,
+    and prefills, alone after the wave (bucket 8,192, 16 pad queries) and
+    decodes across position 8,192, where every chunk-local ring evicts the
+    first chunk's keys and masks what remains of them. 32 new tokens
+    each."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(17)
+    lens = list(MAVERICK_LENS) + [MAVERICK_LONG]
+    return [Request(rid=i, prompt=rng.integers(2, vocab, n).tolist(),
+                    max_new_tokens=MAVERICK_NEW) for i, n in enumerate(lens)]
+
+
+def maverick_cut():
+    """Llama-4 Maverick at full width cut to its first ``N_MAVERICK``
+    layers."""
+    from repro_torch.configs import get_config
+    full = get_config(MAVERICK)
+    return dataclasses.replace(full, n_layers=N_MAVERICK,
+                               block_pattern=full.block_pattern[:N_MAVERICK])
+
+
+def phase_maverick(card):
+    """Llama-4 Maverick at full width (d 5120, 40 / 8 heads padded to 48 /
+    16, head dim 128, 128 experts top-1 plus a shared one, d_ff 8192,
+    vocab 202,048) and depth 4 (chunk-local dense, moe, dense, then the
+    global moe layer; 35.12 B parameters, 70.2 GB in bf16), random
+    weights from a seed, on the contiguous engine, the earlier models
+    freed first: ``maverick_requests`` served twice, with the same tokens.
+    Asserts flash 4 a prefill launch, decode 4 a micro-step, RMSNorm 9 a
+    forward, the long prompt prefilled alone, every response terminal,
+    finite logits, and the host's waits (sync debug mode, the second run)
+    equal to ``host_syncs``; reports peak memory beside the weights and
+    KV reckoning, and tokens/s. Returns each kernel's launches."""
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = maverick_cut()
+    L = N_MAVERICK
+    assert cfg.block_pattern == ("dense", "moe", "dense", "moe")
+    assert [cfg.layer_uses_chunked_attn(i) for i in range(L)] == \
+        [True, True, True, False]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"\n[maverick] allocated before loading: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({card})")
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != MAVERICK_PARAMS:
+        raise AssertionError(f"{MAVERICK} depth {L}: {n_params} parameters "
+                             f"on the card, the reference has "
+                             f"{MAVERICK_PARAMS}")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[maverick] {MAVERICK}: depth {L} {cfg.block_pattern}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} padded to "
+          f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded} (kernels: group 5 "
+          f"over kv ::2), {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+          f"+ {cfg.moe.n_shared_experts} shared, {n_params} parameters, "
+          f"{weights / 1e9:.3f} GB on the card, drawn in {init_s:.1f} s "
+          f"({card})")
+    probe = torch.randint(2, cfg.vocab, (1, 64), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    logits, _ = model.prefill(params, probe, max_len=64)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{MAVERICK}: non-finite prefill logits")
+    del logits
+    ecfg = EngineConfig(max_batch=8, max_len=MAVERICK_MAX_LEN,
+                        profile="h100_sxm", region="QC")
+    warm = ServingEngine(model, params, ecfg)          # not counted
+    warm.submit(Request(rid=0, prompt=list(range(2, 40)), max_new_tokens=4))
+    warm.run()
+    del warm
+    label = f"{MAVERICK} depth {L} contiguous"
+    engine, st, counts = serve(card, label, ecfg,
+                               maverick_requests(cfg.vocab), model, params,
+                               new_tokens=MAVERICK_NEW)
+    contiguous_checks(label, cfg, engine, st, counts)
+    pb = engine.prefill_batches
+    resp = engine.responses
+    long_rid = len(MAVERICK_LENS)
+    first = min(resp[long_rid].t_emit)
+    checks = [
+        (counts["flash_attention"] == L * pb,
+         f"flash launches {counts['flash_attention']} != {L} x {pb}"),
+        (pb == 5, f"{pb} prefill launches, not the wave's 4 buckets + 1"),
+        (all(max(resp[r].t_emit) <= first for r in range(long_rid)),
+         "the long prompt was admitted before the wave finished"),
+        (MAVERICK_LONG + MAVERICK_NEW - 1 > MAVERICK_CHUNK
+         and resp[long_rid].n_tokens == MAVERICK_NEW,
+         "the long request does not decode past the first chunk"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"{label}: {what}")
+    tokens = {r: list(resp[r].tokens) for r in resp}
+    kv = sum(c[n].numel() * c[n].element_size()
+             for c in engine.caches["layers"] for n in ("k", "v"))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak {peak / 1e9:.2f} GB allocated against the reckoning: "
+          f"weights {weights / 1e9:.2f} GB + KV {kv / 1e9:.2f} GB (3 rings "
+          f"of {MAVERICK_CHUNK} and the global layer's {MAVERICK_MAX_LEN} "
+          f"rows a slot) = {(weights + kv) / 1e9:.2f} GB ({card})")
+    del engine
+
+    def again():
+        eng = ServingEngine(model, params, ecfg)
+        for r in maverick_requests(cfg.vocab):
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        return eng
+
+    engine, waits = count_waits(again)
+    if {r: list(engine.responses[r].tokens) for r in engine.responses} != \
+            tokens:
+        raise AssertionError(f"{label}: a second run gave other tokens")
+    if waits != engine.host_syncs:
+        raise AssertionError(f"{label}: the host waited {waits} times, "
+                             f"host_syncs {engine.host_syncs}")
+    print(f"  a second run: the same tokens; host waits for the device "
+          f"(sync debug mode) {waits} = host_syncs {engine.host_syncs}")
+    del engine
+    model = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2892,6 +3196,8 @@ def main() -> int:
     # the line keeps each kernel's launches on the path timed in phase 3
     dense = phase_dense(card)
     print(f"\n[dense] launches over the seven dense runs: {dense}")
+    maverick = phase_maverick(card)
+    print(f"\n[maverick] launches on its path: {maverick}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

@@ -6,8 +6,12 @@ Covers the configurations the port serves so far: the paper's own dense
 to 16), ``minicpm-2b`` (36 MHA heads padded to 48, muP-style scaling,
 tied embeddings), ``stablelm-12b`` (the parallel block with qk-norm, 25%
 partial rotary, head dim 160, GQA group 2 after its kv heads are
-duplicated to 16), the hybrid ``zamba2-7b`` (Mamba2 + one weight-shared
-attention block) and the attention-free ``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
+duplicated to 16), the MoE ``llama4-maverick-400b-a17b`` (dense and
+``moe`` blocks alternating, 128 experts top-1 plus a shared one,
+chunk-local iRoPE attention with a global layer every 4th, 40 q heads
+padded to 48 on 8 kv heads duplicated to 16), the hybrid ``zamba2-7b``
+(Mamba2 + one weight-shared attention block) and the attention-free
+``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
 ``smoke`` (a few layers, narrow widths, float32; for CPU tests) and
 ``long`` (full with a sliding window; full itself for ``rwkv6-1.6b``).
 """
@@ -17,7 +21,7 @@ import importlib
 
 ARCH_IDS = ["llama-paper-1b", "llama-paper-3b", "llama-paper-7b",
             "llama3.2-1b", "internlm2-20b", "minicpm-2b", "stablelm-12b",
-            "zamba2-7b", "rwkv6-1.6b"]
+            "llama4-maverick-400b-a17b", "zamba2-7b", "rwkv6-1.6b"]
 
 _MODULES = {
     "llama-paper-1b": "repro_torch.configs.llama_paper",
@@ -27,6 +31,8 @@ _MODULES = {
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }

@@ -24,6 +24,8 @@ from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
 # 16: the reference's kernel sweep; 160: StableLM-2-12B
 HEAD_DIMS = (16, 32, 64, 100, 128, 160)
+# the GQA groups its C entry takes (the decode kernels also take 5)
+GROUPS = (1, 2, 3, 4, 8)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
@@ -40,7 +42,8 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     device. Returns (B,Hq,S,hd) in q.dtype."""
     global launches
     check_common(q, k_pages, v_pages, q_pos, k_pos, window, chunk)
-    check_pool(q, k_pages, v_pages, block_tbl, k_pos, head_dims=HEAD_DIMS)
+    check_pool(q, k_pages, v_pages, block_tbl, k_pos, head_dims=HEAD_DIMS,
+               groups=GROUPS)
     B, Hq, S, hd = q.shape
     Hkv, P1, ps, _ = k_pages.shape
     M = block_tbl.shape[1]

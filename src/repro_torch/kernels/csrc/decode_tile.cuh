@@ -174,8 +174,8 @@ __host__ __device__ constexpr int pow2_floor(int n) {
 // NCH chunks of each of NK rows. From group 4 up a lane takes half the rows
 // a tile: its scores (rows x G) and K chunks otherwise push those
 // instances past ptxas' register tiers into spills. Group 3 takes the
-// lower groups' tier (s[NK][3], o[3][NCH][VEC]); nothing here assumes G is
-// a power of two (the shuffles reduce over a row's LPR lanes and a warp's
+// lower groups' tier (s[NK][3], o[3][NCH][VEC]), group 5 the upper one;
+// nothing here assumes G is a power of two (the shuffles reduce over a row's LPR lanes and a warp's
 // row groups, never over G).
 template <typename T, int HD, int G, int HDV = HD>
 struct Geom {
@@ -620,9 +620,10 @@ cudaError_t launch_cluster(const Args& a, int W, int Hkv, int B,
 }
 
 // The instances every decode kernel takes: hd {8, 16, 32, 64, 100, 112,
-// 128, 160} x group {1, 2, 3, 4, 8} x {float32, bf16} (hd 100: LLaMA-3B;
-// group 3: InternLM2-20B's 48 query heads on 16 kv heads; hd 160:
-// StableLM-2-12B, group 2). Launch<T, HD, G>::run(a, stream)
+// 128, 160} x group {1, 2, 3, 4, 5, 8} x {float32, bf16} (hd 100:
+// LLaMA-3B; group 3: InternLM2-20B's 48 query heads on 16 kv heads; hd
+// 160: StableLM-2-12B, group 2; group 5: Llama-4 Maverick's 40 real query
+// heads on one copy of each of its 8 kv heads). Launch<T, HD, G>::run(a, stream)
 // is the file's launch of one instance.
 template <template <typename, int, int> class Launch, typename T, int HD,
           typename Args>
@@ -632,6 +633,7 @@ cudaError_t by_group(const Args& a, int group, cudaStream_t stream) {
     case 2: return Launch<T, HD, 2>::run(a, stream);
     case 3: return Launch<T, HD, 3>::run(a, stream);
     case 4: return Launch<T, HD, 4>::run(a, stream);
+    case 5: return Launch<T, HD, 5>::run(a, stream);
     case 8: return Launch<T, HD, 8>::run(a, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -23,8 +23,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
                                                  check_common, check_rows)
 
-# 3: InternLM2-20B (48 query heads on 8 kv heads duplicated to 16)
-GROUPS = (1, 2, 3, 4, 8)
+# the groups of the split-KV core's instances (csrc/decode_tile.cuh
+# by_group), in both decode kernels: 3, InternLM2-20B (48 query heads on
+# 8 kv heads duplicated to 16); 5, Llama-4 Maverick (40 real query heads
+# on one copy of each of its 8 kv heads)
+GROUPS = (1, 2, 3, 4, 5, 8)
 # (hd, hd_v) -> groups of the instances with hd_v != hd: the reference's
 # MLA sweep (tests/test_kernels.py), kvr 16 + rope 8 over one latent head
 PAIRS = {(24, 16): (4,)}

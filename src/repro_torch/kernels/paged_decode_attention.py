@@ -26,10 +26,10 @@ launches = 0
 
 
 def check_pool(q, k_pages, v_pages, block_tbl, k_pos,
-               head_dims=HEAD_DIMS) -> None:
+               head_dims=HEAD_DIMS, groups=GROUPS) -> None:
     """Validation shared by both paged wrappers: pool, table and logical
     positions must agree with each other and with what the kernels take
-    (``head_dims``: the calling kernel's)."""
+    (``head_dims`` and ``groups``: the calling kernel's instances)."""
     Hkv, P1, ps, hd = k_pages.shape
     M = block_tbl.shape[-1]
     if v_pages.shape[:3] != (Hkv, P1, ps):
@@ -40,8 +40,8 @@ def check_pool(q, k_pages, v_pages, block_tbl, k_pos,
                          f"{v_pages.shape[-1]}) not supported; the kernel "
                          f"takes hd == hd_v in {head_dims}")
     Hq = q.shape[1]
-    if Hq % Hkv or Hq // Hkv not in GROUPS:
-        raise ValueError(f"GQA group {Hq}/{Hkv} not in {GROUPS}")
+    if Hq % Hkv or Hq // Hkv not in groups:
+        raise ValueError(f"GQA group {Hq}/{Hkv} not in {groups}")
     if block_tbl.device != q.device:
         raise ValueError(f"block_tbl is on {block_tbl.device}, q on {q.device}")
     if block_tbl.dtype != torch.int32:

@@ -9,8 +9,21 @@ dense part of ``repro.models.attention``).
   padded to 48, the padded ones on kv head 0), the card runs the kernels
   with the divide of the padded counts (``kernel_head_group``): a padded
   head's output meets zero rows of wo whichever kv head it reads, so the
-  block's output is the same. ``model.check_head_padding`` holds a
-  parameter tree to those zero rows, once, where parameters are made.
+  block's output is the same. Where the kv heads are duplicated and the
+  real q heads read copies of their original kv head in turn (Llama-4
+  Maverick: 40 / 8 heads padded to 48 / 16, map ``[0 1 0 1 0 3 2 3 ...]``),
+  the card runs the kernels over the real q heads against one copy of
+  each original kv head: the strided view ``k[:, :, ::dup]``, no copy.
+  ``model.check_head_padding`` holds a parameter tree to those zero rows
+  and equal copies, once, where parameters are made.
+* Fully masked query rows (a right-padded prompt's pad queries): the
+  plain version gives them the mean of V over the key range (every score
+  is the finite ``NEG_INF``), the CUDA kernels 0. Row-local blocks never
+  read them; a ``moe`` block routes them and they take expert capacity,
+  so on a model with one the card's rows get the plain version's value
+  after the kernel (``_fill_dead_rows``) wherever the forward's token
+  count can drop a token (``moe.can_drop``; elsewhere no row's value can
+  change another's).
 * KV cache per layer: ``{"k","v": (B, W, Hkv, hd), "pos_ids": (B, W)
   int32, "length": (B,) int32}``, W = min(max_len, sliding_window). A
   ring buffer: ``pos_ids`` (-1 = empty) drives every mask. Keys are stored
@@ -39,6 +52,7 @@ import torch
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref as KREF
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 # --------------------------------------------------------------------------
@@ -86,22 +100,50 @@ def uniform_gqa_group(cfg, real_only: bool = False) -> Optional[int]:
     return None
 
 
+def duplicated_kv_layout(cfg) -> Optional[Tuple[int, int, int]]:
+    """(group, dup, n_heads) when the kv heads are duplicated ``dup`` > 1
+    times (consecutive copies, as ``attn_init`` makes them) and real q
+    head i reads a copy of original kv head ``i // group``: the kernels
+    then run the real q heads at that group against copy 0 of each
+    original kv head, the view ``k[:, :, ::dup]``. None otherwise."""
+    n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+    n_qp, n_kvp = cfg.n_heads_padded, cfg.n_kv_heads_padded
+    if n_kvp % n_kv or n_kvp == n_kv or n_q % n_kv:
+        return None
+    dup, group = n_kvp // n_kv, n_q // n_kv
+    idx = _kv_index_map(n_q, n_kv, n_qp, n_kvp)
+    if all(idx[i] // dup == i // group for i in range(n_q)):
+        return group, dup, n_q
+    return None
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_head_group(cfg, device_type: str) -> Optional[int]:
-    """The GQA group attention runs ``cfg`` with on a device of
-    ``device_type``, worked out once a config: on the card the divide that
-    the real heads follow (exact given ``model.check_head_padding``); on
-    the CPU the uniform divide, else None, and the kv heads are expanded
-    through the reference's map (its semantics). A map no kernel takes
-    raises on the card."""
+def kernel_head_group(cfg, device_type: str
+                      ) -> Optional[Tuple[int, int, int]]:
+    """The kernels' head layout ``(group, kv_step, n_q)`` for ``cfg`` on a
+    device of ``device_type``, worked out once a config: the kernels run q
+    heads ``:n_q`` at GQA ``group`` against the kv heads ``::kv_step``.
+
+    On the card: the uniform divide of the padded heads, ``(gp, 1,
+    n_qp)``; the divide the real heads follow, the padded ones reading
+    any kv head (MiniCPM), ``(gp, 1, n_qp)``; or duplicated kv heads
+    (``duplicated_kv_layout``, Llama-4 Maverick), ``(group, dup, n_q)``.
+    Each is exact given ``model.check_head_padding``; a map none covers
+    raises. On the CPU the uniform divide, else None, and the kv heads are
+    expanded through the reference's map (its semantics)."""
+    n_qp = cfg.n_heads_padded
     if device_type != "cuda":
-        return uniform_gqa_group(cfg)
+        group = uniform_gqa_group(cfg)
+        return None if group is None else (group, 1, n_qp)
     group = uniform_gqa_group(cfg, real_only=True)
-    if group is None:
-        raise ValueError(f"{cfg.name}: the GQA map of its real heads is no "
-                         "uniform divide of the padded heads; no kernel "
-                         "takes it")
-    return group
+    if group is not None:
+        return group, 1, n_qp
+    layout = duplicated_kv_layout(cfg)
+    if layout is None:
+        raise ValueError(f"{cfg.name}: the GQA map of its real heads is "
+                         "neither a divide of the padded heads nor a group "
+                         "a copy of each kv head; no kernel takes it")
+    return layout
 
 
 def attn_init(gen, cfg, device, d_in: Optional[int] = None,
@@ -348,6 +390,21 @@ def _expand_kv(cfg, k):
     return k.index_select(2, idx)
 
 
+def _fill_dead_rows(out: torch.Tensor, v: torch.Tensor,
+                    dead: torch.Tensor) -> torch.Tensor:
+    """The plain version's value in the query rows that see no key: the
+    mean of V over the key range, in float32 (a uniform softmax over the
+    finite ``NEG_INF`` scores). out: (B, S, Hq, hd) with ``dead`` (B, S),
+    or (B, Hq, hd) with ``dead`` (B,); v: (B, Hkv, Sk, hd), the kernel's
+    operand. One where over the output, no host sync."""
+    mean = v.mean(dim=2, dtype=torch.float32)                 # (B, Hkv, hd)
+    mean = mean.repeat_interleave(out.shape[-2] // v.shape[1], dim=1)
+    mean = mean.reshape((mean.shape[0],) + (1,) * (out.dim() - 3)
+                        + mean.shape[1:])
+    return torch.where(dead.reshape(dead.shape + (1, 1)),
+                       mean.to(out.dtype), out)
+
+
 def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                    layer_window: Optional[int], layer_chunk: Optional[int],
                    cache: Optional[Dict] = None, mode: str = "prefill",
@@ -364,17 +421,30 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     history, and ``k_pos <= q_pos`` gives causality inside the chunk.
 
     Attention runs in the kernels' (B, H, S, hd) layout through
-    ``kernels/ops.py``: transposed views in, no copies. The kv heads are
-    read through ``kernel_head_group``: the uniform divide, or on the card
-    the padded heads' divide (MiniCPM); where it is None (the CPU, a map
-    that is not the uniform divide) the kv heads are expanded (a paged pool
-    gathered first) and the plain version runs with group 1.
+    ``kernels/ops.py``: transposed views in, no copies. The heads are read
+    through ``kernel_head_group``'s layout: q heads ``:n_q`` against kv
+    heads ``::kv_step`` (strided views), the output's heads meeting wo's
+    first ``n_q`` head rows (the rest are zero); where it is None (the
+    CPU, a map that is not the uniform divide) the kv heads are expanded
+    (a paged pool gathered first) and the plain version runs with group 1.
+    On the card, a model with a ``moe`` block gets the plain version's
+    value in every fully masked query row (``_fill_dead_rows``) where the
+    forward can drop a token; its paged paths, and any paged path of a
+    duplicated-kv layout, are not ported to the card yet and raise.
     """
     if mode not in ("prefill", "decode", "chunk"):
         raise ValueError(f"unknown attention mode {mode!r}")
     q, k, v = _qkv(p, cfg, x, positions)
-    # direct: the kernels read the kv heads through the divide
-    direct = kernel_head_group(cfg, q.device.type) is not None
+    # direct: the kernels read the heads through the layout
+    layout = kernel_head_group(cfg, q.device.type)
+    direct = layout is not None
+    step = layout[1] if direct else 1
+    if direct and layout[2] < q.shape[2]:
+        q = q[:, :, :layout[2]]
+    moe_on_card = cfg.moe is not None and KOPS._on_cuda(q)
+    # a dead row matters only where it can take a real token's expert
+    # slot: B*S is the token count of this forward's moe calls
+    fill = moe_on_card and MOE.can_drop(cfg, x.shape[0] * x.shape[1])
     paged = cache is not None and "k_pages" in cache
     if mode in ("decode", "chunk"):
         if cache is None:
@@ -383,6 +453,11 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             raise ValueError("a paged cache needs page_tbl")
         if mode == "chunk" and not paged:
             raise ValueError("chunked prefill needs a paged cache")
+    if paged and (moe_on_card or step > 1):
+        raise NotImplementedError(
+            f"{cfg.name}: a moe model's paged attention on the card (the "
+            "pad rows of the paged kernels, a pool of duplicated kv heads) "
+            "is not ported yet (ROADMAP Queue 1)")
     if mode == "chunk":
         paged_chunk_write(cache, page_tbl, k, v, positions)
         if direct:
@@ -414,21 +489,32 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     elif mode == "decode":
         decode_write_cache(cache, k, v)
         ck, cv = cache["k"], cache["v"]
-        if not direct:
-            ck, cv = _expand_kv(cfg, ck), _expand_kv(cfg, cv)
+        ck, cv = ((ck[:, :, ::step], cv[:, :, ::step]) if direct
+                  else (_expand_kv(cfg, ck), _expand_kv(cfg, cv)))
         # (B, Hkv, W, hd) views of the (B, W, Hkv, hd) cache: the decode
         # kernel reads through the strides, the cache is never copied
+        ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
+        q_pos = positions[:, 0]
         out = KOPS.decode_attention(
-            q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2),
-            positions[:, 0], cache["pos_ids"],
-            window=layer_window, chunk=layer_chunk)[:, None]  # (B,1,Hq,hd)
+            q[:, 0], ck, cv, q_pos, cache["pos_ids"],
+            window=layer_window, chunk=layer_chunk)          # (B,Hq,hd)
+        if fill:
+            dead = ~KREF.attention_mask(q_pos[:, None], cache["pos_ids"],
+                                        layer_window, layer_chunk).any(-1)
+            out = _fill_dead_rows(out, cv, dead)
+        out = out[:, None]                                   # (B,1,Hq,hd)
     else:
         if cache is not None:
             prefill_write_cache(cache, k, v, positions)
-        kk, vv = (k, v) if direct else (_expand_kv(cfg, k), _expand_kv(cfg, v))
+        kk, vv = ((k[:, :, ::step], v[:, :, ::step]) if direct
+                  else (_expand_kv(cfg, k), _expand_kv(cfg, v)))
+        vv = vv.transpose(1, 2)
         out = KOPS.flash_attention(
-            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            q.transpose(1, 2), kk.transpose(1, 2), vv,
             positions, positions, window=layer_window,
             chunk=layer_chunk).transpose(1, 2)             # (B,S,Hq,hd)
+        if fill:
+            # a real query sees its own key: only pad queries see none
+            out = _fill_dead_rows(out, vv, positions < 0)
     flat = out.reshape(out.shape[:-2] + (-1,))
-    return flat @ p["wo"], cache
+    return flat @ p["wo"][:flat.shape[-1]], cache

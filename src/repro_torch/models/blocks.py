@@ -1,7 +1,9 @@
 """Per-layer blocks (the port of ``repro.models.blocks``) for the kinds the
 port serves: ``dense`` (pre-norm self-attention + SwiGLU MLP on a
 sequential residual), ``parallel`` (StableLM-2: attention with qk-norm and
-the MLP side by side on one pre-norm, added together), ``mamba2`` (the
+the MLP side by side on one pre-norm, added together), ``moe`` (the
+``dense`` block with the mixture-of-experts FFN of ``models/moe.py`` in
+place of the SwiGLU; serving launches no aux loss), ``mamba2`` (the
 Mamba2 SSD block), ``shared`` (Zamba2's weight-shared attention + MLP
 block on concat(h, embedding)) and ``rwkv6`` (RWKV6 time-mix +
 channel-mix, attention-free)."""
@@ -14,10 +16,11 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-PORTED_KINDS = ("dense", "parallel", "mamba2", "shared", "rwkv6")
+PORTED_KINDS = ("dense", "parallel", "moe", "mamba2", "shared", "rwkv6")
 
 
 @dataclasses.dataclass
@@ -62,11 +65,14 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
                                                device),
                         "w_up": L.dense_init(gen, 2 * d, cfg.d_ff, dt, device),
                         "w_down": L.dense_init(gen, cfg.d_ff, d, dt, device)}}
-    return {"ln1": L.rmsnorm_init(d, dt, device),
-            "attn": A.attn_init(gen, cfg, device,
-                                qk_norm=(kind == "parallel")),
-            "ln2": L.rmsnorm_init(d, dt, device),
-            "mlp": L.swiglu_init(gen, d, cfg.d_ff, dt, device)}
+    p = {"ln1": L.rmsnorm_init(d, dt, device),
+         "attn": A.attn_init(gen, cfg, device, qk_norm=(kind == "parallel")),
+         "ln2": L.rmsnorm_init(d, dt, device)}
+    if kind == "moe":
+        p["moe"] = MOE.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.swiglu_init(gen, d, cfg.d_ff, dt, device)
+    return p
 
 
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
@@ -133,4 +139,7 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
         h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         return x, _res(cfg, a + L.swiglu(p["mlp"], h2))
     x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
+    if kind == "moe":
+        f, _ = MOE.moe_apply(p["moe"], cfg, h2)    # no aux when serving
+        return x, _res(cfg, f)
     return x, _res(cfg, L.swiglu(p["mlp"], h2))

@@ -31,8 +31,11 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     prefix keeps its own parameters there). Weights keep the reference's
     (d_in, d_out) orientation; nothing is transposed. Values pass through
     float32 (numpy has no bfloat16) and land in ``cfg.dtype`` exactly;
-    the SSM's float32 leaves stay float32. Raises if a padded q head's wo
-    rows are not zero (``model.check_head_padding``).
+    the float32 leaves (the SSM's, the MoE router) stay float32, and a
+    ``moe`` block's ``experts_gate``/``_up``/``_down`` (E, d_in, d_out) and
+    ``shared`` SwiGLU come across as they are. Raises if a padded q head's
+    wo rows are not zero or duplicated kv heads differ
+    (``model.check_head_padding``).
     """
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)

@@ -11,29 +11,40 @@ from repro_torch.core.energy import LLMWorkload
 from repro_torch.models.model import Model
 
 
-def _leaves(tree):
+def _leaves(tree, path=()):
+    """(path of keys, leaf) over a parameter tree."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
     elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
     else:
-        yield tree
+        yield path, tree
 
 
 def param_counts(cfg) -> Tuple[float, float]:
     """(total, active-per-token) parameter counts from the real init shapes.
     A weight-shared block is one set of tensors referenced at several
-    layers and counts once, as the reference's tree holds it once. Every
-    parameter of the ported kinds is active."""
+    layers and counts once, as the reference's tree holds it once. The
+    routed experts' leaves (``experts_*``) are active at the reference's
+    fraction ``top_k / n_experts``; every other parameter is active."""
     total = 0.0
+    expert_total = 0.0
     seen = set()
-    for leaf in _leaves(Model(cfg, "meta").param_shapes()):
-        if id(leaf) not in seen:
-            seen.add(id(leaf))
-            total += float(leaf.numel())
-    return total, total
+    for path, leaf in _leaves(Model(cfg, "meta").param_shapes()):
+        if id(leaf) in seen:
+            continue
+        seen.add(id(leaf))
+        n = float(leaf.numel())
+        total += n
+        if any(k.startswith("experts_") for k in path):
+            expert_total += n
+    active = total
+    if cfg.moe is not None and expert_total:
+        frac = min(1.0, cfg.moe.top_k / cfg.moe.n_experts)
+        active = total - expert_total * (1.0 - frac)
+    return total, active
 
 
 def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
@@ -43,7 +54,7 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
     kv_per_tok = 0.0
     state_bytes = 0.0
     for i, kind in enumerate(cfg.block_pattern):
-        if kind in ("dense", "parallel", "shared"):
+        if kind in ("dense", "parallel", "moe", "shared"):
             if cfg.layer_uses_chunked_attn(i):
                 continue               # ring cache, O(1) amortized growth
             kv_per_tok += 2 * cfg.n_kv_heads_padded * hd * dtype_bytes

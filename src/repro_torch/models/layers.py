@@ -28,10 +28,29 @@ def dtype_of(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+# a draw is made in slices of at most this many elements along its
+# leading axis
+SLICE_ELEMS = 1 << 26
+
+
 def normal(gen: Optional[torch.Generator], shape, scale: float, dtype,
            device) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    """N(0, scale^2) in ``dtype``, drawn in float32 from ``gen`` slice by
+    slice along the leading axis into the preallocated result, so the
+    draw's peak is the result plus one float32 slice, not twice the tensor
+    in float32 (Llama-4 Maverick's (128, 5120, 8192) expert tensors). The
+    slices follow each other in one generator, so the draw is
+    deterministic; a tensor of one slice gets the numbers of a whole
+    draw."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, SLICE_ELEMS // max(1, math.prod(shape[1:])))
+    buf = torch.empty((min(step, shape[0]),) + tuple(shape[1:]),
+                      dtype=torch.float32, device=device)
+    for i in range(0, shape[0], step):
+        part = buf[:min(step, shape[0] - i)]
+        torch.randn(part.shape, generator=gen, out=part)
+        out[i:i + part.shape[0]].copy_(part.mul_(scale))
+    return out
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device,

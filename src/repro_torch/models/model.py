@@ -35,20 +35,35 @@ CHUNKED_PREFILL_KINDS = {"dense", "parallel", "moe", "shared"}
 
 
 def check_head_padding(params: Dict, cfg: ModelConfig) -> None:
-    """Raise unless the wo rows of the padded q heads (``n_heads`` ..
-    ``n_heads_padded``) are zero in every attention block of a parameter
-    tree, as ``attn_init`` and the reference make them: the card's
-    padded-head map (``attention.kernel_head_group``) relies on it. A
-    device read per block: run where parameters are made (``Model.init``,
-    ``convert.params_from_jax``), never in a step."""
-    if cfg.n_heads_padded == cfg.n_heads:
+    """Raise unless every attention block of a parameter tree is padded as
+    ``attn_init`` and the reference pad it: the wo rows of the padded q
+    heads (``n_heads`` .. ``n_heads_padded``) zero, and duplicated kv
+    heads (``n_kv_heads_padded`` a multiple of ``n_kv_heads``) equal copies
+    in wk and wv. The card's head layouts rely on both
+    (``attention.kernel_head_group``: a padded head may read any kv head,
+    a real head one copy of its own). A device read per block: run where
+    parameters are made (``Model.init``, ``convert.params_from_jax``),
+    never in a step."""
+    n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+    n_kvp, hd = cfg.n_kv_heads_padded, cfg.head_dim_
+    dup = n_kvp // n_kv if n_kvp > n_kv and n_kvp % n_kv == 0 else 1
+    if cfg.n_heads_padded == n_q and dup == 1:
         return
     for p in params["layers"]:
-        if "attn" in p and p["attn"]["wo"][cfg.n_heads * cfg.head_dim_:].any():
+        if "attn" not in p:
+            continue
+        a = p["attn"]
+        if a["wo"][n_q * hd:].any():
             raise ValueError(
-                f"{cfg.name}: wo rows of the padded q heads {cfg.n_heads}.."
+                f"{cfg.name}: wo rows of the padded q heads {n_q}.."
                 f"{cfg.n_heads_padded - 1} are not all zero; the padded-head "
                 "map needs them zero")
+        for name in ("wk", "wv") if dup > 1 else ():
+            w = a[name].reshape(a[name].shape[0], n_kv, dup, hd)
+            if not torch.equal(w, w[:, :, :1].expand_as(w)):
+                raise ValueError(
+                    f"{cfg.name}: {name}'s {dup} copies of each kv head are "
+                    "not equal; the kernels read one copy of each")
 
 
 class Model:

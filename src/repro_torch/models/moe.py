@@ -1,0 +1,171 @@
+"""Mixture-of-experts FFN with capacity dispatch (the port of
+``repro.models.moe``).
+
+The reference's design, kept: tokens are sorted by expert (a stable sort,
+so each expert keeps its tokens in order), scattered into fixed
+``(E*C, d)`` capacity buffers, run through three batched products
+``(E,C,d) x (E,d,f)`` and gathered back, each weighted by its gate. A
+token past its expert's capacity ``C`` is dropped: its slot is the
+scratch row ``E*C``, which no expert reads and whose output row is zero.
+The router runs in float32; the gate is a softmax over the selected
+logits. The reference has no Pallas kernel here: the products are
+``torch.bmm``.
+
+Everything stays on the device: the per-expert counts are a
+``scatter_add_`` (``torch.bincount`` waits for the device on CUDA), the
+scatter and gathers are index copies, and ``C`` follows from the shapes,
+so a forward through a ``moe`` block adds no host sync.
+
+Capacity depends on the token count ``T = B*S`` of the call, and pad
+tokens of a right-padded batch are routed and take capacity like real
+ones (as in the reference), so a batch's shape and its pad rows' values
+decide which real tokens are dropped (``attention.self_attention`` gives
+a fully masked query row the plain version's value on the card).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+
+
+def moe_init(gen, cfg, device) -> Dict:
+    m = cfg.moe
+    dt = L.dtype_of(cfg)
+    d = cfg.d_model
+    E, f = m.n_experts, m.d_ff_expert
+    p = {
+        "router": L.dense_init(gen, d, E, torch.float32, device),
+        "experts_gate": L.normal(gen, (E, d, f), 1.0 / (d ** 0.5), dt, device),
+        "experts_up": L.normal(gen, (E, d, f), 1.0 / (d ** 0.5), dt, device),
+        "experts_down": L.normal(gen, (E, f, d), 1.0 / (f ** 0.5), dt,
+                                 device),
+    }
+    if m.n_shared_experts:
+        p["shared"] = L.swiglu_init(gen, d, f * m.n_shared_experts, dt,
+                                    device)
+    return p
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Slots per expert for a call of ``tokens`` tokens: ``max(8,
+    ceil(T k cf / E))`` rounded up to a multiple of 8 (the reference's
+    expression, float floor division included)."""
+    m = cfg.moe
+    C = max(8, int(-(-tokens * m.top_k * m.capacity_factor // m.n_experts)))
+    return -(-C // 8) * 8
+
+
+def router_topk(router_logits: torch.Tensor, top_k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (gates (T,k) softmax-normalized over the selected experts,
+    expert_ids (T,k))."""
+    vals, ids = torch.topk(router_logits, top_k, dim=-1)
+    gates = torch.softmax(vals.float(), dim=-1)
+    return gates, ids
+
+
+def load_balance_loss(router_logits: torch.Tensor, expert_ids: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * p_e."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    p_mean = probs.mean(dim=0)                                    # (E,)
+    flat = expert_ids.reshape(-1)
+    counts = torch.zeros((n_experts,), dtype=torch.float32,
+                         device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    f = counts / max(expert_ids.numel(), 1)
+    return n_experts * torch.sum(f * p_mean)
+
+
+def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
+    z = torch.logsumexp(router_logits.float(), dim=-1)
+    return torch.mean(z * z)
+
+
+def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
+    """Capacity dispatch of the (T, k) expert ids: the stable order of the
+    T*k (token, choice) pairs by expert, each pair's buffer row (expert *
+    cap + its rank in the expert; ``n_experts * cap``, the scratch row,
+    past the capacity), the keep mask and each pair's source token.
+    Returns (order, slot, keep, tok_idx), each (T*k,) in sorted order."""
+    k = ids.shape[-1]
+    flat_ids = ids.reshape(-1)                                    # (T*k,)
+    # stable ordering: sort by expert id, tokens keep relative order
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids.index_select(0, order)
+    # position within the expert's group
+    counts = torch.zeros((n_experts,), dtype=torch.long, device=ids.device)
+    counts.scatter_add_(0, flat_ids, torch.ones_like(flat_ids))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(flat_ids.numel(), device=ids.device) - \
+        offsets.index_select(0, sorted_ids)
+    keep = pos < cap
+    slot = torch.where(keep, sorted_ids * cap + pos,
+                       torch.full_like(pos, n_experts * cap))
+    return order, slot, keep, torch.div(order, k, rounding_mode="floor")
+
+
+def can_drop(cfg, tokens: int) -> bool:
+    """Whether a call of ``tokens`` tokens can drop one: more (token,
+    choice) pairs than one expert's slots. Where it cannot, each token's
+    output is its own experts' and the other tokens' values cannot change
+    it."""
+    return tokens * cfg.moe.top_k > capacity(cfg, tokens)
+
+
+def moe_apply(p: Dict, cfg, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """x: (B, S, d) -> (B, S, d) and the routing that ``moe_aux`` reads:
+    (router logits (T, E) float32, expert ids (T, k), keep mask (T*k,)).
+    Serving calls this and launches no aux loss."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, k, E = B * S, m.top_k, m.n_experts
+    C = capacity(cfg, T)
+    dev = x.device
+
+    xt = x.reshape(T, d)
+    rl = xt.float() @ p["router"]                                 # (T, E)
+    gates, ids = router_topk(rl, k)                               # (T, k)
+
+    order, slot, keep, tok_idx = dispatch(ids, E, C)
+
+    # scatter tokens into the per-expert capacity buffers; dropped tokens
+    # all land on the scratch row E*C, which is never read
+    buf = x.new_zeros((E * C + 1, d))
+    buf.index_copy_(0, slot, xt.index_select(0, tok_idx))
+    expert_in = buf[:E * C].view(E, C, d)
+    g = torch.bmm(expert_in, p["experts_gate"])
+    u = torch.bmm(expert_in, p["experts_up"])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    out = x.new_zeros((E * C + 1, d))                             # row E*C: 0
+    torch.bmm(h, p["experts_down"], out=out[:E * C].view(E, C, d))
+
+    weight = torch.where(keep, gates.reshape(-1).index_select(0, order),
+                         torch.zeros((), device=dev)).to(x.dtype)
+    contrib = out.index_select(0, slot) * weight[:, None]
+    y = x.new_zeros((T, d)).index_add_(0, tok_idx, contrib)
+    if m.n_shared_experts:
+        y = y + L.swiglu(p["shared"], xt)
+
+    return y.reshape(B, S, d), (rl, ids, keep)
+
+
+def moe_aux(cfg, rl: torch.Tensor, ids: torch.Tensor, keep: torch.Tensor
+            ) -> Dict[str, torch.Tensor]:
+    """The aux-loss dict of ``moe_apply``'s routing (``moe_aux``,
+    ``moe_z``, ``moe_drop_frac``: 0-d float32 tensors)."""
+    return {"moe_aux": load_balance_loss(rl, ids, cfg.moe.n_experts),
+            "moe_z": router_z_loss(rl),
+            "moe_drop_frac": 1.0 - keep.float().mean()}
+
+
+def moe_ffn(p: Dict, cfg, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (B, S, d) and the aux-loss dict, as the
+    reference's ``moe_ffn``."""
+    y, routing = moe_apply(p, cfg, x)
+    return y, moe_aux(cfg, *routing)

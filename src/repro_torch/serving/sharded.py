@@ -93,6 +93,12 @@ class ShardedServingEngine:
                  device: Union[str, torch.device] = "cuda"):
         if cfg.shards < 1:
             raise ValueError("shards must be >= 1")
+        if "moe" in model.kinds:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the fleet does not serve moe blocks yet. "
+                "The reference computes expert capacity per shard (inside "
+                "its shard_map body), while the fleet's one forward over "
+                "S*B rows would pool it across shards (ROADMAP Queue 1)")
         if not cfg.paged or cfg.prefill_chunk is None:
             raise ValueError(
                 "sharded serving requires the paged pool + chunked "

@@ -1536,10 +1536,10 @@ def test_decode_kernels_split_cases(cuda_device, dtype, hd, case):
 # head dim 100 (LLaMA-3B), GQA group 3 (InternLM2-20B) and head dim 160
 # (StableLM-2-12B): every new instance
 # ---------------------------------------------------------------------------
-# decode cores: hd 100 and hd 160 (StableLM-2-12B) at every group, group 3
-# at every other head dim
-NEW_DECODE = ([(hd, g) for hd in (100, 160) for g in (1, 2, 3, 4, 8)]
-              + [(hd, 3) for hd in (8, 16, 32, 64, 112, 128)])
+# decode cores: hd 100 and hd 160 (StableLM-2-12B) at every group, groups 3
+# and 5 (Llama-4 Maverick) at every other head dim
+NEW_DECODE = ([(hd, g) for hd in (100, 160) for g in (1, 2, 3, 4, 5, 8)]
+              + [(hd, g) for hd in (8, 16, 32, 64, 112, 128) for g in (3, 5)])
 
 
 def _fused_heads(rng, B, S, H, hd, dtype, dev, offset):
@@ -1735,3 +1735,191 @@ def test_rmsnorm_kernel_reference_sweep(cuda_device, dtype, R, d):
     want = ref.rmsnorm(x, scale, 1e-5)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=SWEEP_TOL[dtype], rtol=SWEEP_TOL[dtype])
+
+
+# --------------------------------------------------------------------------
+# Llama-4 Maverick: 40 real q heads at group 5 over one copy of each of its
+# 8 kv heads (the strided view kv[:, :, ::2] of 16 duplicated heads),
+# chunk-local rings, and the pad-row fill of a model with moe blocks
+# --------------------------------------------------------------------------
+
+
+def _dup_heads(rng, B, S, Hkv, hd, dtype, dev):
+    """(B, S, 2 Hkv, hd) with heads 2c and 2c + 1 equal (the duplicated kv
+    heads of the model) and its view of copy 0 of each, (B, S, Hkv, hd)."""
+    x = _normal(rng, (B, S, Hkv, 1, hd), dtype, dev).expand(
+        B, S, Hkv, 2, hd).reshape(B, S, 2 * Hkv, hd)
+    return x, x[:, :, ::2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,Hkv,W,chunk", [(32, 2, 24, 8), (128, 8, 8192,
+                                                             8192),
+                                            (128, 8, 300, 128)])
+def test_decode_group5_over_a_strided_kv_view(cuda_device, dtype, hd, Hkv,
+                                              W, chunk):
+    """Group 5 over the strided view of a ring cache of duplicated heads,
+    fills crossing a chunk boundary (the ring evicting the last chunk's
+    keys), against the plain version; the same with the global layer's
+    full window (no chunk)."""
+    rng = np.random.default_rng(hd + W)
+    B, dev = 4, cuda_device
+    q = _normal(rng, (B, 5 * Hkv, hd), dtype, dev)
+    ck, kview = _dup_heads(rng, B, W, Hkv, hd, dtype, dev)
+    cv, vview = _dup_heads(rng, B, W, Hkv, hd, dtype, dev)
+    k_pos = np.full((B, W), -1, np.int32)
+    q_pos = np.zeros((B,), np.int32)
+    for b, n in enumerate([chunk - 3, chunk + 1, chunk + W // 2, 3]):
+        t = np.arange(max(0, n - W), n)
+        k_pos[b, t % W] = t
+        q_pos[b] = n - 1
+    qp, kp = (torch.from_numpy(x).to(dev) for x in (q_pos, k_pos))
+    kt, vt = kview.transpose(1, 2), vview.transpose(1, 2)
+    assert kt.stride(1) == 2 * hd
+    for c in (chunk, None):
+        args = (q, kt, vt, qp, kp)
+        plain = functools.partial(ref.decode_attention, chunk=c)
+        got = _launched("decode_attention",
+                        lambda: ops.decode_attention(*args, chunk=c))
+        rows = torch.ones_like(got, dtype=torch.bool)
+        if dtype == torch.bfloat16:
+            _check_bf16(got, plain, args, rows)
+        else:
+            torch.testing.assert_close(got, plain(*args), atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hkv,S,hd,chunk", [(3, 2, 30, 32, 8),
+                                              (1, 8, 8192, 128, 8192),
+                                              (2, 8, 600, 128, 256)])
+def test_flash_h40_over_a_strided_kv_view(cuda_device, dtype, B, Hkv, S, hd,
+                                          chunk):
+    """Maverick's prefill: 5 Hkv q heads (40 at full width) cut from the
+    model's padded projection against the strided view of duplicated kv
+    heads, chunk-local, right-padded rows (pad queries write 0)."""
+    rng = np.random.default_rng(S + hd)
+    dev = cuda_device
+    q = _normal(rng, (B, S, 6 * Hkv, hd), dtype, dev)[:, :, :5 * Hkv]
+    _, k = _dup_heads(rng, B, S, Hkv, hd, dtype, dev)
+    _, v = _dup_heads(rng, B, S, Hkv, hd, dtype, dev)
+    lens = [S, S // 3, S - 5][:B]
+    pos = np.arange(S, dtype=np.int32)[None].repeat(B, 0)
+    pos = np.where(pos < np.array(lens)[:, None], pos, -1).astype(np.int32)
+    p = torch.from_numpy(pos).to(dev)
+    args = [q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), p, p]
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(*args, chunk=chunk))
+    rows = (p >= 0)[:, None, :, None].expand_as(got)
+    plain = functools.partial(ref.flash_attention, chunk=chunk)
+    if dtype == torch.bfloat16:
+        _check_bf16(got, plain, args, rows)
+    else:
+        torch.testing.assert_close(got[rows], plain(*args)[rows],
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert (got.float()[~rows] == 0).all()
+
+
+def test_decode_and_chunk_kernels_refuse_groups_they_lack(cuda_device):
+    """Group 5 is a decode instance only; group 6 is none."""
+    dev = cuda_device
+    q6 = torch.randn(1, 12, 32, device=dev)
+    kv = torch.randn(1, 2, 8, 32, device=dev)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="GQA group"):
+        ops.decode_attention(q6, kv, kv, pos, pos.expand(1, 8).contiguous())
+    pages = torch.randn(2, 3, 4, 32, device=dev)
+    tbl = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    k_pos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    q5 = torch.randn(1, 10, 3, 32, device=dev)
+    with pytest.raises(ValueError, match="GQA group"):
+        ops.chunked_prefill_attention(q5, pages, pages, tbl,
+                                      torch.zeros((1, 3), dtype=torch.int32,
+                                                  device=dev), k_pos)
+
+
+def _maverick_map(cf):
+    """Maverick smoke with its head map at small size: 10 q / 2 kv heads
+    padded to 12 / 4, head dim 32, (dense, moe) x 2, chunk 8, a global
+    layer every 2nd, capacity factor ``cf`` (test_torch_moe.py's
+    ``small_configs``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("llama4-maverick-400b-a17b", "smoke")
+    return dataclasses.replace(
+        cfg, name=f"maverick-map-cf{cf}", n_heads=10, n_kv_heads=2,
+        pad_heads_to_multiple=4, head_dim=32, attn_chunk=8,
+        global_attn_every=2,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+def test_pad_row_fill_on_card_matches_cpu(cuda_device, cf):
+    """A right-padded prefill of a model with moe blocks: each attention
+    block's output on the card (group 5 over the strided kv view, the pad
+    rows filled after the kernel) equals the CPU's plain path (expanded kv
+    heads, the pad rows the plain version's mean of V), pad rows
+    included, in float32; the prefill's last logits too."""
+    from repro_torch.models import Model
+    from repro_torch.models import attention as A
+    cfg = _maverick_map(cf)
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(2))
+    assert A.kernel_head_group(cfg, "cuda") == (5, 2, 10)
+    tokens = torch.randint(2, cfg.vocab, (3, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(3))
+    mask = (torch.arange(32)[None] < torch.tensor([[32], [9], [20]])).int()
+    outs, logits = {}, {}
+    attn = A.self_attention
+
+    def spy(*a, **kw):
+        out, cache = attn(*a, **kw)
+        outs.setdefault(out.device.type, []).append(out.cpu())
+        return out, cache
+
+    A.self_attention = spy
+    try:
+        for dev in ("cpu", cuda_device):
+            model = Model(cfg, dev)
+            last, _ = model.prefill(_to(cpu_params, dev), tokens.to(dev),
+                                    mask.to(dev), max_len=64)
+            logits[str(dev)] = last.cpu()
+    finally:
+        A.self_attention = attn
+    assert len(outs["cpu"]) == len(outs["cuda"]) == cfg.n_layers
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smoke", "map-cf2.0", "map-cf0.5"])
+def test_maverick_engine_on_card_matches_cpu(cuda_device, arch):
+    """Maverick smoke and the two head-map configs (float32) on the
+    contiguous engine, on the card and on the CPU from the same weights:
+    identical tokens on ragged prompts that wrap the 8-slot rings; flash
+    and decode in every layer of every prefill launch and micro-step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = (get_config("llama4-maverick-400b-a17b", "smoke") if arch == "smoke"
+           else _maverick_map(float(arch.split("cf")[1])))
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(2, cfg.vocab, n).tolist()
+               for n in (5, 19, 30, 9, 3, 14, 27)]
+    ecfg = EngineConfig(max_batch=4, max_len=64)
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                            device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        ops.reset_launches()
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+        counts = ops.launch_counts()
+    assert toks["cpu"] == toks[str(cuda_device)]
+    L = cfg.n_layers
+    assert counts["flash_attention"] == L * eng.prefill_batches
+    assert counts["decode_attention"] >= L * eng.stats()["steps"]
+    assert counts["decode_attention"] % L == 0

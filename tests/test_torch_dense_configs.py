@@ -354,9 +354,11 @@ def test_minicpm_maps():
         assert cfg.n_heads_padded > cfg.n_heads
         assert TA.uniform_gqa_group(cfg) is None
         assert TA.uniform_gqa_group(cfg, real_only=True) == 1
-        assert TA.kernel_head_group(cfg, "cuda") == 1
+        assert TA.kernel_head_group(cfg, "cuda") == (1, 1,
+                                                      cfg.n_heads_padded)
         assert TA.kernel_head_group(cfg, "cpu") is None
-    assert TA.kernel_head_group(get_config("internlm2-20b"), "cuda") == 3
+    assert TA.kernel_head_group(get_config("internlm2-20b"), "cuda") == \
+        (3, 1, 48)
 
 
 def _padded_map(monkeypatch):
@@ -364,7 +366,8 @@ def _padded_map(monkeypatch):
     run the padded heads with the identity map, as the kernels do."""
     monkeypatch.setattr(TA, "kernel_head_group",
                         lambda cfg, device_type:
-                        TA.uniform_gqa_group(cfg, real_only=True))
+                        (TA.uniform_gqa_group(cfg, real_only=True), 1,
+                         cfg.n_heads_padded))
 
 
 def test_minicpm_identity_map_is_bit_identical(monkeypatch):

@@ -4,7 +4,7 @@
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
                             [llama3b] [llama3b-paged] [llama7b]
                             [internlm2] [minicpm] [stablelm] [fleet]
-                            [maverick]
+                            [maverick] [deepseek]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -30,7 +30,12 @@ over three grid regions. The maverick path serves ``chip_smoke.py``'s
 Maverick trace (8 prompts of 64-512 tokens, then one of 8,176 alone, 32
 new tokens each) on ``llama4-maverick-400b-a17b`` cut to depth 4 at full
 width (chunk-local dense, moe, dense, the global moe layer; 70.2 GB) on
-the contiguous engine. With no argument it profiles the first four. Prints the three timed
+the contiguous engine. The deepseek path serves ``chip_smoke.py``'s
+DeepSeek trace (8 prompts of 64-512 tokens, then one of 3,000 alone on
+the scan path, 32 new tokens each) on ``deepseek-v3-671b`` cut to depth 5
+at full width (3 ``mla`` and 2 ``mla_moe`` blocks, 256 experts top-8;
+55.2 GB) on the contiguous engine. With no argument it profiles the first
+four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
 warm wall per decode micro-step, the kernel launches per micro-step by
@@ -173,7 +178,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
-    known = ["contiguous", "paged", "zamba2", "rwkv", "fleet", "maverick"]
+    known = ["contiguous", "paged", "zamba2", "rwkv", "fleet", "maverick",
+             "deepseek"]
     # path -> (config, paged main path)
     dense = {"llama3b": ("llama-paper-3b", False),
              "llama3b-paged": ("llama-paper-3b", True),
@@ -239,6 +245,18 @@ def main() -> int:
                 params, EngineConfig(**dict(
                     base, max_len=chip_smoke.MAVERICK_MAX_LEN)),
                 lambda: chip_smoke.maverick_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    if "deepseek" in paths:
+        cfg = chip_smoke.deepseek_cut()
+        model = Model(cfg, "cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = model.init(gen)
+        profile(card, f"{cfg.name} depth {cfg.n_layers} contiguous", model,
+                params, EngineConfig(**dict(
+                    base, max_len=chip_smoke.DEEPSEEK_MAX_LEN)),
+                lambda: chip_smoke.deepseek_requests(cfg.vocab))
         del model, params
         torch.cuda.empty_cache()
     for path in [p for p in paths if p in dense]:

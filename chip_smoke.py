@@ -26,7 +26,9 @@ Phases (any failure raises and the script exits non-zero):
    chunk at Zamba2's full width, WKV6 at RWKV6's prefill and decode
    shapes, RMSNorm in each of its prologues: the row as it is, the
    residual add, Zamba2's concat with and without the add, Mamba2's gate,
-   at d 2048, 3584 and 7168, x + delta bit-identical to PyTorch's and each
+   at d 2048, 3584 and 7168, and DeepSeek-V3's q_norm (1,536), kv_norm
+   (512 of each 576-wide row, read through its stride) and ln add (7,168)
+   at 8 and 4,096 rows, x + delta bit-identical to PyTorch's and each
    prologue also timed against the launches it replaces), bf16 (atol
    2e-2, rtol 2e-2) and
    float32 (1e-4), on valid query rows; each bf16 kernel also against the
@@ -151,7 +153,17 @@ Phases (any failure raises and the script exits non-zero):
    tokens each, served twice with the same tokens; flash 4 a prefill
    launch, decode 4 a micro-step, RMSNorm 9 a forward, finite logits, the
    host's waits under CUDA's sync debug mode equal to ``host_syncs``, and
-   peak memory beside the weights and KV reckoning;
+   peak memory beside the weights and KV reckoning. Last,
+   ``phase_deepseek``: DeepSeek-V3 at full width cut to depth 5 (3 ``mla``
+   and 2 ``mla_moe`` blocks, 256 experts top-8 and a shared one, the MTP
+   head held: 27,587,293,184 parameters, 55.2 GB) on the contiguous
+   engine, Maverick freed first: a 64-token prefill with the RMSNorm
+   kernel against the plain norms (bf16 tolerance), then 8 prompts of
+   64-512 tokens and one of 3,000 prefilled alone on the attention's
+   two-level scan, 32 new tokens each, served twice with the same tokens;
+   RMSNorm 21 a forward and no other kernel (MLA and the experts are
+   plain PyTorch, as in the reference), the host's waits equal to
+   ``host_syncs``, peak memory beside the weights and latent cache;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -206,6 +218,16 @@ MAVERICK_LONG = 8176       # a prompt of its own: decodes across 8,192
 MAVERICK_NEW = 32
 MAVERICK_MAX_LEN = 8448    # the global layer's cache; the rings hold 8,192
 MAVERICK_CHUNK = 8192
+DEEPSEEK = "deepseek-v3-671b"
+# its depth-5 cut: the 3 dense mla layers and 2 mla_moe layers, the least
+# depth that runs the reference's stacked unit (prefix 3 x mla, unit
+# mla_moe, repeats 2); full width
+N_DEEPSEEK = 5
+DEEPSEEK_PARAMS = 27_587_293_184     # the reference's param_counts at depth 5
+DEEPSEEK_LENS = (64, 100, 128, 200, 256, 300, 450, 512)   # the first wave
+DEEPSEEK_LONG = 3000       # a prompt of its own: a 4,096-key padded prefill
+DEEPSEEK_NEW = 32
+DEEPSEEK_MAX_LEN = 4160    # the latent cache's rows a slot
 # rmsnorm launches per forward: two per dense (dense_norms: 2 L + 1 on a
 # dense model, 4 L + 1 on a parallel one), mamba2 (ln1, gate_norm) and
 # shared block, one final norm; rwkv6 blocks norm with LayerNorm
@@ -1081,10 +1103,12 @@ def wkv6_case(WKV, REF, B, H, T, hd, dtype, gen):
                 wide=(err if dtype == torch.bfloat16 else None, 0))
 
 
-def rmsnorm_inputs(RMS, REF, variant, R, d, dtype, gen):
+def rmsnorm_inputs(RMS, REF, variant, R, d, dtype, gen, stride=None):
     """The main paths' inputs of one RMSNorm prologue on (R, d) rows (a
     prefill's or a decode step's): x, delta and the second segment e in
-    ``dtype``; the gate's y float32 and z float32 rows of Mamba2's wider
+    ``dtype``, x the first d of rows ``stride`` wide where given (MLA's
+    ``kv_norm`` reads the latent 512 of each 576-wide ``dkv`` row, no
+    copy); the gate's y float32 and z float32 rows of Mamba2's wider
     in-projection (2 d + 240 wide, as zamba2-7b's z among x, B, C and dt);
     scale ~ 1 + N(0, 0.1) in ``dtype``, over 2 d for the concat. Returns
     (kernel, plain, yardstick, unfused, args, bytes): the kernel's wrapper,
@@ -1102,7 +1126,7 @@ def rmsnorm_inputs(RMS, REF, variant, R, d, dtype, gen):
     width = 2 * d if "cat" in variant else d
     scale = (1 + 0.1 * torch.randn(width, generator=gen, device=dev)).to(
         dtype)
-    x, delta, e = randn(R, d), randn(R, d), randn(R, d)
+    x, delta, e = randn(R, stride or d)[:, :d], randn(R, d), randn(R, d)
     es = x.element_size()
     nbytes = width * scale.element_size()
     if variant == "plain":
@@ -1148,13 +1172,13 @@ def rmsnorm_inputs(RMS, REF, variant, R, d, dtype, gen):
 RMS_FLOPS = {"plain": 4, "add": 5, "cat": 4, "add+cat": 4.5, "gate": 9}
 
 
-def rmsnorm_case(RMS, REF, variant, R, d, dtype, gen):
+def rmsnorm_case(RMS, REF, variant, R, d, dtype, gen, stride=None):
     """One launch of RMSNorm prologue ``variant`` (``rmsnorm_inputs``)
     against its plain version, x + delta bit-identical to PyTorch's; the
     kernel, plain, yardstick and before-the-prologues (``unfused_ms``)
     times from graph replays, and the eager time."""
     kern, plain, lib, unfused, args, nbytes = rmsnorm_inputs(
-        RMS, REF, variant, R, d, dtype, gen)
+        RMS, REF, variant, R, d, dtype, gen, stride)
     label = f"{variant} R{R} d{d} {dtype}"
     out = kern(*args)
     if isinstance(out, tuple):
@@ -1570,7 +1594,9 @@ def phase_kernels(card):
     # concat of two 3584 segments and its gate over d_inner 7168;
     # stablelm-12b's ln1 add and ln2 at d 5120, and its qk-norm over head
     # dim 160: q's 32 heads x a 256-token chunk, q's and k's 32 and 16
-    # heads x a decode step's 8)
+    # heads x a decode step's 8; deepseek-v3's q_norm at q_lora 1,536 and
+    # kv_norm over the latent 512 of its 576-wide rows, at a decode step's
+    # 8 rows and a 4,096-token prefill's, and its ln add at d 7,168)
     rms = {}
     for label, args in [
             ("rmsnorm R1024 d2048 bf16", ("plain", 1024, 2048, bf)),
@@ -1591,8 +1617,14 @@ def phase_kernels(card):
             ("add+cat R1024 d3584+3584 bf16", ("add+cat", 1024, 3584, bf)),
             ("gate R8 d7168 bf16", ("gate", 8, 7168, bf)),
             ("gate R1024 d7168 bf16", ("gate", 1024, 7168, bf)),
-            ("gate R37 d7168 f32", ("gate", 37, 7168, f32))]:
-        rms[label] = rmsnorm_case(RMS, REF, *args, gen)
+            ("gate R37 d7168 f32", ("gate", 37, 7168, f32)),
+            ("rmsnorm R8 d1536 bf16", ("plain", 8, 1536, bf)),
+            ("rmsnorm R4096 d1536 bf16", ("plain", 4096, 1536, bf)),
+            ("rmsnorm R8 d512/576 bf16", ("plain", 8, 512, bf, 576)),
+            ("rmsnorm R4096 d512/576 bf16", ("plain", 4096, 512, bf, 576)),
+            ("add R8 d7168 bf16", ("add", 8, 7168, bf))]:
+        variant, R, d, dt, *stride = args
+        rms[label] = rmsnorm_case(RMS, REF, variant, R, d, dt, gen, *stride)
     print(f"\n[kernels] vs plain version on valid rows ({card})")
     print(f"{'case':34s} {'max_abs_err':>11s} {'err_vs_f32':>10s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'sdpa_ms':>9s} {'bound_ms':>9s} "
@@ -3143,6 +3175,219 @@ def phase_maverick(card):
     return counts
 
 
+def deepseek_requests(vocab):
+    """The first wave: 8 prompts of 64-512 tokens (four prefill buckets);
+    then one of 3,000 tokens, which waits for a slot and so is admitted,
+    and prefills, alone after the wave, in a bucket of 4,096 keys: past
+    ``DIRECT_ATTN_MAX_SEQ`` (2,048), the attention's two-level scan. 32
+    new tokens each."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(19)
+    lens = list(DEEPSEEK_LENS) + [DEEPSEEK_LONG]
+    return [Request(rid=i, prompt=rng.integers(2, vocab, n).tolist(),
+                    max_new_tokens=DEEPSEEK_NEW) for i, n in enumerate(lens)]
+
+
+def deepseek_cut():
+    """DeepSeek-V3 at full width cut to its first ``N_DEEPSEEK`` layers."""
+    from repro_torch.configs import get_config
+    full = get_config(DEEPSEEK)
+    return dataclasses.replace(full, n_layers=N_DEEPSEEK,
+                               block_pattern=full.block_pattern[:N_DEEPSEEK])
+
+
+def deepseek_norms(cfg):
+    """RMSNorm launches per forward of an MLA model: ln1 and ln2 (each
+    with the residual add before it), q_norm and kv_norm in every block,
+    and the final norm."""
+    return 4 * cfg.n_layers + 1
+
+
+def deepseek_probe(card, model, params, gen):
+    """One 64-token prefill at full width with every norm on the RMSNorm
+    kernel, and again with the plain versions (``kernels/ref.py``) on the
+    card, on the same weights and tokens: the last-token logits within
+    ``TOL[bf16]`` (atol and rtol 2e-2, the bf16 kernels' tolerance: the
+    logits are bf16 products, one ulp of which is 0.0625 past |8|).
+    Returns the max abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as REF
+    probe = torch.randint(2, model.cfg.vocab, (1, 64), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    got, _ = model.prefill(params, probe, max_len=64)
+    launches = ops.launch_counts()["rmsnorm"]
+    kernels = (ops.rmsnorm, ops.add_rmsnorm)
+    ops.rmsnorm, ops.add_rmsnorm = REF.rmsnorm, REF.add_rmsnorm
+    try:
+        want, _ = model.prefill(params, probe, max_len=64)
+    finally:
+        ops.rmsnorm, ops.add_rmsnorm = kernels
+    if launches != deepseek_norms(model.cfg):
+        raise AssertionError(f"{DEEPSEEK} probe: {launches} rmsnorm "
+                             f"launches, not {deepseek_norms(model.cfg)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{DEEPSEEK}: non-finite probe logits")
+    atol, rtol = TOL[torch.bfloat16]
+    err, bad = past_tol(got, want, torch.ones_like(want, dtype=torch.bool),
+                        atol, rtol)
+    print(f"[deepseek] 64-token prefill probe, the RMSNorm kernel against "
+          f"the plain versions on the card: last-token logits max abs err "
+          f"{err:.4e} (max |logit| {float(want.abs().max()):.3f}), {bad} of "
+          f"{want.numel()} past atol {atol} rtol {rtol}; argmax "
+          f"{int(got.argmax())} vs {int(want.argmax())}; {launches} rmsnorm "
+          f"launches ({card})")
+    if bad:
+        raise AssertionError(f"{DEEPSEEK} probe: {bad} logits past atol "
+                             f"{atol} rtol {rtol}")
+    return err
+
+
+def phase_deepseek(card):
+    """DeepSeek-V3 at full width (d 7,168; 128 heads; MLA: q_lora 1,536,
+    kv_lora 512, nope 128, rope 64, v 128; dense d_ff 18,432; 256 experts
+    of 2,048 top-8 plus a shared one; vocab 129,280; the MTP head held)
+    and depth 5 (3 ``mla`` and 2 ``mla_moe`` blocks; 27.59 B parameters),
+    random weights from a seed, on the contiguous engine, the earlier
+    models freed first: a 64-token probe against the plain norms, then
+    ``deepseek_requests`` served twice, with the same tokens. Asserts the
+    parameter count, RMSNorm ``deepseek_norms`` (21) a forward and no
+    other kernel, the long prompt prefilled alone on the scan path (5 scan
+    calls, one a layer), every response terminal, and the host's waits
+    (sync debug mode, the second run) equal to ``host_syncs``; reports
+    peak memory beside the weights and latent cache reckoning, and
+    tokens/s. Returns each kernel's launches."""
+    from repro_torch.models import Model
+    from repro_torch.models import attention as A
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = deepseek_cut()
+    L = N_DEEPSEEK
+    assert cfg.block_pattern == ("mla",) * 3 + ("mla_moe",) * 2
+    assert cfg.grouping() == (("mla",) * 3, ("mla_moe",), 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"\n[deepseek] allocated before loading: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({card})")
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != DEEPSEEK_PARAMS:
+        raise AssertionError(f"{DEEPSEEK} depth {L}: {n_params} parameters "
+                             f"on the card, the reference has "
+                             f"{DEEPSEEK_PARAMS}")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    mtp = sum(t.numel() for t in _leaves(params["mtp"]))
+    m = cfg.mla
+    print(f"[deepseek] {DEEPSEEK}: depth {L} {cfg.block_pattern}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {m.q_lora_rank} "
+          f"kv_lora {m.kv_lora_rank} nope {m.qk_nope_head_dim} rope "
+          f"{m.qk_rope_head_dim} v {m.v_head_dim}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared, "
+          f"{n_params} parameters ({mtp} in the MTP head), "
+          f"{weights / 1e9:.3f} GB on the card (bf16, the routers float32), "
+          f"drawn in {init_s:.1f} s ({card})")
+    deepseek_probe(card, model, params, gen)
+    ecfg = EngineConfig(max_batch=8, max_len=DEEPSEEK_MAX_LEN,
+                        profile="h100_sxm", region="QC")
+    warm = ServingEngine(model, params, ecfg)          # not counted
+    warm.submit(Request(rid=0, prompt=list(range(2, 40)), max_new_tokens=4))
+    warm.run()
+    del warm
+    forwards = {"prefill": 0, "decode": 0}
+    scans = [0]
+    forward, scan = model.forward, A._flash_attention
+
+    def count_forward(*a, mode="prefill", **kw):
+        forwards[mode] += 1
+        return forward(*a, mode=mode, **kw)
+
+    def count_scan(*a, **kw):
+        scans[0] += 1
+        return scan(*a, **kw)
+
+    model.forward, A._flash_attention = count_forward, count_scan
+    label = f"{DEEPSEEK} depth {L} contiguous"
+    try:
+        engine, st, counts = serve(card, label, ecfg,
+                                   deepseek_requests(cfg.vocab), model,
+                                   params, new_tokens=DEEPSEEK_NEW)
+    finally:
+        model.forward, A._flash_attention = forward, scan
+    pb = engine.prefill_batches
+    resp = engine.responses
+    long_rid = len(DEEPSEEK_LENS)
+    first = min(resp[long_rid].t_emit)
+    n_fwd = forwards["prefill"] + forwards["decode"]
+    checks = [
+        (counts["rmsnorm"] == deepseek_norms(cfg) * n_fwd,
+         f"rmsnorm launches {counts['rmsnorm']} != {deepseek_norms(cfg)} x "
+         f"{n_fwd} forwards"),
+        (all(n == 0 for k, n in counts.items() if k != "rmsnorm"),
+         f"an attention or scan kernel ran on the MLA path: {counts}"),
+        (forwards["prefill"] == pb == 5,
+         f"{pb} prefill launches ({forwards['prefill']} prefill forwards), "
+         "not the wave's 4 buckets + 1"),
+        (forwards["decode"] >= st["steps"],
+         f"{forwards['decode']} decode forwards < {st['steps']} steps"),
+        (scans[0] == L, f"{scans[0]} scan calls, not one a layer"),
+        (all(max(resp[r].t_emit) <= first for r in range(long_rid)),
+         "the long prompt was admitted before the wave finished"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"{label}: {what}")
+    gen_tokens = sum(r.n_tokens for r in resp.values())
+    print(f"  forwards: {forwards['prefill']} prefill + {forwards['decode']} "
+          f"decode, rmsnorm {deepseek_norms(cfg)} a forward; the 3,000-token "
+          f"prompt's 4,096-key prefill on the scan path ({scans[0]} calls, "
+          f"one a layer); modeled {st['total_energy_j'] / gen_tokens:.4e} J "
+          f"and {st['total_carbon_g'] / gen_tokens:.4e} gCO2 a generated "
+          f"token, host_syncs {engine.host_syncs} ({card})")
+    tokens = {r: list(resp[r].tokens) for r in resp}
+    cache = sum(c[n].numel() * c[n].element_size()
+                for c in engine.caches["layers"] for n in ("ckv", "k_rope"))
+    per_tok = (m.kv_lora_rank + m.qk_rope_head_dim) * 2 * L
+    if cache != per_tok * ecfg.max_batch * DEEPSEEK_MAX_LEN:
+        raise AssertionError(f"{label}: latent cache {cache} B, not "
+                             f"{per_tok} B a token a slot")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak {peak / 1e9:.2f} GB allocated against the reckoning: "
+          f"weights {weights / 1e9:.2f} GB + latent cache {cache / 1e9:.3f} "
+          f"GB ({per_tok} B a token a slot: ckv {m.kv_lora_rank} + k_rope "
+          f"{m.qk_rope_head_dim} in bf16 x {L} layers, {ecfg.max_batch} slots "
+          f"x {DEEPSEEK_MAX_LEN} rows) = {(weights + cache) / 1e9:.2f} GB "
+          f"({card})")
+    del engine
+
+    def again():
+        eng = ServingEngine(model, params, ecfg)
+        for r in deepseek_requests(cfg.vocab):
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        return eng
+
+    engine, waits = count_waits(again)
+    if {r: list(engine.responses[r].tokens) for r in engine.responses} != \
+            tokens:
+        raise AssertionError(f"{label}: a second run gave other tokens")
+    if waits != engine.host_syncs:
+        raise AssertionError(f"{label}: the host waited {waits} times, "
+                             f"host_syncs {engine.host_syncs}")
+    print(f"  a second run: the same tokens; host waits for the device "
+          f"(sync debug mode) {waits} = host_syncs {engine.host_syncs}")
+    del engine
+    model = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3198,6 +3443,8 @@ def main() -> int:
     print(f"\n[dense] launches over the seven dense runs: {dense}")
     maverick = phase_maverick(card)
     print(f"\n[maverick] launches on its path: {maverick}")
+    deepseek = phase_deepseek(card)
+    print(f"\n[deepseek] launches on its path: {deepseek}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

@@ -9,11 +9,14 @@ partial rotary, head dim 160, GQA group 2 after its kv heads are
 duplicated to 16), the MoE ``llama4-maverick-400b-a17b`` (dense and
 ``moe`` blocks alternating, 128 experts top-1 plus a shared one,
 chunk-local iRoPE attention with a global layer every 4th, 40 q heads
-padded to 48 on 8 kv heads duplicated to 16), the hybrid ``zamba2-7b``
-(Mamba2 + one weight-shared attention block) and the attention-free
-``rwkv6-1.6b``. Variants are the JAX registry's: ``full``,
-``smoke`` (a few layers, narrow widths, float32; for CPU tests) and
-``long`` (full with a sliding window; full itself for ``rwkv6-1.6b``).
+padded to 48 on 8 kv heads duplicated to 16), ``deepseek-v3-671b``
+(MLA's latent attention in 3 dense ``mla`` and 58 ``mla_moe`` layers,
+256 experts top-8 plus a shared one, a depth-1 MTP head), the hybrid
+``zamba2-7b`` (Mamba2 + one weight-shared attention block) and the
+attention-free ``rwkv6-1.6b``. Variants are the JAX registry's:
+``full``, ``smoke`` (a few layers, narrow widths, float32; for CPU
+tests) and ``long`` (full with a sliding window; full itself for
+``rwkv6-1.6b``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import importlib
 
 ARCH_IDS = ["llama-paper-1b", "llama-paper-3b", "llama-paper-7b",
             "llama3.2-1b", "internlm2-20b", "minicpm-2b", "stablelm-12b",
-            "llama4-maverick-400b-a17b", "zamba2-7b", "rwkv6-1.6b"]
+            "llama4-maverick-400b-a17b", "deepseek-v3-671b", "zamba2-7b",
+            "rwkv6-1.6b"]
 
 _MODULES = {
     "llama-paper-1b": "repro_torch.configs.llama_paper",
@@ -33,6 +37,7 @@ _MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "llama4-maverick-400b-a17b":
         "repro_torch.configs.llama4_maverick_400b_a17b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }

@@ -1,5 +1,6 @@
-"""Dense / GQA self-attention and the contiguous KV cache (the port of the
-dense part of ``repro.models.attention``).
+"""Dense / GQA self-attention, the contiguous KV cache and DeepSeek's
+MLA (multi-head latent attention) with its latent cache (the port of
+``repro.models.attention`` but its cross-attention).
 
 * Head padding: configs whose head counts do not divide the sharding pad
   (``cfg.*_padded``) get zero wq columns / wo rows for padded q heads and
@@ -40,10 +41,13 @@ dense part of ``repro.models.attention``).
   nothing raises and nothing wraps. All layout ops write in place.
 * Attention itself goes through ``kernels/ops.py``: the plain PyTorch
   version for a CPU tensor, the hand-written CUDA kernel for a CUDA one.
+  MLA's attention is plain PyTorch on every device, as the reference
+  computes it outside any Pallas kernel (the MLA section below).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -203,38 +207,43 @@ def init_kv_cache(cfg, batch: int, max_len: int, device) -> Dict:
 
 
 def prefill_write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
-                        pos_ids: torch.Tensor) -> Dict:
+                        pos_ids: torch.Tensor,
+                        names: Tuple[str, str] = ("k", "v")) -> Dict:
     """Write a full prompt (possibly longer than the ring) into a fresh
-    cache, in place.
+    cache, in place: k and v (B, S, ...) into the leaves ``names`` (MLA's
+    ``("ckv", "k_rope")``).
 
     For token j the ring slot is j % W; when S > W only the last W tokens
     survive — a deterministic gather of the latest token landing in each
     slot, as in the reference.
     """
     S = k.shape[1]
-    W = cache["k"].shape[1]
+    ck, cv = cache[names[0]], cache[names[1]]
+    W = ck.shape[1]
     if S <= W:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        ck[:, :S] = k
+        cv[:, :S] = v
         cache["pos_ids"][:, :S] = pos_ids
     else:
         s = torch.arange(W, device=k.device)
         j = s + W * torch.div(S - 1 - s, W, rounding_mode="floor")
-        cache["k"].copy_(k[:, j])
-        cache["v"].copy_(v[:, j])
+        ck.copy_(k[:, j])
+        cv.copy_(v[:, j])
         cache["pos_ids"].copy_(pos_ids[:, j])
     cache["length"].copy_(pos_ids.max(dim=1).values + 1)
     return cache
 
 
-def decode_write_cache(cache: Dict, k1: torch.Tensor, v1: torch.Tensor) -> Dict:
-    """Append one token per sequence in place. k1/v1: (B, 1, Hkv, hd)."""
+def decode_write_cache(cache: Dict, k1: torch.Tensor, v1: torch.Tensor,
+                       names: Tuple[str, str] = ("k", "v")) -> Dict:
+    """Append one token per sequence in place. k1/v1: (B, 1, ...) into the
+    leaves ``names``, at each sequence's ring slot ``length % W``."""
     B = k1.shape[0]
-    W = cache["k"].shape[1]
+    W = cache[names[0]].shape[1]
     slot = torch.remainder(cache["length"], W).long()
     bidx = torch.arange(B, device=k1.device)
-    cache["k"][bidx, slot] = k1[:, 0]
-    cache["v"][bidx, slot] = v1[:, 0]
+    cache[names[0]][bidx, slot] = k1[:, 0]
+    cache[names[1]][bidx, slot] = v1[:, 0]
     cache["pos_ids"][bidx, slot] = cache["length"]
     cache["length"] += 1
     return cache
@@ -518,3 +527,250 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             out = _fill_dead_rows(out, vv, positions < 0)
     flat = out.reshape(out.shape[:-2] + (-1,))
     return flat @ p["wo"][:flat.shape[-1]], cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# --------------------------------------------------------------------------
+#
+# The reference computes MLA outside any Pallas kernel: the prefill's
+# attention is its jnp ``attention_core`` (direct below
+# ``DIRECT_ATTN_MAX_SEQ`` keys, the two-level running-softmax scan above,
+# or the scan with the latent expansion fused into each kv chunk under
+# ``cfg.mla_fused_prefill``), the decode the absorbed einsums over the
+# latent cache. So here all of it is plain PyTorch on every device, with
+# the reference's masking: an additive ``NEG_INF`` bias, pad keys at
+# position -1, the scan's denominator clamped at 1e-30. Its norms
+# (``q_norm``, and ``kv_norm`` over ``dkv[..., :kv_lora_rank]`` read at
+# the row stride kv_lora_rank + rope, no copy) go through the RMSNorm
+# kernel on the card.
+
+NEG_INF = KREF.NEG_INF
+DIRECT_ATTN_MAX_SEQ = 2048     # above this many keys, the two-level scan
+Q_CHUNK = 512
+KV_CHUNK = 1024
+
+
+def mla_init(gen, cfg, device) -> Dict:
+    """The reference's MLA parameters; padded heads (``n_heads`` ..
+    ``n_heads_padded``) get zero columns of w_uq, w_uk and w_uv and zero
+    rows of wo, so the padded model's output is the unpadded one's."""
+    m = cfg.mla
+    dt = L.dtype_of(cfg)
+    d = cfg.d_model
+    H, nH = cfg.n_heads_padded, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    p = {
+        "w_dq": L.dense_init(gen, d, m.q_lora_rank, dt, device),
+        "q_norm": L.rmsnorm_init(m.q_lora_rank, dt, device),
+        "w_uq": L.dense_init(gen, m.q_lora_rank, H * qk_head, dt, device),
+        "w_dkv": L.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                              dt, device),
+        "kv_norm": L.rmsnorm_init(m.kv_lora_rank, dt, device),
+        "w_uk": L.dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                             dt, device),
+        "w_uv": L.dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dt,
+                             device),
+        "wo": L.dense_init(gen, H * m.v_head_dim, d, dt, device),
+    }
+    if H > nH:
+        p["w_uq"][:, nH * qk_head:] = 0
+        p["w_uk"][:, nH * m.qk_nope_head_dim:] = 0
+        p["w_uv"][:, nH * m.v_head_dim:] = 0
+        p["wo"][nH * m.v_head_dim:, :] = 0
+    return p
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, device) -> Dict:
+    """The latent cache: ``ckv`` (B, W, kv_lora_rank) and the shared rope
+    key ``k_rope`` (B, W, rope), with the ring's ``pos_ids`` and
+    ``length``; W = ``cache_width``."""
+    dt = L.dtype_of(cfg)
+    m = cfg.mla
+    W = cache_width(cfg, max_len)
+    return {
+        "ckv": torch.zeros((batch, W, m.kv_lora_rank), dtype=dt,
+                           device=device),
+        "k_rope": torch.zeros((batch, W, m.qk_rope_head_dim), dtype=dt,
+                              device=device),
+        "pos_ids": torch.full((batch, W), -1, dtype=torch.int32,
+                              device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
+          chunk: Optional[int]) -> torch.Tensor:
+    """(..., Sq, Sk) float32 additive bias: 0 where the key is seen,
+    ``NEG_INF`` elsewhere (k_pos -1: an empty or pad key)."""
+    ok = KREF.attention_mask(q_pos[..., :, None], k_pos[..., None, :],
+                             window, chunk)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _direct_attention(q, k, v, bias):
+    """q: (B,Sq,H,hd), k: (B,Sk,H,hd), v: (B,Sk,H,hd_v), bias:
+    (B,1|H,Sq,Sk) -> (B,Sq,H,hd_v). Scores in the input type, then scaled
+    and masked in float32; the softmax's weights in the input type."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale + bias
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def _pad_seq(x: torch.Tensor, n: int, value=0) -> torch.Tensor:
+    """x padded along dim 1 to length n with ``value``."""
+    if x.shape[1] == n:
+        return x
+    pad = x.new_full((x.shape[0], n - x.shape[1]) + x.shape[2:], value)
+    return torch.cat([x, pad], dim=1)
+
+
+def _scan(qs, ks, q_pos, k_pos, window, chunk, scores, values, hd_v,
+          dtype):
+    """The reference's two-level running-softmax scan: queries in blocks
+    of ``Q_CHUNK``, keys in blocks of ``KV_CHUNK`` (pad queries at
+    position 0 are cut off, pad keys at -1 are masked). ``qs`` are (B,Sq,
+    ...) query tensors and ``ks`` (B,Sk,...) key-side tensors; a block's
+    float32 scores (B,H,Qc,Kc), already scaled, are ``scores(q blocks, k
+    blocks)`` and its values (B,Kc,H,hd_v) ``values(k blocks)``. Returns
+    (B,Sq,H,hd_v) in ``dtype``."""
+    B, Sq = qs[0].shape[:2]
+    Sk = ks[0].shape[1]
+    H = qs[0].shape[2]
+    nq, nk = -(-Sq // Q_CHUNK), -(-Sk // KV_CHUNK)
+    qs = [_pad_seq(t, nq * Q_CHUNK) for t in qs]
+    ks = [_pad_seq(t, nk * KV_CHUNK) for t in ks]
+    qpos = _pad_seq(q_pos, nq * Q_CHUNK, 0)
+    kpos = _pad_seq(k_pos, nk * KV_CHUNK, -1)
+    dev = qs[0].device
+    out = []
+    for i in range(nq):
+        qsl = slice(i * Q_CHUNK, (i + 1) * Q_CHUNK)
+        qb = [t[:, qsl] for t in qs]
+        m = torch.full((B, H, Q_CHUNK), -math.inf, device=dev)
+        den = torch.zeros((B, H, Q_CHUNK), device=dev)
+        acc = torch.zeros((B, H, Q_CHUNK, hd_v), device=dev)
+        for j in range(nk):
+            ksl = slice(j * KV_CHUNK, (j + 1) * KV_CHUNK)
+            kb = [t[:, ksl] for t in ks]
+            s = scores(qb, kb) + _bias(qpos[:, qsl], kpos[:, ksl], window,
+                                       chunk)[:, None]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            pw = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + pw.sum(dim=-1)
+            vb = values(kb)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", pw.to(vb.dtype), vb).float()
+            m = m_new
+        o = acc / torch.clamp(den, min=1e-30)[..., None]
+        out.append(o.transpose(1, 2).to(dtype))            # (B,Qc,H,hd_v)
+    return torch.cat(out, dim=1)[:, :Sq]
+
+
+def _flash_attention(q, k, v, q_pos, k_pos, window, chunk):
+    """The scan over materialised q, k (B,S,H,hd) and v (B,Sk,H,hd_v);
+    hd may differ from hd_v (MLA: 192 against 128)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return _scan(
+        [q], [k, v], q_pos, k_pos, window, chunk,
+        lambda qb, kb: torch.einsum("bqhd,bkhd->bhqk", qb[0],
+                                    kb[0]).float() * scale,
+        lambda kb: kb[1], v.shape[-1], q.dtype)
+
+
+def attention_core(q, k, v, q_pos, k_pos, window=None, chunk=None):
+    """Direct attention up to ``DIRECT_ATTN_MAX_SEQ`` keys, the scan above
+    (the same math), as the reference dispatches."""
+    if k.shape[1] <= DIRECT_ATTN_MAX_SEQ:
+        bias = _bias(q_pos, k_pos, window, chunk)[:, None]
+        return _direct_attention(q, k, v, bias)
+    return _flash_attention(q, k, v, q_pos, k_pos, window, chunk)
+
+
+def _mla_qkv_latent(p, cfg, x, positions):
+    """Per-head q (nope, rope) and the latent key parts: ``q_norm`` on the
+    low-rank q, ``kv_norm`` on the latent ``dkv[..., :kv_lora_rank]``
+    (a strided view), and one rope key a token shared by every head."""
+    m = cfg.mla
+    H = cfg.n_heads_padded
+    cq = L.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(
+        x.shape[:-1] + (H, m.qk_nope_head_dim + m.qk_rope_head_dim))
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = L.apply_rope(q_rope, positions, 1.0, cfg.rope_theta)
+    dkv = x @ p["w_dkv"]
+    ckv = L.rmsnorm(p["kv_norm"], dkv[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = L.apply_rope(dkv[..., None, m.kv_lora_rank:], positions, 1.0,
+                          cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_flash_fused(q_nope, q_rope, ckv, k_rope, w_uk, w_uv, q_pos, k_pos,
+                     window, scale):
+    """The scan with the latent -> per-head expansion done in each kv
+    block, never forming (B, Sk, H, nope + rope) keys. q_nope: (B,Sq,H,n);
+    q_rope: (B,Sq,H,r); ckv: (B,Sk,kvr); k_rope: (B,Sk,r); w_uk: (kvr,H,n);
+    w_uv: (kvr,H,v)."""
+    def scores(qb, kb):
+        k_nope = torch.einsum("bkr,rhn->bkhn", kb[0], w_uk)
+        return (torch.einsum("bqhn,bkhn->bhqk", qb[0], k_nope)
+                + torch.einsum("bqhr,bkr->bhqk", qb[1], kb[1])
+                ).float() * scale
+
+    return _scan([q_nope, q_rope], [ckv, k_rope], q_pos, k_pos, window,
+                 None, scores,
+                 lambda kb: torch.einsum("bkr,rhv->bkhv", kb[0], w_uv),
+                 w_uv.shape[-1], q_nope.dtype)
+
+
+def mla_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                  layer_window: Optional[int], cache: Optional[Dict] = None,
+                  mode: str = "prefill") -> Tuple[torch.Tensor, Optional[Dict]]:
+    """mode 'prefill' (the expanded path; writes a fresh latent cache in
+    place, ``cache`` None: a cache-less forward) | 'decode' (one token,
+    absorbed: ``q_lat = q_nope . w_uk^T`` scored against ``ckv`` plus the
+    rope term, ``o_lat . w_uv``). MLA's latent cache is contiguous only
+    (the reference's ``supports_paged_decode`` excludes it), so there is
+    no chunk mode."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"MLA attention has no mode {mode!r} (its latent "
+                         "cache is contiguous, never paged)")
+    m = cfg.mla
+    H = cfg.n_heads_padded
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
+    w_uk = p["w_uk"].view(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    w_uv = p["w_uv"].view(m.kv_lora_rank, H, m.v_head_dim)
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        decode_write_cache(cache, ckv, k_rope, ("ckv", "k_rope"))
+        ckv_all, krope_all = cache["ckv"], cache["k_rope"]
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+        s = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_all)
+             + torch.einsum("bqhn,bkn->bhqk", q_rope, krope_all)
+             ).float() * scale
+        s = s + _bias(positions, cache["pos_ids"], layer_window,
+                      None)[:, None]
+        w = torch.softmax(s, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhqk,bkr->bqhr", w, ckv_all)
+        out = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+    else:
+        if cache is not None:
+            prefill_write_cache(cache, ckv, k_rope, positions,
+                                ("ckv", "k_rope"))
+        if cfg.mla_fused_prefill and x.shape[1] > DIRECT_ATTN_MAX_SEQ:
+            out = _mla_flash_fused(q_nope, q_rope, ckv, k_rope, w_uk, w_uv,
+                                   positions, positions, layer_window, scale)
+        else:
+            k_nope = torch.einsum("bkr,rhn->bkhn", ckv, w_uk)
+            vv = torch.einsum("bkr,rhv->bkhv", ckv, w_uv)
+            kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+                k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
+            qq = torch.cat([q_nope, q_rope], dim=-1)
+            out = attention_core(qq, kk, vv, positions, positions,
+                                 layer_window, None)
+    flat = out.reshape(out.shape[:-2] + (-1,))
+    return flat @ p["wo"], cache

@@ -3,7 +3,9 @@ port serves: ``dense`` (pre-norm self-attention + SwiGLU MLP on a
 sequential residual), ``parallel`` (StableLM-2: attention with qk-norm and
 the MLP side by side on one pre-norm, added together), ``moe`` (the
 ``dense`` block with the mixture-of-experts FFN of ``models/moe.py`` in
-place of the SwiGLU; serving launches no aux loss), ``mamba2`` (the
+place of the SwiGLU; serving launches no aux loss), ``mla`` and
+``mla_moe`` (DeepSeek-V3: the ``dense`` and ``moe`` blocks with MLA's
+latent attention in place of self-attention), ``mamba2`` (the
 Mamba2 SSD block), ``shared`` (Zamba2's weight-shared attention + MLP
 block on concat(h, embedding)) and ``rwkv6`` (RWKV6 time-mix +
 channel-mix, attention-free)."""
@@ -20,7 +22,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-PORTED_KINDS = ("dense", "parallel", "moe", "mamba2", "shared", "rwkv6")
+PORTED_KINDS = ("dense", "parallel", "moe", "mla", "mla_moe", "mamba2",
+                "shared", "rwkv6")
 
 
 @dataclasses.dataclass
@@ -65,10 +68,11 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
                                                device),
                         "w_up": L.dense_init(gen, 2 * d, cfg.d_ff, dt, device),
                         "w_down": L.dense_init(gen, cfg.d_ff, d, dt, device)}}
-    p = {"ln1": L.rmsnorm_init(d, dt, device),
-         "attn": A.attn_init(gen, cfg, device, qk_norm=(kind == "parallel")),
+    attn = (A.mla_init(gen, cfg, device) if kind in ("mla", "mla_moe")
+            else A.attn_init(gen, cfg, device, qk_norm=(kind == "parallel")))
+    p = {"ln1": L.rmsnorm_init(d, dt, device), "attn": attn,
          "ln2": L.rmsnorm_init(d, dt, device)}
-    if kind == "moe":
+    if kind in ("moe", "mla_moe"):
         p["moe"] = MOE.moe_init(gen, cfg, device)
     else:
         p["mlp"] = L.swiglu_init(gen, d, cfg.d_ff, dt, device)
@@ -86,6 +90,8 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
         # chunked local attention only ever attends within the current
         # chunk: a ring of `attn_chunk` slots suffices
         max_len = min(max_len, cfg.attn_chunk)
+    if kind in ("mla", "mla_moe"):
+        return A.init_mla_cache(cfg, batch, max_len, device)
     return A.init_kv_cache(cfg, batch, max_len, device)
 
 
@@ -130,16 +136,20 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
         # block's attention takes no chunked-local variant
         cat, chunk = ctx.emb_orig, None
     x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps, cat)
-    a, cache = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
-                                chunk, cache, ctx.mode,
-                                page_tbl=ctx.page_tbl)
+    if kind in ("mla", "mla_moe"):
+        a, cache = A.mla_attention(p["attn"], cfg, h, ctx.positions, window,
+                                   cache, ctx.mode)
+    else:
+        a, cache = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
+                                    chunk, cache, ctx.mode,
+                                    page_tbl=ctx.page_tbl)
     if kind == "parallel":
         # the MLP reads the same x; the reference adds x + (a + f), a + f
         # first, so the next norm's pending add forms the same value
         h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         return x, _res(cfg, a + L.swiglu(p["mlp"], h2))
     x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
-    if kind == "moe":
+    if kind in ("moe", "mla_moe"):
         f, _ = MOE.moe_apply(p["moe"], cfg, h2)    # no aux when serving
         return x, _res(cfg, f)
     return x, _res(cfg, L.swiglu(p["mlp"], h2))

@@ -33,8 +33,9 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     float32 (numpy has no bfloat16) and land in ``cfg.dtype`` exactly;
     the float32 leaves (the SSM's, the MoE router) stay float32, and a
     ``moe`` block's ``experts_gate``/``_up``/``_down`` (E, d_in, d_out) and
-    ``shared`` SwiGLU come across as they are. Raises if a padded q head's
-    wo rows are not zero or duplicated kv heads differ
+    ``shared`` SwiGLU come across as they are, as do an ``mla`` block's
+    latent projections and norms and the ``mtp`` head. Raises if a padded
+    q head's wo rows are not zero or duplicated kv heads differ
     (``model.check_head_padding``).
     """
     dev = resolve_device(device)
@@ -59,6 +60,8 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     params = {"embed": tree(np_tree["embed"]), "layers": layers,
               "final_norm": tree(np_tree["final_norm"]),
               "lm_head": tree(np_tree.get("lm_head", {}))}
+    if "mtp" in np_tree:
+        params["mtp"] = tree(np_tree["mtp"])
     check_head_padding(params, cfg)
     return params
 

@@ -58,6 +58,9 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
             if cfg.layer_uses_chunked_attn(i):
                 continue               # ring cache, O(1) amortized growth
             kv_per_tok += 2 * cfg.n_kv_heads_padded * hd * dtype_bytes
+        elif kind in ("mla", "mla_moe"):
+            m = cfg.mla        # the latent and the shared rope key
+            kv_per_tok += (m.kv_lora_rank + m.qk_rope_head_dim) * dtype_bytes
         elif kind == "mamba2":
             s = cfg.ssm
             state_bytes += (s.n_heads(cfg.d_model) * s.head_dim * s.state_dim

@@ -41,8 +41,10 @@ def normal(gen: Optional[torch.Generator], shape, scale: float, dtype,
     in float32 (Llama-4 Maverick's (128, 5120, 8192) expert tensors). The
     slices follow each other in one generator, so the draw is
     deterministic; a tensor of one slice gets the numbers of a whole
-    draw."""
+    draw. On the ``meta`` device (shapes only) nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     step = max(1, SLICE_ELEMS // max(1, math.prod(shape[1:])))
     buf = torch.empty((min(step, shape[0]),) + tuple(shape[1:]),
                       dtype=torch.float32, device=device)

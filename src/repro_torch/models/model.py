@@ -53,12 +53,14 @@ def check_head_padding(params: Dict, cfg: ModelConfig) -> None:
         if "attn" not in p:
             continue
         a = p["attn"]
-        if a["wo"][n_q * hd:].any():
+        mla = "w_uk" in a       # MLA: v_head_dim rows a head, no kv heads
+        rows = n_q * (cfg.mla.v_head_dim if mla else hd)
+        if a["wo"][rows:].any():
             raise ValueError(
                 f"{cfg.name}: wo rows of the padded q heads {n_q}.."
                 f"{cfg.n_heads_padded - 1} are not all zero; the padded-head "
                 "map needs them zero")
-        for name in ("wk", "wv") if dup > 1 else ():
+        for name in ("wk", "wv") if dup > 1 and not mla else ():
             w = a[name].reshape(a[name].shape[0], n_kv, dup, hd)
             if not torch.equal(w, w[:, :, :1].expand_as(w)):
                 raise ValueError(
@@ -115,7 +117,9 @@ class Model:
         Layers follow the reference's grouping (``cfg.grouping()``): every
         ``shared`` position of the repeated unit is ONE parameter dict (the
         same object at each site, Zamba2's weight-shared block); a
-        ``shared`` layer of the unrolled prefix has its own."""
+        ``shared`` layer of the unrolled prefix has its own. A config with
+        ``mtp`` also gets the reference's ``mtp`` subtree (``proj`` (2d,
+        d), ``norm`` and one ``dense`` block), held and never read."""
         cfg, dev = self.cfg, self.device
         dt = L.dtype_of(cfg)
         prefix, unit, repeats = cfg.grouping()
@@ -133,6 +137,15 @@ class Model:
         params["layers"] = layers
         params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
         params["lm_head"] = L.lm_head_init(generator, cfg, dev)
+        if cfg.mtp:
+            # DeepSeek-V3's multi-token-prediction head: the reference
+            # reads it only to train; serving never does, but the meter's
+            # parameter counts include it (``costing.param_counts``)
+            params["mtp"] = {
+                "proj": L.dense_init(generator, 2 * cfg.d_model, cfg.d_model,
+                                     dt, dev),
+                "norm": L.rmsnorm_init(cfg.d_model, dt, dev),
+                "block": B.block_init(generator, cfg, "dense", dev)}
         if dev.type != "meta":
             check_head_padding(params, cfg)
         return params

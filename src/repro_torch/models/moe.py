@@ -4,9 +4,10 @@
 The reference's design, kept: tokens are sorted by expert (a stable sort,
 so each expert keeps its tokens in order), scattered into fixed
 ``(E*C, d)`` capacity buffers, run through three batched products
-``(E,C,d) x (E,d,f)`` and gathered back, each weighted by its gate. A
-token past its expert's capacity ``C`` is dropped: its slot is the
-scratch row ``E*C``, which no expert reads and whose output row is zero.
+``(E,C,d) x (E,d,f)`` and gathered back, each weighted by its gate and
+summed into its token in the reference's order. A token past its
+expert's capacity ``C`` is dropped: its slot is the scratch row ``E*C``,
+which no expert reads and whose output row is zero.
 The router runs in float32; the gate is a softmax over the selected
 logits. The reference has no Pallas kernel here: the products are
 ``torch.bmm``.
@@ -146,8 +147,16 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
 
     weight = torch.where(keep, gates.reshape(-1).index_select(0, order),
                          torch.zeros((), device=dev)).to(x.dtype)
-    contrib = out.index_select(0, slot) * weight[:, None]
-    y = x.new_zeros((T, d)).index_add_(0, tok_idx, contrib)
+    # each token's k contributions, added one at a time in x's type in the
+    # reference's order (its scatter-add runs over the pairs sorted by
+    # expert: a token's experts in increasing id). Deterministic on the
+    # card, where an index_add_ of k rows into one token's row is not
+    by_tok = torch.argsort(tok_idx, stable=True)
+    contrib = (out.index_select(0, slot.index_select(0, by_tok))
+               * weight.index_select(0, by_tok)[:, None]).view(T, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
     if m.n_shared_experts:
         y = y + L.swiglu(p["shared"], xt)
 

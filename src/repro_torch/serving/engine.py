@@ -387,9 +387,12 @@ class ServingEngine:
         self.paged = cfg.paged
         if cfg.paged:
             if not model.supports_paged_decode:
+                mla = model.kinds & {"mla", "mla_moe"}
                 raise ValueError(
                     f"{model.cfg.name}: paged KV pool requires full-window "
-                    "attention-family blocks (no ring eviction)")
+                    "attention-family blocks (no ring eviction)"
+                    + ("; MLA's latent cache (ckv, k_rope) has no paged "
+                       "layout, as in the reference" if mla else ""))
             if cfg.max_len % cfg.page_size:
                 raise ValueError("max_len must be a multiple of page_size")
             self.max_pages_slot = cfg.max_len // cfg.page_size

@@ -1923,3 +1923,132 @@ def test_maverick_engine_on_card_matches_cpu(cuda_device, arch):
     assert counts["flash_attention"] == L * eng.prefill_batches
     assert counts["decode_attention"] >= L * eng.stats()["steps"]
     assert counts["decode_attention"] % L == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d,stride,variant", [
+    (8, 1536, 1536, "plain"),      # q_norm at a decode step: q_lora 1,536
+    (4096, 1536, 1536, "plain"),   # and at a 4,096-token prefill
+    (8, 512, 576, "plain"),        # kv_norm: the latent 512 of dkv's 576
+    (4096, 512, 576, "plain"),
+    (8, 7168, 7168, "add"),        # ln1 / ln2 with the residual add
+])
+def test_rmsnorm_kernel_at_deepseek_shapes(cuda_device, dtype, R, d, stride,
+                                           variant):
+    """RMSNorm at DeepSeek-V3's new row widths against its plain version;
+    ``kv_norm`` reads ``dkv[..., :512]`` through its row stride of 576
+    (no copy: the kernel's 16-byte vectors, 1,152-byte rows), also as the
+    (B, S, 512) view the model passes; one launch a call."""
+    gen = torch.Generator().manual_seed(R + d)
+    x = torch.randn(R, stride, generator=gen).to(dtype).to(
+        cuda_device)[:, :d]
+    scale = (torch.randn(d, generator=gen) * 0.1 + 1).to(dtype).to(
+        cuda_device)
+    before = ops.launch_counts()["rmsnorm"]
+    if variant == "add":
+        delta = torch.randn(R, d, generator=gen).to(dtype).to(cuda_device)
+        s, got = ops.add_rmsnorm(x, delta, scale, 1e-6)
+        ws, want = ref.add_rmsnorm(x, delta, scale, 1e-6)
+        assert torch.equal(s, ws)
+    else:
+        got = ops.rmsnorm(x, scale, 1e-6)
+        want = ref.rmsnorm(x, scale, 1e-6)
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (R, d)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if stride != d:
+        B = 2 if R % 2 == 0 else 1
+        x3 = x.view(B, R // B, d)
+        assert x3.stride() == (R // B * stride, stride, 1)
+        torch.testing.assert_close(ops.rmsnorm(x3, scale, 1e-6).reshape(
+            R, d), got, rtol=0, atol=0)
+
+
+def test_mla_forward_on_card_matches_cpu(cuda_device):
+    """DeepSeek-V3 smoke (float32: one ``mla`` and two ``mla_moe`` blocks)
+    on the card, every norm on the RMSNorm kernel, and on the CPU's plain
+    path from the same weights: a ragged prefill and two decode steps,
+    logits within 1e-3 and the same greedy tokens, RMSNorm launched 4
+    times a block and once more a forward, no other kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("deepseek-v3-671b", "smoke")
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (3, 24)))
+    mask = torch.ones(3, 24, dtype=torch.int32)
+    mask[1, 15:] = 0
+    mask[2, 6:] = 0
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = Model(cfg, dev)
+        params = _to(cpu_params, dev)
+        ops.reset_launches()
+        logits, caches = model.prefill(params, toks.to(dev), mask.to(dev),
+                                       max_len=48)
+        steps = [logits]
+        for _ in range(2):
+            cur = steps[-1].argmax(-1)[:, None]
+            logits, caches = model.decode_step(params, caches, cur)
+            steps.append(logits)
+        out[str(dev)] = [t.cpu() for t in steps]
+        counts = ops.launch_counts()
+    assert counts.pop("rmsnorm") == 3 * (4 * cfg.n_layers + 1)
+    assert not any(counts.values()), counts
+    for i, (got, want) in enumerate(zip(out[str(cuda_device)], out["cpu"])):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3,
+                                   msg=f"forward {i}")
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_deepseek_engine_on_card_matches_cpu(cuda_device):
+    """DeepSeek-V3 smoke (float32) on the contiguous engine, on the card
+    and on the CPU from the same weights: identical tokens on ragged
+    prompts in padded prefill buckets."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config("deepseek-v3-671b", "smoke")
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(2, cfg.vocab, n).tolist()
+               for n in (5, 19, 30, 9, 3, 14, 27)]
+    ecfg = EngineConfig(max_batch=4, max_len=64)
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                            device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+    assert toks["cpu"] == toks[str(cuda_device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_top8_combine_is_deterministic_on_card(cuda_device, dtype):
+    """Top-8 of 16 experts: each token sums 8 expert rows, one add at a
+    time in the reference's order, so two calls on the card give the same
+    bits (an index_add_ of 8 rows into one is not deterministic there);
+    in float32 the result also equals the CPU's to 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    base = get_config("deepseek-v3-671b", "smoke")
+    cfg = dataclasses.replace(
+        base, dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+        moe=dataclasses.replace(base.moe, n_experts=16, top_k=8,
+                                capacity_factor=1.25))
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn((4, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    pc = _to(p, cuda_device)
+    a, _ = moe.moe_apply(pc, cfg, x.to(cuda_device))
+    b, _ = moe.moe_apply(pc, cfg, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    if dtype == torch.float32:
+        want, _ = moe.moe_apply(p, cfg, x)
+        torch.testing.assert_close(a.cpu(), want, atol=1e-4, rtol=1e-4)

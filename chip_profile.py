@@ -4,7 +4,7 @@
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
                             [llama3b] [llama3b-paged] [llama7b]
                             [internlm2] [minicpm] [stablelm] [fleet]
-                            [maverick] [deepseek]
+                            [maverick] [deepseek] [vlm] [seamless]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -34,8 +34,16 @@ the contiguous engine. The deepseek path serves ``chip_smoke.py``'s
 DeepSeek trace (8 prompts of 64-512 tokens, then one of 3,000 alone on
 the scan path, 32 new tokens each) on ``deepseek-v3-671b`` cut to depth 5
 at full width (3 ``mla`` and 2 ``mla_moe`` blocks, 256 experts top-8;
-55.2 GB) on the contiguous engine. With no argument it profiles the first
-four. Prints the three timed
+55.2 GB) on the contiguous engine. The vlm path serves ``chip_smoke.py``'s
+VLM trace (8 text-only prompts of 64-512 tokens, 32 new tokens each) on
+``llama-3.2-vision-90b`` cut to depth 10 at full width (two units of
+(dense x 4, cross), the gates set non-zero; 21.65 GB) on the contiguous
+engine. The seamless path runs ``chip_smoke.py``'s model-level
+SeamlessM4T path (neither engine serves an encoder-decoder):
+``seamless-m4t-large-v2`` in full, one prefill of 4 x 4,096 frames under
+4 x 64 decoder tokens, then 32 greedy decode steps; its "engine" is
+``ModelLevel``, whose host_syncs are 0 (the loop fetches nothing).
+With no argument it profiles the first four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
 warm wall per decode micro-step, the kernel launches per micro-step by
@@ -171,6 +179,33 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
               f"{e.key[:90]}")
 
 
+class ModelLevel:
+    """An engine's face (``profile``'s reads) over a model-level path:
+    ``drive_model`` runs one prefill and greedy decode steps."""
+    host_syncs = 0
+    prefill_chunks = 0
+
+    def __init__(self, model, params, ecfg):
+        self.model, self.params = model, params
+        self.prefill_batches = 0
+        self.steps = 0
+
+    def stats(self):
+        return {"steps": self.steps}
+
+
+def drive_model(engine, reqs):
+    """reqs: (tokens, extras, decode steps)."""
+    tokens, extras, steps = reqs
+    logits, caches = engine.model.prefill(
+        engine.params, tokens, max_len=tokens.shape[1] + steps,
+        extras=extras)
+    engine.prefill_batches += 1
+    chip_smoke.greedy_decode(engine.model, engine.params, caches, logits,
+                             steps)
+    engine.steps += steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -179,7 +214,7 @@ def main() -> int:
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
     known = ["contiguous", "paged", "zamba2", "rwkv", "fleet", "maverick",
-             "deepseek"]
+             "deepseek", "vlm", "seamless"]
     # path -> (config, paged main path)
     dense = {"llama3b": ("llama-paper-3b", False),
              "llama3b-paged": ("llama-paper-3b", True),
@@ -195,12 +230,15 @@ def main() -> int:
     card = chip_smoke.card_line()
     base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
 
+    def gen_of(seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return gen
+
     def load(arch):
         cfg = get_config(arch)
         model = Model(cfg, "cuda")
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        return cfg, model, model.init(gen)
+        return cfg, model, model.init(gen_of(0))
 
     if {"contiguous", "paged", "fleet"} & set(paths):
         cfg, model, params = load("llama-paper-1b")
@@ -238,9 +276,7 @@ def main() -> int:
     if "maverick" in paths:
         cfg = chip_smoke.maverick_cut()
         model = Model(cfg, "cuda")
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        params = model.init(gen)
+        params = model.init(gen_of(0))
         profile(card, f"{cfg.name} depth {cfg.n_layers} contiguous", model,
                 params, EngineConfig(**dict(
                     base, max_len=chip_smoke.MAVERICK_MAX_LEN)),
@@ -250,13 +286,32 @@ def main() -> int:
     if "deepseek" in paths:
         cfg = chip_smoke.deepseek_cut()
         model = Model(cfg, "cuda")
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        params = model.init(gen)
+        params = model.init(gen_of(0))
         profile(card, f"{cfg.name} depth {cfg.n_layers} contiguous", model,
                 params, EngineConfig(**dict(
                     base, max_len=chip_smoke.DEEPSEEK_MAX_LEN)),
                 lambda: chip_smoke.deepseek_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    if "vlm" in paths:
+        cfg = chip_smoke.vlm_cut()
+        model = Model(cfg, "cuda")
+        params = model.init(gen_of(0))
+        chip_smoke.set_gates(params)
+        profile(card, f"{cfg.name} depth {cfg.n_layers} contiguous "
+                "(text-only)", model, params, EngineConfig(**dict(
+                    base, max_len=chip_smoke.VLM_MAX_LEN)),
+                lambda: chip_smoke.vlm_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    if "seamless" in paths:
+        cfg, model, params = load(chip_smoke.SEAMLESS)
+        profile(card, f"{cfg.name} model level (prefill over 4 x "
+                f"{cfg.encoder_seq} frames, {chip_smoke.SEAMLESS_STEPS} "
+                "decode steps)", model, params, None,
+                lambda: (*chip_smoke.seamless_inputs(cfg, gen_of(0)),
+                         chip_smoke.SEAMLESS_STEPS),
+                engine_cls=ModelLevel, drive=drive_model)
         del model, params
         torch.cuda.empty_cache()
     for path in [p for p in paths if p in dense]:

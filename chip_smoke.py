@@ -29,7 +29,13 @@ Phases (any failure raises and the script exits non-zero):
    at d 2048, 3584 and 7168, and DeepSeek-V3's q_norm (1,536), kv_norm
    (512 of each 576-wide row, read through its stride) and ln add (7,168)
    at 8 and 4,096 rows, x + delta bit-identical to PyTorch's and each
-   prologue also timed against the launches it replaces), bf16 (atol
+   prologue also timed against the launches it replaces; and the
+   memory-conditioned families' shapes: flash at Llama-3.2-Vision's 64 q
+   heads over 16 duplicated kv heads (group 4, hd 128) at B4 S256 and at
+   SeamlessM4T's 16 / 16 heads of 64 at B4 S64, decode at both head
+   layouts (B8 W2048 and B4 W128), RMSNorm's add at (8, 8192) and the
+   norm with and without its add at SeamlessM4T's 4 x 4,096 encoder rows
+   of 1,024), bf16 (atol
    2e-2, rtol 2e-2) and
    float32 (1e-4), on valid query rows; each bf16 kernel also against the
    plain version run in float32 on the same bf16 inputs (atol 2e-3, rtol
@@ -163,7 +169,34 @@ Phases (any failure raises and the script exits non-zero):
    two-level scan, 32 new tokens each, served twice with the same tokens;
    RMSNorm 21 a forward and no other kernel (MLA and the experts are
    plain PyTorch, as in the reference), the host's waits equal to
-   ``host_syncs``, peak memory beside the weights and latent cache;
+   ``host_syncs``, peak memory beside the weights and latent cache.
+   Then ``phase_vlm``: Llama-3.2-Vision 90B at full width cut to depth 10
+   (two units of (dense x 4, cross), 10,825,670,660 parameters, 21.65
+   GB), both gates of each cross layer set to 0.5: at the model level a
+   prefill of 4 x 256 tokens over 1,600 stub image embeddings a request
+   (flash 8, RMSNorm 21), each kernel call held to ``TOL[bf16]`` against
+   its plain version on the same inputs (each residual sum bit for bit)
+   and the last-token logits to a float32 referee (no further from it
+   than ``REFEREE`` times the plain bf16 path's; a planted fault of
+   ``REFEREE_CATCHES`` ulps in the final norm's scale lands past it),
+   repeated bit for bit and moved by the
+   images (a text-only prefill of the same tokens differs), then 32
+   greedy decode steps (decode 8, RMSNorm 21 a step, finite logits),
+   run again with each kernel call held against its plain version; on
+   the contiguous engine 8 text-only prompts of 64-512 tokens, 32 new
+   tokens each, three times with the same tokens: 8 exact-length prefill
+   launches, flash 8 a launch, decode 8 a micro-step, RMSNorm 21 a
+   forward, no query at position -1, host waits equal to
+   ``host_syncs`` (the second run), each kernel call against its plain
+   version (the third). Last, ``phase_seamless``: SeamlessM4T-Large v2 in
+   full (2,034,886,656 parameters) at the model level: 4 requests of
+   4,096 stub frames (the last with its later half masked) under 64
+   decoder tokens, the prefill (flash 24, RMSNorm 122: 48 encoder,
+   ``enc_norm``, 72 decoder, the final) probed as the VLM's, 32 greedy
+   decode steps (decode 24, RMSNorm 73 a step, no
+   host wait; run again checked as the VLM's), and the unmasked prefill leaving the other rows within
+   tolerance and moving the masked one; peak memory beside the weights
+   and the encoder's float32 scores;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -228,6 +261,32 @@ DEEPSEEK_LENS = (64, 100, 128, 200, 256, 300, 450, 512)   # the first wave
 DEEPSEEK_LONG = 3000       # a prompt of its own: a 4,096-key padded prefill
 DEEPSEEK_NEW = 32
 DEEPSEEK_MAX_LEN = 4160    # the latent cache's rows a slot
+VLM = "llama-3.2-vision-90b"
+# its depth-10 cut: two units of its (dense x 4, cross) pattern, full width
+N_VLM = 10
+VLM_ATTN = 8               # the dense layers, which run flash and decode
+VLM_PARAMS = 10_825_670_660          # the reference's param_counts at depth 10
+VLM_GATE = 0.5             # both gates of each cross layer (0 at init)
+VLM_BATCH, VLM_PROMPT = 4, 256       # the image path's prefill
+VLM_STEPS = 32             # greedy decode steps after it
+VLM_LENS = (64, 100, 128, 200, 256, 300, 450, 512)   # the engine path
+VLM_NEW = 32
+VLM_MAX_LEN = 576
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_PARAMS = 2_034_886_656      # the reference's, encoder included
+SEAMLESS_BATCH, SEAMLESS_PROMPT = 4, 64   # requests; decoder prompt tokens
+SEAMLESS_STEPS = 32
+# the probes' referee: bf16 rounding alone moves a full-width model's
+# logits past TOL[bf16] (the plain bf16 path against float32 too), so the
+# kernels' logits may be at most this many times further from the float32
+# path's than the plain bf16 path's are; each kernel call is held to
+# TOL[bf16] on its own inputs
+REFEREE = 1.5
+# the referee's own check, in every probe: the final norm's scale raised
+# by each of these many bf16 ulps (``planted``); the fault of
+# REFEREE_CATCHES ulps must land past REFEREE
+PLANTED_ULPS = (1, 2, 4)
+REFEREE_CATCHES = 4
 # rmsnorm launches per forward: two per dense (dense_norms: 2 L + 1 on a
 # dense model, 4 L + 1 on a parallel one), mamba2 (ln1, gate_norm) and
 # shared block, one final norm; rwkv6 blocks norm with LayerNorm
@@ -1453,7 +1512,12 @@ def phase_kernels(card):
             ("flash B8 H32/32 S512 hd100 bf16", (8, 32, 32, 512, bf, 100)),
             ("flash B2 H32/32 S128 hd100 f32", (2, 32, 32, 128, f32, 100)),
             ("flash B8 H32/16 S512 hd160 bf16", (8, 32, 16, 512, bf, 160)),
-            ("flash B2 H32/16 S128 hd160 f32", (2, 32, 16, 128, f32, 160))]:
+            ("flash B2 H32/16 S128 hd160 f32", (2, 32, 16, 128, f32, 160)),
+            # the memory-conditioned paths' prefills: llama-3.2-vision's
+            # dense layers (64 q heads at group 4 over 16 duplicated kv
+            # heads), seamless-m4t's decoder prompt (16 / 16 heads of 64)
+            ("flash B4 H64/16 S256 hd128 bf16", (4, 64, 16, 256, bf, 128)),
+            ("flash B4 H16/16 S64 bf16", (4, 16, 16, 64, bf))]:
         flash[label] = flash_case(FA, REF, *args[:4], args[4], gen, *args[5:])
     decode = {}
     for label, args in [
@@ -1469,7 +1533,10 @@ def phase_kernels(card):
             ("decode B8 H48/16 W2048 hd128 bf16",
              (8, 48, 16, 2048, bf, 128)),
             ("decode B8 H32/16 W2048 hd160 bf16",
-             (8, 32, 16, 2048, bf, 160))]:
+             (8, 32, 16, 2048, bf, 160)),
+            ("decode B8 H64/16 W2048 hd128 bf16",
+             (8, 64, 16, 2048, bf, 128)),
+            ("decode B4 H16/16 W128 bf16", (4, 16, 16, 128, bf))]:
         decode[label] = decode_case(DA, REF, *args[:4], args[4], gen,
                                     *args[5:])
     # MLA decode (hd 24, hd_v 16 at group 4): the reference sweep's case
@@ -1596,7 +1663,8 @@ def phase_kernels(card):
     # dim 160: q's 32 heads x a 256-token chunk, q's and k's 32 and 16
     # heads x a decode step's 8; deepseek-v3's q_norm at q_lora 1,536 and
     # kv_norm over the latent 512 of its 576-wide rows, at a decode step's
-    # 8 rows and a 4,096-token prefill's, and its ln add at d 7,168)
+    # 8 rows and a 4,096-token prefill's, and its ln add at d 7,168; the
+    # memory-conditioned families' rows, below)
     rms = {}
     for label, args in [
             ("rmsnorm R1024 d2048 bf16", ("plain", 1024, 2048, bf)),
@@ -1622,7 +1690,13 @@ def phase_kernels(card):
             ("rmsnorm R4096 d1536 bf16", ("plain", 4096, 1536, bf)),
             ("rmsnorm R8 d512/576 bf16", ("plain", 8, 512, bf, 576)),
             ("rmsnorm R4096 d512/576 bf16", ("plain", 4096, 512, bf, 576)),
-            ("add R8 d7168 bf16", ("add", 8, 7168, bf))]:
+            ("add R8 d7168 bf16", ("add", 8, 7168, bf)),
+            # llama-3.2-vision's decode rows at d 8,192; seamless-m4t's
+            # encoder over 4 x 4,096 frames at d 1,024 (its first norm
+            # plain, the others with the add)
+            ("add R8 d8192 bf16", ("add", 8, 8192, bf)),
+            ("rmsnorm R16384 d1024 bf16", ("plain", 16384, 1024, bf)),
+            ("add R16384 d1024 bf16", ("add", 16384, 1024, bf))]:
         variant, R, d, dt, *stride = args
         rms[label] = rmsnorm_case(RMS, REF, variant, R, d, dt, gen, *stride)
     print(f"\n[kernels] vs plain version on valid rows ({card})")
@@ -3388,6 +3462,581 @@ def phase_deepseek(card):
     return counts
 
 
+def vlm_cut():
+    """Llama-3.2-Vision 90B at full width cut to its first ``N_VLM``
+    layers."""
+    from repro_torch.configs import get_config
+    full = get_config(VLM)
+    return dataclasses.replace(full, n_layers=N_VLM,
+                               block_pattern=full.block_pattern[:N_VLM])
+
+
+def memory_norms(cfg):
+    """RMSNorm launches per decoder forward of a memory-conditioned model:
+    ln1 and ln2 of every ``dense`` and ``cross`` block, ln1, ln_x and ln2
+    of every ``dec`` block, and the final norm (each with the residual add
+    before it). An encoder-decoder's prefill adds ``encoder_norms``."""
+    return 1 + sum(3 if kind == "dec" else 2 for kind in cfg.block_pattern)
+
+
+def encoder_norms(cfg):
+    """ln1 and ln2 of every encoder layer, and ``enc_norm``."""
+    return 2 * cfg.n_encoder_layers + 1
+
+
+def plain_ops():
+    """Within: the model's flash, decode and RMSNorm ops are their plain
+    versions (``kernels/ref.py``), on the card."""
+    from repro_torch.kernels import ops
+    return ops.swapped(lambda name, op, plain: plain)
+
+
+def load_model(cfg, n_expected, tag, card):
+    """``cfg``'s model on the card, random weights from seed 0; raises
+    unless it holds ``n_expected`` parameters. Returns (model, params,
+    generator, bytes of the weights)."""
+    from repro_torch.models import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"\n[{tag}] allocated before loading: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({card})")
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != n_expected:
+        raise AssertionError(f"{cfg.name} depth {cfg.n_layers}: {n_params} "
+                             f"parameters on the card, the reference has "
+                             f"{n_expected}")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[{tag}] {cfg.name}: depth {cfg.n_layers}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} padded to "
+          f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded}, head dim "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, {n_params} parameters, "
+          f"{weights / 1e9:.3f} GB on the card, drawn in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    return model, params, gen, weights
+
+
+def checked_ops(record):
+    """Within: each flash, decode and RMSNorm op of the model runs its
+    kernel and then its plain version on the same inputs on the card, and
+    returns the kernel's output; ``record[name]`` gathers [max abs error,
+    elements past ``TOL[bf16]``, calls, residual sum elements other than
+    the plain add's] (``add_rmsnorm``'s sum is held bit for bit, as phase
+    3 holds it; its norm to the tolerance), the errors and counts as
+    tensors on the card, read by the caller: no host wait a call."""
+    from repro_torch.kernels import ops
+    atol, rtol = TOL[torch.bfloat16]
+
+    def check(name, kernel, plain):
+        def run(*a, **kw):
+            got, want = kernel(*a, **kw), plain(*a, **kw)
+            g, w = got, want
+            r = record.setdefault(name, [0, 0, 0, 0])
+            if isinstance(got, tuple):             # add_rmsnorm: (s, y)
+                r[3] = r[3] + (got[0] != want[0]).sum()
+                g, w = got[1], want[1]
+            err = (g.float() - w.float()).abs()
+            r[0] = err.max() if r[2] == 0 else torch.maximum(r[0], err.max())
+            r[1] = r[1] + (err > atol + rtol * w.float().abs()).sum()
+            r[2] += 1
+            return got
+        return run
+    return ops.swapped(check)
+
+
+def checked_run(label, run):
+    """``run()`` within ``checked_ops``, the launch counts set to 0 just
+    before and read just after: raises unless every kernel call is within
+    ``TOL[bf16]`` of its plain version on the same inputs, every residual
+    sum equals the plain add's, and each kernel was checked as often as it
+    launched. Returns (run's result, the record)."""
+    from repro_torch.kernels import ops
+    atol, rtol = TOL[torch.bfloat16]
+    calls = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with checked_ops(calls):
+        out = run()
+    launches = ops.launch_counts()
+    calls = {n: [float(r[0]), int(r[1]), r[2], int(r[3])]
+             for n, r in calls.items()}
+    checked = {k: sum(r[2] for n, r in calls.items() if n.endswith(k))
+               for k in ("flash_attention", "decode_attention", "rmsnorm")}
+    expect(label, [
+        (all(r[1] == 0 for r in calls.values()),
+         f"kernel calls past atol {atol} rtol {rtol} (max abs err, past, "
+         f"calls, sums unequal): {calls}"),
+        (all(r[3] == 0 for r in calls.values()),
+         f"a residual sum other than the plain add's: {calls}"),
+        (all(checked[k] == launches[k] for k in checked)
+         and sum(checked.values()) == sum(launches.values()),
+         f"checked calls {checked}, launches {launches}")])
+    return out, calls
+
+
+def planted(target, ulps):
+    """Within: the kernels, but each RMSNorm call that reads ``target`` (a
+    norm's scale, ones at init) reads it ``ulps`` bf16 ulps of 1 higher: a
+    fault of ``ulps`` x 0.78% in that norm, which up to 2 ulps no single
+    call's ``TOL[bf16]`` can see."""
+    from repro_torch.kernels import ops
+    at = {"rmsnorm": 1, "add_rmsnorm": 2}
+
+    def make(name, op, plain):
+        def run(*a, **kw):
+            if a[at[name]] is target:
+                a = list(a)
+                a[at[name]] = target + ulps * 2.0 ** -7
+            return op(*a, **kw)
+        return run if name in at else op
+    return ops.swapped(make)
+
+
+def float32_prefill(model, params, tokens, extras, max_len):
+    """The referee: the same weights and memory in float32, every op on
+    its plain version, on the card. A float32 copy of the weights lives
+    for the call (43.3 GB for the VLM's depth-10 cut)."""
+    from repro_torch.models import Model
+
+    def up(t):
+        if isinstance(t, dict):
+            return {k: up(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [up(v) for v in t]
+        return t.float()
+
+    ref = Model(dataclasses.replace(model.cfg, dtype="float32"), "cuda")
+    with plain_ops():
+        truth, _ = ref.prefill(up(params), tokens, max_len=max_len, extras={
+            k: v.float() if v.is_floating_point() else v
+            for k, v in extras.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return truth
+
+
+def memory_probe(card, tag, model, params, tokens, extras, max_len):
+    """One prefill with the kernels (launch counts set to 0 just before
+    and read just after); the same prefill again through ``checked_run``
+    (each kernel call against its plain version on the same inputs); then
+    the prefill on the plain versions in bf16 and in float32
+    (``float32_prefill``): the kernels' last-token logits no further from
+    the float32 ones than ``REFEREE`` times the plain bf16 path's (max abs
+    error). The referee's own check: the kernels' prefill with the final
+    norm's scale ``PLANTED_ULPS`` bf16 ulps high (``planted``), each
+    printed against the same bound, the fault of ``REFEREE_CATCHES`` ulps
+    past it. Returns (logits, caches, the checked prefill's caches,
+    launches, prefill ms, peak bytes allocated in the kernel prefill)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got, caches = model.prefill(params, tokens, max_len=max_len,
+                                extras=extras)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    (again, checked_caches), calls = checked_run(
+        f"{model.cfg.name} checked prefill",
+        lambda: model.prefill(params, tokens, max_len=max_len,
+                              extras=extras))
+    with plain_ops():
+        want, _ = model.prefill(params, tokens, max_len=max_len,
+                                extras=extras)
+    truth = float32_prefill(model, params, tokens, extras, max_len)
+    if not all(torch.isfinite(t).all() for t in (got, want, truth)):
+        raise AssertionError(f"{model.cfg.name}: non-finite probe logits")
+    atol, rtol = TOL[torch.bfloat16]
+    rows = torch.ones_like(want, dtype=torch.bool)
+    faults = {}
+    for ulps in PLANTED_ULPS:
+        with planted(params["final_norm"]["scale"], ulps):
+            bad, _ = model.prefill(params, tokens, max_len=max_len,
+                                   extras=extras)
+        faults[ulps] = past_tol(bad, truth, rows, atol, rtol)[0]
+        del bad
+    pairs = {"kernels vs plain bf16": past_tol(got, want, rows, atol, rtol),
+             "kernels vs float32": past_tol(got, truth, rows, atol, rtol),
+             "plain bf16 vs float32": past_tol(want, truth, rows, atol,
+                                               rtol)}
+    print(f"[{tag}] prefill {tuple(tokens.shape)}, {ms:.1f} ms with the "
+          f"kernels; each kernel call against its plain version on the "
+          f"same inputs on the card (max abs err, past atol {atol} rtol "
+          f"{rtol}, calls, residual sums unequal): {calls} ({card})")
+    for name, (err, bad) in pairs.items():
+        print(f"  last-token logits, {name}: max abs err {err:.4e}, {bad} "
+              f"of {want.numel()} past atol {atol} rtol {rtol}")
+    print(f"  max |logit| {float(truth.abs().max()):.3f}; argmax agree with "
+          f"float32: kernels {int((got.argmax(-1) == truth.argmax(-1)).sum())}"
+          f"/{got.shape[0]}, plain bf16 "
+          f"{int((want.argmax(-1) == truth.argmax(-1)).sum())}/{got.shape[0]}")
+    k32 = pairs["kernels vs float32"][0]
+    p32 = pairs["plain bf16 vs float32"][0]
+    print(f"  referee: the kernels' logits {k32 / p32:.4f} x as far from "
+          f"float32 as the plain bf16 path's (bound {REFEREE})")
+    for ulps, err in faults.items():
+        print(f"  planted fault, the final norm's scale {ulps} ulp(s) high: "
+              f"max abs err {err:.4e} from float32, {err / p32:.4f} x the "
+              f"plain bf16 path's, {'past' if err > REFEREE * p32 else 'within'}"
+              f" the bound ({card})")
+    checks = [
+        (torch.equal(again, got), "the checked prefill gave other logits"),
+        (k32 <= REFEREE * p32,
+         f"kernels' logits {k32:.4e} from float32, over {REFEREE} x the "
+         f"plain bf16 path's {p32:.4e}"),
+        (faults[REFEREE_CATCHES] > REFEREE * p32,
+         f"the referee let a planted fault of {REFEREE_CATCHES} ulps pass: "
+         f"{faults[REFEREE_CATCHES]:.4e} within {REFEREE} x {p32:.4e}"),
+    ]
+    expect(f"{model.cfg.name} probe", checks)
+    torch.cuda.reset_peak_memory_stats()
+    return got, caches, checked_caches, launches, ms, peak
+
+
+def checked_decode(label, model, params, caches, logits, toks):
+    """The greedy decode steps that gave ``toks`` again, from the checked
+    prefill's caches, through ``checked_run``: the same tokens. Returns
+    the record."""
+    (again, *_), calls = checked_run(
+        f"{label} checked decode",
+        lambda: greedy_decode(model, params, caches, logits, toks.shape[1]))
+    expect(label, [(torch.equal(again, toks),
+                    "the checked decode steps gave other tokens")])
+    return calls
+
+
+def greedy_decode(model, params, caches, logits, steps):
+    """``steps`` greedy decode steps from ``logits`` at the model level,
+    the launch counts set to 0 just before and read just after. Returns
+    (tokens (B, steps), every step's logits finite, launches, seconds)."""
+    from repro_torch.kernels import ops
+    vocab = model.cfg.vocab
+    cur = logits[:, :vocab].argmax(-1).to(torch.int32)[:, None]
+    finite = torch.ones((), dtype=torch.bool, device=logits.device)
+    toks = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, caches = model.decode_step(params, caches, cur)
+        finite &= torch.isfinite(logits).all()
+        cur = logits[:, :vocab].argmax(-1).to(torch.int32)[:, None]
+        toks.append(cur)
+    torch.cuda.synchronize()
+    return (torch.cat(toks, dim=1), finite, ops.launch_counts(),
+            time.perf_counter() - t0)
+
+
+def expect(label, checks):
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"{label}: {what}")
+
+
+def set_gates(params, value=VLM_GATE):
+    """Both gates of every ``cross`` layer set to ``value``, in place."""
+    for p in params["layers"]:
+        if "gate_mlp" in p:
+            p["gate_mlp"].fill_(value)
+            p["attn"]["gate"].fill_(value)
+
+
+def seamless_inputs(cfg, gen):
+    """``SEAMLESS_BATCH`` x ``SEAMLESS_PROMPT`` decoder tokens and the
+    extras: ``encoder_seq`` stub frames a request, the last request's
+    later half masked by ``frames_mask``."""
+    from repro_torch.models import frontend as FE
+    B, M = SEAMLESS_BATCH, cfg.encoder_seq
+    frames = FE.audio_frames(gen, B, M, cfg.d_model, torch.bfloat16, "cuda")
+    fmask = torch.ones((B, M), dtype=torch.int32, device="cuda")
+    fmask[-1, M // 2:] = 0
+    tokens = torch.randint(2, cfg.vocab, (B, SEAMLESS_PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return tokens, {"frames": frames, "frames_mask": fmask}
+
+
+def vlm_requests(vocab):
+    """8 text-only prompts of 64-512 tokens (eight lengths: eight
+    exact-length prefill groups), 32 new tokens each."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(23)
+    return [Request(rid=i, prompt=rng.integers(2, vocab, n).tolist(),
+                    max_new_tokens=VLM_NEW) for i, n in enumerate(VLM_LENS)]
+
+
+def phase_vlm(card):
+    """Llama-3.2-Vision 90B at full width (d 8,192; 64 / 8 heads, the kv
+    heads duplicated to 16: the kernels at group 4, head dim 128; d_ff
+    28,672; vocab 128,256; 1,600 image tokens) and depth 10 (two units
+    of (dense x 4, cross): 10,825,670,660 parameters, 21.65 GB), random
+    weights from a seed and both gates of each cross layer set to
+    ``VLM_GATE`` (the reference's zero gates would multiply the
+    cross-attention away), the earlier models freed first.
+
+    The image path, at the model level: a prefill of ``VLM_BATCH`` x
+    ``VLM_PROMPT`` tokens over the port's stub image embeddings, flash 8
+    and RMSNorm 21 launches; ``VLM_STEPS`` greedy decode steps, decode 8
+    and RMSNorm 21 a step, then again through ``checked_decode``;
+    ``memory_probe`` (each kernel call against its plain version, the
+    logits against a float32 referee); the same prefill again
+    (bit-identical) and without images (other logits). The engine
+    path: ``vlm_requests`` served text-only on the contiguous engine
+    (exact-length prefill groups, the cross layers over their zeroed
+    caches, as the reference's engine serves a VLM), three times with the
+    same tokens, the third through ``checked_run``; flash 8 a prefill launch, decode 8 a micro-step, RMSNorm 21 a
+    forward, no query row at position -1 (no pad row reaches the
+    kernels), the host's waits equal to ``host_syncs``. Returns the engine
+    path's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import frontend as FE
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = vlm_cut()
+    assert cfg.block_pattern == (("dense",) * 4 + ("cross",)) * 2
+    norms = memory_norms(cfg)
+    model, params, gen, weights = load_model(cfg, VLM_PARAMS, "vlm", card)
+    set_gates(params)
+    B, S, M = VLM_BATCH, VLM_PROMPT, cfg.n_image_tokens
+    tokens = torch.randint(2, cfg.vocab, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    images = FE.vision_embeddings(gen, B, M, cfg.d_model, torch.bfloat16,
+                                  "cuda")
+    extras = {"image_embeds": images}
+    max_len = S + VLM_STEPS
+    logits, caches, checked_caches, pre, pre_ms, pre_peak = memory_probe(
+        card, "vlm", model, params, tokens, extras, max_len)
+    label = f"{VLM} depth {N_VLM} image path"
+    kv_shape = (B, M, cfg.n_kv_heads_padded, cfg.head_dim_)
+    expect(label, [
+        (pre["flash_attention"] == VLM_ATTN and pre["rmsnorm"] == norms
+         and sum(pre.values()) == VLM_ATTN + norms,
+         f"prefill launches {pre}, not flash {VLM_ATTN} and rmsnorm "
+         f"{norms}"),
+        (all(tuple(c["k"].shape) == kv_shape and c["k"].any()
+             for c, kind in zip(caches["layers"], cfg.block_pattern)
+             if kind == "cross"),
+         f"a cross cache is not the images' {kv_shape} keys")])
+    toks, finite, dec, dec_s = greedy_decode(model, params, caches, logits,
+                                             VLM_STEPS)
+    expect(label, [
+        (bool(finite), "non-finite decode logits"),
+        (dec["decode_attention"] == VLM_ATTN * VLM_STEPS
+         and dec["rmsnorm"] == norms * VLM_STEPS
+         and sum(dec.values()) == (VLM_ATTN + norms) * VLM_STEPS,
+         f"decode launches {dec}, not decode {VLM_ATTN} and rmsnorm "
+         f"{norms} a step"),
+        (bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+         "a token out of vocab")])
+    peak = torch.cuda.max_memory_allocated()
+    calls = checked_decode(label, model, params, checked_caches, logits, toks)
+    del checked_caches
+    print(f"  {VLM_STEPS} decode steps again, each kernel call against its "
+          f"plain version (B {B}, W {max_len}): {calls}; the same tokens "
+          f"({card})")
+    # the images' effect: the kernels are deterministic (a second prefill
+    # gives the same bits), so any difference from the text-only prefill
+    # of the same tokens comes from the images through the gated cross
+    # layers (with the reference's zero gates there is none)
+    again, _ = model.prefill(params, tokens, max_len=max_len, extras=extras)
+    text, _ = model.prefill(params, tokens, max_len=max_len)
+    moved = float((text - logits).abs().max())
+    print(f"  launches: prefill {pre}, {VLM_STEPS} decode steps {dec}; "
+          f"decode {B * VLM_STEPS / dec_s:.1f} tokens/s "
+          f"({dec_s * 1e3 / VLM_STEPS:.2f} ms a step at batch {B}), prefill "
+          f"{B * S / pre_ms * 1e3:.1f} tokens/s ({card})")
+    print(f"  images matter: the same prefill again is bit-identical "
+          f"{torch.equal(again, logits)}; text-only logits max abs diff "
+          f"{moved:.4e}, {int((text != logits).sum())} of {text.numel()} "
+          "differ")
+    kv_bytes = 2 * VLM_ATTN * B * max_len * cfg.n_kv_heads_padded \
+        * cfg.head_dim_ * 2
+    img_bytes = 2 * 2 * B * M * cfg.n_kv_heads_padded * cfg.head_dim_ * 2
+    print(f"  peak {pre_peak / 1e9:.2f} GB allocated in the prefill, "
+          f"{peak / 1e9:.2f} GB in the decode steps, against the reckoning: "
+          f"weights {weights / 1e9:.2f} GB + self-attention KV "
+          f"{kv_bytes / 1e9:.3f} GB + image KV {img_bytes / 1e9:.3f} GB "
+          f"({card})")
+    if not torch.equal(again, logits) or moved == 0.0:
+        raise AssertionError(f"{label}: a repeated prefill changed the "
+                             "logits, or the images did not")
+    del logits, caches, text, again
+    # the engine path, text-only
+    ecfg = EngineConfig(max_batch=8, max_len=VLM_MAX_LEN, profile="h100_sxm",
+                        region="QC")
+
+    def run_engine():
+        eng = ServingEngine(model, params, ecfg)
+        for r in vlm_requests(cfg.vocab):
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        return eng
+
+    warm = ServingEngine(model, params, ecfg)          # not counted
+    warm.submit(Request(rid=0, prompt=list(range(2, 40)), max_new_tokens=4))
+    warm.run()
+    del warm
+    pads = []
+
+    def no_pad_rows(name, flash, plain):
+        def run(q, k, v, q_pos, *a, **kw):
+            pads.append(bool((q_pos < 0).any()))   # a host read, this run
+            return flash(q, k, v, q_pos, *a, **kw)
+        return run
+
+    label = f"{VLM} depth {N_VLM} contiguous"
+    with ops.swapped(no_pad_rows, ("flash_attention",)):
+        engine, st, counts = serve(card, label, ecfg,
+                                   vlm_requests(cfg.vocab), model, params,
+                                   new_tokens=VLM_NEW)
+    pb = engine.prefill_batches
+    expect(label, [
+        (pb == len(VLM_LENS), f"{pb} prefill launches, not one a length "
+         "(exact-length groups)"),
+        (counts["flash_attention"] == VLM_ATTN * pb,
+         f"flash launches {counts['flash_attention']} != {VLM_ATTN} x {pb}"),
+        (counts["decode_attention"] >= VLM_ATTN * st["steps"]
+         and counts["decode_attention"] % VLM_ATTN == 0,
+         f"decode launches {counts['decode_attention']} vs {VLM_ATTN} x "
+         f"{st['steps']} micro-steps"),
+        (counts["rmsnorm"] == norms * (
+            pb + counts["decode_attention"] // VLM_ATTN),
+         f"rmsnorm launches {counts['rmsnorm']} != {norms} a forward"),
+        (counts["paged_decode_attention"] == 0
+         and counts["chunked_prefill_attention"] == 0,
+         f"paged kernels ran on the contiguous path: {counts}"),
+        (len(pads) == counts["flash_attention"] and not any(pads),
+         f"{sum(pads)} of {len(pads)} flash calls had a query at -1"),
+    ])
+    tokens_1 = {r: list(engine.responses[r].tokens)
+                for r in engine.responses}
+    cache = sum(t.numel() * t.element_size()
+                for c in engine.caches["layers"] for t in c.values())
+    print(f"  no query row at -1 in {len(pads)} flash calls; engine caches "
+          f"{cache / 1e9:.3f} GB (8 slots: {VLM_ATTN} rings of "
+          f"{VLM_MAX_LEN} rows and 2 zeroed image caches of {M} rows) "
+          f"({card})")
+    del engine
+
+    def tokens_of(eng):
+        return {r: list(eng.responses[r].tokens) for r in eng.responses}
+
+    engine, waits = count_waits(run_engine)
+    if tokens_of(engine) != tokens_1:
+        raise AssertionError(f"{label}: a second run gave other tokens")
+    if waits != engine.host_syncs:
+        raise AssertionError(f"{label}: the host waited {waits} times, "
+                             f"host_syncs {engine.host_syncs}")
+    print(f"  a second run: the same tokens; host waits for the device "
+          f"(sync debug mode) {waits} = host_syncs {engine.host_syncs}")
+    del engine
+    # a third run, each kernel call against its plain version at the
+    # engine's shapes (B1 prefills of each length, decode at B8 W576)
+    engine, calls = checked_run(f"{label} checked", run_engine)
+    if tokens_of(engine) != tokens_1:
+        raise AssertionError(f"{label}: the checked run gave other tokens")
+    print(f"  a third run, each kernel call against its plain version: "
+          f"{calls}; the same tokens ({card})")
+    del engine
+    model = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_seamless(card):
+    """SeamlessM4T-Large v2 in full (24 ``enc`` layers over 4,096 stub
+    audio frames, 24 ``dec`` layers; d 1,024, 16 / 16 heads of 64, d_ff
+    8,192, vocab 256,206 padded to 256,256; 2,034,886,656 parameters),
+    random weights from a seed, at the model level (neither engine serves
+    an encoder-decoder): ``SEAMLESS_BATCH`` requests of 4,096 frames, the
+    last with its later half masked by ``frames_mask``, under a
+    ``SEAMLESS_PROMPT``-token decoder prompt; the prefill (flash 24,
+    RMSNorm 122: 48 encoder, ``enc_norm``, 72 decoder, the final) through
+    ``memory_probe``, then ``SEAMLESS_STEPS`` greedy decode
+    steps (decode 24 and RMSNorm 73 a step, no encoder, no host wait),
+    again through ``checked_decode``, and
+    the same prefill without the mask (the unmasked rows unchanged, the
+    masked row's logits moved). Returns the launches of the prefill and
+    the decode steps."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SEAMLESS)
+    L = cfg.n_layers
+    assert cfg.block_pattern == ("dec",) * 24 and cfg.n_encoder_layers == 24
+    model, params, gen, weights = load_model(cfg, SEAMLESS_PARAMS,
+                                             "seamless", card)
+    B, S, M = SEAMLESS_BATCH, SEAMLESS_PROMPT, cfg.encoder_seq
+    tokens, extras = seamless_inputs(cfg, gen)
+    max_len = S + SEAMLESS_STEPS
+    logits, caches, checked_caches, pre, pre_ms, peak = memory_probe(
+        card, "seamless", model, params, tokens, extras, max_len)
+    label = f"{SEAMLESS} prefill"
+    norms = memory_norms(cfg)
+    expect(label, [
+        (pre["flash_attention"] == L
+         and pre["rmsnorm"] == encoder_norms(cfg) + norms
+         and sum(pre.values()) == L + encoder_norms(cfg) + norms,
+         f"prefill launches {pre}, not flash {L} and rmsnorm "
+         f"{encoder_norms(cfg) + norms}"),
+        (all(tuple(c["xk"].shape) == (B, M, cfg.n_kv_heads_padded,
+                                      cfg.head_dim_)
+             for c in caches["layers"]),
+         "an xk cache is not the encoder output's")])
+    (toks, finite, dec, dec_s), waits = count_waits(
+        lambda: greedy_decode(model, params, caches, logits, SEAMLESS_STEPS))
+    expect(f"{SEAMLESS} decode", [
+        (bool(finite), "non-finite decode logits"),
+        (dec["decode_attention"] == L * SEAMLESS_STEPS
+         and dec["rmsnorm"] == norms * SEAMLESS_STEPS
+         and sum(dec.values()) == (L + norms) * SEAMLESS_STEPS,
+         f"decode launches {dec}, not decode {L} and rmsnorm {norms} a "
+         "step"),
+        (waits == 0, f"the host waited {waits} times in the decode loop"),
+        (bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+         "a token out of vocab")])
+    calls = checked_decode(f"{SEAMLESS} decode", model, params,
+                           checked_caches, logits, toks)
+    del checked_caches
+    print(f"  {SEAMLESS_STEPS} decode steps again, each kernel call against "
+          f"its plain version (B {B}, W {max_len}): {calls}; the same tokens "
+          f"({card})")
+    whole, _ = model.prefill(params, tokens, max_len=max_len,
+                             extras={"frames": extras["frames"]})
+    atol, rtol = TOL[torch.bfloat16]
+    rows = torch.zeros_like(whole, dtype=torch.bool)
+    rows[:-1] = True
+    same, bad = past_tol(whole, logits, rows, atol, rtol)
+    moved, differ = past_tol(whole, logits, ~rows, atol, rtol)
+    enc_scores = B * cfg.n_heads_padded * M * M * 4
+    print(f"  launches: prefill {pre}, {SEAMLESS_STEPS} decode steps {dec}; "
+          f"host waits in the decode loop {waits}; decode "
+          f"{B * SEAMLESS_STEPS / dec_s:.1f} tokens/s "
+          f"({dec_s * 1e3 / SEAMLESS_STEPS:.2f} ms a step at batch {B}), "
+          f"prefill {pre_ms:.1f} ms for {B} x {M} frames + {B} x {S} tokens "
+          f"({card})")
+    print(f"  frames_mask: unmasked rows max abs diff {same:.4e} ({bad} past "
+          f"tol), the masked row's {moved:.4e} ({differ} past tol)")
+    print(f"  peak {peak / 1e9:.2f} GB allocated in the prefill against the "
+          f"reckoning: weights {weights / 1e9:.2f} GB + one encoder layer's "
+          f"float32 scores {enc_scores / 1e9:.2f} GB ({B} x "
+          f"{cfg.n_heads_padded} heads x {M} x {M}; the direct attention "
+          f"holds several such at once) ({card})")
+    if bad or not differ:
+        raise AssertionError(f"{SEAMLESS}: frames_mask moved the unmasked "
+                             f"rows ({bad}) or not the masked one "
+                             f"({differ})")
+    model = params = caches = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: pre[k] + dec[k] for k in pre}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3414,7 +4063,7 @@ def main() -> int:
     print(f"[card] {kind}, device_count {count}")
     print(card)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = build.build()
     print(f"\n[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s"
           f" (nvcc, sm_90a)")
@@ -3445,6 +4094,11 @@ def main() -> int:
     print(f"\n[maverick] launches on its path: {maverick}")
     deepseek = phase_deepseek(card)
     print(f"\n[deepseek] launches on its path: {deepseek}")
+    vlm = phase_vlm(card)
+    print(f"\n[vlm] launches on its engine path: {vlm}")
+    seamless = phase_seamless(card)
+    print(f"\n[seamless] launches of its prefill and decode steps: "
+          f"{seamless}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])
@@ -3458,6 +4112,8 @@ def main() -> int:
                 continue               # no single library call
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} not finite")
+    print(f"\n[time] {time.perf_counter() - t_start:.1f} s from the build "
+          f"to the result ({card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

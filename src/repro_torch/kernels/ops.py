@@ -9,6 +9,7 @@ show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -215,6 +216,28 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
         return _rms.gated_rmsnorm(y.reshape(-1, d), z.reshape(-1, d), scale,
                                   eps, dtype).view(y.shape)
     return _ref.gated_rmsnorm(y, z, scale, eps, dtype)
+
+
+# the ops a card check swaps (``swapped``): the memory-conditioned
+# families' path runs these four and no other kernel
+SWAPPABLE = ("flash_attention", "decode_attention", "rmsnorm", "add_rmsnorm")
+
+
+@contextlib.contextmanager
+def swapped(make, names=SWAPPABLE):
+    """Within: each op ``name`` of ``names`` is ``make(name, op, plain)``,
+    ``op`` the dispatching op above and ``plain`` its plain version
+    (``kernels/ref.py``); restored on exit. The models look these ops up
+    here at each call, so a check can run the plain versions on the card,
+    or hold each kernel call against its plain version on the same
+    inputs."""
+    saved = {n: globals()[n] for n in names}
+    for n in names:
+        globals()[n] = make(n, saved[n], getattr(_ref, n))
+    try:
+        yield
+    finally:
+        globals().update(saved)
 
 
 def reset_launches() -> None:

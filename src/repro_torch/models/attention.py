@@ -1,6 +1,7 @@
-"""Dense / GQA self-attention, the contiguous KV cache and DeepSeek's
-MLA (multi-head latent attention) with its latent cache (the port of
-``repro.models.attention`` but its cross-attention).
+"""Dense / GQA self-attention, the contiguous KV cache, DeepSeek's MLA
+(multi-head latent attention) with its latent cache, and cross-attention
+to a memory (the VLM's image embeddings, the encoder-decoder's encoder
+output): the port of ``repro.models.attention``.
 
 * Head padding: configs whose head counts do not divide the sharding pad
   (``cfg.*_padded``) get zero wq columns / wo rows for padded q heads and
@@ -41,8 +42,9 @@ MLA (multi-head latent attention) with its latent cache (the port of
   nothing raises and nothing wraps. All layout ops write in place.
 * Attention itself goes through ``kernels/ops.py``: the plain PyTorch
   version for a CPU tensor, the hand-written CUDA kernel for a CUDA one.
-  MLA's attention is plain PyTorch on every device, as the reference
-  computes it outside any Pallas kernel (the MLA section below).
+  MLA's attention and cross-attention are plain PyTorch on every
+  device, as the reference computes them outside any Pallas kernel (the
+  MLA and cross-attention sections below).
 """
 from __future__ import annotations
 
@@ -391,12 +393,19 @@ def _qkv(p, cfg, x, positions):
     return q, k, v
 
 
+@functools.lru_cache(maxsize=None)
+def _kv_index(cfg, device: str) -> torch.Tensor:
+    """The reference's q-head -> kv-head map as a long tensor on
+    ``device``, made once a config and device: a copy to the card waits
+    for it, so it is never made in a step."""
+    return torch.as_tensor(
+        _kv_index_map(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_padded,
+                      cfg.n_kv_heads_padded), dtype=torch.long, device=device)
+
+
 def _expand_kv(cfg, k):
-    idx = torch.as_tensor(_kv_index_map(cfg.n_heads, cfg.n_kv_heads,
-                                        cfg.n_heads_padded,
-                                        cfg.n_kv_heads_padded),
-                          dtype=torch.long, device=k.device)
-    return k.index_select(2, idx)
+    """k (B, S, Hkv, hd) -> (B, S, Hq, hd) through the reference's map."""
+    return k.index_select(2, _kv_index(cfg, str(k.device)))
 
 
 def _fill_dead_rows(out: torch.Tensor, v: torch.Tensor,
@@ -774,3 +783,67 @@ def mla_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                                  layer_window, None)
     flat = out.reshape(out.shape[:-2] + (-1,))
     return flat @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (VLM image layers; the encoder-decoder's decoder)
+# --------------------------------------------------------------------------
+#
+# The reference computes it with its jnp ``_direct_attention`` and no
+# kernel: every query sees every memory row (no mask, no rope), the kv
+# heads expanded through the reference's map. So here too it is plain
+# PyTorch on every device.
+
+
+def encoder_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The encoder's bidirectional self-attention (the reference's ``enc``
+    block): rope at ``positions``, every query over every key, ``mask``
+    (B, S) > 0 marking the keys seen (the frames' mask; None: all), the kv
+    heads expanded through the reference's map, then ``wo``."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    kk, vv = _expand_kv(cfg, k), _expand_kv(cfg, v)
+    if mask is None:
+        bias = torch.zeros((x.shape[0], 1, 1, kk.shape[1]),
+                           dtype=torch.float32, device=x.device)
+    else:
+        bias = torch.where(mask[:, None, None, :] > 0, 0.0,
+                           NEG_INF).to(torch.float32)
+    out = _direct_attention(q, kk, vv, bias)
+    return out.reshape(out.shape[:-2] + (-1,)) @ p["wo"]
+
+
+def cross_attn_init(gen, cfg, device, gated: bool = False) -> Dict:
+    """``attn_init``'s projections, plus a scalar ``gate`` when gated
+    (Llama-3.2-Vision), zero as the reference initialises it: tanh(0)
+    multiplies the layer's cross-attention away until the gate is set."""
+    p = attn_init(gen, cfg, device)
+    if gated:
+        p["gate"] = torch.zeros((), dtype=L.dtype_of(cfg), device=device)
+    return p
+
+
+def build_cross_cache(p: Dict, cfg, memory: torch.Tensor) -> Dict:
+    """The memory's keys and values, (B, M, n_kv_heads_padded, hd) each,
+    with no rope: static for the rest of the sequence."""
+    hd, n_kvp = cfg.head_dim_, cfg.n_kv_heads_padded
+    return {"k": _split_heads(memory @ p["wk"], n_kvp, hd),
+            "v": _split_heads(memory @ p["wv"], n_kvp, hd)}
+
+
+def cross_attention(p: Dict, cfg, x: torch.Tensor,
+                    cross_cache: Dict) -> torch.Tensor:
+    """x (B, S, d) attends to every row of ``cross_cache`` (``k``/``v``
+    (B, M, Hkv, hd)); the output times tanh(``gate``), computed in
+    float32 and cast, where the layer is gated."""
+    q = _split_heads(x @ p["wq"], cfg.n_heads_padded, cfg.head_dim_)
+    kk = _expand_kv(cfg, cross_cache["k"])
+    vv = _expand_kv(cfg, cross_cache["v"])
+    # no mask: a zero bias, broadcast over the queries
+    bias = torch.zeros((x.shape[0], 1, 1, kk.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    out = _direct_attention(q, kk, vv, bias)
+    y = out.reshape(out.shape[:-2] + (-1,)) @ p["wo"]
+    if "gate" in p:
+        y = y * torch.tanh(p["gate"].float()).to(y.dtype)
+    return y

@@ -1,14 +1,18 @@
-"""Per-layer blocks (the port of ``repro.models.blocks``) for the kinds the
-port serves: ``dense`` (pre-norm self-attention + SwiGLU MLP on a
-sequential residual), ``parallel`` (StableLM-2: attention with qk-norm and
-the MLP side by side on one pre-norm, added together), ``moe`` (the
-``dense`` block with the mixture-of-experts FFN of ``models/moe.py`` in
-place of the SwiGLU; serving launches no aux loss), ``mla`` and
-``mla_moe`` (DeepSeek-V3: the ``dense`` and ``moe`` blocks with MLA's
-latent attention in place of self-attention), ``mamba2`` (the
+"""Per-layer blocks (the port of ``repro.models.blocks``), every kind of
+the reference's ``BLOCK_KINDS``: ``dense`` (pre-norm self-attention +
+SwiGLU MLP on a sequential residual), ``parallel`` (StableLM-2: attention
+with qk-norm and the MLP side by side on one pre-norm, added together),
+``moe`` (the ``dense`` block with the mixture-of-experts FFN of
+``models/moe.py`` in place of the SwiGLU; serving launches no aux loss),
+``mla`` and ``mla_moe`` (DeepSeek-V3: the ``dense`` and ``moe`` blocks
+with MLA's latent attention in place of self-attention), ``mamba2`` (the
 Mamba2 SSD block), ``shared`` (Zamba2's weight-shared attention + MLP
-block on concat(h, embedding)) and ``rwkv6`` (RWKV6 time-mix +
-channel-mix, attention-free)."""
+block on concat(h, embedding)), ``rwkv6`` (RWKV6 time-mix +
+channel-mix, attention-free), and the memory-conditioned kinds:
+``cross`` (Llama-3.2-Vision: gated cross-attention to the image
+embeddings and a gated SwiGLU), ``enc`` (the encoder-decoder's
+bidirectional encoder layer) and ``dec`` (its decoder layer:
+self-attention, cross-attention to the encoder output, SwiGLU)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,9 +25,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
-
-PORTED_KINDS = ("dense", "parallel", "moe", "mla", "mla_moe", "mamba2",
-                "shared", "rwkv6")
+from repro_torch.models.config import BLOCK_KINDS
 
 
 @dataclasses.dataclass
@@ -32,16 +34,10 @@ class LayerCtx:
     mode: str                           # prefill | decode | chunk
     positions: torch.Tensor             # (B, S) int32 absolute positions
     mask: Optional[torch.Tensor] = None      # (B, S) 1 = real token
+    memory: Optional[torch.Tensor] = None    # image / encoder output (B,M,d)
     emb_orig: Optional[torch.Tensor] = None  # Zamba2 concat input
     layer_idx: int = 0                  # absolute depth (chunk alternation)
     page_tbl: Optional[torch.Tensor] = None  # (B, max_pages) paged-KV table
-
-
-def _require_ported(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP Queue 1, "
-            "Other model families)")
 
 
 def _layer_window_chunk(cfg, layer_idx: int):
@@ -50,10 +46,28 @@ def _layer_window_chunk(cfg, layer_idx: int):
     return window, chunk
 
 
+def _check_kind(kind: str) -> None:
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
 def block_init(gen, cfg, kind: str, device) -> Dict:
-    _require_ported(kind)
+    _check_kind(kind)
     dt = L.dtype_of(cfg)
     d = cfg.d_model
+    if kind == "cross":
+        return {"ln1": L.rmsnorm_init(d, dt, device),
+                "attn": A.cross_attn_init(gen, cfg, device, gated=True),
+                "ln2": L.rmsnorm_init(d, dt, device),
+                "mlp": L.swiglu_init(gen, d, cfg.d_ff, dt, device),
+                "gate_mlp": torch.zeros((), dtype=dt, device=device)}
+    if kind == "dec":
+        return {"ln1": L.rmsnorm_init(d, dt, device),
+                "attn": A.attn_init(gen, cfg, device),
+                "ln_x": L.rmsnorm_init(d, dt, device),
+                "xattn": A.cross_attn_init(gen, cfg, device, gated=False),
+                "ln2": L.rmsnorm_init(d, dt, device),
+                "mlp": L.swiglu_init(gen, d, cfg.d_ff, dt, device)}
     if kind == "mamba2":
         return {"ln1": L.rmsnorm_init(d, dt, device),
                 "ssm": SSM.ssm_init(gen, cfg, device)}
@@ -79,9 +93,29 @@ def block_init(gen, cfg, kind: str, device) -> Dict:
     return p
 
 
+def _memory_kv(cfg, batch: int, M: int, device) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Zero cross-attention keys and values, (B, M, Hkv, hd) each."""
+    shape = (batch, M, cfg.n_kv_heads_padded, cfg.head_dim_)
+    return (torch.zeros(shape, dtype=L.dtype_of(cfg), device=device),
+            torch.zeros(shape, dtype=L.dtype_of(cfg), device=device))
+
+
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
-                     layer_idx: int = 0) -> Dict:
-    _require_ported(kind)
+                     layer_idx: int = 0) -> Optional[Dict]:
+    """A layer's decode state. The memory-conditioned kinds: ``cross``
+    keeps the memory's ``{"k", "v"}``, a ``dec`` layer its self-attention
+    KV cache plus the memory's ``xk`` and ``xv``, zero here, over the
+    reference's M (``n_image_tokens``, else ``encoder_seq``); an ``enc``
+    layer keeps nothing (``None``): it runs once a prefill, over the
+    memory."""
+    _check_kind(kind)
+    if kind == "enc":
+        return None
+    if kind == "cross":
+        k, v = _memory_kv(cfg, batch, cfg.n_image_tokens or cfg.encoder_seq,
+                          device)
+        return {"k": k, "v": v}
     if kind == "mamba2":
         return SSM.init_ssm_state(cfg, batch, device)
     if kind == "rwkv6":
@@ -92,7 +126,11 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
         max_len = min(max_len, cfg.attn_chunk)
     if kind in ("mla", "mla_moe"):
         return A.init_mla_cache(cfg, batch, max_len, device)
-    return A.init_kv_cache(cfg, batch, max_len, device)
+    cache = A.init_kv_cache(cfg, batch, max_len, device)
+    if kind == "dec":
+        cache["xk"], cache["xv"] = _memory_kv(cfg, batch, cfg.encoder_seq,
+                                              device)
+    return cache
 
 
 def _res(cfg, delta):
@@ -120,7 +158,9 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
     block returns (x, delta) with its own last add pending, for the next
     norm to perform. On the card each norm and the add before it are one
     kernel launch. The cache is updated in place."""
-    _require_ported(kind)
+    _check_kind(kind)
+    if kind in ("cross", "enc", "dec"):
+        return _memory_block(p, cfg, kind, ctx, x, delta, cache)
     if kind == "mamba2":
         x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps)
         y = SSM.mamba2_block(p["ssm"], cfg, h, cache, ctx.mode, ctx.mask)
@@ -152,4 +192,66 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
     if kind in ("moe", "mla_moe"):
         f, _ = MOE.moe_apply(p["moe"], cfg, h2)    # no aux when serving
         return x, _res(cfg, f)
+    return x, _res(cfg, L.swiglu(p["mlp"], h2))
+
+
+def _memory_kv_of(p: Dict, cfg, ctx: LayerCtx, cache: Optional[Dict],
+                  names: Tuple[str, str]) -> Dict:
+    """The cross-attention keys and values a layer reads: built from the
+    memory in prefill when one is given, and then stored in ``cache``
+    under ``names``; else the cache's (decode, or a prefill without
+    memory: the zeros of ``block_cache_init``, as in the reference).
+
+    Form of these leaves: where the port writes every other cache in
+    place, the memory's keys and values REPLACE the leaves of the layer's
+    cache dict whole, as the reference replaces its cross cache: the dict
+    is the one the caller holds, its ``k``/``v`` (``xk``/``xv``) tensors
+    are new, and their M is the memory's, which may differ from the M
+    ``block_cache_init`` allocated."""
+    if ctx.mode == "prefill" and ctx.memory is not None:
+        built = A.build_cross_cache(p, cfg, ctx.memory)
+        if cache is not None:
+            cache[names[0]], cache[names[1]] = built["k"], built["v"]
+        return built
+    if cache is None:
+        raise ValueError("cross-attention needs the memory (extras) or a "
+                         "cache holding its keys and values")
+    return {"k": cache[names[0]], "v": cache[names[1]]}
+
+
+def _memory_block(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
+                  delta: Optional[torch.Tensor], cache: Optional[Dict]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``cross``, ``enc`` and ``dec`` blocks, each norm performing the
+    add pending before it, as ``block_apply_pending``.
+
+    * ``cross``: ln1, gated cross-attention to the memory, ln2, SwiGLU
+      times tanh(``gate_mlp``) (float32, cast);
+    * ``enc``: ln1, bidirectional self-attention (rope at the positions,
+      ``ctx.mask`` the frames' mask: ``NEG_INF`` on masked keys), ln2,
+      SwiGLU; no cache;
+    * ``dec``: ln1, causal self-attention through ``self_attention`` (the
+      kernels on the card), ``ln_x``, unmasked cross-attention to the
+      encoder output (``xk``/``xv``), ln2, SwiGLU."""
+    eps = cfg.norm_eps
+    x, h = L.residual_rmsnorm(p["ln1"], x, delta, eps)
+    if kind == "cross":
+        mem = _memory_kv_of(p["attn"], cfg, ctx, cache, ("k", "v"))
+        a = A.cross_attention(p["attn"], cfg, h, mem)
+        x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), eps)
+        f = L.swiglu(p["mlp"], h2)
+        f = f * torch.tanh(p["gate_mlp"].float()).to(f.dtype)
+        return x, _res(cfg, f)
+    if kind == "enc":
+        a = A.encoder_attention(p["attn"], cfg, h, ctx.positions, ctx.mask)
+    else:
+        window, _ = _layer_window_chunk(cfg, ctx.layer_idx)
+        # the self-attention reads and writes k, v, pos_ids and length of
+        # the layer's cache, in place; xk and xv ride beside them
+        a, _ = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
+                                None, cache, ctx.mode, page_tbl=ctx.page_tbl)
+        x, hx = L.residual_rmsnorm(p["ln_x"], x, _res(cfg, a), eps)
+        mem = _memory_kv_of(p["xattn"], cfg, ctx, cache, ("xk", "xv"))
+        a = A.cross_attention(p["xattn"], cfg, hx, mem)
+    x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), eps)
     return x, _res(cfg, L.swiglu(p["mlp"], h2))

@@ -34,7 +34,11 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     the float32 leaves (the SSM's, the MoE router) stay float32, and a
     ``moe`` block's ``experts_gate``/``_up``/``_down`` (E, d_in, d_out) and
     ``shared`` SwiGLU come across as they are, as do an ``mla`` block's
-    latent projections and norms and the ``mtp`` head. Raises if a padded
+    latent projections and norms, the ``mtp`` head, a ``cross`` layer's
+    scalar gates (``attn.gate``, ``gate_mlp``) and a ``dec`` layer's
+    ``xattn``. An encoder-decoder's stacked ``encoder`` (a leading axis of
+    ``n_encoder_layers``) becomes the per-layer list ``encoder``, beside
+    ``enc_norm``. Raises if a padded
     q head's wo rows are not zero or duplicated kv heads differ
     (``model.check_head_padding``).
     """
@@ -60,6 +64,10 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     params = {"embed": tree(np_tree["embed"]), "layers": layers,
               "final_norm": tree(np_tree["final_norm"]),
               "lm_head": tree(np_tree.get("lm_head", {}))}
+    if "encoder" in np_tree:
+        params["encoder"] = [tree(_index(np_tree["encoder"], i))
+                             for i in range(cfg.n_encoder_layers)]
+        params["enc_norm"] = tree(np_tree["enc_norm"])
     if "mtp" in np_tree:
         params["mtp"] = tree(np_tree["mtp"])
     check_head_padding(params, cfg)

@@ -28,7 +28,9 @@ def param_counts(cfg) -> Tuple[float, float]:
     A weight-shared block is one set of tensors referenced at several
     layers and counts once, as the reference's tree holds it once. The
     routed experts' leaves (``experts_*``) are active at the reference's
-    fraction ``top_k / n_experts``; every other parameter is active."""
+    fraction ``top_k / n_experts``; every other parameter is active, an
+    encoder-decoder's encoder and a ``cross`` layer's scalar gates
+    included."""
     total = 0.0
     expert_total = 0.0
     seen = set()
@@ -54,7 +56,7 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
     kv_per_tok = 0.0
     state_bytes = 0.0
     for i, kind in enumerate(cfg.block_pattern):
-        if kind in ("dense", "parallel", "moe", "shared"):
+        if kind in ("dense", "parallel", "moe", "enc", "dec", "shared"):
             if cfg.layer_uses_chunked_attn(i):
                 continue               # ring cache, O(1) amortized growth
             kv_per_tok += 2 * cfg.n_kv_heads_padded * hd * dtype_bytes
@@ -69,7 +71,9 @@ def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:
             H = cfg.d_model // cfg.rwkv.head_dim
             state_bytes += (H * cfg.rwkv.head_dim ** 2 * 4
                             + 2 * cfg.d_model * dtype_bytes)
-        else:
+        elif kind != "cross":
+            # the reference's reckoning adds nothing for a ``cross`` layer
+            # (its memory's keys and values are not per token)
             raise NotImplementedError(f"costing of block kind {kind!r}")
     return LLMWorkload(
         name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,

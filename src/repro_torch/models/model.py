@@ -7,10 +7,19 @@ over a per-layer parameter list (``params["layers"]``) and a per-layer
 cache list (``caches["layers"]``). Caches are written in place. A
 weight-shared block (Zamba2's ``shared``) is one parameter dict that every
 site of the list references, each site with its own cache.
+
+Memory-conditioned models take their memory through ``extras``, as the
+reference's: ``image_embeds`` (B, M, d) for a VLM's ``cross`` layers (or,
+with ``image_positions`` on a model without cross layers, Llama-4's early
+fusion over those token slots), ``frames`` (B, M, d) and ``frames_mask``
+(B, M) for an encoder-decoder, whose encoder (``params["encoder"]``, a
+per-layer list of ``enc`` blocks, and ``params["enc_norm"]``) runs in
+prefill and never in decode (its output lives on in the ``dec`` layers'
+``xk``/``xv`` caches).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -49,10 +58,12 @@ def check_head_padding(params: Dict, cfg: ModelConfig) -> None:
     dup = n_kvp // n_kv if n_kvp > n_kv and n_kvp % n_kv == 0 else 1
     if cfg.n_heads_padded == n_q and dup == 1:
         return
-    for p in params["layers"]:
-        if "attn" not in p:
-            continue
-        a = p["attn"]
+    # every attention of the tree: self-attention (``attn``; a ``cross``
+    # layer's gated cross-attention is also ``attn``), a ``dec`` layer's
+    # cross-attention (``xattn``) and the encoder's layers
+    blocks = list(params["layers"]) + list(params.get("encoder", ()))
+    for a in (p[name] for p in blocks for name in ("attn", "xattn")
+              if name in p):
         mla = "w_uk" in a       # MLA: v_head_dim rows a head, no kv heads
         rows = n_q * (cfg.mla.v_head_dim if mla else hd)
         if a["wo"][rows:].any():
@@ -74,11 +85,6 @@ class Model:
 
     def __init__(self, cfg: ModelConfig,
                  device: Union[str, torch.device] = "cuda"):
-        for kind in set(cfg.block_pattern):
-            B._require_ported(kind)
-        if cfg.is_encdec or cfg.n_image_tokens:
-            raise NotImplementedError(
-                f"{cfg.name}: memory-conditioned models are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = set(cfg.block_pattern)
@@ -117,9 +123,11 @@ class Model:
         Layers follow the reference's grouping (``cfg.grouping()``): every
         ``shared`` position of the repeated unit is ONE parameter dict (the
         same object at each site, Zamba2's weight-shared block); a
-        ``shared`` layer of the unrolled prefix has its own. A config with
-        ``mtp`` also gets the reference's ``mtp`` subtree (``proj`` (2d,
-        d), ``norm`` and one ``dense`` block), held and never read."""
+        ``shared`` layer of the unrolled prefix has its own. An
+        encoder-decoder config also gets ``encoder`` (``n_encoder_layers``
+        ``enc`` blocks) and ``enc_norm``. A config with ``mtp`` also gets
+        the reference's ``mtp`` subtree (``proj`` (2d, d), ``norm`` and
+        one ``dense`` block), held and never read."""
         cfg, dev = self.cfg, self.device
         dt = L.dtype_of(cfg)
         prefix, unit, repeats = cfg.grouping()
@@ -135,6 +143,10 @@ class Model:
                 else:
                     layers.append(B.block_init(generator, cfg, kind, dev))
         params["layers"] = layers
+        if cfg.is_encdec:
+            params["encoder"] = [B.block_init(generator, cfg, "enc", dev)
+                                 for _ in range(cfg.n_encoder_layers)]
+            params["enc_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
         params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
         params["lm_head"] = L.lm_head_init(generator, cfg, dev)
         if cfg.mtp:
@@ -165,15 +177,64 @@ class Model:
         }
 
     # --------------------------------------------------------------- forward
+    def _encode(self, params, frames: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The encoder over the frames (B, M, d): ``enc`` blocks at
+        positions 0..M-1, ``mask`` (B, M) > 0 marking the frames every
+        frame attends to, then ``enc_norm``, which performs the last
+        block's pending add."""
+        cfg = self.cfg
+        M = frames.shape[1]
+        positions = torch.arange(M, dtype=torch.int32,
+                                 device=frames.device)[None].expand(
+                                     frames.shape[0], M)
+        ctx = B.LayerCtx(cfg=cfg, mode="prefill", positions=positions,
+                         mask=mask)
+        x, delta = frames, None
+        for p in params["encoder"]:
+            x, delta = B.block_apply_pending(p, cfg, "enc", ctx, x, delta,
+                                             None)
+        _, x = L.residual_rmsnorm(params["enc_norm"], x, delta,
+                                  cfg.norm_eps)
+        return x
+
+    def _memory(self, params, x: torch.Tensor, mode: str,
+                extras: Dict) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The reference's use of ``extras``: (x, memory). Early fusion
+        (``image_embeds`` on a model without cross layers) writes the
+        image embeddings over the token slots ``image_positions``; an
+        encoder-decoder's memory is the encoder's output over ``frames``
+        (every mode but decode), a VLM's the ``image_embeds`` as given."""
+        cfg = self.cfg
+        if "image_embeds" in extras and cfg.n_image_tokens == 0:
+            img = extras["image_embeds"].to(x.dtype)
+            pos = extras["image_positions"].long()
+            # x is the embedding gather's own tensor: written in place
+            x[torch.arange(x.shape[0], device=x.device)[:, None], pos] = img
+        if cfg.is_encdec and mode != "decode":
+            if "frames" not in extras:
+                raise ValueError(
+                    f"{cfg.name}: an encoder-decoder prefill needs the "
+                    "encoder's input, extras['frames'] (B, M, d_model)")
+            return x, self._encode(params, extras["frames"].to(x.dtype),
+                                   extras.get("frames_mask"))
+        if cfg.n_image_tokens and "image_embeds" in extras:
+            return x, extras["image_embeds"].to(x.dtype)
+        return x, None
+
     def forward(self, params, tokens: torch.Tensor, mask=None,
                 mode: str = "prefill", caches: Optional[Dict] = None,
-                last_index: Optional[torch.Tensor] = None):
+                last_index: Optional[torch.Tensor] = None,
+                extras: Optional[Dict] = None):
         """Returns (logits, caches). ``last_index`` (B,) keeps only that
         token's hidden state before the final norm and the vocab product:
         rows are independent there, so the result equals the full logits
         at those rows without computing the others. Chunk mode keeps the
         last valid token of each row on its own; its block table comes from
-        ``caches["paged"]["tbl"]``."""
+        ``caches["paged"]["tbl"]``. ``extras`` carries a memory-conditioned
+        model's memory (``image_embeds``, ``image_positions``, ``frames``,
+        ``frames_mask``: the module docstring); ``mask`` stays the token
+        mask."""
         cfg = self.cfg
         Bsz, S = tokens.shape
         dev = tokens.device
@@ -208,13 +269,14 @@ class Model:
             page_tbl = caches["paged"]["tbl"].flatten(0, -2)
 
         x = L.embed(params["embed"], cfg, tokens)
+        x, memory = self._memory(params, x, mode, extras or {})
         emb_orig = x if "shared" in self.kinds else None
         layer_caches = caches["layers"] if caches is not None else None
         delta = None            # each block's last residual add, pending
         for i, kind in enumerate(cfg.block_pattern):
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
-                             mask=mask, emb_orig=emb_orig, layer_idx=i,
-                             page_tbl=page_tbl)
+                             mask=mask, memory=memory, emb_orig=emb_orig,
+                             layer_idx=i, page_tbl=page_tbl)
             c = layer_caches[i] if layer_caches is not None else None
             x, delta = B.block_apply_pending(params["layers"][i], cfg, kind,
                                              ctx, x, delta, c)
@@ -241,8 +303,10 @@ class Model:
     # ---------------------------------------------------------------- serve
     def prefill(self, params, tokens: torch.Tensor, mask=None,
                 max_len: Optional[int] = None,
-                caches: Optional[Dict] = None):
-        """Process prompts; returns (last-token logits (B, vocab), caches)."""
+                caches: Optional[Dict] = None,
+                extras: Optional[Dict] = None):
+        """Process prompts; returns (last-token logits (B, vocab), caches).
+        ``extras``: the memory of a memory-conditioned model (``forward``)."""
         Bsz, S = tokens.shape
         if caches is None:
             caches = self.init_cache(Bsz, max_len or S)
@@ -250,7 +314,8 @@ class Model:
                    else torch.full((Bsz,), S, device=tokens.device))
         last = torch.clamp(lengths - 1, min=0).long()
         logits, caches = self.forward(params, tokens, mask, mode="prefill",
-                                      caches=caches, last_index=last)
+                                      caches=caches, last_index=last,
+                                      extras=extras)
         return logits[:, 0], caches
 
     def prefill_chunk(self, params, caches, tokens: torch.Tensor, mask):

@@ -288,6 +288,15 @@ class ServingEngine:
         dev = resolve_device(device)
         if dev != model.device:
             raise ValueError(f"engine device {dev} but model on {model.device}")
+        if model.cfg.is_encdec:
+            # the reference's engine fails at its first prefill (a
+            # KeyError on 'frames'); this one says so before it starts
+            raise ValueError(
+                f"{model.cfg.name}: an encoder-decoder model prefills over "
+                "the encoder's input, extras['frames'], and a Request "
+                "carries no frames; neither engine serves it (drive "
+                "Model.prefill(..., extras={'frames': ...}) and "
+                "decode_step directly)")
         self.model = model
         self.params = params
         self.cfg = cfg

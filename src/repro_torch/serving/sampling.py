@@ -119,7 +119,10 @@ def insert_prefill(pool: Dict, src: Dict, slots: torch.Tensor,
     (in place, one indexed copy per leaf), set the slots' first decode
     tokens and arm their slot state. ``src`` may carry pad rows past n
     (the engine pads the prefill batch to a power of two); they are
-    dropped here. A zero budget arms the slot inactive."""
+    dropped here. A zero budget arms the slot inactive. Every leaf a layer
+    holds is copied by name, whatever it is (a ``cross`` layer's ``k`` and
+    ``v`` have no ``pos_ids`` or ``length``); the contiguous engine resets
+    no leaf on release, so nothing else reads the names."""
     n = slots.shape[0]
     sl = slots.long()
     pool["t"][sl] = src["t"][:n]

@@ -2052,3 +2052,118 @@ def test_moe_top8_combine_is_deterministic_on_card(cuda_device, dtype):
     if dtype == torch.float32:
         want, _ = moe.moe_apply(p, cfg, x)
         torch.testing.assert_close(a.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _memory_model(arch, dtype):
+    """The smoke config of ``arch`` in ``dtype`` (llama-3.2-vision: dense
+    and gated cross, 4 / 2 heads of 32; seamless-m4t: two ``dec`` layers
+    over a two-layer encoder, 4 / 4 heads of 32), CPU weights from a seed
+    with every gate set to 0.5 (the reference's init leaves them 0, which
+    multiplies the cross-attention away), and its memory: 16 image
+    embeddings, or 24 frames with the second row's later half masked."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import frontend
+    cfg = get_config(arch, "smoke")
+    cfg = dataclasses.replace(
+        cfg, dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    for p in params["layers"]:
+        if "gate_mlp" in p:
+            p["gate_mlp"].fill_(0.5)
+            p["attn"]["gate"].fill_(0.5)
+    gen = torch.Generator().manual_seed(2)
+    if cfg.n_image_tokens:
+        extras = {"image_embeds": frontend.vision_embeddings(
+            gen, 3, cfg.n_image_tokens, cfg.d_model, dtype, "cpu")}
+    else:
+        fm = torch.ones(3, cfg.encoder_seq, dtype=torch.int32)
+        fm[1, cfg.encoder_seq // 2:] = 0
+        extras = {"frames": frontend.audio_frames(
+            gen, 3, cfg.encoder_seq, cfg.d_model, dtype, "cpu"),
+            "frames_mask": fm}
+    return cfg, params, extras
+
+
+def _memory_forwards(cfg, params, extras, dev, steps=3):
+    """A prefill of 3 x 24 tokens over the memory (unpadded: neither
+    family takes padded prefill), then ``steps`` greedy decode steps;
+    every forward's logits and the launch counts."""
+    from repro_torch.models import Model
+    model = Model(cfg, dev)
+    params = _to(params, dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        2, cfg.vocab, (3, 24)))
+    ops.reset_launches()
+    logits, caches = model.prefill(
+        params, toks.to(dev), max_len=48,
+        extras={k: v.to(dev) for k, v in extras.items()})
+    out = [logits]
+    for _ in range(steps):
+        cur = out[-1][:, :cfg.vocab].argmax(-1)[:, None].to(torch.int32)
+        logits, caches = model.decode_step(params, caches, cur)
+        out.append(logits)
+    return [t.float().cpu() for t in out], ops.launch_counts()
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_memory_conditioned_kernels_match_plain_on_card(cuda_device, arch):
+    """bf16 on the card: the prefill over the memory and 3 decode steps
+    with the flash, decode and RMSNorm kernels, against the same forwards
+    with their plain versions on the card (2e-2); the launches: flash in
+    every self-attention layer of the prefill, decode in every one of each
+    step, RMSNorm once a norm (an encoder-decoder's prefill adds 2 an
+    encoder layer and ``enc_norm``)."""
+    cfg, params, extras = _memory_model(arch, torch.bfloat16)
+    got, counts = _memory_forwards(cfg, params, extras, cuda_device)
+    with ops.swapped(lambda name, op, plain: plain):
+        want, plain = _memory_forwards(cfg, params, extras, cuda_device)
+    assert not any(plain.values())
+    attn = sum(k in ("dense", "dec") for k in cfg.block_pattern)
+    norms = 1 + sum(3 if k == "dec" else 2 for k in cfg.block_pattern)
+    enc = 2 * cfg.n_encoder_layers + 1 if cfg.n_encoder_layers else 0
+    assert counts.pop("flash_attention") == attn
+    assert counts.pop("decode_attention") == 3 * attn
+    assert counts.pop("rmsnorm") == 4 * norms + enc
+    assert not any(counts.values()), counts
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16],
+                                   msg=f"forward {i}")
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_memory_conditioned_forward_on_card_matches_cpu(cuda_device, arch):
+    """float32: the card (kernels) and the CPU (plain path) from the same
+    weights and memory, logits within 1e-3 and the same greedy tokens."""
+    cfg, params, extras = _memory_model(arch, torch.float32)
+    got, _ = _memory_forwards(cfg, params, extras, cuda_device)
+    want, _ = _memory_forwards(cfg, params, extras, "cpu")
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3,
+                                   msg=f"forward {i}")
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+def test_vlm_engine_on_card_matches_cpu(cuda_device):
+    """llama-3.2-vision smoke (float32, gates 0.5) on the contiguous engine,
+    text-only, on the card and on the CPU: identical tokens."""
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg, params, _ = _memory_model("llama-3.2-vision-90b", torch.float32)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(2, cfg.vocab, n).tolist()
+               for n in (5, 19, 30, 9, 3, 14, 27)]
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(Model(cfg, dev), _to(params, dev),
+                            EngineConfig(max_batch=4, max_len=64), device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
+        toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+    assert toks["cpu"] == toks[str(cuda_device)]

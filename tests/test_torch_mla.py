@@ -21,7 +21,8 @@ float32.
 * The norms of a forward (4 an MLA block and the final one, ``kv_norm``
   reading the latent through its row stride), no use of
   ``self_attention`` (so none of its pad-row fill), the paged, chunked and
-  fleet refusals, and ``cross`` / encoder-decoder still refused.
+  fleet refusals; every reference block kind ported, and a forward of
+  a small model holding each memory-conditioned kind.
 
 The engines (smoke, a top-8-of-16 config with padded heads at a tight
 capacity, the scan path) are in ``tests/test_torch_mla_engine.py``.
@@ -42,6 +43,7 @@ from repro.models import ModelConfig as JModelConfig
 from repro.models import MoEConfig as JMoEConfig
 from repro.models import attention as JA
 from repro.models import moe as JM
+from repro.models.config import BLOCK_KINDS as JAX_BLOCK_KINDS
 from repro.models.config import repeat_pattern as jax_repeat_pattern
 from repro.models.costing import param_counts as jax_param_counts
 from repro.models.costing import workload_of as jax_workload_of
@@ -51,7 +53,8 @@ from repro_torch.models import Model
 from repro_torch.models import attention as TA
 from repro_torch.models import blocks as TB
 from repro_torch.models import moe as TM
-from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.models.config import (BLOCK_KINDS, MLAConfig, ModelConfig,
+                                       MoEConfig)
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.costing import param_counts, workload_of
 from repro_torch.serving import (EngineConfig, ServingEngine,
@@ -443,27 +446,44 @@ def test_forward_norms_and_no_self_attention(monkeypatch):
 
 
 def test_ported_kinds():
-    """The port takes the reference's kinds but its memory-conditioned
-    ones."""
-    assert set(TB.PORTED_KINDS) == {"dense", "parallel", "moe", "mla",
-                                    "mla_moe", "mamba2", "shared", "rwkv6"}
-    for kind in ("mla", "mla_moe"):
-        TB._require_ported(kind)
+    """The port takes every kind of the reference's ``BLOCK_KINDS``, the
+    memory-conditioned ones included."""
+    assert set(BLOCK_KINDS) == set(JAX_BLOCK_KINDS)
+    for kind in ("cross", "enc", "dec"):
+        p = TB.block_init(None, _kind_config(kind), kind, "meta")
+        assert {"ln1", "attn", "ln2", "mlp"} <= set(p)
+
+
+def _kind_config(kind):
+    """A two-layer config holding ``kind`` (``enc``: an encoder-decoder of
+    two ``dec`` layers over a two-layer encoder)."""
+    pattern = ("dec", "dec") if kind == "enc" else ("dense", kind)
+    return ModelConfig(name="m", family="vlm", n_layers=2, d_model=32,
+                       n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
+                       dtype="float32", block_pattern=pattern,
+                       n_image_tokens=6 if kind == "cross" else 0,
+                       n_encoder_layers=0 if kind == "cross" else 2,
+                       encoder_seq=8, vocab_pad_multiple=8)
 
 
 @pytest.mark.parametrize("kind", ["cross", "enc", "dec"])
-def test_memory_conditioned_kinds_still_refused(kind):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TB._require_ported(kind)
-    pattern = ("dense", kind) if kind != "enc" else ("dense", "dense")
-    cfg = ModelConfig(name="m", family="vlm", n_layers=2, d_model=32,
-                      n_heads=4, n_kv_heads=4, d_ff=64, vocab=64,
-                      dtype="float32", block_pattern=pattern,
-                      n_encoder_layers=2 if kind == "enc" else 0,
-                      encoder_seq=8 if kind == "enc" else 0,
-                      vocab_pad_multiple=8)
-    with pytest.raises(NotImplementedError):
-        Model(cfg, "cpu")
+def test_memory_conditioned_kinds_run_a_forward(kind):
+    """A two-layer model holding ``kind`` builds on the CPU and runs one
+    prefill over its memory and one decode step: finite logits."""
+    cfg = _kind_config(kind)
+    model = Model(cfg, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    memory = torch.randn((2, 8, cfg.d_model), generator=gen) * 0.02
+    extras = ({"image_embeds": memory[:, :6]} if kind == "cross"
+              else {"frames": memory})
+    tokens = torch.randint(2, cfg.vocab, (2, 5), generator=gen)
+    logits, caches = model.prefill(params, tokens, max_len=8, extras=extras)
+    assert logits.shape == (2, cfg.padded_vocab)
+    logits, _ = model.decode_step(params, caches, tokens[:, :1])
+    assert torch.isfinite(logits).all()
+    if kind == "enc":
+        assert len(params["encoder"]) == 2
 
 
 @pytest.fixture(scope="module")

@@ -296,11 +296,18 @@ def _serve(engine, make_req, trace):
     return {r.rid: r for r in engine.run()}
 
 
-def _engines_agree(jcfg, cfg, monkeypatch=None):
+def _engines_agree(jcfg, cfg, monkeypatch=None, np_edit=None):
+    """The JAX engine and the port's on ``_trace``: tokens, finish
+    reasons, modeled J, every stats() key but the wall-clock ones and the
+    carbon report. ``np_edit`` maps the reference's parameters, as numpy,
+    to the ones both engines serve (None: as drawn)."""
     jmodel = JModel(jcfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                             cfg, "cpu")
+    np_tree = jax.tree_util.tree_map(
+        np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    if np_edit is not None:
+        np_tree = np_edit(np_tree)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    params = params_from_jax(np_tree, cfg, "cpu")
     if monkeypatch is not None:
         _card_layout(monkeypatch)
     trace = _trace(cfg.vocab)

@@ -4,7 +4,7 @@
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
                             [llama3b] [llama3b-paged] [llama7b]
                             [internlm2] [minicpm] [stablelm] [fleet]
-                            [maverick] [deepseek] [vlm] [seamless]
+                            [maverick] [deepseek] [vlm] [seamless] [train]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -43,6 +43,10 @@ SeamlessM4T path (neither engine serves an encoder-decoder):
 ``seamless-m4t-large-v2`` in full, one prefill of 4 x 4,096 frames under
 4 x 64 decoder tokens, then 32 greedy decode steps; its "engine" is
 ``ModelLevel``, whose host_syncs are 0 (the loop fetches nothing).
+The train path runs one ``Trainer.train_step`` of ``chip_smoke.py``'s
+``phase_train`` (``llama-paper-1b`` full, bf16, 4 x 1,024 tokens, the
+flash and RMSNorm kernels under autograd, AdamW in place) a "micro-step"
+(``ModelLevel``; host_syncs 0: the step fetches nothing).
 With no argument it profiles the first four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
@@ -194,6 +198,13 @@ class ModelLevel:
         return {"steps": self.steps}
 
 
+def drive_train(engine, reqs):
+    """One ``Trainer.train_step`` through ``ModelLevel``'s face: its
+    ``model`` is the trainer, its ``params`` the device batch."""
+    engine.model.train_step(engine.params)
+    engine.steps += 1
+
+
 def drive_model(engine, reqs):
     """reqs: (tokens, extras, decode steps)."""
     tokens, extras, steps = reqs
@@ -214,7 +225,7 @@ def main() -> int:
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
     known = ["contiguous", "paged", "zamba2", "rwkv", "fleet", "maverick",
-             "deepseek", "vlm", "seamless"]
+             "deepseek", "vlm", "seamless", "train"]
     # path -> (config, paged main path)
     dense = {"llama3b": ("llama-paper-3b", False),
              "llama3b-paged": ("llama-paper-3b", True),
@@ -313,6 +324,23 @@ def main() -> int:
                          chip_smoke.SEAMLESS_STEPS),
                 engine_cls=ModelLevel, drive=drive_model)
         del model, params
+        torch.cuda.empty_cache()
+    if "train" in paths:
+        from repro_torch.training import AdamWConfig, TrainConfig, Trainer
+        from repro_torch.training.data import lm_batches
+        cfg, model, params = load(chip_smoke.TRAIN)
+        trainer = Trainer(model, TrainConfig(
+            steps=chip_smoke.TRAIN_STEPS, warmup=chip_smoke.TRAIN_WARMUP,
+            optim=AdamWConfig(lr=chip_smoke.TRAIN_LR), profile="h100_sxm",
+            region="CISO"), device="cuda", params=params)
+        batch = trainer.device_batch(next(lm_batches(
+            0, cfg.vocab, chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ,
+            chip_smoke.TRAIN_BRANCHING)))
+        profile(card, f"{cfg.name} train step ({chip_smoke.TRAIN_BATCH} x "
+                f"{chip_smoke.TRAIN_SEQ} tokens, AdamW)", trainer, batch,
+                None, lambda: None, engine_cls=ModelLevel,
+                drive=drive_train)
+        del model, params, trainer
         torch.cuda.empty_cache()
     for path in [p for p in paths if p in dense]:
         arch, paged = dense[path]

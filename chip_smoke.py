@@ -196,7 +196,24 @@ Phases (any failure raises and the script exits non-zero):
    decode steps (decode 24, RMSNorm 73 a step, no
    host wait; run again checked as the VLM's), and the unmasked prefill leaving the other rows within
    tolerance and moving the masked one; peak memory beside the weights
-   and the encoder's float32 scores;
+   and the encoder's float32 scores. Last, ``phase_train``: the train
+   step's kernel work at its shape (B4 H32 S1024 hd 64 causal bf16, the
+   norms' 4,096 rows of 2,048): the flash forward with its row logsumexp
+   (bit-identical output to the call without), the attention backward
+   (``kernels/autograd.py``, float32 ``torch.matmul``), the RMSNorm and
+   add + RMSNorm backward, each beside its bound, the plain version and
+   the library (SDPA's, ``F.rms_norm``'s forward + backward); then
+   ``llama-paper-1b`` at full width and depth (1,261,529,088 parameters)
+   trained for 8 steps through ``Trainer.fit`` (AdamW lr 1e-3, WSD warmup
+   2, ``h100_sxm`` @ CISO) on ``lm_batches`` of 4 x 1,024: each step's
+   loss, grad norm and lr, tokens/s of steps 2-8, peak memory, 22 flash
+   and 45 RMSNorm launches a step and none in the backward (with remat,
+   22 and 44 there), modeled J and gCO2 a step and the card's measured J
+   over the fit; every loss finite and step 8's below step 1's; then the
+   gradient probe: depth 2 at full width, every gradient leaf of the bf16
+   kernel path no further from a float32 referee (the plain versions on
+   float32 weights) than ``REFEREE`` times the plain bf16 path's,
+   relative error in norm;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -276,6 +293,13 @@ SEAMLESS = "seamless-m4t-large-v2"
 SEAMLESS_PARAMS = 2_034_886_656      # the reference's, encoder included
 SEAMLESS_BATCH, SEAMLESS_PROMPT = 4, 64   # requests; decoder prompt tokens
 SEAMLESS_STEPS = 32
+TRAIN = "llama-paper-1b"
+TRAIN_PARAMS = 1_261_529_088         # the reference's param_counts, full
+TRAIN_PROBE_DEPTH = 2                # the gradient probe's cut, full width
+TRAIN_PROBE_PARAMS = 233_842_688     # the reference's param_counts at depth 2
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_BRANCHING = 4, 1024, 4
+TRAIN_LR = 6e-4
 # the probes' referee: bf16 rounding alone moves a full-width model's
 # logits past TOL[bf16] (the plain bf16 path against float32 too), so the
 # kernels' logits may be at most this many times further from the float32
@@ -4037,6 +4061,354 @@ def phase_seamless(card):
     return {k: pre[k] + dec[k] for k in pre}
 
 
+# --------------------------------------------------------------------------
+# training: llama-paper-1b at full width and depth through the Trainer, the
+# flash and RMSNorm kernels under autograd (kernels/autograd.py)
+# --------------------------------------------------------------------------
+
+
+def train_work(B, H, S, hd, rows, d):
+    """(forward, backward) of causal attention at (B, H, S, hd) bf16 and of
+    the RMSNorm backward over (rows, d) bf16, each (flops, bytes): the
+    valid pairs' 4 hd operations a pair forward, 10 hd backward (the
+    scores again, dP, dV, dQ, dK); bytes of each input read once and each
+    output written once (the forward's output and float32 lse; the
+    backward's q, k, v, dO, lse in and dq, dk, dv out)."""
+    pairs = B * H * S * (S + 1) / 2
+    t = B * H * S * hd * 2
+    lse = B * H * S * 4
+    return {"flash_fwd": (4 * hd * pairs, 4 * t + lse),
+            "attn_bwd": (10 * hd * pairs, 7 * t + lse),
+            "norm_bwd": (6 * rows * d, 3 * rows * d * 2 + 2 * d * 2),
+            "add_norm_bwd": (7 * rows * d, 5 * rows * d * 2 + 2 * d * 2)}
+
+
+def train_kernels(card):
+    """The train step's kernel work at its shape (B4 H32 S1024 hd 64, bf16,
+    causal; the norms over its 4,096 rows of 2,048): the flash forward
+    with and without lse (graph replay), the attention backward
+    (``autograd.flash_backward``, eager) and the RMSNorm and add+RMSNorm
+    backward, each beside its bound, the plain version (autograd of
+    ``kernels/ref.py``, forward + backward) and the library: SDPA's and
+    ``F.rms_norm``'s forward + backward. The forward with lse holds the
+    output bit for bit to the call without it. Returns the numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as REF
+    B, H, S, hd, d = TRAIN_BATCH, 32, TRAIN_SEQ, 64, 2048
+    R = B * S
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    q, k, v = (rnd(B, S, H, hd).transpose(1, 2) for _ in range(3))
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    out = FA.flash_attention(q, k, v, pos, pos, lse=lse)
+    if not torch.equal(out, FA.flash_attention(q, k, v, pos, pos)):
+        raise AssertionError("flash with lse gave another output")
+    dout = rnd(B, H, S, hd)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd(fn, *args):
+        def run():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves, *args).backward(dout)
+        return run
+
+    x, delta, dy, ds = (rnd(R, d) for _ in range(4))
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(bf)
+    nleaves = [t.detach().clone().requires_grad_(True)
+               for t in (x, delta, scale)]
+
+    def norm_fwd_bwd(fn):
+        def run():
+            for t in nleaves:
+                t.grad = None
+            fn(nleaves[0], nleaves[2]).backward(dy)
+        return run
+
+    s_add = x + delta
+    ms = {
+        "flash_fwd": time_ms(lambda: FA.flash_attention(
+            q, k, v, pos, pos, lse=lse), graph=True),
+        "flash_fwd_nolse": time_ms(lambda: FA.flash_attention(
+            q, k, v, pos, pos), graph=True),
+        "attn_bwd": time_ms(lambda: AG.flash_backward(
+            q, k, v, lse, dout, pos, pos, None, None)),
+        "norm_bwd": time_ms(lambda: AG.rmsnorm_backward(x, scale, dy, 1e-5)),
+        "add_norm_bwd": time_ms(lambda: AG.rmsnorm_backward(
+            s_add, scale, dy, 1e-5)[0] + ds.float()),
+    }
+    kernel = {
+        "attention fwd+bwd": time_ms(fwd_bwd(
+            lambda *a: AG.FlashAttention.apply(*a, None, None), pos, pos)),
+        "rmsnorm fwd+bwd": time_ms(norm_fwd_bwd(
+            lambda a, sc: AG.RMSNorm.apply(a, sc, 1e-5))),
+    }
+    plain = {
+        "flash_fwd": time_ms(lambda: REF.flash_attention(q, k, v, pos,
+                                                         pos)),
+        "attention fwd+bwd": time_ms(fwd_bwd(REF.flash_attention, pos,
+                                             pos)),
+        "rmsnorm fwd+bwd": time_ms(norm_fwd_bwd(
+            lambda a, sc: REF.rmsnorm(a, sc, 1e-5))),
+    }
+    library = {
+        "flash_fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        "attention fwd+bwd": time_ms(fwd_bwd(
+            lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True))),
+        "rmsnorm fwd+bwd": time_ms(norm_fwd_bwd(
+            lambda a, sc: F.rms_norm(a, (d,), sc, 1e-5))),
+    }
+    work = train_work(B, H, S, hd, R, d)
+    bounds = {n: bound_ms(f, b, bf) for n, (f, b) in work.items()}
+    bounds["attention fwd+bwd"] = bound_ms(
+        work["flash_fwd"][0] + work["attn_bwd"][0],
+        work["flash_fwd"][1] + work["attn_bwd"][1], bf)
+    print(f"\n[train kernels] B{B} H{H} S{S} hd {hd} causal bf16; norms "
+          f"({R}, {d}) bf16 ({card})")
+    print(f"  flash forward with lse {ms['flash_fwd']:.4f} ms (without "
+          f"{ms['flash_fwd_nolse']:.4f}; bound {bounds['flash_fwd'][0]:.4f} "
+          f"{bounds['flash_fwd'][1]}; plain {plain['flash_fwd']:.4f}; SDPA "
+          f"{library['flash_fwd']:.4f}); output bit-identical with and "
+          f"without lse")
+    print(f"  attention backward {ms['attn_bwd']:.4f} ms (float32 "
+          f"torch.matmul; bound {bounds['attn_bwd'][0]:.4f} "
+          f"{bounds['attn_bwd'][1]} at the bf16 tensor cores' rate)")
+    print(f"  attention forward + backward: kernel Function "
+          f"{kernel['attention fwd+bwd']:.4f} ms, plain "
+          f"{plain['attention fwd+bwd']:.4f}, SDPA "
+          f"{library['attention fwd+bwd']:.4f}, bound "
+          f"{bounds['attention fwd+bwd'][0]:.4f} "
+          f"{bounds['attention fwd+bwd'][1]}")
+    print(f"  RMSNorm backward {ms['norm_bwd']:.4f} ms (bound "
+          f"{bounds['norm_bwd'][0]:.4f} {bounds['norm_bwd'][1]}), add + "
+          f"RMSNorm backward {ms['add_norm_bwd']:.4f} ms (bound "
+          f"{bounds['add_norm_bwd'][0]:.4f} {bounds['add_norm_bwd'][1]}); "
+          f"forward + backward: kernel Function "
+          f"{kernel['rmsnorm fwd+bwd']:.4f} ms, plain "
+          f"{plain['rmsnorm fwd+bwd']:.4f}, F.rms_norm "
+          f"{library['rmsnorm fwd+bwd']:.4f}")
+    for key, value in list(ms.items()) + list(kernel.items()):
+        if not math.isfinite(value):
+            raise AssertionError(f"train kernels: {key} not finite")
+    return {"ms": ms, "kernel": kernel, "plain": plain, "library": library,
+            "bound": bounds}
+
+
+def counted_step(model, params, batch, remat):
+    """One train_loss and backward with the launch counts set to 0 just
+    before: (forward launches, backward launches); the gradients dropped."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.optim import unique_leaves
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    loss, _ = model.train_loss(params, batch, remat=remat)
+    fwd = ops.launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in ops.launch_counts().items()}
+    for _, p in unique_leaves(params):
+        p.grad = None
+    return fwd, bwd
+
+
+def train_grads(model, params, batch):
+    """(loss, [(path, float32 gradient)]) of one ``train_loss``, every
+    leaf's gradient present or it fails."""
+    from repro_torch.training.optim import unique_leaves
+    leaves = list(unique_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = model.train_loss(params, batch, remat=False)
+    loss.backward()
+    out = []
+    for path, p in leaves:
+        if p.grad is None:
+            raise AssertionError(f"{'/'.join(path)}: no gradient")
+        out.append(("/".join(path), p.grad.float()))
+        p.grad = None
+        p.requires_grad_(False)
+    return float(loss.detach()), out
+
+
+def train_probe(card, cfg, batch):
+    """The gradient probe: ``cfg`` cut to depth ``TRAIN_PROBE_DEPTH`` at
+    full width, one batch; every gradient leaf of the bf16 kernel path
+    (flash and RMSNorm under autograd) and of the plain bf16 path against
+    the float32 referee (the plain versions on float32 weights, on the
+    card). The kernel path's relative error (norm of the difference over
+    the referee's norm) must be at most ``REFEREE`` times the plain bf16
+    path's, leaf by leaf. Returns the worst ratio."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_PROBE_DEPTH,
+                              block_pattern=cfg.block_pattern[
+                                  :TRAIN_PROBE_DEPTH])
+    model, params, _, _ = load_model(cut, TRAIN_PROBE_PARAMS, "train probe",
+                                     card)
+    ops.reset_launches()
+    loss_k, kern = train_grads(model, params, batch)
+    launches = ops.launch_counts()
+    expect("train probe", [
+        (launches["flash_attention"] == TRAIN_PROBE_DEPTH
+         and launches["rmsnorm"] == 2 * TRAIN_PROBE_DEPTH + 1,
+         f"kernel path launches {launches}")])
+    with plain_ops():
+        loss_p, plain = train_grads(model, params, batch)
+
+    def up(t):
+        if isinstance(t, dict):
+            return {k: up(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [up(v) for v in t]
+        return t.float()
+
+    ref = Model(dataclasses.replace(cut, dtype="float32"), "cuda")
+    with plain_ops():
+        loss_t, truth = train_grads(ref, up(params), batch)
+    print(f"\n[train probe] {cut.name} depth {cut.n_layers}, batch "
+          f"{tuple(batch['tokens'].shape)}: loss kernels {loss_k:.6f}, plain "
+          f"bf16 {loss_p:.6f}, float32 {loss_t:.6f}; each gradient leaf's "
+          f"relative error from float32 (kernels / plain bf16 / ratio) "
+          f"({card})")
+    worst, bad = 0.0, []
+    for (path, gk), (_, gp), (_, gt) in zip(kern, plain, truth):
+        norm = float(gt.norm())
+        rk = float((gk - gt).norm()) / max(norm, 1e-30)
+        rp = float((gp - gt).norm()) / max(norm, 1e-30)
+        ratio = rk / max(rp, 1e-30)
+        worst = max(worst, ratio)
+        print(f"  {path:32s} {rk:.4e} / {rp:.4e} / {ratio:.4f}")
+        if not (math.isfinite(rk) and rk <= REFEREE * rp):
+            bad.append(path)
+    print(f"  worst ratio {worst:.4f} (bound {REFEREE})")
+    expect("train probe", [
+        (not bad, f"gradient leaves past {REFEREE} x the plain bf16 path's "
+                  f"relative error: {bad}")])
+    model = params = ref = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train(card):
+    """``llama-paper-1b`` at full width and depth trained for
+    ``TRAIN_STEPS`` steps through ``Trainer.fit`` (WSD, warmup
+    ``TRAIN_WARMUP``, ``profile="h100_sxm"``, ``region="CISO"``) on
+    ``lm_batches`` of ``TRAIN_BATCH`` x ``TRAIN_SEQ``: each step's loss,
+    grad norm and lr, tokens/s of steps 2-8, peak memory, the launches
+    (22 flash, 45 RMSNorm a step), the modeled J and gCO2 a step and the
+    card's measured J over the steps; one more step counted with its
+    backward apart, without and with remat (the backward recomputes each
+    layer: 22 flash, 44 RMSNorm); then the gradient probe. Fails on a
+    non-finite loss, step 8's loss not below step 1's, or the probe.
+    Returns the kernel numbers and the fit's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.power_trace import ActiveWindow, PowerTrace
+    from repro_torch.kernels import ops
+    from repro_torch.training import AdamWConfig, TrainConfig, Trainer
+    from repro_torch.training.data import lm_batches
+    numbers = train_kernels(card)
+    cfg = get_config(TRAIN)
+    assert cfg.n_layers == N_LAYERS and cfg.dtype == "bfloat16"
+    model, params, _, _ = load_model(cfg, TRAIN_PARAMS, "train", card)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1, warmup=TRAIN_WARMUP,
+                       schedule="wsd", optim=AdamWConfig(lr=TRAIN_LR),
+                       profile="h100_sxm", region="CISO")
+    trainer = Trainer(model, tcfg, device="cuda", params=params)
+    stream = lm_batches(0, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                        TRAIN_BRANCHING)
+    data = [next(stream) for _ in range(TRAIN_STEPS + 3)]
+    sampler = PowerSampler(power_field())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.fit(iter(data[:TRAIN_STEPS]), verbose=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rows = sampler.stop()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"\n[train] {cfg.name} full ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {TRAIN_PARAMS} parameters), Trainer.fit: "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW "
+          f"lr {TRAIN_LR} WSD warmup {TRAIN_WARMUP}, remat off ({card})")
+    for r in hist:
+        print(f"  step {r['step']}: loss {r['loss']:.6f} grad_norm "
+              f"{r['grad_norm']:.6f} lr {r['lr']:.6e} clip {r['clip']:.4f} "
+              f"wall {r['wall_s']:.3f} s")
+    steady = hist[-1]["wall_s"] - hist[0]["wall_s"]
+    tps = tokens * (len(hist) - 1) / steady
+    st = trainer.meter.totals
+    print(f"  steps 2-{TRAIN_STEPS}: {tps:.1f} tokens/s "
+          f"({steady / (len(hist) - 1) * 1e3:.1f} ms a step); step 1 "
+          f"{hist[0]['wall_s'] * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB "
+          f"allocated ({card})")
+    print(f"  launches over the fit: {launches}")
+    print(f"  modeled (h100_sxm @ CISO): {st.energy_j / st.steps:.2f} J and "
+          f"{st.total_g / st.steps:.6f} gCO2 a step")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "power_train.csv")
+    write_power_csv(path, rows)
+    trace = PowerTrace.from_csv(path)
+    window = ActiveWindow(t0, t1)
+    inside = [w for t, w in zip(trace.t_s, trace.watts)
+              if window.contains(t)]
+    if len(inside) < POWER_MIN:
+        raise AssertionError(f"train: {len(inside)} power samples in the "
+                             f"{t1 - t0:.3f} s fit (< {POWER_MIN})")
+    joules = trace.energy_j(window)
+    print(f"  measured power ({card}): {sampler.field} every {POWER_MS} ms, "
+          f"{len(inside)} samples over the {t1 - t0:.3f} s fit, mean "
+          f"{sum(inside) / len(inside):.1f} W, measured {joules:.1f} J "
+          f"({joules / TRAIN_STEPS:.1f} J a step; modeled "
+          f"{st.energy_j / st.steps:.2f}; measured / modeled "
+          f"{joules / st.energy_j:.3f}) (CSV {os.path.relpath(path, ROOT)})")
+    counted = {}
+    for i, remat in enumerate((False, True)):
+        batch = trainer.device_batch(data[TRAIN_STEPS + i])
+        counted[remat] = counted_step(model, trainer.params, batch, remat)
+        print(f"  one step, remat {'on' if remat else 'off'}: forward "
+              f"launches {counted[remat][0]}, backward {counted[remat][1]}")
+    L = cfg.n_layers
+    none = {k: 0 for k in launches}
+    want = dict(none, flash_attention=L, rmsnorm=2 * L + 1)
+    losses = [r["loss"] for r in hist]
+    expect("train", [
+        (len(hist) == TRAIN_STEPS, f"{len(hist)} logged steps"),
+        (all(math.isfinite(x) for x in losses), f"losses {losses}"),
+        (losses[-1] < losses[0],
+         f"step {TRAIN_STEPS}'s loss {losses[-1]} not below step 1's "
+         f"{losses[0]}"),
+        (launches == {k: TRAIN_STEPS * v for k, v in want.items()},
+         f"launches over the fit {launches}"),
+        (counted[False] == (want, none), f"one step {counted[False]}"),
+        # the backward recomputes each layer (its norms, not the final)
+        (counted[True] == (want, dict(none, flash_attention=L,
+                                      rmsnorm=2 * L)),
+         f"one remat step {counted[True]}"),
+    ])
+    probe_batch = trainer.device_batch(data[TRAIN_STEPS + 2])
+    trainer = model = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["probe_worst"] = train_probe(card, cfg, probe_batch)
+    numbers.update(tokens_per_s=tps, peak_gb=peak / 1e9, launches=launches)
+    return numbers
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4099,6 +4471,10 @@ def main() -> int:
     seamless = phase_seamless(card)
     print(f"\n[seamless] launches of its prefill and decode steps: "
           f"{seamless}")
+    train = phase_train(card)
+    print(f"\n[train] launches over the fit: {train['launches']}; "
+          f"{train['tokens_per_s']:.1f} tokens/s; probe's worst ratio "
+          f"{train['probe_worst']:.4f}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

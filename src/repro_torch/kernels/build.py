@@ -42,6 +42,10 @@ ARGTYPES = {
     "flash_attention": ("flash_attention_fwd",
                         [_P, _P, _P, _P, _P, _P, _STRIDES,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # the same library's entry that also writes each row's logsumexp
+    "flash_attention_lse": ("flash_attention_fwd_lse",
+                            [_P, _P, _P, _P, _P, _P, _P, _STRIDES,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention_fwd",
                          [_P, _P, _P, _P, _P, _P, _STRIDES,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -56,6 +60,10 @@ ARGTYPES = {
     "rmsnorm": ("rmsnorm_fwd",
                 [_I] + [_P] * 6 + [_L] * 4 + [_I, _I, _F] + [_I] * 3 + [_P]),
 }
+
+
+# an entry whose library is another name's source
+SOURCE_OF = {"flash_attention_lse": "flash_attention"}
 
 
 def nvcc_path() -> str:
@@ -125,8 +133,9 @@ _LOCK = threading.Lock()
 
 
 def library(name: str, csrc: Path | None = None):
-    """The entry point of ``<csrc>/<name>.cu`` (by default this
-    package's), built if needed, with every ``argtypes`` set (pointers and
+    """The entry point ``name`` of ``<csrc>/<source>.cu`` (by default
+    this package's; the source is ``SOURCE_OF[name]``, else ``name``),
+    built if needed, with every ``argtypes`` set (pointers and
     the stream as ``c_void_p``). Safe across threads: the async server
     runs the engine's steps on an executor thread, and a library's first
     use may come from there while another thread asks for it."""
@@ -136,8 +145,8 @@ def library(name: str, csrc: Path | None = None):
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str, csrc: Path | None = None):
-    path = build([name], csrc)[name]
-    lib = ctypes.CDLL(str(path))
+    source = SOURCE_OF.get(name, name)
+    lib = ctypes.CDLL(str(build([source], csrc)[source]))
     sym, argtypes = ARGTYPES[name]
     fn = getattr(lib, sym)
     fn.argtypes = argtypes

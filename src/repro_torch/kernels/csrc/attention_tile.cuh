@@ -19,7 +19,8 @@
 // (k_pos / chunk == q_pos / chunk) when > 0. A masked score is the finite
 // -1e9 and a key past the ragged edge scores -inf; the running max starts at
 // -inf; softmax and accumulation are f32; the denominator is clamped at
-// 1e-30; a pad query (q_pos = -1) writes 0.
+// 1e-30; a pad query (q_pos = -1) writes 0. Where the caller gives
+// Tile::lse, each row's logsumexp is written beside its output.
 //
 // What bounds the kernels on the H100: at the main paths' shapes (S = 256
 // chunk queries over <= 1k history keys at hd 64; S = 512 causal prompts at
@@ -280,6 +281,9 @@ struct Tile {
   const int* kpos;    // (Sk,)
   int Sq, Sk, window, chunk;
   float scale_log2;   // softmax scale * log2(e)
+  // row qi's logsumexp of the scaled scores at lse[qi] (natural log,
+  // float32; +inf where the row sees no key); none where nullptr
+  float* lse = nullptr;
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -616,6 +620,18 @@ __device__ __forceinline__ void attention_tile(const Tile& p, const Keys& keys,
   const float inv0 = qp0 < 0 ? 0.f : 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = qp1 < 0 ? 0.f : 1.f / fmaxf(l1, 1e-30f);
   const int qi0 = q0 + row0, qi1 = qi0 + 8;
+  if (p.lse != nullptr && t == 0) {
+    // m is in units of log2 and every masked score is NEG_INF_SCORE, so a
+    // row whose max is no larger saw no valid key
+    if (qi0 < p.Sq)
+      p.lse[qi0] = qp0 < 0 || !(m0 > NEG_INF_SCORE)
+                       ? INFINITY
+                       : (m0 + log2f(l0)) * 0.69314718055994531f;
+    if (qi1 < p.Sq)
+      p.lse[qi1] = qp1 < 0 || !(m1 > NEG_INF_SCORE)
+                       ? INFINITY
+                       : (m1 + log2f(l1)) * 0.69314718055994531f;
+  }
 #pragma unroll
   for (int j = 0; j < (HD + 7) / 8; ++j) {  // zero-filled columns unwritten
     const int c = j * 8 + 2 * t;

@@ -4,7 +4,9 @@
 // src/repro/kernels/flash_attention.py: causal attention by explicit
 // positions (-1 = invalid slot), optional sliding window and chunked
 // (local) attention, GQA by the uniform divide kv_head = h / group, f32
-// accumulation, output in the input type; a pad query writes 0.
+// accumulation, output in the input type; a pad query writes 0. On
+// request (flash_attention_fwd_lse) it also writes each query row's
+// logsumexp, the one statistic the backward pass needs (autograd.py).
 //
 // What bounds it on the H100: at the main paths' prompts (S = 512,
 // right-padded, hd 64 and 112) the q/k/v/o bytes over 3.35 TB/s exceed the
@@ -42,6 +44,7 @@ struct FlashArgs {
   const int* qpos;  // (B, Sq)
   const int* kpos;  // (B, Sk)
   void* out;
+  float* lse;       // (B, Hq, Sq) contiguous, or nullptr: none written
   Strides4 sq, sk, sv, so;
   int B, Hq, Hkv, Sq, Sk, group, window, chunk;
   float scale;
@@ -78,6 +81,7 @@ __global__ void __launch_bounds__(tc::THREADS, 2)
   p.window = a.window;
   p.chunk = a.chunk;
   p.scale_log2 = a.scale * tc::LOG2E;
+  p.lse = a.lse == nullptr ? nullptr : a.lse + ((long long)b * a.Hq + h) * a.Sq;
   const ContiguousKeys keys{
       (const tc::bf16*)a.k + b * a.sk.b + hk * a.sk.h,
       (const tc::bf16*)a.v + b * a.sv.b + hk * a.sv.h, a.sk.s, a.sv.s};
@@ -264,6 +268,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
       if (tx + 8 * j < HD)
         O[qi * a.so.s + (tx + 8 * j) * a.so.d] =
             pad ? 0.f : acc[i][j] / denom;
+    // every masked score is NEG_INF_SCORE: a row whose max is no larger
+    // saw no valid key
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long long)b * a.Hq + h) * a.Sq + qi] =
+          pad || !(m[i] > NEG_INF_SCORE) ? INFINITY : m[i] + logf(l[i]);
   }
 }
 
@@ -281,15 +290,19 @@ cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal of the
 // tensors, made current for the launch. strides: 16 element strides, (b, h, s,
-// d) for q, k, v, out in that order. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a head dim or type it does not take).
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, const int* qpos,
-                                   const int* kpos, void* out,
-                                   const long long* strides, int B, int Hq,
-                                   int Hkv, int Sq, int Sk, int hd,
-                                   int window, int chunk, int dtype,
-                                   int device, void* stream) {
+// d) for q, k, v, out in that order. lse: nullptr, or a contiguous float32
+// (B, Hq, Sq) buffer that receives each query row's logsumexp of its scaled
+// scores (natural log; +inf where the row sees no valid key: a pad query,
+// or every key masked), which the backward pass reads. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
+// dim or type it does not take).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, const int* qpos,
+                                       const int* kpos, void* out, float* lse,
+                                       const long long* strides, int B,
+                                       int Hq, int Hkv, int Sq, int Sk,
+                                       int hd, int window, int chunk,
+                                       int dtype, int device, void* stream) {
   FlashArgs a;
   a.q = q;
   a.k = k;
@@ -297,6 +310,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   a.qpos = qpos;
   a.kpos = kpos;
   a.out = out;
+  a.lse = lse;
   a.sq = {strides[0], strides[1], strides[2], strides[3]};
   a.sk = {strides[4], strides[5], strides[6], strides[7]};
   a.sv = {strides[8], strides[9], strides[10], strides[11]};
@@ -330,4 +344,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && hd == 128) return (int)launch_bf16<128>(a, st);
   if (dtype == 1 && hd == 160) return (int)launch_bf16<160>(a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The serving entry: flash_attention_fwd_lse with no lse (the ABI of the
+// sources before it, which chip_kernel_ab.py binds).
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, const int* qpos,
+                                   const int* kpos, void* out,
+                                   const long long* strides, int B, int Hq,
+                                   int Hkv, int Sq, int Sk, int hd,
+                                   int window, int chunk, int dtype,
+                                   int device, void* stream) {
+  return flash_attention_fwd_lse(q, k, v, qpos, kpos, out, nullptr, strides,
+                                 B, Hq, Hkv, Sq, Sk, hd, window, chunk, dtype,
+                                 device, stream);
 }

@@ -85,10 +85,14 @@ def check_common(q, k, v, q_pos, k_pos, window, chunk) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
                     window: Optional[int] = None,
-                    chunk: Optional[int] = None) -> torch.Tensor:
+                    chunk: Optional[int] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B,Hq,Sq,hd); k/v: (B,Hkv,Sk,hd); q_pos: (B,Sq) (-1 = pad
     query, output 0); k_pos: (B,Sk) int32, all on one CUDA device.
-    Returns (B,Hq,Sq,hd) in q.dtype."""
+    Returns (B,Hq,Sq,hd) in q.dtype. ``lse``, a contiguous float32
+    (B,Hq,Sq) buffer, also receives each query row's logsumexp of its
+    scaled scores (+inf where the row sees no key: the backward pass
+    gives it no gradient); the serving path passes none."""
     global launches
     check_common(q, k, v, q_pos, k_pos, window, chunk)
     B, Hq, Sq, hd = q.shape
@@ -108,11 +112,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
-    fn = build.library("flash_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             k_pos.data_ptr(), out.data_ptr(), strides, B, Hq, Hkv, Sq, Sk,
-             hd, window or -1, chunk or -1, DTYPES[q.dtype],
-             q.device.index or 0,
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), out.data_ptr())
+    if lse is None:
+        fn = build.library("flash_attention")
+    else:
+        if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
+                or not lse.is_contiguous() or lse.device != q.device):
+            raise ValueError(f"lse must be a contiguous float32 ({B}, {Hq}, "
+                             f"{Sq}) tensor on {q.device}")
+        fn = build.library("flash_attention_lse")
+        ptrs += (lse.data_ptr(),)
+    err = fn(*ptrs, strides, B, Hq, Hkv, Sq, Sk, hd, window or -1,
+             chunk or -1, DTYPES[q.dtype], q.device.index or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     launches += 1
     build.check(err, "flash_attention")

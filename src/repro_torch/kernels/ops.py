@@ -6,6 +6,13 @@ from the kernel to the plain version.
 Each kernel module keeps a plain-integer launch count (``launches``),
 incremented where the kernel is launched and nowhere else, so a run can
 show that its main path went through the kernels.
+
+Training on the card (``kernels/autograd.py``): a call that needs a
+gradient (grad mode on, an input that requires grad) runs ``flash_attention``,
+``rmsnorm`` and ``add_rmsnorm`` through ``torch.autograd.Function``s (the
+kernel forward, a PyTorch backward); every other kernel op raises there,
+never returning a tensor cut from the graph. On the CPU the plain
+versions go through autograd as they are.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import chunked_prefill as _cp
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -44,6 +52,9 @@ def flash_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     """Prefill attention. q: (B,Hq,Sq,hd); k/v: (B,Hkv,Sk,hd);
     q_pos: (B,Sq); k_pos: (B,Sk). -> (B,Hq,Sq,hd)."""
     if _on_cuda(q):
+        if _ag.needs_grad(q, k, v):
+            return _ag.FlashAttention.apply(q, k, v, q_pos, k_pos, window,
+                                            chunk)
         return _fa.flash_attention(q, k, v, q_pos, k_pos, window, chunk)
     return _ref.flash_attention(q, k, v, q_pos, k_pos, window, chunk)
 
@@ -53,6 +64,7 @@ def decode_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     """Single-token decode attention over a (B, Hkv, W, *) KV cache view.
     q: (B,Hq,hd); q_pos: (B,); k_pos: (B,W). -> (B,Hq,hd_v)."""
     if _on_cuda(q):
+        _ag.refuse_grad("decode_attention", q, k, v)
         return _dec.decode_attention(q, k, v, q_pos, k_pos, window, chunk)
     return _ref.decode_attention(q, k, v, q_pos, k_pos, window, chunk)
 
@@ -65,6 +77,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
     block_tbl: (B,M) int32 (-1 = unmapped); q_pos: (B,); k_pos: (B,M*ps)
     logical. -> (B,Hq,hd_v)."""
     if _on_cuda(q):
+        _ag.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
         return _pdec.paged_decode_attention(q, k_pages, v_pages, block_tbl,
                                             q_pos, k_pos, window, chunk)
     return _ref.paged_decode_attention(q, k_pages, v_pages, block_tbl,
@@ -79,6 +92,7 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_tbl, q_pos, k_pos,
     pad); the pool, table and k_pos as ``paged_decode_attention``.
     -> (B,Hq,S,hd_v)."""
     if _on_cuda(q):
+        _ag.refuse_grad("chunked_prefill_attention", q, k_pages, v_pages)
         return _cp.chunked_prefill_attention(q, k_pages, v_pages, block_tbl,
                                              q_pos, k_pos, window, chunk)
     return _ref.chunked_prefill_attention(q, k_pages, v_pages, block_tbl,
@@ -133,7 +147,11 @@ def ssd_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None,
     dtk = dt.reshape(B, nc, cl, H).permute(0, 3, 1, 2)
     Bk = Bm.reshape(B, nc, cl, H, N).permute(0, 3, 1, 2, 4)
     Ck = Cm.reshape(B, nc, cl, H, N).permute(0, 3, 1, 2, 4)
-    chunk_op = _ssd.ssd_chunk if _on_cuda(x) else _ref.ssd_chunk
+    if _on_cuda(x):
+        _ag.refuse_grad("ssd_chunk", xk, dtk, A, Bk, Ck)
+        chunk_op = _ssd.ssd_chunk
+    else:
+        chunk_op = _ref.ssd_chunk
     y_intra, h_chunk, dec = chunk_op(xk, dtk, A, Bk, Ck)
 
     h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
@@ -160,6 +178,7 @@ def wkv6(r, k, v, w, u, s0, s_out: Optional[torch.Tensor] = None
     ``s0`` must be float32, and ``w`` and ``u`` float32 or the type of
     ``r``: the kernel widens them on load and never casts the decay down."""
     if _on_cuda(r):
+        _ag.refuse_grad("wkv6", r, k, v, w, u, s0)
         return _wkv.wkv6(r, k, v, w, u, s0, s_out)
     out, S = _ref.wkv6(r, k, v, w, u, s0)
     if s_out is None:
@@ -173,6 +192,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     ``ops.rmsnorm``): leading dims are flattened into rows, statistics in
     float32, output in ``x.dtype``."""
     if _on_cuda(x):
+        if _ag.needs_grad(x, scale):
+            return _ag.RMSNorm.apply(x, scale, eps)
         return _rms.rmsnorm(x.reshape(-1, x.shape[-1]), scale,
                             eps).reshape(x.shape)
     return _ref.rmsnorm(x, scale, eps)
@@ -184,6 +205,8 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     on the card: returns (s, y) with s = x + delta (in ``x.dtype``) and y =
     rmsnorm(s), both of x's shape."""
     if _on_cuda(x):
+        if _ag.needs_grad(x, delta, scale):
+            return _ag.AddRMSNorm.apply(x, delta, scale, eps)
         d = x.shape[-1]
         s, y = _rms.add_rmsnorm(x.reshape(-1, d), delta.reshape(-1, d),
                                 scale, eps)
@@ -198,6 +221,7 @@ def cat_rmsnorm(x: torch.Tensor, e: torch.Tensor, scale: torch.Tensor,
     y). y has x's leading dims and width d1 + d2."""
     if not _on_cuda(x):
         return _ref.cat_rmsnorm(x, e, scale, eps, delta)
+    _ag.refuse_grad("cat_rmsnorm", x, e, scale, delta)
     d1, d2 = x.shape[-1], e.shape[-1]
     shape = x.shape[:-1] + (d1 + d2,)
     rows = (x.reshape(-1, d1), e.reshape(-1, d2), scale, eps)
@@ -212,6 +236,7 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     """Mamba2's gated RMSNorm: rmsnorm((y * silu(z)).to(dtype)), one
     kernel launch on the card (y and z float32 there)."""
     if _on_cuda(y):
+        _ag.refuse_grad("gated_rmsnorm", y, z, scale)
         d = y.shape[-1]
         return _rms.gated_rmsnorm(y.reshape(-1, d), z.reshape(-1, d), scale,
                                   eps, dtype).view(y.shape)

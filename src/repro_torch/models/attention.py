@@ -429,7 +429,8 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                    page_tbl: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """mode: 'prefill' (write a fresh cache; ``cache`` may be None for a
-    cache-less forward) | 'decode' (one token against the cache) |
+    cache-less forward) | 'train' (the cache-less prefill: every position,
+    no cache read or written) | 'decode' (one token against the cache) |
     'chunk' (an S-token prompt chunk appended to a paged cache).
 
     A decode cache is either the contiguous per-slot layout or a paged
@@ -450,8 +451,10 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     forward can drop a token; its paged paths, and any paged path of a
     duplicated-kv layout, are not ported to the card yet and raise.
     """
-    if mode not in ("prefill", "decode", "chunk"):
+    if mode not in ("train", "prefill", "decode", "chunk"):
         raise ValueError(f"unknown attention mode {mode!r}")
+    if mode == "train":
+        cache = None
     q, k, v = _qkv(p, cfg, x, positions)
     # direct: the kernels read the heads through the layout
     layout = kernel_head_group(cfg, q.device.type)
@@ -738,14 +741,17 @@ def mla_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                   layer_window: Optional[int], cache: Optional[Dict] = None,
                   mode: str = "prefill") -> Tuple[torch.Tensor, Optional[Dict]]:
     """mode 'prefill' (the expanded path; writes a fresh latent cache in
-    place, ``cache`` None: a cache-less forward) | 'decode' (one token,
+    place, ``cache`` None: a cache-less forward) | 'train' (that path with
+    no cache) | 'decode' (one token,
     absorbed: ``q_lat = q_nope . w_uk^T`` scored against ``ckv`` plus the
     rope term, ``o_lat . w_uv``). MLA's latent cache is contiguous only
     (the reference's ``supports_paged_decode`` excludes it), so there is
     no chunk mode."""
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"MLA attention has no mode {mode!r} (its latent "
                          "cache is contiguous, never paged)")
+    if mode == "train":
+        cache = None
     m = cfg.mla
     H = cfg.n_heads_padded
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)

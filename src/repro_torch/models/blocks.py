@@ -3,7 +3,8 @@ the reference's ``BLOCK_KINDS``: ``dense`` (pre-norm self-attention +
 SwiGLU MLP on a sequential residual), ``parallel`` (StableLM-2: attention
 with qk-norm and the MLP side by side on one pre-norm, added together),
 ``moe`` (the ``dense`` block with the mixture-of-experts FFN of
-``models/moe.py`` in place of the SwiGLU; serving launches no aux loss),
+``models/moe.py`` in place of the SwiGLU; serving launches no aux loss,
+training returns it),
 ``mla`` and ``mla_moe`` (DeepSeek-V3: the ``dense`` and ``moe`` blocks
 with MLA's latent attention in place of self-attention), ``mamba2`` (the
 Mamba2 SSD block), ``shared`` (Zamba2's weight-shared attention + MLP
@@ -31,7 +32,7 @@ from repro_torch.models.config import BLOCK_KINDS
 @dataclasses.dataclass
 class LayerCtx:
     cfg: Any
-    mode: str                           # prefill | decode | chunk
+    mode: str                           # train | prefill | decode | chunk
     positions: torch.Tensor             # (B, S) int32 absolute positions
     mask: Optional[torch.Tensor] = None      # (B, S) 1 = real token
     memory: Optional[torch.Tensor] = None    # image / encoder output (B,M,d)
@@ -145,30 +146,33 @@ def block_apply(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
                 cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One whole block: returns (x, cache) with its residual add done; the
     cache is updated in place."""
-    x, delta = block_apply_pending(p, cfg, kind, ctx, x, None, cache)
+    x, delta, _ = block_apply_pending(p, cfg, kind, ctx, x, None, cache)
     return (x if delta is None else x + delta), cache
 
 
 def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
                         x: torch.Tensor, delta: Optional[torch.Tensor],
                         cache: Optional[Dict]
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                   Dict[str, torch.Tensor]]:
     """One block on the residual stream x + delta, the add still pending
     (``delta`` None: none): the block's first norm performs it, and the
-    block returns (x, delta) with its own last add pending, for the next
-    norm to perform. On the card each norm and the add before it are one
-    kernel launch. The cache is updated in place."""
+    block returns (x, delta, aux) with its own last add pending, for the
+    next norm to perform. On the card each norm and the add before it are
+    one kernel launch. The cache is updated in place. ``aux`` is the MoE
+    FFN's aux-loss dict (``moe.moe_aux``) of a ``moe`` / ``mla_moe`` block
+    in train mode, else empty."""
     _check_kind(kind)
     if kind in ("cross", "enc", "dec"):
-        return _memory_block(p, cfg, kind, ctx, x, delta, cache)
+        return (*_memory_block(p, cfg, kind, ctx, x, delta, cache), {})
     if kind == "mamba2":
         x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps)
         y = SSM.mamba2_block(p["ssm"], cfg, h, cache, ctx.mode, ctx.mask)
-        return x, _res(cfg, y)
+        return x, _res(cfg, y), {}
     if kind == "rwkv6":
         if delta is not None:
             x = x + delta
-        return RWKV.rwkv_block(p, cfg, x, cache, ctx.mode), None
+        return RWKV.rwkv_block(p, cfg, x, cache, ctx.mode), None, {}
     window, chunk = _layer_window_chunk(cfg, ctx.layer_idx)
     cat = None
     if kind == "shared":
@@ -187,19 +191,22 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
         # the MLP reads the same x; the reference adds x + (a + f), a + f
         # first, so the next norm's pending add forms the same value
         h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x, _res(cfg, a + L.swiglu(p["mlp"], h2))
+        return x, _res(cfg, a + L.swiglu(p["mlp"], h2)), {}
     x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
     if kind in ("moe", "mla_moe"):
+        if ctx.mode == "train":
+            f, aux = MOE.moe_ffn(p["moe"], cfg, h2)
+            return x, _res(cfg, f), aux
         f, _ = MOE.moe_apply(p["moe"], cfg, h2)    # no aux when serving
-        return x, _res(cfg, f)
-    return x, _res(cfg, L.swiglu(p["mlp"], h2))
+        return x, _res(cfg, f), {}
+    return x, _res(cfg, L.swiglu(p["mlp"], h2)), {}
 
 
 def _memory_kv_of(p: Dict, cfg, ctx: LayerCtx, cache: Optional[Dict],
                   names: Tuple[str, str]) -> Dict:
     """The cross-attention keys and values a layer reads: built from the
-    memory in prefill when one is given, and then stored in ``cache``
-    under ``names``; else the cache's (decode, or a prefill without
+    memory in prefill (and train) when one is given, and then stored in
+    ``cache`` under ``names``; else the cache's (decode, or a prefill without
     memory: the zeros of ``block_cache_init``, as in the reference).
 
     Form of these leaves: where the port writes every other cache in
@@ -208,7 +215,7 @@ def _memory_kv_of(p: Dict, cfg, ctx: LayerCtx, cache: Optional[Dict],
     is the one the caller holds, its ``k``/``v`` (``xk``/``xv``) tensors
     are new, and their M is the memory's, which may differ from the M
     ``block_cache_init`` allocated."""
-    if ctx.mode == "prefill" and ctx.memory is not None:
+    if ctx.mode in ("train", "prefill") and ctx.memory is not None:
         built = A.build_cross_cache(p, cfg, ctx.memory)
         if cache is not None:
             cache[names[0]], cache[names[1]] = built["k"], built["v"]

@@ -42,6 +42,16 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
     q head's wo rows are not zero or duplicated kv heads differ
     (``model.check_head_padding``).
     """
+    params = tree_from_jax(np_tree, cfg, device)
+    check_head_padding(params, cfg)
+    return params
+
+
+def tree_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda"
+                  ) -> Dict:
+    """``params_from_jax`` without the padding check: any tree of the
+    parameters' structure, such as the reference's gradients (``jax.grad``
+    of ``train_loss``), in the port's layout."""
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
 
@@ -70,7 +80,6 @@ def params_from_jax(np_tree: Dict, cfg, device: Union[str, torch.device] = "cuda
         params["enc_norm"] = tree(np_tree["enc_norm"])
     if "mtp" in np_tree:
         params["mtp"] = tree(np_tree["mtp"])
-    check_head_padding(params, cfg)
     return params
 
 

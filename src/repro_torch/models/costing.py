@@ -11,14 +11,15 @@ from repro_torch.core.energy import LLMWorkload
 from repro_torch.models.model import Model
 
 
-def _leaves(tree, path=()):
-    """(path of keys, leaf) over a parameter tree."""
+def named_leaves(tree, path: Tuple[str, ...] = ()):
+    """(path of keys, leaf) over a tree of dicts, lists and tuples, in
+    order; a sequence index is its str, as the reference's key paths."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _leaves(v, path + (str(k),))
+            yield from named_leaves(v, path + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves(v, path + (str(i),))
+            yield from named_leaves(v, path + (str(i),))
     else:
         yield path, tree
 
@@ -34,7 +35,7 @@ def param_counts(cfg) -> Tuple[float, float]:
     total = 0.0
     expert_total = 0.0
     seen = set()
-    for path, leaf in _leaves(Model(cfg, "meta").param_shapes()):
+    for path, leaf in named_leaves(Model(cfg, "meta").param_shapes()):
         if id(leaf) in seen:
             continue
         seen.add(id(leaf))
@@ -47,6 +48,14 @@ def param_counts(cfg) -> Tuple[float, float]:
         frac = min(1.0, cfg.moe.top_k / cfg.moe.n_experts)
         active = total - expert_total * (1.0 - frac)
     return total, active
+
+
+def model_flops(cfg, tokens: float, training: bool) -> float:
+    """6*N_active*D (train) / 2*N_active*D (inference), the reference's
+    count."""
+    _, active = param_counts(cfg)
+    mult = 6.0 if training else 2.0
+    return mult * active * tokens
 
 
 def workload_of(cfg, dtype_bytes: int = 2) -> LLMWorkload:

@@ -1,5 +1,6 @@
 """Model assembly (the port of ``repro.models.model``): embeddings ->
-blocks -> final norm -> logits, with prefill and decode entry points.
+blocks -> final norm -> logits, with train, prefill and decode entry
+points.
 
 The reference scans a stacked ``unit`` of layers to keep XLA compile time
 flat in depth; PyTorch runs eagerly, so here the layers are a Python loop
@@ -16,12 +17,19 @@ fusion over those token slots), ``frames`` (B, M, d) and ``frames_mask``
 per-layer list of ``enc`` blocks, and ``params["enc_norm"]``) runs in
 prefill and never in decode (its output lives on in the ``dec`` layers'
 ``xk``/``xv`` caches).
+
+Training (``train_loss``) runs the train mode of ``forward``: every
+position, no cache, the MoE FFN's aux losses summed over the layers, the
+MTP head's loss where the config has one; ``remat`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -127,7 +135,7 @@ class Model:
         encoder-decoder config also gets ``encoder`` (``n_encoder_layers``
         ``enc`` blocks) and ``enc_norm``. A config with ``mtp`` also gets
         the reference's ``mtp`` subtree (``proj`` (2d, d), ``norm`` and
-        one ``dense`` block), held and never read."""
+        one ``dense`` block), read only by ``train_loss``."""
         cfg, dev = self.cfg, self.device
         dt = L.dtype_of(cfg)
         prefix, unit, repeats = cfg.grouping()
@@ -150,9 +158,9 @@ class Model:
         params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
         params["lm_head"] = L.lm_head_init(generator, cfg, dev)
         if cfg.mtp:
-            # DeepSeek-V3's multi-token-prediction head: the reference
-            # reads it only to train; serving never does, but the meter's
-            # parameter counts include it (``costing.param_counts``)
+            # DeepSeek-V3's multi-token-prediction head: read only to
+            # train; serving never does, but the meter's parameter counts
+            # include it (``costing.param_counts``)
             params["mtp"] = {
                 "proj": L.dense_init(generator, 2 * cfg.d_model, cfg.d_model,
                                      dt, dev),
@@ -192,8 +200,8 @@ class Model:
                          mask=mask)
         x, delta = frames, None
         for p in params["encoder"]:
-            x, delta = B.block_apply_pending(p, cfg, "enc", ctx, x, delta,
-                                             None)
+            x, delta, _ = B.block_apply_pending(p, cfg, "enc", ctx, x, delta,
+                                                None)
         _, x = L.residual_rmsnorm(params["enc_norm"], x, delta,
                                   cfg.norm_eps)
         return x
@@ -225,8 +233,14 @@ class Model:
     def forward(self, params, tokens: torch.Tensor, mask=None,
                 mode: str = "prefill", caches: Optional[Dict] = None,
                 last_index: Optional[torch.Tensor] = None,
-                extras: Optional[Dict] = None):
-        """Returns (logits, caches). ``last_index`` (B,) keeps only that
+                extras: Optional[Dict] = None, remat: bool = False):
+        """Returns (logits, caches); in ``mode="train"`` (every position, no
+        cache) (logits, aux): the MoE aux losses summed over the layers
+        (``moe_aux``, ``moe_z``, ``moe_drop_frac``) and, where the config
+        has an MTP head, ``_hidden``, the final norm's output, which
+        ``train_loss`` feeds it; ``remat`` wraps each layer in
+        ``torch.utils.checkpoint`` (train mode only), its pending residual
+        add going in and out as a tensor. ``last_index`` (B,) keeps only that
         token's hidden state before the final norm and the vocab product:
         rows are independent there, so the result equals the full logits
         at those rows without computing the others. Chunk mode keeps the
@@ -245,12 +259,15 @@ class Model:
             # (a partial last chunk) get -1 like padded prefill
             positions = caches["t"][:, None] + torch.arange(
                 S, dtype=torch.int32, device=dev)
-        elif mode == "prefill":
+        elif mode in ("train", "prefill"):
             positions = torch.arange(S, dtype=torch.int32,
                                      device=dev)[None].expand(Bsz, S)
         else:
             raise ValueError(f"unknown forward mode {mode!r}")
-        if mode != "decode" and mask is not None:
+        train = mode == "train"
+        if train:
+            caches = None
+        if mode in ("prefill", "chunk") and mask is not None:
             # right-padded batched prefill / partial chunk: pad slots get
             # position -1, so their cache entries stay masked
             positions = torch.where(mask > 0, positions,
@@ -273,18 +290,30 @@ class Model:
         emb_orig = x if "shared" in self.kinds else None
         layer_caches = caches["layers"] if caches is not None else None
         delta = None            # each block's last residual add, pending
+        aux: Dict[str, torch.Tensor] = {}
         for i, kind in enumerate(cfg.block_pattern):
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
                              mask=mask, memory=memory, emb_orig=emb_orig,
                              layer_idx=i, page_tbl=page_tbl)
             c = layer_caches[i] if layer_caches is not None else None
-            x, delta = B.block_apply_pending(params["layers"][i], cfg, kind,
-                                             ctx, x, delta, c)
+            layer = functools.partial(B.block_apply_pending,
+                                      params["layers"][i], cfg, kind, ctx)
+            if remat and train:
+                x, delta, a = checkpoint(layer, x, delta, None,
+                                         use_reentrant=False)
+            else:
+                x, delta, a = layer(x, delta, c)
+            for k, v in a.items():
+                aux[k] = aux[k] + v if k in aux else v
         # the final norm performs the last add over every row, then the
         # kept rows are gathered: one launch fewer than gathering x and
         # delta before the norm, and the same values (rows are independent)
         _, x = L.residual_rmsnorm(params["final_norm"], x, delta,
                                   cfg.norm_eps)
+        if train:
+            if cfg.mtp:
+                aux["_hidden"] = x      # the MTP head's input (train_loss)
+            return L.logits(params["lm_head"], params["embed"], cfg, x), aux
         if last_index is not None:
             x = x[torch.arange(Bsz, device=x.device), last_index][:, None]
         logits = L.logits(params["lm_head"], params["embed"], cfg, x)
@@ -299,6 +328,56 @@ class Model:
                                            device=dev))
                 caches["t"].copy_(lengths)
         return logits, caches
+
+    # ---------------------------------------------------------------- train
+    def train_loss(self, params, batch: Dict, remat: bool = True
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: ``tokens`` (B, S), ``labels`` (B, S) (-100 = ignore), and
+        any extras (a VLM's ``image_embeds``, an encoder-decoder's
+        ``frames``, a ``mask``). Returns (loss, metrics): the masked
+        cross-entropy over the real vocab, plus ``router_aux_weight`` x
+        ``moe_aux`` and ``router_z_weight`` x ``moe_z`` where the config
+        has MoE, plus ``mtp_weight`` x the MTP head's cross-entropy on the
+        token after next where it has an MTP head, as the reference's."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        extras = {k: v for k, v in batch.items()
+                  if k not in ("tokens", "labels", "mask")}
+        logits, aux = self.forward(params, tokens, batch.get("mask"),
+                                   mode="train", extras=extras, remat=remat)
+        loss, n_tok = _masked_ce(logits, labels, cfg.vocab)
+        del logits
+        metrics = {"ce": loss, "tokens": n_tok}
+        total = loss
+        if cfg.moe is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+            total = total + cfg.moe.router_aux_weight * aux.get("moe_aux",
+                                                                zero)
+            total = total + cfg.moe.router_z_weight * aux.get("moe_z", zero)
+            metrics["moe_aux"] = aux.get("moe_aux", zero)
+            metrics["moe_drop_frac"] = aux.get("moe_drop_frac", zero)
+        if cfg.mtp and "_hidden" in aux:
+            h = aux["_hidden"]
+            emb_next = L.embed(params["embed"], cfg,
+                               torch.roll(tokens, -1, dims=1))
+            hm = torch.cat([L.rmsnorm(params["mtp"]["norm"], h,
+                                      cfg.norm_eps), emb_next],
+                           dim=-1) @ params["mtp"]["proj"]
+            pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                               device=tokens.device)[None].expand(
+                                   tokens.shape)
+            ctx = B.LayerCtx(cfg=cfg, mode="train", positions=pos)
+            hm, _ = B.block_apply(params["mtp"]["block"], cfg, "dense", ctx,
+                                  hm, None)
+            mtp_logits = L.logits(params["lm_head"], params["embed"], cfg,
+                                  hm)
+            mtp_labels = torch.roll(labels, -1, dims=1).clone()
+            mtp_labels[:, -1] = -100
+            mtp_loss, _ = _masked_ce(mtp_logits, mtp_labels, cfg.vocab)
+            total = total + cfg.mtp_weight * mtp_loss
+            metrics["mtp_ce"] = mtp_loss
+        metrics["loss"] = total
+        return total, metrics
 
     # ---------------------------------------------------------------- serve
     def prefill(self, params, tokens: torch.Tensor, mask=None,
@@ -334,3 +413,20 @@ class Model:
         logits, caches = self.forward(params, tokens, None, mode="decode",
                                       caches=caches)
         return logits[:, 0], caches
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the labels >= 0, the padded vocab classes
+    excluded (scored at -1e9); returns (loss, number of labels)."""
+    if logits.shape[-1] > vocab:
+        pad = logits.new_full(logits.shape[:-1] + (logits.shape[-1] - vocab,),
+                              -1e9)
+        logits = torch.cat([logits[..., :vocab], pad], dim=-1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    n = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / n, n

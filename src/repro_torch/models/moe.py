@@ -121,7 +121,8 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """x: (B, S, d) -> (B, S, d) and the routing that ``moe_aux`` reads:
     (router logits (T, E) float32, expert ids (T, k), keep mask (T*k,)).
-    Serving calls this and launches no aux loss."""
+    Serving calls this and launches no aux loss; training adds
+    ``moe_aux`` of the routing (``moe_ffn``)."""
     m = cfg.moe
     B, S, d = x.shape
     T, k, E = B * S, m.top_k, m.n_experts
@@ -142,8 +143,10 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
     g = torch.bmm(expert_in, p["experts_gate"])
     u = torch.bmm(expert_in, p["experts_up"])
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    out = x.new_zeros((E * C + 1, d))                             # row E*C: 0
-    torch.bmm(h, p["experts_down"], out=out[:E * C].view(E, C, d))
+    # row E*C: 0 (a product into a slice of a buffer has no gradient, so
+    # the zero row is joined on)
+    out = torch.cat([torch.bmm(h, p["experts_down"]).view(E * C, d),
+                     x.new_zeros((1, d))])
 
     weight = torch.where(keep, gates.reshape(-1).index_select(0, order),
                          torch.zeros((), device=dev)).to(x.dtype)

@@ -140,7 +140,9 @@ def time_mix(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict]
 
     S = (state["wkv"] if state is not None else
          torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
-    out, _ = wkv6_scan(r, k, v, w, p["u"], S, S)      # S advanced in place
+    # S advanced in place where the state is kept
+    out, _ = wkv6_scan(r, k, v, w, p["u"], S,
+                       S if state is not None else None)
 
     out = L.layernorm(p["ln_x"], out.reshape(B, T, d).to(x.dtype),
                       cfg.norm_eps)
@@ -168,11 +170,14 @@ def rwkv_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
     """Full RWKV6 layer: x + time_mix(ln1(x)); x + channel_mix(ln2(x)).
     ``state`` (when given) is advanced in place by the T tokens of ``x``:
     prefill starts from the state it is given (zeros in a fresh cache),
-    decode from the carried one. Prompts have exact length: there is no
-    mask, as in the reference."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"rwkv6 runs in prefill or decode mode, not "
+    decode from the carried one; 'train' is the prefill with no state
+    (on the card the WKV6 kernel has no backward and raises under grad).
+    Prompts have exact length: there is no mask, as in the reference."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"rwkv6 runs in train, prefill or decode mode, not "
                          f"{mode!r} (recurrent blocks do not chunk)")
+    if mode == "train":
+        state = None
     h = L.layernorm(p["ln1"], x, cfg.norm_eps)
     att, att_shift = time_mix(p["tmix"], cfg, h, state)
     x = x + att

@@ -106,7 +106,9 @@ def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, T, d_model); mask: (B, T) 1 = real token (pad steps get dt =
     0, so they leave the SSM state alone). ``state`` is updated in place:
-    prefill writes it (when given), decode advances it by one token."""
+    prefill writes it (when given), decode advances it by one token;
+    'train' is the prefill with no state. On the card the SSD chunk
+    kernel has no backward and raises under grad (``kernels/ops.py``)."""
     s = cfg.ssm
     d = cfg.d_model
     di, H, P = s.d_inner(d), s.n_heads(d), s.head_dim
@@ -132,7 +134,9 @@ def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
         state["conv"].copy_(xp[:, 1:])
         state["state"].copy_(h)
         state["length"] += 1
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
+        if mode == "train":
+            state = None
         if mask is not None:                               # softplus -> 0
             dt_raw = torch.where(mask[..., None] > 0, dt_raw,
                                  torch.full_like(dt_raw, -1e9))
@@ -157,7 +161,7 @@ def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
             state["state"].copy_(h_final)
             state["length"].copy_(length)
     else:
-        raise ValueError(f"mamba2 runs in prefill or decode mode, not "
+        raise ValueError(f"mamba2 runs in train, prefill or decode mode, not "
                          f"{mode!r} (recurrent blocks do not chunk)")
 
     # gated RMSNorm then out-projection

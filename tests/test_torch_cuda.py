@@ -2167,3 +2167,245 @@ def test_vlm_engine_on_card_matches_cpu(cuda_device):
             eng.submit(Request(rid=rid, prompt=p, max_new_tokens=10))
         toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
     assert toks["cpu"] == toks[str(cuda_device)]
+
+
+# --------------------------------------------------------------------------
+# training: the flash and RMSNorm kernels under autograd
+# (kernels/autograd.py), each gradient against autograd of the float32
+# plain version on the same inputs (float32 at TOL[float32], bf16 at
+# TOL_WIDE); the row logsumexp; the ops without a gradient refusing one
+# --------------------------------------------------------------------------
+
+
+def _grad_leaves(*tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def _close_wide(got, want, tol, what):
+    atol, rtol = tol
+    err = (got.float() - want.float()).abs()
+    bad = int((err > atol + rtol * want.float().abs()).sum())
+    assert bad == 0, f"{what}: {bad} past atol {atol} rtol {rtol}, " \
+        f"max abs err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,kv_step,S,hd,window,chunk,pad", [
+    (1, 1, 150, 64, None, None, False), (3, 1, 96, 128, None, None, False),
+    (4, 1, 130, 100, None, None, False), (5, 2, 80, 128, None, None, False),
+    (2, 1, 128, 160, None, None, False), (1, 1, 96, 64, 24, None, False),
+    (4, 1, 100, 64, None, 32, False), (5, 2, 64, 64, None, 16, False),
+    (2, 1, 77, 64, None, None, True), (1, 1, 64, 112, None, None, True),
+])
+def test_flash_autograd_matches_plain(cuda_device, dtype, group, kv_step, S,
+                                      hd, window, chunk, pad):
+    """q heads at ``group`` over ``Hkv`` kv heads, read (``kv_step`` 2) as
+    the strided view ``::2`` of duplicated heads, as Maverick's layout;
+    pad queries (position -1) take no gradient from either side (their
+    output gradient is 0, as a masked label gives)."""
+    gen = torch.Generator().manual_seed(S + hd + group)
+    B, Hkv = 2, 2
+    Hq = Hkv * group
+    q = torch.randn(B, S, Hq, hd, generator=gen)
+    k = torch.randn(B, S, Hkv * kv_step, hd, generator=gen)
+    v = torch.randn(B, S, Hkv * kv_step, hd, generator=gen)
+    pos = _pos(B, S, gen, pad).to(cuda_device)
+    # the output's gradient as the kernel path receives it: in the
+    # output's type (autograd casts it), so both sides start from it
+    dout = torch.randn(B, S, Hq, hd, generator=gen).to(dtype).float().to(
+        cuda_device)
+    dout = torch.where(pos[:, :, None, None] >= 0, dout, 0.0)
+    q, k, v = (t.to(dtype).to(cuda_device) for t in (q, k, v))
+
+    def run(fn, leaves):
+        qq, kk, vv = leaves
+        out = fn(qq.transpose(1, 2), kk[:, :, ::kv_step].transpose(1, 2),
+                 vv[:, :, ::kv_step].transpose(1, 2), pos, pos, window, chunk)
+        (out.transpose(1, 2).float() * dout).sum().backward()
+        return out, [t.grad for t in leaves]
+
+    leaves = _grad_leaves(q, k, v)
+    before = ops.launch_counts()["flash_attention"]
+    out, got = run(ops.flash_attention, leaves)
+    assert out.grad_fn is not None
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    _, want = run(ref.flash_attention,
+                  _grad_leaves(*(t.float() for t in (q, k, v))))
+    torch.cuda.synchronize()
+    tol = ((TOL[torch.float32],) * 2 if dtype == torch.float32 else TOL_WIDE)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        _close_wide(g, w, tol, f"d{name}")
+    if pad:
+        assert not got[0][pos < 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,S,hd,window,chunk,pad", [
+    (1, 150, 64, None, None, True), (4, 130, 100, 24, None, True),
+    (2, 96, 160, None, 32, False), (3, 64, 128, None, None, True),
+])
+def test_flash_lse_matches_logsumexp(cuda_device, dtype, group, S, hd,
+                                     window, chunk, pad):
+    """The kernel's row logsumexp against ``torch.logsumexp`` of the valid
+    scaled scores in float32; +inf where a row sees no key; the output the
+    same bits as the call without lse."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator().manual_seed(S + hd)
+    B, Hkv = 2, 2
+    Hq = Hkv * group
+    q, k, v = (torch.randn(B, S, H, hd, generator=gen).to(dtype).to(
+        cuda_device).transpose(1, 2) for H in (Hq, Hkv, Hkv))
+    pos = _pos(B, S, gen, pad).to(cuda_device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=cuda_device)
+    with_lse = FA.flash_attention(q, k, v, pos, pos, window, chunk, lse=lse)
+    without = FA.flash_attention(q, k, v, pos, pos, window, chunk)
+    assert torch.equal(with_lse, without)
+    kk = k.float().repeat_interleave(group, dim=1)
+    s = q.float() @ kk.transpose(-1, -2) / math.sqrt(hd)
+    ok = ref.attention_mask(pos[:, None, :, None], pos[:, None, None, :],
+                            window, chunk)
+    want = torch.logsumexp(torch.where(ok, s, -math.inf), dim=-1)
+    live = ok.any(-1).expand_as(want)
+    assert torch.isinf(lse[~live]).all() and (lse[~live] > 0).all()
+    torch.testing.assert_close(lse[live], want[live], atol=1e-4 if
+                               dtype == torch.float32 else 2e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d", [(8, 64), (300, 2048), (33, 160)])
+@pytest.mark.parametrize("add", [False, True])
+def test_rmsnorm_autograd_matches_plain(cuda_device, dtype, R, d, add):
+    gen = torch.Generator().manual_seed(R + d)
+    x = torch.randn(R, d, generator=gen).to(dtype).to(cuda_device)
+    delta = torch.randn(R, d, generator=gen).to(dtype).to(cuda_device)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen)).to(dtype).to(
+        cuda_device)
+    # the outputs' gradients in their type, as the kernel path gets them
+    dy = torch.randn(R, d, generator=gen).to(dtype).float().to(cuda_device)
+    ds = torch.randn(R, d, generator=gen).to(dtype).float().to(cuda_device)
+
+    def run(norm, add_norm, leaves):
+        xx, dd, sc = leaves
+        if add:
+            s, y = add_norm(xx, dd, sc, 1e-5)
+            ((s.float() * ds).sum() + (y.float() * dy).sum()).backward()
+        else:
+            y = norm(xx, sc, 1e-5)
+            (y.float() * dy).sum().backward()
+        return y, [t.grad for t in leaves]
+
+    def plain_add(xx, dd, sc, eps):
+        # the residual sum rounded once to the row type, as the kernel's
+        # (bit-identical to PyTorch's x + delta), the norm in float32
+        s = (xx + dd).to(dtype).float()
+        return s, ref.rmsnorm(s, sc, eps)
+
+    y, got = run(ops.rmsnorm, ops.add_rmsnorm, _grad_leaves(x, delta, scale))
+    assert y.grad_fn is not None
+    _, want = run(ref.rmsnorm, plain_add,
+                  _grad_leaves(*(t.float() for t in (x, delta, scale))))
+    torch.cuda.synchronize()
+    tol = ((TOL[torch.float32],) * 2 if dtype == torch.float32 else TOL_WIDE)
+    for name, g, w in zip(("x", "delta", "scale"), got, want):
+        if name == "delta" and not add:
+            assert g is None
+            continue
+        assert g.dtype == dtype
+        _close_wide(g, w, tol, f"d{name}")
+
+
+def test_kernel_ops_without_a_gradient_refuse_one(cuda_device):
+    """Every kernel op but flash_attention, rmsnorm and add_rmsnorm raises
+    when grad mode is on and an input requires grad, and runs under
+    torch.no_grad()."""
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    B, H, W, hd, ps, M = 2, 2, 32, 64, 8, 4
+    q1 = rnd(B, H, hd).requires_grad_(True)
+    k, v = rnd(B, H, W, hd), rnd(B, H, W, hd)
+    pos = torch.arange(W, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    qp = torch.full((B,), W - 1, dtype=torch.int32, device=dev)
+    pages = rnd(H, B * M + 1, ps, hd)
+    tbl = torch.arange(B * M, dtype=torch.int32, device=dev).view(B, M)
+    qs = rnd(B, H, 4, hd).requires_grad_(True)
+    qsp = torch.arange(W - 4, W, dtype=torch.int32, device=dev)[None].repeat(
+        B, 1)
+    x = rnd(B, 16, 2, 8).requires_grad_(True)
+    r = rnd(1, 2, 8, 16).requires_grad_(True)
+    y = rnd(4, 32).requires_grad_(True)
+    calls = {
+        "decode_attention": lambda: ops.decode_attention(q1, k, v, qp, pos),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            q1, pages, pages, tbl, qp, pos),
+        "chunked_prefill_attention": lambda: ops.chunked_prefill_attention(
+            qs, pages, pages, tbl, qsp, pos),
+        "mla_decode_attention": lambda: ops.mla_decode_attention(
+            rnd(B, 4, 16).requires_grad_(True), rnd(B, 4, 8), rnd(B, W, 16),
+            rnd(B, W, 8), qp, pos),
+        "ssd_chunk": lambda: ops.ssd_scan(
+            x, torch.rand(B, 16, 2, device=dev), -torch.rand(2, device=dev),
+            rnd(B, 16, 2, 4), rnd(B, 16, 2, 4), chunk=8),
+        "wkv6": lambda: ops.wkv6(
+            r, rnd(1, 2, 8, 16), rnd(1, 2, 8, 16),
+            torch.rand(1, 2, 8, 16, device=dev), rnd(2, 16),
+            torch.zeros(1, 2, 16, 16, device=dev)),
+        "cat_rmsnorm": lambda: ops.cat_rmsnorm(y, rnd(4, 32),
+                                               torch.ones(64, device=dev)),
+        "gated_rmsnorm": lambda: ops.gated_rmsnorm(
+            y, rnd(4, 32), torch.ones(32, device=dev), 1e-5, torch.float32),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        for t in out if isinstance(out, tuple) else (out,):
+            assert torch.isfinite(t).all(), name
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(cuda_device, remat):
+    """llama3.2-1b smoke in float32: ``train_loss`` and every gradient on
+    the card (flash and RMSNorm kernels under autograd) against the CPU's
+    plain path from the same weights, 1e-3; every parameter takes a
+    gradient; flash L and RMSNorm 2 L + 1 forward launches a step, and
+    under remat the backward runs each layer's again."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training.optim import unique_leaves
+    cfg = get_config("llama3.2-1b", "smoke")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)).astype(
+        np.int32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = _to(params, dev)
+        for _, t in unique_leaves(p):
+            t.detach_().requires_grad_(True)
+        batch = {"tokens": tokens.to(dev),
+                 "labels": torch.roll(tokens, -1, dims=1).to(dev)}
+        ops.reset_launches()
+        loss, _ = Model(cfg, dev).train_loss(p, batch, remat=remat)
+        fwd = ops.launch_counts()
+        loss.backward()
+        bwd = ops.launch_counts()
+        out[str(dev)] = (loss.detach().cpu(),
+                         [(path, t.grad) for path, t in unique_leaves(p)],
+                         fwd, bwd)
+    L = cfg.n_layers
+    l_cpu, g_cpu, _, _ = out["cpu"]
+    l_card, g_card, fwd, bwd = out[str(cuda_device)]
+    assert (fwd["flash_attention"], fwd["rmsnorm"]) == (L, 2 * L + 1)
+    assert bwd["flash_attention"] == L * (2 if remat else 1)
+    torch.testing.assert_close(l_card, l_cpu, atol=1e-4, rtol=1e-4)
+    for (path, gc), (_, gg) in zip(g_cpu, g_card):
+        assert gg is not None, path
+        torch.testing.assert_close(gg.cpu(), gc, atol=1e-3, rtol=1e-3,
+                                   msg="/".join(path))

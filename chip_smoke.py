@@ -213,7 +213,23 @@ Phases (any failure raises and the script exits non-zero):
    gradient probe: depth 2 at full width, every gradient leaf of the bf16
    kernel path no further from a float32 referee (the plain versions on
    float32 weights) than ``REFEREE`` times the plain bf16 path's,
-   relative error in norm;
+   relative error in norm. Then ``phase_moe_sharded``: one DeepSeek-V3
+   MoE layer at full width (256 experts top-8, d 7,168, expert FFN 2,048,
+   one shared expert, bf16: 22.5 GB of expert weights) through
+   ``moe_ffn_sharded`` on an NCCL group of one rank and a (1, 1) mesh,
+   called directly, against ``moe_ffn`` on the same 4 x 512 tokens at a
+   capacity factor of 4 (both drop fractions printed, 0 or it fails;
+   ``TOL[bf16]``); every gradient of a backward finite; the collective
+   counts (``CommDebugMode``) and ms a call of both paths; the group
+   destroyed. Last, ``phase_dryrun_memory``: the dry-run's per-device
+   argument bytes on a (1, 1) mesh against the growth of
+   ``torch.cuda.memory_allocated()`` over the same allocation:
+   ``llama3.2-1b`` full at ``max_batch=8, max_len=2048`` (``Model.init``
+   and ``init_cache``), and ``phase_train``'s step (``llama-paper-1b``'s
+   parameters, AdamW moments and a 4 x 1,024 batch), each within 0.1% or
+   2 MiB; the counted FLOPs of that step (``launch.op_cost`` on meta)
+   beside ``model_flops`` and the TFLOP/s they give at ``phase_train``'s
+   step time;
 5. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +316,10 @@ TRAIN_PROBE_PARAMS = 233_842_688     # the reference's param_counts at depth 2
 TRAIN_STEPS, TRAIN_WARMUP = 8, 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_BRANCHING = 4, 1024, 4
 TRAIN_LR = 6e-4
+MOE_SHARDED_TOKENS = (4, 512)        # one DeepSeek-V3 MoE layer's input
+MOE_SHARDED_CF = 4.0                 # C 256 on both paths: no drop
+DRYRUN_SERVE = (8, 2048)             # llama3.2-1b: max_batch, max_len
+DRYRUN_TOL = (1e-3, 2 * 2**20)       # relative, or bytes
 # the probes' referee: bf16 rounding alone moves a full-width model's
 # logits past TOL[bf16] (the plain bf16 path against float32 too), so the
 # kernels' logits may be at most this many times further from the float32
@@ -4409,6 +4429,200 @@ def phase_train(card):
     return numbers
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def comm_debug_mode():
+    try:
+        from torch.distributed.tensor.debug import CommDebugMode
+    except ImportError:                 # older torch
+        from torch.distributed._tensor.debug import CommDebugMode
+    return CommDebugMode()
+
+
+def phase_moe_sharded(card):
+    """One DeepSeek-V3 MoE layer at full width through ``moe_ffn_sharded``
+    on an NCCL group of one rank, (1, 1) mesh, against ``moe_ffn`` on the
+    same inputs (module docstring). On one rank the expert axes are ()
+    and the FFN axes (data, model), as ``expert_axes`` gives: its
+    all-gathers and reduce-scatters run, the all-to-all does not. Returns
+    the readings."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import moe_sharded as MOES
+    from repro_torch.sharding.rules import expert_axes
+    cfg = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_SHARDED_CF))
+    m = cfg.moe
+    assert (m.n_experts, m.top_k, cfg.d_model, m.d_ff_expert,
+            m.n_shared_experts, cfg.dtype) == (256, 8, 7168, 2048, 1,
+                                               "bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(0)         # NCCL's communicator binds this card
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        p = MOE.moe_init(gen, cfg, "cuda")
+        experts = sum(p[n].numel() * p[n].element_size() for n in
+                      ("experts_gate", "experts_up", "experts_down"))
+        B, S = MOE_SHARDED_TOKENS
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        T = B * S
+        print(f"\n[moe_sharded] {cfg.name} MoE layer: {m.n_experts} experts "
+              f"top-{m.top_k}, d {cfg.d_model}, expert FFN {m.d_ff_expert}, "
+              f"{m.n_shared_experts} shared, {experts / 1e9:.3f} GB of expert "
+              f"weights; {B} x {S} tokens, capacity factor {m.capacity_factor}"
+              f" (C {MOE.capacity(cfg, T)} dense, {MOES.capacity(cfg, T)} "
+              f"sharded); NCCL, 1 rank, mesh (1, 1), expert axes "
+              f"{expert_axes(m.n_experts, mesh)} ({card})")
+        with torch.no_grad():
+            y_d, aux_d = MOE.moe_ffn(p, cfg, x)
+            with comm_debug_mode() as cm:
+                y_s, aux_s = MOES.moe_ffn_sharded(p, cfg, x, mesh=mesh)
+            torch.cuda.synchronize()
+            counts = {str(k): v for k, v in cm.get_comm_counts().items()
+                      if v}
+            drops = (float(aux_d["moe_drop_frac"]),
+                     float(aux_s["moe_drop_frac"]))
+            err = check_close("moe_ffn_sharded", y_s, y_d,
+                              slice(None), torch.bfloat16)
+            ms = {"moe_ffn": time_ms(lambda: MOE.moe_ffn(p, cfg, x),
+                                     warmup=1, iters=3),
+                  "moe_ffn_sharded": time_ms(
+                      lambda: MOES.moe_ffn_sharded(p, cfg, x, mesh=mesh),
+                      warmup=1, iters=3)}
+        print(f"  drop fraction: dense {drops[0]}, sharded {drops[1]}; max "
+              f"abs err {err:.3e} (TOL[bf16] {TOL[torch.bfloat16]}); aux "
+              f"dense {float(aux_d['moe_aux']):.6f} sharded "
+              f"{float(aux_s['moe_aux']):.6f}")
+        print(f"  collectives a call (CommDebugMode): {counts}")
+        print(f"  ms a call: moe_ffn {ms['moe_ffn']:.4f}, moe_ffn_sharded "
+              f"{ms['moe_ffn_sharded']:.4f} ({card})")
+        del y_d, y_s
+        leaves = [p["router"], p["experts_gate"], p["experts_up"],
+                  p["experts_down"], *p["shared"].values()]
+        for w in leaves:
+            w.requires_grad_(True)
+        x.requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats()
+        y, aux = MOES.moe_ffn_sharded(p, cfg, x, mesh=mesh)
+        (y.float().square().mean() + aux["moe_aux"]).backward()
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t.grad).all())
+                     for t in leaves + [x])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  backward: {len(leaves) + 1} gradients, all finite "
+              f"{finite}; peak {peak / 1e9:.2f} GB allocated ({card})")
+        expect("moe_sharded", [
+            (drops == (0.0, 0.0), f"drop fractions {drops}"),
+            (finite, "a non-finite gradient"),
+            (counts.get("c10d._allgather_base_", 0) >= 2,
+             f"collectives {counts}"),
+        ])
+    finally:
+        p = x = y = aux = None
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(ms=ms, drops=drops, err=err, counts=counts)
+
+
+def phase_dryrun_memory(card, train):
+    """The dry-run's per-device argument bytes on a (1, 1) mesh against
+    the card's own allocation, and ``phase_train``'s step counted on meta
+    (module docstring). ``train``: ``phase_train``'s numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import argument_bytes, count_step
+    from repro_torch.models import Model
+    from repro_torch.models.costing import model_flops
+    from repro_torch.sharding.rules import DEFAULT_RULES
+    from repro_torch.training.optim import AdamWConfig, adamw_init
+
+    class OneDevice:
+        shape = {"data": 1, "model": 1}
+
+    def grown(alloc):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        held = alloc()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - before, held
+
+    def agree(label, want, got):
+        ok = abs(got - want) <= max(DRYRUN_TOL[0] * want, DRYRUN_TOL[1])
+        print(f"  {label}: dry-run {want:.0f} B, card {got} B, "
+              f"difference {got - want:+.0f} B ({(got - want) / want:+.3e}) "
+              f"({card})")
+        return ok, f"{label}: dry-run {want}, card {got}"
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    checks = []
+    print(f"\n[dryrun_memory] argument bytes of the dry-run on a (1, 1) "
+          f"mesh against torch.cuda.memory_allocated() ({card})")
+    cfg = get_config("llama3.2-1b")
+    model = Model(cfg, "cuda")
+    B, W = DRYRUN_SERVE
+    want = argument_bytes(Model(cfg, "meta"), "decode", B, W, OneDevice(),
+                          True, DEFAULT_RULES)
+    got_p, params = grown(lambda: model.init(gen))
+    got_c, caches = grown(lambda: model.init_cache(B, W))
+    checks.append(agree(f"{cfg.name} parameters", want["param_bytes"],
+                        got_p))
+    checks.append(agree(f"{cfg.name} caches (max_batch {B}, max_len {W})",
+                        want["cache_bytes"], got_c))
+    params = caches = model = None
+
+    cfg = get_config(TRAIN)
+    model = Model(cfg, "cuda")
+    meta = Model(cfg, "meta")
+    want = argument_bytes(meta, "train", TRAIN_BATCH, TRAIN_SEQ, OneDevice(),
+                          True, DEFAULT_RULES)
+
+    def train_args():
+        params = model.init(gen)
+        batch = {k: torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                                device="cuda") for k in ("tokens", "labels")}
+        return params, adamw_init(params, AdamWConfig(lr=TRAIN_LR)), batch
+    got_t, held = grown(train_args)
+    checks.append(agree(f"{cfg.name} train step arguments (parameters, "
+                        f"{want['moment_dtype']} moments, {TRAIN_BATCH} x "
+                        f"{TRAIN_SEQ} batch)",
+                        want["argument_size_in_bytes"], got_t))
+    held = model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step = count_step(meta, "train", TRAIN_BATCH, TRAIN_SEQ,
+                      AdamWConfig(lr=TRAIN_LR), remat=False)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mf = model_flops(cfg, tokens, training=True)
+    step_s = tokens / train["tokens_per_s"]
+    print(f"  {cfg.name} train step ({TRAIN_BATCH} x {TRAIN_SEQ}, remat off)"
+          f" counted on meta in {time.perf_counter() - t0:.1f} s: "
+          f"{step.flops:.6e} FLOPs, {step.bytes:.6e} bytes; model_flops "
+          f"{mf:.6e} (ratio {mf / step.flops:.4f}); at phase_train's "
+          f"{step_s * 1e3:.1f} ms a step: {step.flops / step_s / 1e12:.2f} "
+          f"TFLOP/s counted, {mf / step_s / 1e12:.2f} TFLOP/s of "
+          f"model_flops ({card})")
+    expect("dryrun_memory", checks)
+    return dict(flops=step.flops, model_flops=mf, step_s=step_s)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4475,6 +4689,11 @@ def main() -> int:
     print(f"\n[train] launches over the fit: {train['launches']}; "
           f"{train['tokens_per_s']:.1f} tokens/s; probe's worst ratio "
           f"{train['probe_worst']:.4f}")
+    moe = phase_moe_sharded(card)
+    print(f"\n[moe_sharded] ms a call {moe['ms']}; drops {moe['drops']}")
+    mem = phase_dryrun_memory(card, train)
+    print(f"\n[dryrun_memory] counted {mem['flops']:.6e} FLOPs a train "
+          f"step, model_flops {mem['model_flops']:.6e}")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], **measured[name])

@@ -1,5 +1,7 @@
 """Kernel ops with device dispatch: a tensor on the CPU goes to the plain
-PyTorch version (``kernels/ref.py``), a tensor on a CUDA device to the
+PyTorch version (``kernels/ref.py``), as does one on the ``meta`` device
+(shapes only: ``launch/dryrun.py`` counts the plain path's ops), a tensor
+on a CUDA device to the
 hand-written kernel — which launches or raises. There is no fallback
 from the kernel to the plain version.
 
@@ -42,9 +44,9 @@ _KERNELS = {"flash_attention": _fa, "decode_attention": _dec,
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):      # meta: shapes only (dry-run)
         return False
-    raise ValueError(f"kernel ops run on cpu or cuda, not {t.device}")
+    raise ValueError(f"kernel ops run on cpu, meta or cuda, not {t.device}")
 
 
 def flash_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,

@@ -4,7 +4,8 @@ SwiGLU MLP on a sequential residual), ``parallel`` (StableLM-2: attention
 with qk-norm and the MLP side by side on one pre-norm, added together),
 ``moe`` (the ``dense`` block with the mixture-of-experts FFN of
 ``models/moe.py`` in place of the SwiGLU; serving launches no aux loss,
-training returns it),
+training returns it; under a sharding context whose expert axes span
+more than one rank, ``models/moe_sharded.py``'s expert-parallel layer),
 ``mla`` and ``mla_moe`` (DeepSeek-V3: the ``dense`` and ``moe`` blocks
 with MLA's latent attention in place of self-attention), ``mamba2`` (the
 Mamba2 SSD block), ``shared`` (Zamba2's weight-shared attention + MLP
@@ -24,6 +25,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import moe_sharded as MOES
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import BLOCK_KINDS
@@ -194,6 +196,11 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
         return x, _res(cfg, a + L.swiglu(p["mlp"], h2)), {}
     x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
     if kind in ("moe", "mla_moe"):
+        if MOES.use_sharded_moe(cfg):
+            # expert-parallel over the context's mesh (the reference's
+            # ``_moe_dispatch``)
+            f, aux = MOES.moe_ffn_sharded(p["moe"], cfg, h2)
+            return x, _res(cfg, f), (aux if ctx.mode == "train" else {})
         if ctx.mode == "train":
             f, aux = MOE.moe_ffn(p["moe"], cfg, h2)
             return x, _res(cfg, f), aux

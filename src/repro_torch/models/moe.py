@@ -109,6 +109,53 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
     return order, slot, keep, torch.div(order, k, rounding_mode="floor")
 
 
+def scatter(xt: torch.Tensor, slot: torch.Tensor, tok_idx: torch.Tensor,
+            n_experts: int, cap: int) -> torch.Tensor:
+    """The (E, C, d) capacity buffers of the tokens ``xt`` (T, d): each
+    (token, choice) pair's row at its ``slot``. Dropped pairs all land on
+    the scratch row E*C, which is cut off."""
+    d = xt.shape[-1]
+    buf = xt.new_zeros((n_experts * cap + 1, d))
+    buf.index_copy_(0, slot, xt.index_select(0, tok_idx))
+    return buf[:n_experts * cap].view(n_experts, cap, d)
+
+
+def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of each expert's buffer rows: (E, C, d) x (E, d, f) ->
+    (E, C, d), three ``bmm`` (the SiLU in float32)."""
+    g = torch.bmm(buf, w_gate)
+    u = torch.bmm(buf, w_up)
+    h = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
+    return torch.bmm(h, w_down)
+
+
+def combine(out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+            gates: torch.Tensor, order: torch.Tensor, tok_idx: torch.Tensor
+            ) -> torch.Tensor:
+    """Each token's (T, d) output from the experts' (E, C, d): its k rows
+    gathered by ``slot``, weighted by their gates (0 where dropped), added
+    one at a time in the reference's order."""
+    E, C, d = out.shape
+    T, k = gates.shape
+    # row E*C: 0 (a product into a slice of a buffer has no gradient, so
+    # the zero row is joined on)
+    out = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
+    weight = torch.where(keep, gates.reshape(-1).index_select(0, order),
+                         torch.zeros((), device=out.device)).to(out.dtype)
+    # each token's k contributions, added one at a time in x's type in the
+    # reference's order (its scatter-add runs over the pairs sorted by
+    # expert: a token's experts in increasing id). Deterministic on the
+    # card, where an index_add_ of k rows into one token's row is not
+    by_tok = torch.argsort(tok_idx, stable=True)
+    contrib = (out.index_select(0, slot.index_select(0, by_tok))
+               * weight.index_select(0, by_tok)[:, None]).view(T, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y
+
+
 def can_drop(cfg, tokens: int) -> bool:
     """Whether a call of ``tokens`` tokens can drop one: more (token,
     choice) pairs than one expert's slots. Where it cannot, each token's
@@ -127,39 +174,16 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
     B, S, d = x.shape
     T, k, E = B * S, m.top_k, m.n_experts
     C = capacity(cfg, T)
-    dev = x.device
 
     xt = x.reshape(T, d)
     rl = xt.float() @ p["router"]                                 # (T, E)
     gates, ids = router_topk(rl, k)                               # (T, k)
 
     order, slot, keep, tok_idx = dispatch(ids, E, C)
-
-    # scatter tokens into the per-expert capacity buffers; dropped tokens
-    # all land on the scratch row E*C, which is never read
-    buf = x.new_zeros((E * C + 1, d))
-    buf.index_copy_(0, slot, xt.index_select(0, tok_idx))
-    expert_in = buf[:E * C].view(E, C, d)
-    g = torch.bmm(expert_in, p["experts_gate"])
-    u = torch.bmm(expert_in, p["experts_up"])
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    # row E*C: 0 (a product into a slice of a buffer has no gradient, so
-    # the zero row is joined on)
-    out = torch.cat([torch.bmm(h, p["experts_down"]).view(E * C, d),
-                     x.new_zeros((1, d))])
-
-    weight = torch.where(keep, gates.reshape(-1).index_select(0, order),
-                         torch.zeros((), device=dev)).to(x.dtype)
-    # each token's k contributions, added one at a time in x's type in the
-    # reference's order (its scatter-add runs over the pairs sorted by
-    # expert: a token's experts in increasing id). Deterministic on the
-    # card, where an index_add_ of k rows into one token's row is not
-    by_tok = torch.argsort(tok_idx, stable=True)
-    contrib = (out.index_select(0, slot.index_select(0, by_tok))
-               * weight.index_select(0, by_tok)[:, None]).view(T, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
+    expert_in = scatter(xt, slot, tok_idx, E, C)
+    out = expert_ffn(expert_in, p["experts_gate"], p["experts_up"],
+                     p["experts_down"])
+    y = combine(out, slot, keep, gates, order, tok_idx)
     if m.n_shared_experts:
         y = y + L.swiglu(p["shared"], xt)
 

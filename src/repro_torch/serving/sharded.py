@@ -1028,6 +1028,32 @@ class ShardedServingEngine:
         self.health.record_ok(self._site_shards(site))
         self._backoff.pop(site, None)
 
+    def stacked_state(self) -> Dict:
+        """The device state with a leading shard axis on every leaf, views
+        of the one-card layout (no copy): a flat (S*B, ...) row leaf as (S,
+        B, ...), the allocator as it is, a pool (Hkv, S*P + 1, ps, hd) as
+        (S, Hkv, P, ps, hd) without the shared trash page. This is the
+        tree the reference's fleet places one shard a device
+        (``sharding.rules.serving_shardings``)."""
+        S, P = self.S, self.num_pages
+
+        def leaf(name, x):
+            if name in ("k_pages", "v_pages"):
+                return x[:, :S * P].unflatten(1, (S, P)).movedim(1, 0)
+            if name in ("tbl", "free", "top", "ref"):
+                return x
+            return x.unflatten(0, (S, x.shape[0] // S))
+
+        def tree(t, name=""):
+            if isinstance(t, dict):
+                return {k: tree(v, k) for k, v in t.items()}
+            if isinstance(t, list):
+                return [tree(v) for v in t]
+            return None if t is None else leaf(name, t)
+
+        return {"caches": tree(self.caches), "cur_tokens": tree(
+            self.cur_tokens), "state": tree(self.state)}
+
     def audit(self) -> None:
         """Consistency check of the fleet between quanta:
 

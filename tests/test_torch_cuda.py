@@ -2409,3 +2409,53 @@ def test_train_step_on_card_matches_cpu(cuda_device, remat):
         assert gg is not None, path
         torch.testing.assert_close(gg.cpu(), gc, atol=1e-3, rtol=1e-3,
                                    msg="/".join(path))
+
+
+def test_moe_sharded_one_nccl_rank_matches_moe_ffn(cuda_device, tmp_path):
+    """``moe_ffn_sharded`` on an NCCL group of one rank ((1, 1) mesh: the
+    FFN axes' all-gathers and reduce-scatters, the final all-gather, the
+    aux mean) against ``moe_ffn`` at E 8, top-2, d 256, bf16: y within the
+    bf16 tolerance, no drop on either path, aux equal, every gradient of
+    a backward finite."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import moe_sharded as MOES
+    from repro_torch.models.config import ModelConfig, MoEConfig, \
+        repeat_pattern
+    cfg = ModelConfig(
+        name="moe-card", family="moe", n_layers=2, d_model=256, n_heads=4,
+        n_kv_heads=4, d_ff=512, vocab=64, dtype="bfloat16",
+        block_pattern=repeat_pattern(("moe",), 2),
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=512,
+                      n_shared_experts=1, capacity_factor=4.0),
+        vocab_pad_multiple=8)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        p = MOE.moe_init(gen, cfg, cuda_device)
+        x = torch.randn((4, 64, 256), generator=gen, device=cuda_device,
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            y_d, aux_d = MOE.moe_ffn(p, cfg, x)
+            y_s, aux_s = MOES.moe_ffn_sharded(p, cfg, x, mesh=mesh)
+        assert float(aux_d["moe_drop_frac"]) == 0.0
+        assert float(aux_s["moe_drop_frac"]) == 0.0
+        tol = TOL[torch.bfloat16]
+        torch.testing.assert_close(y_s.float(), y_d.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(aux_s["moe_aux"], aux_d["moe_aux"])
+        leaves = [p["router"], p["experts_gate"], p["experts_up"],
+                  p["experts_down"], *p["shared"].values(), x]
+        for w in leaves:
+            w.requires_grad_(True)
+        y, aux = MOES.moe_ffn_sharded(p, cfg, x, mesh=mesh)
+        (y.float().square().mean() + aux["moe_aux"]).backward()
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(w.grad).all() for w in leaves)
+    finally:
+        dist.destroy_process_group()

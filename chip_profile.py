@@ -5,6 +5,7 @@
                             [llama3b] [llama3b-paged] [llama7b]
                             [internlm2] [minicpm] [stablelm] [fleet]
                             [maverick] [deepseek] [vlm] [seamless] [train]
+                            [train-rwkv6] [train-zamba2]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -46,7 +47,11 @@ SeamlessM4T path (neither engine serves an encoder-decoder):
 The train path runs one ``Trainer.train_step`` of ``chip_smoke.py``'s
 ``phase_train`` (``llama-paper-1b`` full, bf16, 4 x 1,024 tokens, the
 flash and RMSNorm kernels under autograd, AdamW in place) a "micro-step"
-(``ModelLevel``; host_syncs 0: the step fetches nothing).
+(``ModelLevel``; host_syncs 0: the step fetches nothing); the
+train-rwkv6 and train-zamba2 paths the same on ``phase_train_recurrent``'s
+models: ``rwkv6-1.6b`` full and ``zamba2-7b`` at full width cut to depth
+24 (``chip_smoke.zamba_train_cut``), the SSD chunk, WKV6 and the concat
+and gate norms under autograd as well.
 With no argument it profiles the first four. Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
@@ -225,7 +230,11 @@ def main() -> int:
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
     known = ["contiguous", "paged", "zamba2", "rwkv", "fleet", "maverick",
-             "deepseek", "vlm", "seamless", "train"]
+             "deepseek", "vlm", "seamless"]
+    # train path -> its config
+    trains = {"train": lambda: get_config(chip_smoke.TRAIN),
+              "train-rwkv6": lambda: get_config(chip_smoke.RWKV),
+              "train-zamba2": chip_smoke.zamba_train_cut}
     # path -> (config, paged main path)
     dense = {"llama3b": ("llama-paper-3b", False),
              "llama3b-paged": ("llama-paper-3b", True),
@@ -234,7 +243,7 @@ def main() -> int:
              "minicpm": ("minicpm-2b", True),
              "stablelm": ("stablelm-12b", True)}
     paths = sys.argv[1:] or known[:4]
-    unknown = set(paths) - set(known) - set(dense)
+    unknown = set(paths) - set(known) - set(dense) - set(trains)
     if unknown:
         print(f"chip_profile: unknown paths {sorted(unknown)}", file=sys.stderr)
         return 2
@@ -325,10 +334,12 @@ def main() -> int:
                 engine_cls=ModelLevel, drive=drive_model)
         del model, params
         torch.cuda.empty_cache()
-    if "train" in paths:
+    for path in [p for p in paths if p in trains]:
         from repro_torch.training import AdamWConfig, TrainConfig, Trainer
         from repro_torch.training.data import lm_batches
-        cfg, model, params = load(chip_smoke.TRAIN)
+        cfg = trains[path]()
+        model = Model(cfg, "cuda")
+        params = model.init(gen_of(0))
         trainer = Trainer(model, TrainConfig(
             steps=chip_smoke.TRAIN_STEPS, warmup=chip_smoke.TRAIN_WARMUP,
             optim=AdamWConfig(lr=chip_smoke.TRAIN_LR), profile="h100_sxm",
@@ -336,8 +347,9 @@ def main() -> int:
         batch = trainer.device_batch(next(lm_batches(
             0, cfg.vocab, chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ,
             chip_smoke.TRAIN_BRANCHING)))
-        profile(card, f"{cfg.name} train step ({chip_smoke.TRAIN_BATCH} x "
-                f"{chip_smoke.TRAIN_SEQ} tokens, AdamW)", trainer, batch,
+        profile(card, f"{cfg.name} depth {cfg.n_layers} train step "
+                f"({chip_smoke.TRAIN_BATCH} x {chip_smoke.TRAIN_SEQ} tokens, "
+                "AdamW)", trainer, batch,
                 None, lambda: None, engine_cls=ModelLevel,
                 drive=drive_train)
         del model, params, trainer

@@ -213,7 +213,24 @@ Phases (any failure raises and the script exits non-zero):
    gradient probe: depth 2 at full width, every gradient leaf of the bf16
    kernel path no further from a float32 referee (the plain versions on
    float32 weights) than ``REFEREE`` times the plain bf16 path's,
-   relative error in norm. Then ``phase_moe_sharded``: one DeepSeek-V3
+   relative error in norm. Then ``phase_train_recurrent``: the
+   recurrent families' four Functions at the train steps' shapes (``SSDChunk`` at
+   Zamba2's (4, 112, 4, 256, 64) float32 with B/C a stride-0 group,
+   ``WKV6`` at RWKV6's B4 H32 T1024 hd 64 bf16, ``CatRMSNorm`` with the
+   add at (4,096, 3,584 + 3,584) bf16, ``GatedRMSNorm`` at (4,096, 7,168)
+   float32 in, bf16 out), each forward bit-identical to its bare kernel,
+   each gradient against autograd of the plain version, forward +
+   backward ms beside the bound and the plain version's; the dry-run's
+   train-step argument bytes of Zamba2's cut; then ``rwkv6-1.6b`` in full
+   (1,599,866,880 parameters) and ``zamba2-7b`` at full width cut to depth
+   24 (four units of 5 mamba2 and a shared site, 2,135,771,712
+   parameters), each trained 16 steps through ``Trainer.fit`` as
+   ``phase_train`` (loss, grad norm, lr, tokens/s, peak memory at least 8
+   GB under 80, modeled and measured J), one more step counted (WKV6 24
+   and RMSNorm 1 a forward; SSD 20, flash 4, RMSNorm 49 a forward; none
+   in the backward), every loss finite and the last below the first;
+   then each family's gradient probe (RWKV6 depth 2, Zamba2 depth 6)
+   within ``REFEREE``. Then ``phase_moe_sharded``: one DeepSeek-V3
    MoE layer at full width (256 experts top-8, d 7,168, expert FFN 2,048,
    one shared expert, bf16: 22.5 GB of expert weights) through
    ``moe_ffn_sharded`` on an NCCL group of one rank and a (1, 1) mesh,
@@ -3529,10 +3546,11 @@ def encoder_norms(cfg):
 
 
 def plain_ops():
-    """Within: the model's flash, decode and RMSNorm ops are their plain
-    versions (``kernels/ref.py``), on the card."""
+    """Within: the model's flash, decode, RMSNorm, SSD chunk and WKV6 ops
+    are their plain versions (``kernels/ref.py``), on the card."""
     from repro_torch.kernels import ops
-    return ops.swapped(lambda name, op, plain: plain)
+    return ops.swapped(lambda name, op, plain: plain,
+                       ops.SWAPPABLE + ops.RECURRENT)
 
 
 def load_model(cfg, n_expected, tag, card):
@@ -3550,12 +3568,13 @@ def load_model(cfg, n_expected, tag, card):
     t0 = time.perf_counter()
     params = model.init(gen)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    leaves = {id(t): t for t in _leaves(params)}.values()   # shared once
+    n_params = sum(t.numel() for t in leaves)
     if n_params != n_expected:
         raise AssertionError(f"{cfg.name} depth {cfg.n_layers}: {n_params} "
                              f"parameters on the card, the reference has "
                              f"{n_expected}")
-    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    weights = sum(t.numel() * t.element_size() for t in leaves)
     print(f"[{tag}] {cfg.name}: depth {cfg.n_layers}, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} padded to "
           f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded}, head dim "
@@ -4261,28 +4280,29 @@ def train_grads(model, params, batch):
     return float(loss.detach()), out
 
 
-def train_probe(card, cfg, batch):
-    """The gradient probe: ``cfg`` cut to depth ``TRAIN_PROBE_DEPTH`` at
-    full width, one batch; every gradient leaf of the bf16 kernel path
-    (flash and RMSNorm under autograd) and of the plain bf16 path against
-    the float32 referee (the plain versions on float32 weights, on the
-    card). The kernel path's relative error (norm of the difference over
-    the referee's norm) must be at most ``REFEREE`` times the plain bf16
-    path's, leaf by leaf. Returns the worst ratio."""
+def train_probe(card, cfg, batch, depth=TRAIN_PROBE_DEPTH,
+                n_params=TRAIN_PROBE_PARAMS, want=None):
+    """The gradient probe: ``cfg`` cut to ``depth`` at full width, one
+    batch; every gradient leaf of the bf16 kernel path (the kernels under
+    autograd) and of the plain bf16 path against the float32 referee (the
+    plain versions on float32 weights, on the card). The kernel path's
+    relative error (norm of the difference over the referee's norm) must
+    be at most ``REFEREE`` times the plain bf16 path's, leaf by leaf; its
+    launches must be ``want`` (by default a dense model's: flash ``depth``,
+    RMSNorm 2 ``depth`` + 1, no other). Returns the worst ratio."""
     from repro_torch.kernels import ops
     from repro_torch.models import Model
-    cut = dataclasses.replace(cfg, n_layers=TRAIN_PROBE_DEPTH,
-                              block_pattern=cfg.block_pattern[
-                                  :TRAIN_PROBE_DEPTH])
-    model, params, _, _ = load_model(cut, TRAIN_PROBE_PARAMS, "train probe",
-                                     card)
+    cut = dataclasses.replace(cfg, n_layers=depth,
+                              block_pattern=cfg.block_pattern[:depth])
+    model, params, _, _ = load_model(cut, n_params, "train probe", card)
     ops.reset_launches()
     loss_k, kern = train_grads(model, params, batch)
     launches = ops.launch_counts()
+    if want is None:
+        want = {"flash_attention": depth, "rmsnorm": 2 * depth + 1}
     expect("train probe", [
-        (launches["flash_attention"] == TRAIN_PROBE_DEPTH
-         and launches["rmsnorm"] == 2 * TRAIN_PROBE_DEPTH + 1,
-         f"kernel path launches {launches}")])
+        (launches == {k: want.get(k, 0) for k in launches},
+         f"kernel path launches {launches}, want {want}")])
     with plain_ops():
         loss_p, plain = train_grads(model, params, batch)
 
@@ -4321,6 +4341,78 @@ def train_probe(card, cfg, batch):
     return worst
 
 
+def fit_on_card(card, tag, what, model, params, n_params, steps, extra):
+    """``Trainer.fit`` of ``model`` for ``steps`` steps (WSD, warmup
+    ``TRAIN_WARMUP``, AdamW ``TRAIN_LR``, ``profile="h100_sxm"``,
+    ``region="CISO"``, remat off; ``what`` names the cut) on
+    ``lm_batches`` of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``, the launch counts set to 0 just before: prints each
+    step's loss, grad norm and lr, tokens/s of steps 2 on, peak memory, the
+    launches, the modeled J and gCO2 a step and the card's measured J over
+    the fit (``chiprun_out/power_<tag>.csv``). Returns (trainer, the
+    ``steps + extra`` batches, history, launches, peak bytes, tokens/s)."""
+    from repro_torch.core.power_trace import ActiveWindow, PowerTrace
+    from repro_torch.kernels import ops
+    from repro_torch.training import AdamWConfig, TrainConfig, Trainer
+    from repro_torch.training.data import lm_batches
+    cfg = model.cfg
+    tcfg = TrainConfig(steps=steps, log_every=1, warmup=TRAIN_WARMUP,
+                       schedule="wsd", optim=AdamWConfig(lr=TRAIN_LR),
+                       profile="h100_sxm", region="CISO")
+    trainer = Trainer(model, tcfg, device="cuda", params=params)
+    stream = lm_batches(0, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                        TRAIN_BRANCHING)
+    data = [next(stream) for _ in range(steps + extra)]
+    sampler = PowerSampler(power_field())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.fit(iter(data[:steps]), verbose=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rows = sampler.stop()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"\n[{tag}] {cfg.name} {what} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params} parameters), Trainer.fit: "
+          f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW "
+          f"lr {TRAIN_LR} WSD warmup {TRAIN_WARMUP}, remat off ({card})")
+    for r in hist:
+        print(f"  step {r['step']}: loss {r['loss']:.6f} grad_norm "
+              f"{r['grad_norm']:.6f} lr {r['lr']:.6e} clip {r['clip']:.4f} "
+              f"wall {r['wall_s']:.3f} s")
+    steady = hist[-1]["wall_s"] - hist[0]["wall_s"]
+    tps = tokens * (len(hist) - 1) / steady
+    st = trainer.meter.totals
+    print(f"  steps 2-{steps}: {tps:.1f} tokens/s "
+          f"({steady / (len(hist) - 1) * 1e3:.1f} ms a step); step 1 "
+          f"{hist[0]['wall_s'] * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB "
+          f"allocated ({card})")
+    print(f"  launches over the fit: {launches}")
+    print(f"  modeled (h100_sxm @ CISO): {st.energy_j / st.steps:.2f} J and "
+          f"{st.total_g / st.steps:.6f} gCO2 a step")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", f"power_{tag}.csv")
+    write_power_csv(path, rows)
+    trace = PowerTrace.from_csv(path)
+    window = ActiveWindow(t0, t1)
+    inside = [w for t, w in zip(trace.t_s, trace.watts)
+              if window.contains(t)]
+    if len(inside) < POWER_MIN:
+        raise AssertionError(f"{tag}: {len(inside)} power samples in the "
+                             f"{t1 - t0:.3f} s fit (< {POWER_MIN})")
+    joules = trace.energy_j(window)
+    print(f"  measured power ({card}): {sampler.field} every {POWER_MS} ms, "
+          f"{len(inside)} samples over the {t1 - t0:.3f} s fit, mean "
+          f"{sum(inside) / len(inside):.1f} W, measured {joules:.1f} J "
+          f"({joules / steps:.1f} J a step; modeled "
+          f"{st.energy_j / st.steps:.2f}; measured / modeled "
+          f"{joules / st.energy_j:.3f}) (CSV {os.path.relpath(path, ROOT)})")
+    return trainer, data, hist, launches, peak, tps
+
+
 def phase_train(card):
     """``llama-paper-1b`` at full width and depth trained for
     ``TRAIN_STEPS`` steps through ``Trainer.fit`` (WSD, warmup
@@ -4334,68 +4426,13 @@ def phase_train(card):
     non-finite loss, step 8's loss not below step 1's, or the probe.
     Returns the kernel numbers and the fit's launches."""
     from repro_torch.configs import get_config
-    from repro_torch.core.power_trace import ActiveWindow, PowerTrace
-    from repro_torch.kernels import ops
-    from repro_torch.training import AdamWConfig, TrainConfig, Trainer
-    from repro_torch.training.data import lm_batches
     numbers = train_kernels(card)
     cfg = get_config(TRAIN)
     assert cfg.n_layers == N_LAYERS and cfg.dtype == "bfloat16"
     model, params, _, _ = load_model(cfg, TRAIN_PARAMS, "train", card)
-    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1, warmup=TRAIN_WARMUP,
-                       schedule="wsd", optim=AdamWConfig(lr=TRAIN_LR),
-                       profile="h100_sxm", region="CISO")
-    trainer = Trainer(model, tcfg, device="cuda", params=params)
-    stream = lm_batches(0, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
-                        TRAIN_BRANCHING)
-    data = [next(stream) for _ in range(TRAIN_STEPS + 3)]
-    sampler = PowerSampler(power_field())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    hist = trainer.fit(iter(data[:TRAIN_STEPS]), verbose=False)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    rows = sampler.stop()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"\n[train] {cfg.name} full ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {TRAIN_PARAMS} parameters), Trainer.fit: "
-          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW "
-          f"lr {TRAIN_LR} WSD warmup {TRAIN_WARMUP}, remat off ({card})")
-    for r in hist:
-        print(f"  step {r['step']}: loss {r['loss']:.6f} grad_norm "
-              f"{r['grad_norm']:.6f} lr {r['lr']:.6e} clip {r['clip']:.4f} "
-              f"wall {r['wall_s']:.3f} s")
-    steady = hist[-1]["wall_s"] - hist[0]["wall_s"]
-    tps = tokens * (len(hist) - 1) / steady
-    st = trainer.meter.totals
-    print(f"  steps 2-{TRAIN_STEPS}: {tps:.1f} tokens/s "
-          f"({steady / (len(hist) - 1) * 1e3:.1f} ms a step); step 1 "
-          f"{hist[0]['wall_s'] * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB "
-          f"allocated ({card})")
-    print(f"  launches over the fit: {launches}")
-    print(f"  modeled (h100_sxm @ CISO): {st.energy_j / st.steps:.2f} J and "
-          f"{st.total_g / st.steps:.6f} gCO2 a step")
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    path = os.path.join(ROOT, "chiprun_out", "power_train.csv")
-    write_power_csv(path, rows)
-    trace = PowerTrace.from_csv(path)
-    window = ActiveWindow(t0, t1)
-    inside = [w for t, w in zip(trace.t_s, trace.watts)
-              if window.contains(t)]
-    if len(inside) < POWER_MIN:
-        raise AssertionError(f"train: {len(inside)} power samples in the "
-                             f"{t1 - t0:.3f} s fit (< {POWER_MIN})")
-    joules = trace.energy_j(window)
-    print(f"  measured power ({card}): {sampler.field} every {POWER_MS} ms, "
-          f"{len(inside)} samples over the {t1 - t0:.3f} s fit, mean "
-          f"{sum(inside) / len(inside):.1f} W, measured {joules:.1f} J "
-          f"({joules / TRAIN_STEPS:.1f} J a step; modeled "
-          f"{st.energy_j / st.steps:.2f}; measured / modeled "
-          f"{joules / st.energy_j:.3f}) (CSV {os.path.relpath(path, ROOT)})")
+    trainer, data, hist, launches, peak, tps = fit_on_card(
+        card, "train", "full", model, params, TRAIN_PARAMS, TRAIN_STEPS,
+        extra=3)
     counted = {}
     for i, remat in enumerate((False, True)):
         batch = trainer.device_batch(data[TRAIN_STEPS + i])
@@ -4426,6 +4463,320 @@ def phase_train(card):
     torch.cuda.empty_cache()
     numbers["probe_worst"] = train_probe(card, cfg, probe_batch)
     numbers.update(tokens_per_s=tps, peak_gb=peak / 1e9, launches=launches)
+    return numbers
+
+
+# --------------------------------------------------------------------------
+# training the recurrent families: rwkv6-1.6b in full and zamba2-7b at full
+# width cut to depth 24, through the SSD chunk, WKV6 and the concat and gate
+# RMSNorms under autograd (kernels/autograd.py)
+# --------------------------------------------------------------------------
+
+RWKV = "rwkv6-1.6b"
+RWKV_TRAIN_PARAMS = 1_599_866_880        # costing.param_counts, full
+RWKV_PROBE_DEPTH, RWKV_PROBE_PARAMS = 2, 379_389_952
+ZAMBA = "zamba2-7b"
+# four units of (5 mamba2, shared) at full width: its full 81 layers hold
+# 70.5 GB of parameters, gradients and float32 AdamW moments alone; at
+# depth 24 the dry-run's train-step arguments and the gradients are 25.6
+# GB, and the step's peak must keep TRAIN_HEADROOM under the card's 80 GB
+N_ZAMBA_TRAIN = 24
+ZAMBA_TRAIN_PARAMS = 2_135_771_712       # costing.param_counts at depth 24
+ZAMBA_PROBE_DEPTH, ZAMBA_PROBE_PARAMS = 6, 966_100_752   # one unit
+RECURRENT_STEPS = 16
+CARD_BYTES, TRAIN_HEADROOM = 80e9, 8e9
+
+
+def zamba_train_cut():
+    """``zamba2-7b`` at full width, its first ``N_ZAMBA_TRAIN`` layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ZAMBA)
+    return dataclasses.replace(cfg, n_layers=N_ZAMBA_TRAIN,
+                               block_pattern=cfg.block_pattern[
+                                   :N_ZAMBA_TRAIN])
+
+
+def recurrent_launches(cfg) -> dict:
+    """Kernel launches of one train forward of a recurrent model: a
+    mamba2 layer's SSD chunk and two norms (ln1 and the gate), a shared
+    site's flash and two concat norms, an rwkv6 layer's WKV6 (its norms
+    are LayerNorms), and the final norm."""
+    kinds = cfg.block_pattern
+    m, s, r = (kinds.count(k) for k in ("mamba2", "shared", "rwkv6"))
+    return {"ssd_chunk": m, "wkv6": r, "flash_attention": s,
+            "rmsnorm": 2 * m + 2 * s + 1}
+
+
+def ssd_train_work(x, dt, A, Bm, Cm) -> tuple:
+    """(operations, bytes, peak) of the SSD chunk's forward and backward:
+    the forward's (``ssd_work``), then the backward's products over the
+    causal pairs (C Bᵀ again, dy xdtᵀ, Mᵀ dy, (dM ∘ W) B and (dM ∘ W)ᵀ C:
+    2 (3 N + 2 P) a pair) and h's (B dhᵀ and xdt dh: 4 P N a step); bytes
+    of the backward's inputs (x, dt, A, one B/C group and the three
+    outputs' gradients) read once and its outputs (their gradients)
+    written once."""
+    flops, nbytes, peak = ssd_work(x, dt, A, Bm, Cm)
+    B, H, nc, cl, P = x.shape
+    N = Bm.shape[-1]
+    pairs = B * H * nc * cl * (cl + 1) / 2
+    flops += 2.0 * pairs * (3 * N + 2 * P) + 4.0 * B * H * nc * cl * P * N
+    ins = ((x.numel() + dt.numel() + 2 * B * nc * cl * N) * x.element_size()
+           + A.numel() * 4)
+    nbytes += 2 * ins + B * H * nc * (cl * P + P * N + 1) * 4
+    return flops, nbytes, peak
+
+
+def wkv6_train_work(r, k, v, w, u, s0) -> tuple:
+    """(operations, bytes) of WKV6's forward (``wkv6_work``) and backward:
+    14 hd^2 float32 operations a step (the states again, w ∘ S + k vᵀ, and
+    the gradient's walk, w ∘ G + r doᵀ, 3 each; dr = S do, dk = G v, dv =
+    Gᵀ k and dw = rowsum(G ∘ S), 2 each); bytes of r/k/v/w/u/s0 and dout
+    read once and dr/dk/dv/dw/du written once (no ds0: training keeps no
+    state)."""
+    flops, nbytes = wkv6_work(r, k, v, w, u, s0)
+    B, H, T, hd = r.shape
+    flops += 14.0 * B * H * T * hd * hd
+    grads = 3 * r.numel() * r.element_size() + w.numel() * w.element_size() \
+        + 4 * u.numel()
+    nbytes += 2 * grads + 4 * s0.numel() + 4 * r.numel()
+    return flops, nbytes
+
+
+def grads_of(fn, leaves, cotangents):
+    """``fn(*leaves)``'s outputs and the leaves' gradients (None where a
+    leaf takes none) against ``cotangents`` (None: that output takes
+    none)."""
+    for t in leaves:
+        t.grad = None
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(
+        [o for o, c in zip(out, cotangents) if c is not None],
+        [c for c in cotangents if c is not None])
+    return out, [t.grad for t in leaves]
+
+
+def function_case(label, function, bare, plain, leaves, cotangents,
+                  scan, work, dtype, peak=None):
+    """One Function at a train step's shape: its forward bit-identical to
+    the bare kernel on the same inputs; each input's gradient against
+    autograd of the plain version (bf16 gradients at ``TOL[bf16]``;
+    float32 ones at ``TOL_WIDE``, or where ``scan`` at ``WKV_REL``
+    relative and absolute against the gradient's largest magnitude, as
+    phase 3 holds WKV6's outputs: a scan's float32 gradients are sums
+    over the sequence of terms that cancel (SSD's ddt and dA a reverse
+    cumulative sum, WKV6's dw a row of G ∘ S), where two float32 orders
+    differ by ~1e-7 of the largest term);
+    forward + backward ms of both beside the bound of ``work`` (operations,
+    bytes) at ``dtype``'s rate (or ``peak``). Prints a line; returns the
+    numbers."""
+    with torch.no_grad():
+        want_out = bare(*leaves)
+    got_out, got = grads_of(function, leaves, cotangents)
+    same = all(torch.equal(g, w) for g, w in
+               zip(got_out, want_out if isinstance(want_out, tuple)
+                   else (want_out,)))
+    _, want = grads_of(plain, leaves, cotangents)
+    errs, bad = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            if g is not None:
+                bad.append(f"input {i}: a gradient the plain version lacks")
+            continue
+        big = max(1.0, float(w.float().abs().max()))
+        tol = (TOL[torch.bfloat16] if g.dtype == torch.bfloat16 else
+               (WKV_REL * big, WKV_REL) if scan else TOL_WIDE)
+        finite = bool(torch.isfinite(g.float()).all())
+        err, past = past_tol(g, w, torch.ones_like(w, dtype=torch.bool),
+                             *tol)
+        errs.append(f"d{i} {err:.3e} (|max| {big:.3e}, {past} past "
+                    f"({tol[0]:.3g}, {tol[1]:.3g}))")
+        if past or not finite or g.dtype != leaves[i].dtype:
+            bad.append(f"input {i}: {past} past {tol}, finite {finite}, "
+                       f"{g.dtype}")
+    ms = time_ms(lambda: grads_of(function, leaves, cotangents), warmup=1,
+                 iters=3)
+    plain_ms = time_ms(lambda: grads_of(plain, leaves, cotangents),
+                       warmup=1, iters=3)
+    bms, by = bound_ms(*work, dtype, peak)
+    print(f"  {label}: forward bit-identical to the bare kernel {same}; "
+          f"forward + backward {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}, {ms / bms:.1f}x); max abs err of each "
+          f"gradient against the plain version: {'; '.join(errs)}")
+    expect(label, [(same, "forward not bit-identical to the bare kernel"),
+                   (not bad, f"gradients: {bad}"),
+                   (math.isfinite(ms) and math.isfinite(plain_ms),
+                    f"times {ms} {plain_ms}")])
+    for t in leaves:
+        t.grad = None
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def recurrent_kernels(card, zcfg, rcfg):
+    """The four new Functions at the train steps' shapes (``TRAIN_BATCH``
+    x ``TRAIN_SEQ`` tokens): ``SSDChunk`` at Zamba2's (x (4, 112, 4, 256,
+    64) float32, B/C a head-stride-0 group), ``WKV6`` at RWKV6's (r/k/v
+    (4, 32, 1024, 64) bf16 transposed views, w and u float32, s0 zeros,
+    no state gradient), ``CatRMSNorm`` with the add at the shared block's
+    (4,096 rows of 3,584 + 3,584, bf16) and ``GatedRMSNorm`` at Mamba2's
+    gate (4,096 rows of 7,168, float32 in, bf16 out), each through
+    ``function_case``."""
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    s, d = zcfg.ssm, zcfg.d_model
+    H, P, N, cl = s.n_heads(d), s.head_dim, s.state_dim, s.chunk
+    Hr, hd = rcfg.d_model // rcfg.rwkv.head_dim, rcfg.rwkv.head_dim
+    R, di = B * T, s.d_inner(d)
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    print(f"\n[train recurrent kernels] the Functions at the train steps' "
+          f"shapes ({card})")
+    out = {}
+    args = ssd_inputs(B, H, T, cl, P, N, f32, gen)
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    nc = T // cl
+    cots = [rnd(B, H, nc, cl, P), rnd(B, H, nc, P, N), rnd(B, H, nc)]
+    flops, nbytes, peak = ssd_train_work(*args)
+    out["ssd_chunk"] = function_case(
+        f"SSDChunk x {tuple(args[0].shape)} float32", AG.SSDChunk.apply,
+        SSD.ssd_chunk, REF.ssd_chunk, leaves, cots, True, (flops, nbytes),
+        f32, peak)
+    leaves = args = cots = None
+    r, k, v, w, u, _ = wkv6_inputs(B, Hr, T, hd, bf, gen)
+    s0 = torch.zeros(B, Hr, hd, hd, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+    leaves.append(s0)
+    out["wkv6"] = function_case(
+        f"WKV6 r {tuple(r.shape)} bf16", AG.WKV6.apply, WKV.wkv6, REF.wkv6,
+        leaves, [rnd(B, Hr, T, hd), None], True,
+        wkv6_train_work(r, k, v, w, u, s0), f32)
+    leaves = None
+    x, delta, e = rnd(R, d, dtype=bf), rnd(R, d, dtype=bf), \
+        rnd(R, d, dtype=bf)
+    scale = (1 + 0.1 * rnd(2 * d)).to(bf)
+    leaves = [t.detach().requires_grad_(True) for t in (x, e, scale, delta)]
+    # bytes: forward x, delta, e in and s, y out; backward s, e, dy, ds in
+    # and dx, ddelta, de out (bf16), scale read twice and dscale written
+    n = R * 2 * d
+    work = ((4.5 + 7) * n, 2 * 14 * R * d + 3 * 2 * 2 * d)
+    out["cat_rmsnorm"] = function_case(
+        f"CatRMSNorm with the add ({R}, {d} + {d}) bf16",
+        lambda a, b, c, dd: AG.CatRMSNorm.apply(a, b, c, 1e-5, dd),
+        lambda a, b, c, dd: RMS.cat_rmsnorm(a, b, c, 1e-5, dd),
+        lambda a, b, c, dd: REF.cat_rmsnorm(a, b, c, 1e-5, dd),
+        leaves, [rnd(R, d, dtype=bf), rnd(R, 2 * d, dtype=bf)], False,
+        work, bf)
+    leaves = None
+    y, z = rnd(R, di), rnd(R, di)
+    scale = (1 + 0.1 * rnd(di)).to(bf)
+    leaves = [t.detach().requires_grad_(True) for t in (y, z, scale)]
+    # bytes: y, z (float32) read by both passes, out and dout (bf16), dy
+    # and dz (float32) written, scale read twice and dscale written
+    n = R * di
+    work = ((9 + 19) * n, 28 * n + 3 * 2 * di)
+    out["gated_rmsnorm"] = function_case(
+        f"GatedRMSNorm ({R}, {di}) float32 -> bf16",
+        lambda a, b, c: AG.GatedRMSNorm.apply(a, b, c, 1e-5, bf),
+        lambda a, b, c: RMS.gated_rmsnorm(a, b, c, 1e-5, bf),
+        lambda a, b, c: REF.gated_rmsnorm(a, b, c, 1e-5, bf),
+        leaves, [rnd(R, di, dtype=bf)], False, work, f32)
+    leaves = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_recurrent(card):
+    """The recurrent families trained on the card: the four Functions at
+    the train steps' shapes (``recurrent_kernels``); the dry-run's
+    train-step argument bytes of Zamba2's cut; then ``rwkv6-1.6b`` in full
+    and ``zamba2-7b`` at full width cut to depth ``N_ZAMBA_TRAIN``, each
+    trained for ``RECURRENT_STEPS`` steps through ``fit_on_card``, one
+    more step counted with its backward apart (``recurrent_launches`` a
+    forward, none in the backward), peak memory at least
+    ``TRAIN_HEADROOM`` under 80 GB, every loss finite and the last below
+    the first; then each family's gradient probe (RWKV6 at depth 2,
+    Zamba2 at depth 6, one unit) within ``REFEREE``. Returns the
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.models import Model
+    from repro_torch.sharding.rules import DEFAULT_RULES
+
+    class OneDevice:
+        shape = {"data": 1, "model": 1}
+
+    t_phase = time.perf_counter()
+    rcfg = get_config(RWKV)
+    zcfg = zamba_train_cut()
+    assert rcfg.n_layers == N_RWKV and rcfg.dtype == zcfg.dtype == "bfloat16"
+    numbers = {"functions": recurrent_kernels(card, zcfg, rcfg)}
+    args = argument_bytes(Model(zcfg, "meta"), "train", TRAIN_BATCH,
+                          TRAIN_SEQ, OneDevice(), True, DEFAULT_RULES)
+    step_args = args["argument_size_in_bytes"] + args["param_bytes"]
+    print(f"\n[train recurrent] sizing: {ZAMBA} at depth {N_ZAMBA_TRAIN}: "
+          f"dry-run train-step arguments {args['argument_size_in_bytes']:.0f}"
+          f" B (parameters {args['param_bytes']:.0f}, "
+          f"{args['moment_dtype']} moments {args['optimizer_bytes']:.0f}) "
+          f"+ gradients {args['param_bytes']:.0f} = {step_args / 1e9:.2f} "
+          f"GB; the step's activations fill the rest, peak held to "
+          f"{(CARD_BYTES - TRAIN_HEADROOM) / 1e9:.0f} GB")
+    cases = (("train_rwkv6", "full", rcfg, RWKV_TRAIN_PARAMS,
+              RWKV_PROBE_DEPTH, RWKV_PROBE_PARAMS),
+             ("train_zamba2", f"full width, depth {N_ZAMBA_TRAIN}", zcfg,
+              ZAMBA_TRAIN_PARAMS, ZAMBA_PROBE_DEPTH, ZAMBA_PROBE_PARAMS))
+    for tag, what, cfg, n_params, depth, n_probe in cases:
+        model, params, _, _ = load_model(cfg, n_params, tag, card)
+        trainer, data, hist, launches, peak, tps = fit_on_card(
+            card, tag, what, model, params, n_params, RECURRENT_STEPS,
+            extra=2)
+        step = counted_step(model, trainer.params,
+                            trainer.device_batch(data[RECURRENT_STEPS]),
+                            False)
+        want = recurrent_launches(cfg)
+        m = want["ssd_chunk"]
+        print(f"  one step: forward launches {step[0]}, backward {step[1]}"
+              + (f"; RMSNorm {want['rmsnorm']} = {m} ln1 + {m} gate + "
+                 f"{2 * want['flash_attention']} concat (two a shared "
+                 f"site) + 1 final" if m else "; RMSNorm: the final norm"))
+        none = {k: 0 for k in launches}
+        want = dict(none, **want)
+        losses = [r["loss"] for r in hist]
+        expect(tag, [
+            (len(hist) == RECURRENT_STEPS, f"{len(hist)} logged steps"),
+            (all(math.isfinite(x) for x in losses), f"losses {losses}"),
+            (losses[-1] < losses[0],
+             f"step {RECURRENT_STEPS}'s loss {losses[-1]} not below step "
+             f"1's {losses[0]}"),
+            (launches == {k: RECURRENT_STEPS * v for k, v in want.items()},
+             f"launches over the fit {launches}"),
+            (step == (want, none), f"one step {step}"),
+            (peak <= CARD_BYTES - TRAIN_HEADROOM,
+             f"peak {peak / 1e9:.2f} GB leaves less than "
+             f"{TRAIN_HEADROOM / 1e9:.0f} GB of {CARD_BYTES / 1e9:.0f}"),
+        ])
+        probe_batch = trainer.device_batch(data[RECURRENT_STEPS + 1])
+        trainer = model = params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(cfg, n_layers=depth,
+                                  block_pattern=cfg.block_pattern[:depth])
+        worst = train_probe(card, cfg, probe_batch, depth, n_probe,
+                            recurrent_launches(cut))
+        numbers[tag] = dict(tokens_per_s=tps, peak_gb=peak / 1e9,
+                            launches=launches, probe_worst=worst,
+                            losses=losses)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"\n[train recurrent] phase {numbers['seconds']:.1f} s ({card})")
     return numbers
 
 
@@ -4689,6 +5040,12 @@ def main() -> int:
     print(f"\n[train] launches over the fit: {train['launches']}; "
           f"{train['tokens_per_s']:.1f} tokens/s; probe's worst ratio "
           f"{train['probe_worst']:.4f}")
+    recurrent = phase_train_recurrent(card)
+    for tag in ("train_rwkv6", "train_zamba2"):
+        r = recurrent[tag]
+        print(f"[{tag}] launches over the fit: {r['launches']}; "
+              f"{r['tokens_per_s']:.1f} tokens/s; peak {r['peak_gb']:.2f} "
+              f"GB; probe's worst ratio {r['probe_worst']:.4f}")
     moe = phase_moe_sharded(card)
     print(f"\n[moe_sharded] ms a call {moe['ms']}; drops {moe['drops']}")
     mem = phase_dryrun_memory(card, train)

@@ -10,11 +10,14 @@ incremented where the kernel is launched and nowhere else, so a run can
 show that its main path went through the kernels.
 
 Training on the card (``kernels/autograd.py``): a call that needs a
-gradient (grad mode on, an input that requires grad) runs ``flash_attention``,
-``rmsnorm`` and ``add_rmsnorm`` through ``torch.autograd.Function``s (the
-kernel forward, a PyTorch backward); every other kernel op raises there,
-never returning a tensor cut from the graph. On the CPU the plain
-versions go through autograd as they are.
+gradient (grad mode on, an input that requires grad) runs
+``flash_attention``, the four RMSNorm forms, the SSD chunk and ``wkv6``
+through ``torch.autograd.Function``s (the kernel forward, a PyTorch
+backward); the serving kernels (``decode_attention``,
+``paged_decode_attention``, ``chunked_prefill_attention``) raise there,
+never returning a tensor cut from the graph, as does ``wkv6`` asked to
+write its state into ``s_out`` (training keeps no state). On the CPU the
+plain versions go through autograd as they are.
 """
 from __future__ import annotations
 
@@ -123,6 +126,18 @@ def mla_decode_attention(q_lat, q_rope, ckv, k_rope, q_pos, k_pos,
     return decode_attention(q, k, v, q_pos, k_pos, window, chunk)
 
 
+def ssd_chunk(x, dt, A, Bm, Cm
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SSD within-chunk outputs (y_intra, h_chunk, decay), float32, in
+    the kernel layout: x (B,H,nc,cl,P), dt (B,H,nc,cl), A (H,), Bm/Cm
+    (B,H,nc,cl,N) (``ssd.ssd_chunk``)."""
+    if _on_cuda(x):
+        if _ag.needs_grad(x, dt, A, Bm, Cm):
+            return _ag.SSDChunk.apply(x, dt, A, Bm, Cm)
+        return _ssd.ssd_chunk(x, dt, A, Bm, Cm)
+    return _ref.ssd_chunk(x, dt, A, Bm, Cm)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None,
              chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full Mamba2 SSD over a sequence (the port of the reference's
@@ -149,12 +164,7 @@ def ssd_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None,
     dtk = dt.reshape(B, nc, cl, H).permute(0, 3, 1, 2)
     Bk = Bm.reshape(B, nc, cl, H, N).permute(0, 3, 1, 2, 4)
     Ck = Cm.reshape(B, nc, cl, H, N).permute(0, 3, 1, 2, 4)
-    if _on_cuda(x):
-        _ag.refuse_grad("ssd_chunk", xk, dtk, A, Bk, Ck)
-        chunk_op = _ssd.ssd_chunk
-    else:
-        chunk_op = _ref.ssd_chunk
-    y_intra, h_chunk, dec = chunk_op(xk, dtk, A, Bk, Ck)
+    y_intra, h_chunk, dec = ssd_chunk(xk, dtk, A, Bk, Ck)
 
     h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
@@ -180,8 +190,18 @@ def wkv6(r, k, v, w, u, s0, s_out: Optional[torch.Tensor] = None
     ``s0`` must be float32, and ``w`` and ``u`` float32 or the type of
     ``r``: the kernel widens them on load and never casts the decay down."""
     if _on_cuda(r):
-        _ag.refuse_grad("wkv6", r, k, v, w, u, s0)
+        if _ag.needs_grad(r, k, v, w, u, s0):
+            if s_out is not None:
+                raise RuntimeError(
+                    "wkv6: an input requires grad and s_out is given; "
+                    "training keeps no state (pass s_out=None)")
+            return _ag.WKV6.apply(r, k, v, w, u, s0)
         return _wkv.wkv6(r, k, v, w, u, s0, s_out)
+    return _plain_wkv6(r, k, v, w, u, s0, s_out)
+
+
+def _plain_wkv6(r, k, v, w, u, s0, s_out=None):
+    """``ref.wkv6`` with ``ops.wkv6``'s ``s_out``."""
     out, S = _ref.wkv6(r, k, v, w, u, s0)
     if s_out is None:
         return out, S
@@ -223,7 +243,8 @@ def cat_rmsnorm(x: torch.Tensor, e: torch.Tensor, scale: torch.Tensor,
     y). y has x's leading dims and width d1 + d2."""
     if not _on_cuda(x):
         return _ref.cat_rmsnorm(x, e, scale, eps, delta)
-    _ag.refuse_grad("cat_rmsnorm", x, e, scale, delta)
+    if _ag.needs_grad(x, e, scale, delta):
+        return _ag.CatRMSNorm.apply(x, e, scale, eps, delta)
     d1, d2 = x.shape[-1], e.shape[-1]
     shape = x.shape[:-1] + (d1 + d2,)
     rows = (x.reshape(-1, d1), e.reshape(-1, d2), scale, eps)
@@ -238,7 +259,8 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     """Mamba2's gated RMSNorm: rmsnorm((y * silu(z)).to(dtype)), one
     kernel launch on the card (y and z float32 there)."""
     if _on_cuda(y):
-        _ag.refuse_grad("gated_rmsnorm", y, z, scale)
+        if _ag.needs_grad(y, z, scale):
+            return _ag.GatedRMSNorm.apply(y, z, scale, eps, dtype)
         d = y.shape[-1]
         return _rms.gated_rmsnorm(y.reshape(-1, d), z.reshape(-1, d), scale,
                                   eps, dtype).view(y.shape)
@@ -246,8 +268,10 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 
 # the ops a card check swaps (``swapped``): the memory-conditioned
-# families' path runs these four and no other kernel
+# families' path runs these four and no other kernel; the recurrent
+# families' train path adds these four (``ssd_scan`` calls ``ssd_chunk``)
 SWAPPABLE = ("flash_attention", "decode_attention", "rmsnorm", "add_rmsnorm")
+RECURRENT = ("ssd_chunk", "wkv6", "cat_rmsnorm", "gated_rmsnorm")
 
 
 @contextlib.contextmanager
@@ -260,7 +284,8 @@ def swapped(make, names=SWAPPABLE):
     inputs."""
     saved = {n: globals()[n] for n in names}
     for n in names:
-        globals()[n] = make(n, saved[n], getattr(_ref, n))
+        plain = _plain_wkv6 if n == "wkv6" else getattr(_ref, n)
+        globals()[n] = make(n, saved[n], plain)
     try:
         yield
     finally:

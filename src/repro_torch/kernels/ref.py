@@ -105,8 +105,11 @@ def ssd_chunk(x, dt, A, Bm, Cm):
     xdt = xf * dtf[..., None]
     cl = x.shape[3]
     tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
-    W = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
-                    torch.zeros((), device=x.device))
+    # masked before the exp: above the diagonal cum[t] - cum[s] > 0 can pass
+    # 88.7 over a long chunk, and exp's inf there would make autograd's
+    # gradient 0 * inf = nan (the values are the same either way)
+    W = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~tri, -math.inf))
     CB = Cf @ Bf.transpose(-1, -2)                      # (B,H,nc,t,s)
     y = (CB * W) @ xdt
     emit = torch.exp(cum[..., -1:] - cum)               # (B,H,nc,cl)

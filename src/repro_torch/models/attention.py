@@ -444,8 +444,9 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     through ``kernel_head_group``'s layout: q heads ``:n_q`` against kv
     heads ``::kv_step`` (strided views), the output's heads meeting wo's
     first ``n_q`` head rows (the rest are zero); where it is None (the
-    CPU, a map that is not the uniform divide) the kv heads are expanded
-    (a paged pool gathered first) and the plain version runs with group 1.
+    CPU, a map that is not the uniform divide; in 'train' mode on any
+    device) the kv heads are expanded (a paged pool gathered first) and
+    the kernel or the plain version runs with group 1.
     On the card, a model with a ``moe`` block gets the plain version's
     value in every fully masked query row (``_fill_dead_rows``) where the
     forward can drop a token; its paged paths, and any paged path of a
@@ -456,8 +457,12 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if mode == "train":
         cache = None
     q, k, v = _qkv(p, cfg, x, positions)
-    # direct: the kernels read the heads through the layout
-    layout = kernel_head_group(cfg, q.device.type)
+    # direct: the kernels read the heads through the layout. Training takes
+    # the reference's map on every device: the card's layout for padded
+    # heads (a padded q head over another kv head, or not run) changes no
+    # output, their wo rows being zero, but it changes those rows' gradient
+    layout = kernel_head_group(cfg, "cpu" if mode == "train"
+                               else q.device.type)
     direct = layout is not None
     step = layout[1] if direct else 1
     if direct and layout[2] < q.shape[2]:

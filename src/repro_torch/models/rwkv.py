@@ -171,7 +171,8 @@ def rwkv_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
     ``state`` (when given) is advanced in place by the T tokens of ``x``:
     prefill starts from the state it is given (zeros in a fresh cache),
     decode from the carried one; 'train' is the prefill with no state
-    (on the card the WKV6 kernel has no backward and raises under grad).
+    (on the card under grad the WKV6 kernel runs as an
+    ``autograd.Function``: ``kernels/autograd.py``).
     Prompts have exact length: there is no mask, as in the reference."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"rwkv6 runs in train, prefill or decode mode, not "

@@ -107,8 +107,9 @@ def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
     """x: (B, T, d_model); mask: (B, T) 1 = real token (pad steps get dt =
     0, so they leave the SSM state alone). ``state`` is updated in place:
     prefill writes it (when given), decode advances it by one token;
-    'train' is the prefill with no state. On the card the SSD chunk
-    kernel has no backward and raises under grad (``kernels/ops.py``)."""
+    'train' is the prefill with no state. On the card under grad the SSD
+    chunk kernel and the gated norm run as ``autograd.Function``s (the
+    kernel forward, a PyTorch backward: ``kernels/autograd.py``)."""
     s = cfg.ssm
     d = cfg.d_model
     di, H, P = s.d_inner(d), s.n_heads(d), s.head_dim

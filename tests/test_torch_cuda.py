@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm
@@ -2316,9 +2317,11 @@ def test_rmsnorm_autograd_matches_plain(cuda_device, dtype, R, d, add):
 
 
 def test_kernel_ops_without_a_gradient_refuse_one(cuda_device):
-    """Every kernel op but flash_attention, rmsnorm and add_rmsnorm raises
-    when grad mode is on and an input requires grad, and runs under
-    torch.no_grad()."""
+    """The serving kernels (both decode kernels, MLA decode through the
+    contiguous one, and chunked prefill) raise when grad mode is on and an
+    input requires grad, and run under torch.no_grad(); the SSD chunk,
+    WKV6 and the concat and gate norms run through their Functions
+    (a ``grad_fn``), and WKV6 refuses ``s_out`` under grad."""
     dev = cuda_device
     gen = torch.Generator().manual_seed(0)
 
@@ -2338,7 +2341,7 @@ def test_kernel_ops_without_a_gradient_refuse_one(cuda_device):
     x = rnd(B, 16, 2, 8).requires_grad_(True)
     r = rnd(1, 2, 8, 16).requires_grad_(True)
     y = rnd(4, 32).requires_grad_(True)
-    calls = {
+    refused = {
         "decode_attention": lambda: ops.decode_attention(q1, k, v, qp, pos),
         "paged_decode_attention": lambda: ops.paged_decode_attention(
             q1, pages, pages, tbl, qp, pos),
@@ -2347,6 +2350,8 @@ def test_kernel_ops_without_a_gradient_refuse_one(cuda_device):
         "mla_decode_attention": lambda: ops.mla_decode_attention(
             rnd(B, 4, 16).requires_grad_(True), rnd(B, 4, 8), rnd(B, W, 16),
             rnd(B, W, 8), qp, pos),
+    }
+    trained = {
         "ssd_chunk": lambda: ops.ssd_scan(
             x, torch.rand(B, 16, 2, device=dev), -torch.rand(2, device=dev),
             rnd(B, 16, 2, 4), rnd(B, 16, 2, 4), chunk=8),
@@ -2359,14 +2364,23 @@ def test_kernel_ops_without_a_gradient_refuse_one(cuda_device):
         "gated_rmsnorm": lambda: ops.gated_rmsnorm(
             y, rnd(4, 32), torch.ones(32, device=dev), 1e-5, torch.float32),
     }
-    for name, call in calls.items():
-        with pytest.raises(RuntimeError, match="has no backward"):
-            call()
+    for name, call in {**refused, **trained}.items():
+        if name in refused:
+            with pytest.raises(RuntimeError, match="has no backward"):
+                call()
+        else:
+            out = call()
+            first = out[0] if isinstance(out, tuple) else out
+            assert first.grad_fn is not None, name
         with torch.no_grad():
             out = call()
         torch.cuda.synchronize()
         for t in out if isinstance(out, tuple) else (out,):
             assert torch.isfinite(t).all(), name
+    with pytest.raises(RuntimeError, match="training keeps no state"):
+        s0 = torch.zeros(1, 2, 16, 16, device=dev)
+        ops.wkv6(r, rnd(1, 2, 8, 16), rnd(1, 2, 8, 16),
+                 torch.rand(1, 2, 8, 16, device=dev), rnd(2, 16), s0, s0)
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -2409,6 +2423,250 @@ def test_train_step_on_card_matches_cpu(cuda_device, remat):
         assert gg is not None, path
         torch.testing.assert_close(gg.cpu(), gc, atol=1e-3, rtol=1e-3,
                                    msg="/".join(path))
+
+
+# --------------------------------------------------------------------------
+# the recurrent kernels and the concat and gate norms under autograd: each
+# Function's forward bit-identical to its bare kernel, its gradients against
+# autograd of the plain version (bf16 gradients at TOL[bf16]; float32 ones
+# at TOL_WIDE, the scans' at SCAN_REL relative and absolute against the
+# gradient's largest magnitude, as chip_smoke.py holds WKV6's outputs:
+# SSD's ddt and dA are reverse cumulative sums over the chunk and WKV6's
+# dw a row of G ∘ S, terms that cancel, where two float32 orders differ by
+# ~1e-7 of the largest term); on the reference sweeps and at a train
+# step's shape; every registered family's smoke train step on the card
+# --------------------------------------------------------------------------
+
+
+SCAN_REL = 1e-5
+
+
+def _function_matches_plain(function, bare, plain, leaves, cots, scan):
+    """Run ``function`` forward and backward: its outputs equal ``bare``'s
+    bit for bit (one launch, none in the backward) and each leaf's gradient
+    is close to autograd of ``plain`` on the same leaves (``scan``: float32
+    gradients at ``SCAN_REL`` of their largest magnitude)."""
+    with torch.no_grad():
+        want_out = bare(*leaves)
+    want_out = want_out if isinstance(want_out, tuple) else (want_out,)
+
+    def grads(fn):
+        for t in leaves:
+            t.grad = None
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.autograd.backward(
+            [o for o, c in zip(out, cots) if c is not None],
+            [c for c in cots if c is not None])
+        return out, [t.grad for t in leaves]
+
+    before = sum(ops.launch_counts().values())
+    out, got = grads(function)
+    assert sum(ops.launch_counts().values()) == before + 1
+    for g, w in zip(out, want_out):
+        assert torch.equal(g, w)
+    _, want = grads(plain)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, i
+            continue
+        assert g.dtype == leaves[i].dtype and torch.isfinite(g.float()).all()
+        big = max(1.0, float(w.float().abs().max()))
+        tol = ((TOL[torch.bfloat16],) * 2 if g.dtype == torch.bfloat16 else
+               (SCAN_REL * big, SCAN_REL) if scan else TOL_WIDE)
+        _close_wide(g, w, tol, f"input {i}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,P,N,cl", [
+    (1, 2, 16, 8, 4, 8), (2, 3, 24, 8, 4, 8), (1, 2, 64, 16, 16, 16),
+    (4, 112, 1024, 64, 64, 256),          # zamba2-7b's train step
+])
+def test_ssd_chunk_autograd_matches_plain(cuda_device, dtype, B, H, T, P, N,
+                                          cl):
+    """The chunk layout of ``ops.ssd_scan``: (B, T, H, *) projections seen
+    as (B, H, nc, cl, *) views, B and C one group broadcast over the heads
+    (stride 0), as Mamba2 passes them; dt = softplus(N(0, 1) - 4) and A =
+    -[1 .. 16] as the model starts; every output's gradient given."""
+    from repro_torch.kernels import autograd as AG
+    rng = np.random.default_rng(T + H)
+    dev = cuda_device
+    nc = T // cl
+    x = _normal(rng, (B, T, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        _normal(rng, (B, T, H), torch.float32, dev) - 4).to(dtype)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    bc = _normal(rng, (2, B, T, 1, N), dtype, dev)
+
+    def view(t):
+        return t.reshape(B, nc, cl, H, -1).permute(0, 3, 1, 2, 4)
+
+    leaves = [t.detach().requires_grad_(True) for t in (
+        view(x), dt.reshape(B, nc, cl, H).permute(0, 3, 1, 2), A,
+        view(bc[0].expand(B, T, H, N)), view(bc[1].expand(B, T, H, N)))]
+    cots = [_normal(rng, s, torch.float32, dev) for s in
+            ((B, H, nc, cl, P), (B, H, nc, P, N), (B, H, nc))]
+    _function_matches_plain(AG.SSDChunk.apply, ssd.ssd_chunk, ref.ssd_chunk,
+                            leaves, cots, scan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,hd,train", [
+    (1, 2, 8, 8, False), (2, 3, 23, 16, False), (1, 4, 64, 32, False),
+    (4, 32, 1024, 64, True),              # rwkv6-1.6b's train step
+])
+def test_wkv6_autograd_matches_plain(cuda_device, dtype, B, H, T, hd, train):
+    """r, k, v in ``dtype`` as transposed views of (B, T, H, hd); the
+    sweeps: w = sigmoid(N(0, 1)) and u in ``dtype``, s0 ~ N(0, 0.1) and
+    both outputs' gradients; the train step: the model's w = exp(-exp(-6 +
+    N(0, 0.1))) and u in float32, s0 zeros taking no gradient, and no
+    state gradient."""
+    from repro_torch.kernels import autograd as AG
+    rng = np.random.default_rng(T * hd)
+    dev = cuda_device
+    r, k, v = (_normal(rng, (B, T, H, hd), dtype, dev).transpose(1, 2)
+               for _ in range(3))
+    if train:
+        w = torch.exp(-torch.exp(-6 + 0.1 * _normal(
+            rng, (B, T, H, hd), torch.float32, dev))).transpose(1, 2)
+        u = 0.5 * _normal(rng, (H, hd), torch.float32, dev)
+        s0 = torch.zeros(B, H, hd, hd, device=dev)
+    else:
+        w = torch.sigmoid(_normal(rng, (B, H, T, hd), torch.float32,
+                                  dev)).to(dtype)
+        u = (0.5 * _normal(rng, (H, hd), torch.float32, dev)).to(dtype)
+        s0 = (0.1 * _normal(rng, (B, H, hd, hd), torch.float32,
+                            dev)).requires_grad_(True)
+    leaves = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+    leaves.append(s0)
+    cots = [_normal(rng, (B, H, T, hd), torch.float32, dev),
+            None if train else _normal(rng, (B, H, hd, hd), torch.float32,
+                                       dev)]
+    _function_matches_plain(AG.WKV6.apply, wkv6.wkv6, ref.wkv6, leaves,
+                            cots, scan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("R,d1,d2", [(8, 64, 64), (37, 96, 32),
+                                     (4096, 3584, 3584)])   # zamba2's shared
+def test_cat_rmsnorm_autograd_matches_plain(cuda_device, dtype, add, R, d1,
+                                            d2):
+    from repro_torch.kernels import autograd as AG
+    gen = torch.Generator().manual_seed(R + d1 + d2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dtype).to(cuda_device)
+
+    x, delta, e = rnd(R, d1), rnd(R, d1), rnd(R, d2)
+    scale = (1 + 0.1 * torch.randn(d1 + d2, generator=gen)).to(dtype).to(
+        cuda_device)
+    dy = rnd(R, d1 + d2)
+    if add:
+        leaves = [t.requires_grad_(True) for t in (x, e, scale, delta)]
+        _function_matches_plain(
+            lambda a, b, c, dd: AG.CatRMSNorm.apply(a, b, c, 1e-5, dd),
+            lambda a, b, c, dd: rmsnorm.cat_rmsnorm(a, b, c, 1e-5, dd),
+            lambda a, b, c, dd: ref.cat_rmsnorm(a, b, c, 1e-5, dd),
+            leaves, [rnd(R, d1), dy], scan=False)
+    else:
+        leaves = [t.requires_grad_(True) for t in (x, e, scale)]
+        _function_matches_plain(
+            lambda a, b, c: AG.CatRMSNorm.apply(a, b, c, 1e-5),
+            lambda a, b, c: rmsnorm.cat_rmsnorm(a, b, c, 1e-5),
+            lambda a, b, c: ref.cat_rmsnorm(a, b, c, 1e-5),
+            leaves, [dy], scan=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d", [(8, 64), (37, 128),
+                                 (4096, 7168)])       # zamba2's mamba2 gate
+def test_gated_rmsnorm_autograd_matches_plain(cuda_device, dtype, R, d):
+    """y and z float32, as Mamba2 holds them; the row cast to ``dtype``."""
+    from repro_torch.kernels import autograd as AG
+    gen = torch.Generator().manual_seed(R + d)
+    y, z = (torch.randn(R, d, generator=gen).to(cuda_device)
+            for _ in range(2))
+    scale = (1 + 0.1 * torch.randn(d, generator=gen)).to(dtype).to(
+        cuda_device)
+    leaves = [t.requires_grad_(True) for t in (y, z, scale)]
+    _function_matches_plain(
+        lambda a, b, c: AG.GatedRMSNorm.apply(a, b, c, 1e-5, dtype),
+        lambda a, b, c: rmsnorm.gated_rmsnorm(a, b, c, 1e-5, dtype),
+        lambda a, b, c: ref.gated_rmsnorm(a, b, c, 1e-5, dtype),
+        leaves, [torch.randn(R, d, generator=gen).to(dtype).to(cuda_device)],
+        scan=False)
+
+
+def _train_extras(cfg, B, S, dev):
+    """The memory a smoke train batch of ``cfg`` needs: image embeddings
+    (the VLM's cross layers) or encoder frames (SeamlessM4T), else none."""
+    from repro_torch.models import frontend
+    gen = torch.Generator().manual_seed(3)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.n_image_tokens:
+        return {"image_embeds": frontend.vision_embeddings(
+            gen, B, cfg.n_image_tokens, cfg.d_model, dtype, "cpu")}
+    if cfg.is_encdec:
+        return {"frames": frontend.audio_frames(
+                    gen, B, cfg.encoder_seq, cfg.d_model, dtype, "cpu"),
+                "frames_mask": torch.ones(B, cfg.encoder_seq,
+                                          dtype=torch.int32)}
+    return {}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_trains_on_card(cuda_device, arch):
+    """Each registered family's smoke config in float32 (the VLM's gates
+    at 0.5; MiniCPM at 6 heads of 32, as the dense engine test widens it):
+    ``train_loss`` and every gradient on the card, every kernel op
+    of its train forward under autograd, against the CPU's plain path from
+    the same weights (1e-3); no kernel launches in the backward and none
+    of the serving kernels in the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training.optim import unique_leaves
+    import dataclasses
+    cfg = get_config(arch, "smoke")
+    if arch == "minicpm-2b":      # its smoke head dim 24 is no kernel's
+        cfg = dataclasses.replace(cfg, d_model=192, n_heads=6, n_kv_heads=6)
+        assert cfg.head_dim_ == 32
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    for p in params["layers"]:
+        if "gate_mlp" in p:
+            p["gate_mlp"].fill_(0.5)
+            p["attn"]["gate"].fill_(0.5)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    extras = _train_extras(cfg, 2, 32, "cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = _to(params, dev)
+        for _, t in unique_leaves(p):
+            t.detach_().requires_grad_(t.is_floating_point())
+        batch = {"tokens": tokens.to(dev),
+                 "labels": torch.roll(tokens, -1, dims=1).to(dev),
+                 **{k: v.to(dev) for k, v in extras.items()}}
+        ops.reset_launches()
+        loss, _ = Model(cfg, dev).train_loss(p, batch, remat=False)
+        fwd = ops.launch_counts()
+        loss.backward()
+        out[str(dev)] = (loss.detach().cpu(),
+                         [(path, t.grad) for path, t in unique_leaves(p)],
+                         fwd, ops.launch_counts())
+    l_cpu, g_cpu, _, _ = out["cpu"]
+    l_card, g_card, fwd, total = out[str(cuda_device)]
+    assert total == fwd
+    assert not any(fwd[k] for k in ("decode_attention",
+                                    "paged_decode_attention",
+                                    "chunked_prefill_attention")), fwd
+    torch.testing.assert_close(l_card, l_cpu, atol=1e-4, rtol=1e-4)
+    for (path, gc), (_, gg) in zip(g_cpu, g_card):
+        assert (gg is None) == (gc is None), path
+        if gc is not None:
+            torch.testing.assert_close(gg.cpu(), gc, atol=1e-3, rtol=1e-3,
+                                       msg="/".join(path))
 
 
 def test_moe_sharded_one_nccl_rank_matches_moe_ffn(cuda_device, tmp_path):

@@ -5,7 +5,7 @@
                             [llama3b] [llama3b-paged] [llama7b]
                             [internlm2] [minicpm] [stablelm] [fleet]
                             [maverick] [deepseek] [vlm] [seamless] [train]
-                            [train-rwkv6] [train-zamba2]
+                            [train-rwkv6] [train-zamba2] [graph-floor]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
 each, bf16, full width and depth) four times per path: cold (first use
@@ -52,14 +52,18 @@ train-rwkv6 and train-zamba2 paths the same on ``phase_train_recurrent``'s
 models: ``rwkv6-1.6b`` full and ``zamba2-7b`` at full width cut to depth
 24 (``chip_smoke.zamba_train_cut``), the SSD chunk, WKV6 and the concat
 and gate norms under autograd as well.
-With no argument it profiles the first four. Prints the three timed
+``graph-floor`` times a chain of small kernels eagerly and as one CUDA
+graph (``graph_floor``). With no argument it profiles the first four.
+Prints the three timed
 walls, the device's busy time and idle share in the profiled run, the
 host's waits (by source line) beside the engine's ``host_syncs``, the
 warm wall per decode micro-step, the kernel launches per micro-step by
 launch call (``cudaLaunchKernel``; the cluster launches of the decode,
 ``wkv6`` and ``ssd_chunk`` kernels are ``cudaLaunchKernelExC``, cuBLAS's
-``cuLaunchKernelEx``), the kernels and host ops that take the most time,
-and the device time of each of the port's kernels. Needs one NVIDIA card.
+``cuLaunchKernelEx``; a served path's decode chunks are replays of CUDA
+graphs, ``cudaGraphLaunch``, counted apart), the kernels and host ops
+that take the most time, and the device time of each of the port's
+kernels. Needs one NVIDIA card.
 """
 import collections
 import re
@@ -168,11 +172,19 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
     print(f"  kernel launches {n_launch} ({calls}), "
           f"{n_launch / max(st['steps'], 1):.1f} per micro-step (prefill "
           f"included)")
+    graphs = getattr(engine, "graphs", None)
+    if graphs is not None:
+        replays = sum(e.count for e in avgs if e.key == "cudaGraphLaunch")
+        print(f"  the fused decode step's CUDA graphs: {graphs.captured} "
+              f"captured in {graphs.capture_s:.3f} s, {replays} graph "
+              f"launches ({graphs.replays} replays; the launches above are "
+              "prefill's, the captures' and the host's own)")
     print("  top kernels by device time (self, total over the run):")
     top = sorted(rows, key=lambda e: -getattr(e, "self_device_time_total", 0))
     for e in top[:15]:
         print(f"    {getattr(e, 'self_device_time_total', 0) / 1e3:10.2f} ms"
               f"  x{e.count:6d}  {e.key[:90]}")
+    gap_report(prof)
     print("  the port's kernels by device time (total over the run):")
     for stem in KERNELS:
         hits = [e for e in rows
@@ -186,6 +198,35 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
     for e in host[:10]:
         print(f"    {e.self_cpu_time_total / 1e3:10.2f} ms  x{e.count:6d}  "
               f"{e.key[:90]}")
+
+
+GAP_MAX_US = 1000.0        # a longer gap is the host's, not the chain's
+
+
+def gap_report(prof, top: int = 10) -> None:
+    """The device's gaps between consecutive kernels of the profiled run
+    shorter than ``GAP_MAX_US`` (inside a chain of launches or a graph's
+    replay; a longer one waits for the host), summed by the kernel that
+    follows each gap, the largest first."""
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    total = collections.Counter()
+    count = collections.Counter()
+    end = None
+    for e in kernels:
+        if end is not None and 0 < e.time_range.start - end < GAP_MAX_US:
+            total[e.name] += e.time_range.start - end
+            count[e.name] += 1
+        end = e.time_range.end if end is None else max(end,
+                                                       e.time_range.end)
+    print(f"  device gaps under {GAP_MAX_US:.0f} us between kernels: "
+          f"{sum(total.values()) / 1e3:.2f} ms over {sum(count.values())} "
+          f"gaps ({sum(total.values()) / max(sum(count.values()), 1):.2f} us "
+          "a gap); by the kernel after the gap:")
+    for name, us in total.most_common(top):
+        print(f"    {us / 1e3:10.2f} ms  x{count[name]:6d}  "
+              f"{us / count[name]:7.2f} us  {name[:80]}")
 
 
 class ModelLevel:
@@ -222,6 +263,53 @@ def drive_model(engine, reqs):
     engine.steps += steps
 
 
+GRAPH_FLOOR_NODES = 2000
+
+
+def graph_floor(card) -> None:
+    """The card's floor for a chain of small kernels, which the graphed
+    decode step is (1,300-3,400 kernel nodes a micro-step): a chain of
+    ``GRAPH_FLOOR_NODES`` in-place adds on one bf16 element and on an (8,
+    2,048) bf16 activation, launched eagerly and replayed as one CUDA
+    graph; us a kernel from CUDA events, and the host's us to launch the
+    graph."""
+    for shape in ((1,), (8, 2048)):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+
+        def chain():
+            for _ in range(GRAPH_FLOOR_NODES):
+                x.add_(1)
+
+        def timed(run, reps=5):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            run()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                run()
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop) * 1e3 / reps / GRAPH_FLOOR_NODES
+
+        eager = timed(chain)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=stream):
+            chain()
+        replay = timed(graph.replay)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        host = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+        print(f"\n[graph floor] {GRAPH_FLOOR_NODES} in-place adds on a bf16 "
+              f"tensor of {shape} ({card}): eager {eager:.2f} us a kernel, "
+              f"graph replay {replay:.2f} us a kernel; the host {host:.1f} "
+              "us to launch the graph")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -243,11 +331,14 @@ def main() -> int:
              "minicpm": ("minicpm-2b", True),
              "stablelm": ("stablelm-12b", True)}
     paths = sys.argv[1:] or known[:4]
-    unknown = set(paths) - set(known) - set(dense) - set(trains)
+    unknown = (set(paths) - set(known) - set(dense) - set(trains)
+               - {"graph-floor"})
     if unknown:
         print(f"chip_profile: unknown paths {sorted(unknown)}", file=sys.stderr)
         return 2
     card = chip_smoke.card_line()
+    if "graph-floor" in paths:
+        graph_floor(card)
     base = dict(max_batch=8, max_len=2048, profile="h100_sxm", region="QC")
 
     def gen_of(seed):

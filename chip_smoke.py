@@ -71,7 +71,27 @@ Phases (any failure raises and the script exits non-zero):
    beside its bound and SDPA at Ev 16 with the same mask;
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
-   and read just after. ``llama-paper-1b`` at full width and depth in
+   and read just after. Every engine decodes through CUDA graphs of the
+   fused step (``serving/graphs.py``): each served run must have as many
+   graph replays as decode chunks and one capture a static key, and
+   prints the graphs captured and replayed, the capture's seconds, the
+   host's us a replay, the port's kernel launches a micro-step counted at
+   capture, the warm wall a micro-step (prefill included) and the decode
+   wall a micro-step (a chunk's replay to its end from a drained device,
+   the chunks that captured left out), on the four paths of
+   ``EAGER_STEP`` (and ``llama3.2-1b``) the kernel nodes a micro-step of
+   one more capture, counted by the driver, beside the eager step's
+   figures. ``graph_agreement`` holds a graphed chunk against an eager
+   call of ``sampling.fused_decode_steps`` from one mid-decode state, on
+   clones, bit for bit (tokens, emissions, every cache leaf but a pool's
+   trash page, the slot state and the allocator), and times a second
+   chunk of each, for ``llama-paper-1b`` contiguous and
+   ``llama3.2-1b`` paged, with the host's waits under CUDA's sync debug
+   mode equal to ``host_syncs``. ``phase_llama32``: ``llama3.2-1b`` at
+   full width (1,269,368,832 parameters) in bf16 on the graphed paged
+   main path (page 16, chunk 256 packed 2, prefix sharing, ``max_batch=8,
+   max_len=2048``), the paged run's 16 requests, its launch counts, the
+   card's draw integrated over the requests (J a token). ``llama-paper-1b`` at full width and depth in
    bf16, twice: the contiguous default path (16 requests; flash + decode
    kernels), then the paged pool with chunked prefill and prefix sharing
    (16 requests, eight sharing a 512-token system prompt; chunked-prefill
@@ -1933,7 +1953,9 @@ def smoke_agreement():
         if toks["cpu"] != toks["cuda"]:
             raise AssertionError(f"smoke {arch} {name} tokens differ: cpu "
                                  f"{toks['cpu']} cuda {toks['cuda']}")
-        print(f"[smoke] {cfg.name} f32, {name}: cuda tokens == cpu tokens")
+        keys = assert_graphed(f"smoke {arch} {name}", eng)
+        print(f"[smoke] {cfg.name} f32, {name}: cuda tokens == cpu tokens; "
+              f"{eng.graphs.replays} graph replays of {len(keys)} captures")
     smoke_frontdoor()
     smoke_fleet()
     smoke_fleet_admin()
@@ -2128,16 +2150,21 @@ def paged_requests(vocab):
 
 
 def serve(card, label, ecfg, reqs, model, params, new_tokens=64,
-          power=None):
+          power=None, nodes=False):
     """Serve ``reqs`` once (``new_tokens`` each), the launch counts set to
     0 just before and read just after; with ``power`` (an ``nvidia-smi``
     field) the card's draw is sampled around the run and integrated over
-    its requests (``measured_power``). Returns (engine, stats, counts)."""
+    its requests (``measured_power``). Every decode chunk must be a graph
+    replay (``graph_report``, with the kernel nodes of a capture where
+    ``nodes`` or the path is one of ``EAGER_STEP``'s). Returns (engine,
+    stats, counts); the stats carry the graph's figures under
+    ``"graph"`` and the measured J under ``"measured_j"``."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(model, params, ecfg)
+    decode = timed_decode(engine)
     sampler = PowerSampler(power) if power else None
     for r in reqs:
         engine.submit(r)
@@ -2176,9 +2203,12 @@ def serve(card, label, ecfg, reqs, model, params, new_tokens=64,
           f"{st['prefill_g_per_token']:.4e} g/token; decode "
           f"{st['decode_j_per_token']:.4e} J/token "
           f"{st['decode_g_per_token']:.4e} g/token ({card})")
+    st["graph"] = graph_report(card, label, engine, wall, decode,
+                               nodes=nodes or label in EAGER_STEP)
     if sampler is not None:
-        measured_power(card, label, sampler, reqs, responses, gen_tokens,
-                       modeled_j=st["total_energy_j"])
+        st["measured_j"] = measured_power(card, label, sampler, reqs,
+                                          responses, gen_tokens,
+                                          modeled_j=st["total_energy_j"])
     return engine, st, counts
 
 
@@ -2252,6 +2282,274 @@ def paged_checks(label, cfg, engine, st, counts):
         raise AssertionError(f"{label}: device free stack not whole")
 
 
+# the eager fused step on the four paths whose graphed figures
+# ``graph_report`` prints beside them: kernel launches a micro-step and
+# warm wall a micro-step in ms (prefill included) and the device's idle
+# share, from ``chip_profile.py`` (PR 18's profile, NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md)
+EAGER_STEP = {
+    "contiguous": (1349.4, 32.63, 0.929),
+    "paged + chunked prefill + prefix sharing": (1886.5, 33.62, 0.927),
+    "zamba2 paged": (3353.8, 91.17, 0.893),
+    "rwkv6 contiguous": (2620.5, 37.35, 0.907),
+}
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def graph_kernel_nodes(engine, n: int) -> tuple:
+    """(kernel nodes, all nodes, the port's kernel launches) a micro-step
+    of one capture of ``engine``'s greedy fused step of ``n`` micro-steps,
+    the nodes counted by the driver (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``). The capture reads the engine's tensors and is
+    never replayed, so nothing of the engine changes."""
+    import ctypes
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sampling
+    caches = dict(engine.caches)
+    if "paged" in caches:
+        caches["paged"] = dict(caches["paged"])
+    cfg = engine.cfg
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = _side_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with ops.recorded_launches() as ours, torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        sampling.fused_decode_steps(
+            engine.model, engine.params, caches, engine.cur_tokens,
+            engine.state, None, n, 0.0, cfg.page_size if cfg.paged else 0,
+            cfg.prefill_chunk is not None)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what} returned CUresult {rc}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        kernels += kind.value == CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels / n, count.value / n, sum(ours.values()) / n
+
+
+def timed_decode(engine):
+    """Wrap ``engine.graphs.step`` so each chunk's replay is timed to its
+    end, from a device drained of the prefill work queued before it (the
+    engine fetches the chunk's tokens right after, which waits for both
+    anyway); returns [seconds and micro-steps of the chunks that were
+    replays alone (a chunk whose key was captured first is left out),
+    micro-steps of every chunk]."""
+    step = engine.graphs.step
+    total = [0.0, 0, 0]
+
+    def timed(caches, n_steps, *args, **kw):
+        captured = engine.graphs.captured
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(caches, n_steps, *args, **kw)
+        torch.cuda.synchronize()
+        if engine.graphs.captured == captured:
+            total[0] += time.perf_counter() - t0
+            total[1] += n_steps
+        total[2] += n_steps
+        return out
+
+    engine.graphs.step = timed
+    return total
+
+
+def assert_graphed(label, engine) -> list:
+    """Fails unless every decode chunk of the card engine's run was a
+    replay of a captured graph (one capture a static key, by
+    ``DecodeGraphs``' construction); returns the keys, sorted."""
+    g = engine.graphs
+    if not g.replays == engine.decode_chunks > 0:
+        raise AssertionError(
+            f"{label}: {g.replays} graph replays for {engine.decode_chunks} "
+            f"decode chunks")
+    return sorted(g.launches)
+
+
+def graph_report(card, label, engine, wall=None, decode=None,
+                 nodes=False) -> dict:
+    """Fails unless every decode chunk of ``engine``'s run was a replay of
+    a captured graph, with one capture a static key. Prints the graphs
+    captured and replayed, the capture's seconds, the host's us a replay
+    (each graph's first, which uploads it, apart),
+    the port's kernel launches a micro-step counted at capture, and where
+    given the warm wall a micro-step (``wall`` over the micro-steps,
+    prefill included) and the decode wall a micro-step (``decode``, from
+    ``timed_decode``); with ``nodes``, the kernel nodes a micro-step of
+    one more capture (``graph_kernel_nodes``); the eager step's figures
+    beside, where ``EAGER_STEP`` has the path. Returns the figures."""
+    g = engine.graphs
+    steps = engine.stats()["steps"]
+    keys = assert_graphed(label, engine)
+    n = keys[-1][0]
+    later = g.replays - g.captured
+    fig = {"captured": g.captured, "replays": g.replays,
+           "capture_s": g.capture_s, "upload_s": g.upload_s,
+           "replay_host_us": g.replay_host_s / later * 1e6 if later else 0.0,
+           "ours": sum(g.launches[keys[-1]].values()) / n}
+    print(f"  graphs ({card}): {g.captured} captured (chunk lengths "
+          f"{[k[0] for k in keys]}) in {g.capture_s:.3f} s, {g.replays} "
+          f"replays = decode chunks; host {fig['replay_host_us']:.1f} us a "
+          f"replay ({later} replays; each graph's first, which uploads it, "
+          f"{g.upload_s / g.captured * 1e3:.2f} ms); the port's kernels "
+          f"{fig['ours']:.1f} a micro-step counted at capture")
+    if wall is not None:
+        fig["wall_ms"] = wall / steps * 1e3
+        print(f"  warm wall a micro-step (prefill included) "
+              f"{fig['wall_ms']:.2f} ms over {steps} micro-steps ({card})")
+    if decode is not None and decode[1]:
+        fig["micro_steps"] = decode[2]
+        fig["decode_ms"] = decode[0] / decode[1] * 1e3
+        print(f"  decode wall a micro-step (a chunk's replay to its end, "
+              f"the chunks that captured left out) {fig['decode_ms']:.3f} "
+              f"ms over {decode[1]} of {decode[2]} micro-steps ({card})")
+    if nodes:
+        kern, every, ours = graph_kernel_nodes(engine, n)
+        fig["kernel_nodes"] = kern
+        print(f"  one capture of {n} micro-steps: {kern:.1f} kernel nodes a "
+              f"micro-step ({every:.1f} nodes in all; the port's kernels "
+              f"{ours:.1f}) ({card})")
+    if label in EAGER_STEP:
+        launches, wall_ms, idle = EAGER_STEP[label]
+        print(f"  the eager step here (PR 18's chip_profile.py, NVIDIA H100 "
+              f"80GB HBM3, 700.00 W): {launches} kernel launches and "
+              f"{wall_ms} ms warm wall a micro-step (prefill included), "
+              f"idle {idle:.1%}")
+    return fig
+
+
+def _sorted_leaves(tree, name=None):
+    """A tree's tensors in a fixed order; a page pool without its trash
+    page (the last), which several writes of one call may hit (its winner
+    is undefined on CUDA) and no read sees unmasked."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k], k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _sorted_leaves(v)
+    elif name in ("k_pages", "v_pages"):
+        yield tree[:, :-1]
+    else:
+        yield tree
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def graph_agreement(card, label, model, params, ecfg, reqs):
+    """One engine serving ``reqs`` under CUDA's sync debug mode, stopped
+    after its second decode chunk (slots mid-decode): from that state, on
+    clones, one chunk of ``sync_every`` greedy micro-steps through a
+    captured graph (``DecodeGraphs``) and through an eager call of
+    ``sampling.fused_decode_steps``. tok_mat, emit_mat, ``cur_tokens``,
+    the slot state, every cache leaf (a pool's pages but its trash page:
+    ``_sorted_leaves``) and the allocator (``tbl``, ``free``, ``top``,
+    ``ref``) must be equal bit for bit; a second chunk of each is timed
+    beside the first (eager against a warm replay). Then the engine runs
+    to its end, and the host's waits over both parts must equal
+    ``host_syncs``."""
+    from repro_torch.serving import ServingEngine, graphs, sampling
+    engine = ServingEngine(model, params, ecfg)
+    for r in reqs:
+        engine.submit(r)
+
+    def until():
+        while engine.decode_chunks < 2:
+            engine.step()
+
+    _, waits = count_waits(until)
+    if not engine.decoding:
+        raise AssertionError(f"{label}: no slot decoding after two chunks")
+    page_size = ecfg.page_size if ecfg.paged else 0
+    freeze = ecfg.prefill_chunk is not None
+    n = ecfg.sync_every
+    runs, ms = [], []
+
+    def timed(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for graphed in (False, True):
+        caches = _clone_tree(engine.caches)
+        cur, state = engine.cur_tokens.clone(), _clone_tree(engine.state)
+        if graphed:
+            step = graphs.DecodeGraphs(model, params, cur, state, None)
+
+            def call():
+                return step.step(caches, n_steps=n, temperature=0.0,
+                                 page_size=page_size, freeze_inactive=freeze)
+        else:
+            def call():
+                return sampling.fused_decode_steps(
+                    model, params, caches, cur, state, None, n, 0.0,
+                    page_size, freeze)
+        out = timed(call)
+        runs.append([t.clone() for t in list(out) + [cur]
+                     + list(_sorted_leaves(state))
+                     + list(_sorted_leaves(caches))])
+        timed(call)                # a second chunk, timed, not compared
+        if graphed and (step.captured, step.replays) != (1, 2):
+            raise AssertionError(f"{label}: {step.captured} captures, "
+                                 f"{step.replays} replays")
+        del caches, cur, state, out, call
+    step = None
+    torch.cuda.synchronize()
+    emitted = int(runs[0][1].sum())
+    differ = [i for i, (a, b) in enumerate(zip(*runs))
+              if not torch.equal(a, b)]
+    if len(runs[0]) != len(runs[1]) or differ or not emitted:
+        raise AssertionError(f"{label}: graph and eager differ at tensors "
+                             f"{differ} of {len(runs[0])}, {emitted} "
+                             "emissions")
+    print(f"  graph = eager ({card}): one chunk of {n} micro-steps from a "
+          f"mid-decode state, {emitted} emissions; tok_mat, emit_mat and "
+          f"{len(runs[0]) - 2} state, cache and allocator tensors equal "
+          "bit for bit")
+    print(f"  that chunk and the next, from a drained device to the chunk's "
+          f"end ({card}): eager {ms[0]:.2f} / {ms[1]:.2f} ms, graphed "
+          f"{ms[2]:.2f} (capture and first replay) / {ms[3]:.2f} ms (a "
+          f"replay): {ms[1] / n:.3f} against {ms[3] / n:.3f} ms a micro-step")
+    del runs
+    _, more = count_waits(engine.run)
+    if waits + more != engine.host_syncs:
+        raise AssertionError(f"{label}: the host waited {waits + more} "
+                             f"times, host_syncs {engine.host_syncs}")
+    print(f"  the same engine to its end: host waits for the device (sync "
+          f"debug mode) {waits + more} = host_syncs {engine.host_syncs}; "
+          f"{engine.graphs.captured} graphs, {engine.graphs.replays} "
+          "replays")
+    graph_report(card, label, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_engine(card):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -2278,6 +2576,8 @@ def phase_engine(card):
                                engine_requests(cfg.vocab), model, params)
     contiguous_checks("contiguous run", cfg, engine, st, counts)
     del engine
+    graph_agreement(card, "contiguous graph against eager", model, params,
+                    contiguous, engine_requests(cfg.vocab))
 
     engine, st, pcounts = serve(card, "paged + chunked prefill + prefix "
                                 "sharing", paged, paged_requests(cfg.vocab),
@@ -2293,6 +2593,58 @@ def phase_engine(card):
             "chunked_prefill_attention":
                 pcounts["chunked_prefill_attention"],
             "rmsnorm": counts["rmsnorm"]}
+
+
+LLAMA32 = "llama3.2-1b"
+LLAMA32_PARAMS = 1_269_368_832       # the reference's param_counts, full
+
+
+def phase_llama32(card):
+    """``llama3.2-1b`` at full width and depth (16 layers, d_model 2,048,
+    32 q heads over 8 kv heads padded to 16, head dim 64, vocab 128,256,
+    tied embeddings), bf16, random weights from a seed, through the
+    graphed paged main path (page 16, chunked prefill 256 packed 2,
+    prefix sharing) at ``max_batch=8, max_len=2048`` with the paged run's
+    16 requests of 64 new tokens: launch counts, prefix hits and the free
+    stack as the ``llama-paper-1b`` paged run's, tokens/s, the graph's
+    figures with a capture's kernel nodes, and the card's draw integrated
+    over the requests (J a generated token); then ``graph_agreement``
+    from a mid-decode state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = get_config(LLAMA32)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads_padded,
+            cfg.dtype) == (16, 2048, 32, 16, "bfloat16")
+    model = Model(cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(t.numel() for t in
+                   {id(t): t for t in _leaves(params)}.values())
+    if n_params != LLAMA32_PARAMS:
+        raise AssertionError(f"{LLAMA32}: {n_params} parameters, the "
+                             f"reference counts {LLAMA32_PARAMS}")
+    print(f"\n[llama3.2-1b] {cfg.name}: {cfg.n_layers} layers, {n_params} "
+          f"parameters at full width ({card})")
+    ecfg = EngineConfig(max_batch=8, max_len=2048, paged=True, page_size=16,
+                        prefill_chunk=256, prefill_pack=2,
+                        prefix_sharing=True, profile="h100_sxm", region="QC")
+    warm = ServingEngine(model, params, ecfg)   # not counted
+    warm.submit(Request(rid=0, prompt=list(range(2, 40)), max_new_tokens=4))
+    warm.run()
+    del warm
+    label = "llama3.2-1b paged + chunked prefill + prefix sharing"
+    engine, st, counts = serve(card, label, ecfg, paged_requests(cfg.vocab),
+                               model, params, power=power_field(), nodes=True)
+    paged_checks(label, cfg, engine, st, counts)
+    del engine
+    graph_agreement(card, "llama3.2-1b graph against eager", model, params,
+                    ecfg, paged_requests(cfg.vocab))
+    model = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
 
 
 def phase_frontdoor(card, model, params):
@@ -2356,6 +2708,7 @@ def phase_frontdoor(card, model, params):
     print(f"  prefill chunks {st['prefill_chunks']}, decode chunks "
           f"{st['decode_chunks']}, micro-steps with work {st['steps']}, "
           f"host syncs {st['host_syncs']}; launches: {counts}")
+    graph_report(card, "frontdoor", engine, wall)
     planned = dict(shed_count=1, rate_limited=1, deadline_cancelled=1,
                    fault_retries=3)
     reasons = {rid: r.finish_reason for rid, r in resp.items()}
@@ -2589,37 +2942,33 @@ def phase_fleet(card, model, params):
     deferred and all released (forced and at the window both), ``audit()``
     and every shard's whole free stack, the paged-decode, chunk and
     RMSNorm launches per micro-step and per chunk equal to one forward's
-    (22, 22, 45), one fused decode call per decode chunk, the host's waits
-    for the device (counted under CUDA's sync debug mode) one per decode
-    chunk and one per first-token fetch for the whole fleet, and per-shard
-    gCO2 summing to the fleet's total."""
+    (22, 22, 45), one fused decode step (a graph replay) per decode chunk,
+    the host's waits for the device (counted under CUDA's sync debug mode)
+    one per decode chunk and one per first-token fetch for the whole
+    fleet, and per-shard gCO2 summing to the fleet's total."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ShardedServingEngine
-    from repro_torch.serving import sharded as sharded_mod
     cfg = model.cfg
     L, norms = cfg.n_layers, dense_norms(cfg)
     reqs = fleet_requests(cfg.vocab)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ShardedServingEngine(model, params, fleet_config())
-    fused = sharded_mod.sampling.fused_decode_steps
+    step = engine.graphs.step
     n_fused = [0]
 
     def counted(*a, **k):
         n_fused[0] += 1
-        return fused(*a, **k)
+        return step(*a, **k)
 
-    sharded_mod.sampling.fused_decode_steps = counted
-    try:
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        # the run's real host syncs, counted
-        resp, waits = count_waits(lambda: drive_fleet(engine, reqs))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-    finally:
-        sharded_mod.sampling.fused_decode_steps = fused
+    engine.graphs.step = counted
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    # the run's real host syncs, counted
+    resp, waits = count_waits(lambda: drive_fleet(engine, reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
     st = engine.stats()
     engine.audit()
     S = engine.S
@@ -2642,10 +2991,11 @@ def phase_fleet(card, model, params):
           f"{st['preemption_count']}, prefix hit tokens "
           f"{st['prefix_hit_tokens']}")
     print(f"  prefill chunks {st['prefill_chunks']}, decode chunks "
-          f"{st['decode_chunks']} ({n_fused[0]} fused calls), micro-steps "
+          f"{st['decode_chunks']} ({n_fused[0]} fused steps), micro-steps "
           f"with work {st['steps']}, host syncs {st['host_syncs']} "
           f"({waits} host waits for the device under the sync debug "
           f"mode); launches: {counts}")
+    graph_report(card, "fleet", engine, wall)
     qc = sum(placed[s] for s in range(S) if FLEET_REGIONS[s] == "QC")
     pace = sum(placed[s] for s in range(S) if FLEET_REGIONS[s] == "PACE")
     alloc = {k: v.cpu() for k, v in engine.caches["paged"].items()}
@@ -2682,7 +3032,7 @@ def phase_fleet(card, model, params):
          f"contiguous kernels ran on the fleet: {counts}"),
         (n_fused[0] == st["decode_chunks"]
          and waits == st["decode_chunks"] + st["prefill_batches"],
-         f"{n_fused[0]} fused calls, {waits} host waits for "
+         f"{n_fused[0]} fused steps, {waits} host waits for "
          f"{st['decode_chunks']} decode chunks + {st['prefill_batches']} "
          "first-token fetches"),
         (math.isclose(sum(grams), st["total_carbon_g"], rel_tol=1e-12),
@@ -2911,6 +3261,7 @@ def phase_fleet_admin(card, model, params):
           f"{gen_tokens} generated; events at quanta "
           f"{[e[:2] for e in ADMIN_FULL]} ({card})")
     measured_power(card, "fleet admin", sampler, reqs, resp, gen_tokens)
+    graph_report(card, "fleet admin", engine, wall)
     print(f"  wall {wall:.3f} s, {gen_tokens / wall:.1f} generated tokens/s, "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
@@ -3457,18 +3808,25 @@ def phase_deepseek(card):
     resp = engine.responses
     long_rid = len(DEEPSEEK_LENS)
     first = min(resp[long_rid].t_emit)
-    n_fwd = forwards["prefill"] + forwards["decode"]
+    # a decode forward runs its Python once, at its graph's capture; the
+    # replays run the micro-steps
+    captured = sum(k[0] for k in engine.graphs.launches)
+    micro = st["graph"]["micro_steps"]
+    n_fwd = forwards["prefill"] + micro
     checks = [
         (counts["rmsnorm"] == deepseek_norms(cfg) * n_fwd,
          f"rmsnorm launches {counts['rmsnorm']} != {deepseek_norms(cfg)} x "
          f"{n_fwd} forwards"),
+        (forwards["decode"] == captured,
+         f"{forwards['decode']} decode forwards called, the captures hold "
+         f"{captured} micro-steps"),
         (all(n == 0 for k, n in counts.items() if k != "rmsnorm"),
          f"an attention or scan kernel ran on the MLA path: {counts}"),
         (forwards["prefill"] == pb == 5,
          f"{pb} prefill launches ({forwards['prefill']} prefill forwards), "
          "not the wave's 4 buckets + 1"),
-        (forwards["decode"] >= st["steps"],
-         f"{forwards['decode']} decode forwards < {st['steps']} steps"),
+        (micro >= st["steps"],
+         f"{micro} decode micro-steps replayed < {st['steps']} steps"),
         (scans[0] == L, f"{scans[0]} scan calls, not one a layer"),
         (all(max(resp[r].t_emit) <= first for r in range(long_rid)),
          "the long prompt was admitted before the wave finished"),
@@ -3477,8 +3835,8 @@ def phase_deepseek(card):
         if not ok:
             raise AssertionError(f"{label}: {what}")
     gen_tokens = sum(r.n_tokens for r in resp.values())
-    print(f"  forwards: {forwards['prefill']} prefill + {forwards['decode']} "
-          f"decode, rmsnorm {deepseek_norms(cfg)} a forward; the 3,000-token "
+    print(f"  forwards: {forwards['prefill']} prefill + {micro} decode "
+          f"(graph replays), rmsnorm {deepseek_norms(cfg)} a forward; the 3,000-token "
           f"prompt's 4,096-key prefill on the scan path ({scans[0]} calls, "
           f"one a layer); modeled {st['total_energy_j'] / gen_tokens:.4e} J "
           f"and {st['total_carbon_g'] / gen_tokens:.4e} gCO2 a generated "
@@ -3591,22 +3949,29 @@ def checked_ops(record):
     elements past ``TOL[bf16]``, calls, residual sum elements other than
     the plain add's] (``add_rmsnorm``'s sum is held bit for bit, as phase
     3 holds it; its norm to the tolerance), the errors and counts as
-    tensors on the card, read by the caller: no host wait a call."""
+    tensors on the card, updated in place (a CUDA graph of an engine's
+    decode step captured within checks every call of every replay), read
+    by the caller: no host wait a call."""
     from repro_torch.kernels import ops
     atol, rtol = TOL[torch.bfloat16]
+
+    for name in ops.SWAPPABLE:
+        record[name] = [torch.zeros((), device="cuda")] + [
+            torch.zeros((), dtype=torch.int64, device="cuda")
+            for _ in range(3)]
 
     def check(name, kernel, plain):
         def run(*a, **kw):
             got, want = kernel(*a, **kw), plain(*a, **kw)
             g, w = got, want
-            r = record.setdefault(name, [0, 0, 0, 0])
+            r = record[name]
             if isinstance(got, tuple):             # add_rmsnorm: (s, y)
-                r[3] = r[3] + (got[0] != want[0]).sum()
+                r[3].add_((got[0] != want[0]).sum())
                 g, w = got[1], want[1]
             err = (g.float() - w.float()).abs()
-            r[0] = err.max() if r[2] == 0 else torch.maximum(r[0], err.max())
-            r[1] = r[1] + (err > atol + rtol * w.float().abs()).sum()
-            r[2] += 1
+            torch.maximum(r[0], err.max(), out=r[0])
+            r[1].add_((err > atol + rtol * w.float().abs()).sum())
+            r[2].add_(1)
             return got
         return run
     return ops.swapped(check)
@@ -3626,7 +3991,7 @@ def checked_run(label, run):
     with checked_ops(calls):
         out = run()
     launches = ops.launch_counts()
-    calls = {n: [float(r[0]), int(r[1]), r[2], int(r[3])]
+    calls = {n: [float(r[0]), int(r[1]), int(r[2]), int(r[3])]
              for n, r in calls.items()}
     checked = {k: sum(r[2] for n, r in calls.items() if n.endswith(k))
                for k in ("flash_attention", "decode_attention", "rmsnorm")}
@@ -5017,6 +5382,11 @@ def main() -> int:
     smoke_agreement()
     launches = phase_engine(card)
     torch.cuda.empty_cache()
+    llama32 = phase_llama32(card)
+    print(f"\n[llama3.2-1b] {llama32['decode_tokens']} decode tokens, "
+          f"{llama32['graph']['captured']} graphs, "
+          f"{llama32['graph']['replays']} replays, measured "
+          f"{llama32['measured_j']:.1f} J ({card})")
     # flash and paged decode are reported from the zamba2 path, at the head
     # dim 112 timed in phase 3
     launches.update(phase_zamba(card))

@@ -7,7 +7,11 @@ from the kernel to the plain version.
 
 Each kernel module keeps a plain-integer launch count (``launches``),
 incremented where the kernel is launched and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels. A CUDA graph's capture
+calls the wrappers but launches nothing, and its replay launches without
+calling them: ``recorded_launches`` takes a capture's counts out of the
+running count, and ``add_launches`` adds them back once per replay
+(``serving/graphs.py``).
 
 Training on the card (``kernels/autograd.py``): a call that needs a
 gradient (grad mode on, an input that requires grad) runs
@@ -295,6 +299,27 @@ def swapped(make, names=SWAPPABLE):
 def reset_launches() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Within: the launches counted are taken out of the running count on
+    exit and left in the yielded dict, kernel name -> launches (a CUDA
+    graph's capture, whose kernels run at each replay)."""
+    before = launch_counts()
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, mod in _KERNELS.items():
+            recorded[name] = mod.launches - before[name]
+            mod.launches = before[name]
+
+
+def add_launches(recorded: Dict[str, int]) -> None:
+    """Count ``recorded`` launches (one replay of a captured graph)."""
+    for name, n in recorded.items():
+        _KERNELS[name].launches += n
 
 
 def launch_counts() -> Dict[str, int]:

@@ -139,8 +139,10 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, device,
 def _res(cfg, delta):
     """The block's residual delta, scaled where the config says so."""
     if cfg.residual_scale != 1.0:
-        delta = delta * torch.tensor(cfg.residual_scale, dtype=delta.dtype,
-                                     device=delta.device)
+        # a fill, not ``torch.tensor``: a copy from the host cannot be
+        # captured in the decode step's CUDA graph
+        delta = delta * torch.full((), cfg.residual_scale, dtype=delta.dtype,
+                                   device=delta.device)
     return delta
 
 

@@ -165,7 +165,7 @@ def embedding_init(gen, cfg, device) -> Dict:
 def embed(p: Dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     x = p["tok"][tokens]
     if cfg.scale_emb != 1.0:
-        x = x * torch.tensor(cfg.scale_emb, dtype=x.dtype, device=x.device)
+        x = x * torch.full((), cfg.scale_emb, dtype=x.dtype, device=x.device)
     return x
 
 

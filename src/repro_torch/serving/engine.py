@@ -18,7 +18,9 @@ Hot path, as in the reference:
     with a block that takes no mask (rwkv6), padded to a power-of-two
     batch; the new caches enter the pool in one indexed copy per leaf;
   * decode runs ``sync_every`` fused micro-steps (decode -> sample ->
-    EOS/budget masking) on the device per host sync.
+    EOS/budget masking) on the device per host sync: on the card one
+    replay of a CUDA graph of the step (``serving/graphs.py``), captured
+    once for each chunk length that occurs.
 
 The meter prices each prefill at its padded launch shape (that is what
 the device ran) and attributes real tokens, exactly as the reference.
@@ -89,7 +91,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.costing import workload_of
 from repro_torch.models.model import Model
 from repro_torch.serving import paged as PG
-from repro_torch.serving import preempt, sampling
+from repro_torch.serving import graphs, preempt, sampling
 from repro_torch.serving.faults import FaultError, InjectedFault
 from repro_torch.serving.request import Request, Response
 
@@ -326,6 +328,9 @@ class ServingEngine:
         # reference's jax.random stream
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(0)
+        # the fused decode step: one CUDA graph a static key on the card
+        self.graphs = graphs.DecodeGraphs(model, params, self.cur_tokens,
+                                          self.state, self._gen)
         self._steps = 0
         self.decode_chunks = 0                         # device->host syncs
         self.prefill_batches = 0
@@ -1398,10 +1403,8 @@ class ServingEngine:
                    if self._slot_armed[s]]
         n = min(self.cfg.sync_every, max(max(budgets), 1),
                 max(max_steps - self._steps, 1))
-        tok_mat, emit_mat = sampling.fused_decode_steps(
-            self.model, self.params, self.caches, self.cur_tokens,
-            self.state, self._gen, n_steps=n,
-            temperature=self.cfg.temperature,
+        tok_mat, emit_mat = self.graphs.step(
+            self.caches, n_steps=n, temperature=self.cfg.temperature,
             page_size=self.cfg.page_size if self.paged else 0,
             freeze_inactive=self.chunked)
         # the chunk's one host sync: tokens and emission flags together

@@ -34,9 +34,12 @@ equals the number of the shard's block-table entries mapping ``p``;
 its shard's stack exactly at decref-to-zero.
 
 Every allocator function is a pure function of fixed-shape device tensors
-and returns a new allocator dict, like the reference; none syncs with the
-host (no ``.item()``, no boolean-mask indexing), so they run inside the
-fused decode loop. PyTorch has no ``mode="drop"`` scatter: each dropped
+and returns a new allocator dict, like the reference, except the one the
+fused decode step runs: ``alloc_decode_pages`` writes ``tbl``, ``top``
+and ``ref`` in place, since the step's CUDA graph reads the allocator at
+fixed addresses (``serving/graphs.py``). None syncs with the host (no
+``.item()``, no boolean-mask indexing), so they run inside the fused
+decode loop. PyTorch has no ``mode="drop"`` scatter: each dropped
 index of the reference (the one past the end) goes to a scratch element
 that is cut off (``_drop_set``), or to the trash page for pool rows.
 
@@ -171,7 +174,8 @@ def alloc_decode_pages(alloc: Dict, lengths: torch.Tensor,
                        active: torch.Tensor, page_size: int) -> Dict:
     """Pop one page for every ACTIVE slot whose next token starts a new
     logical page. lengths: tokens already cached; active: bool; one entry
-    a slot, (S*B,) or (S, B)."""
+    a slot, (S*B,) or (S, B). In place: ``tbl``, ``top`` and ``ref`` are
+    written where they lie, and ``alloc`` is returned."""
     tbl, free, top = alloc["tbl"], alloc["free"], alloc["top"]
     S, B, M = tbl.shape
     lengths, active = lengths.reshape(S, B), active.reshape(S, B)
@@ -181,10 +185,10 @@ def alloc_decode_pages(alloc: Dict, lengths: torch.Tensor,
     sidx = torch.arange(S, device=tbl.device)[:, None]
     bidx = torch.arange(B, device=tbl.device)[None, :]
     lp_c = lp.clamp(0, M - 1).long()
-    tbl = tbl.clone()
     tbl[sidx, bidx, lp_c] = torch.where(ok, pages, tbl[sidx, bidx, lp_c])
-    return {"tbl": tbl, "free": free, "top": top - _count(ok),
-            "ref": _set_ref(alloc["ref"], pages, ok)}
+    top.sub_(_count(ok))
+    alloc["ref"].copy_(_set_ref(alloc["ref"], pages, ok))
+    return alloc
 
 
 def alloc_prefill_pages(alloc: Dict, slots: torch.Tensor,
@@ -461,8 +465,8 @@ def _page_base(alloc: Dict) -> torch.Tensor:
                                                                  None]
 
 
-def model_table(alloc: Dict, active: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+def model_table(alloc: Dict, active: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (S*B, M) block table the model reads. The pools hold the S
     shards' pages side by side, ``(Hkv, S*P + 1, ps, hd)``, shard s at
     pages [s*P, (s+1)*P), and one trash page last: the shard-local ids
@@ -474,14 +478,18 @@ def model_table(alloc: Dict, active: Optional[torch.Tensor] = None
     in the trash page instead of its next unwritten row, which may lie in
     a page it shares with another slot (an adopter of a whole shared
     prompt, waiting for its copy-on-write chunk). Its attention output is
-    discarded."""
+    discarded. ``out``, if given, is an (S*B, M) int32 buffer that
+    receives the table and is returned."""
     tbl = alloc["tbl"]
     S, B, M = tbl.shape
     keep = tbl >= 0
     if active is not None:
         keep = keep & active.reshape(S, B, 1)
-    return torch.where(keep, tbl + _page_base(alloc),
-                       torch.full_like(tbl, -1)).reshape(S * B, M)
+    if out is None:
+        out = torch.empty((S * B, M), dtype=_I32, device=tbl.device)
+    torch.where(keep, tbl + _page_base(alloc), torch.full_like(tbl, -1),
+                out=out.view(S, B, M))
+    return out
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
@@ -675,13 +683,21 @@ def cow_chunk_pages(pool: Dict, slots: torch.Tensor, start_tok: torch.Tensor,
     return pool
 
 
-def snapshot_cursors(pool: Dict) -> Dict:
+def snapshot_cursors(pool: Dict, out: Optional[Dict] = None) -> Dict:
     """Copies of the per-slot write cursors (``t``, each layer's
-    ``pos_ids`` and ``length``), for ``freeze_inactive_cursors``."""
-    return {"t": pool["t"].clone(),
-            "layers": [{"pos_ids": layer["pos_ids"].clone(),
-                        "length": layer["length"].clone()}
-                       for layer in pool["layers"]]}
+    ``pos_ids`` and ``length``), for ``freeze_inactive_cursors``. ``out``,
+    an earlier snapshot of the same tree, is filled in place and
+    returned."""
+    if out is None:
+        return {"t": pool["t"].clone(),
+                "layers": [{"pos_ids": layer["pos_ids"].clone(),
+                            "length": layer["length"].clone()}
+                           for layer in pool["layers"]]}
+    out["t"].copy_(pool["t"])
+    for o, layer in zip(out["layers"], pool["layers"]):
+        o["pos_ids"].copy_(layer["pos_ids"])
+        o["length"].copy_(layer["length"])
+    return out
 
 
 def freeze_inactive_cursors(old: Dict, pool: Dict,

@@ -56,9 +56,11 @@ def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
     """Run ``n_steps`` fused engine micro-steps on the device.
 
     cur_tokens: (B, 1) int32 — last token of every slot. ``caches``,
-    ``cur_tokens`` and ``state`` are updated in place (the allocator at
-    ``caches["paged"]`` is replaced). Returns (tok_mat, emit_mat), both
-    (n_steps, B): the sampled token per step and whether the slot was
+    ``cur_tokens`` and ``state`` are updated in place, the allocator at
+    ``caches["paged"]`` too: every tensor the step reads or writes stays
+    where it lies, so one CUDA graph of the step replays it (the engines
+    call it through ``serving/graphs.py``). Returns (tok_mat, emit_mat),
+    both (n_steps, B): the sampled token per step and whether the slot was
     active (the token is a real emission). Finished and free slots keep
     re-feeding their last token; their logits are computed but never read.
 
@@ -84,16 +86,18 @@ def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
     vocab = model.cfg.vocab
     active, budget, eos = state["active"], state["budget"], state["eos"]
     toks, emits = [], []
+    old = tbl = None            # buffers the micro-steps refill
     for _ in range(n_steps):
         if page_size:
-            caches["paged"] = PG.alloc_decode_pages(
-                caches["paged"], caches["t"], active, page_size)
+            PG.alloc_decode_pages(caches["paged"], caches["t"], active,
+                                  page_size)
         if freeze_inactive:
-            old = PG.snapshot_cursors(caches)
+            old = PG.snapshot_cursors(caches, old)
         alloc = caches.get("paged")
         if alloc is not None:
-            caches["paged"] = {"tbl": PG.model_table(
-                alloc, active if freeze_inactive else None)}
+            tbl = PG.model_table(alloc, active if freeze_inactive else None,
+                                 tbl)
+            caches["paged"] = {"tbl": tbl}
         logits, caches = model.decode_step(params, caches, cur_tokens)
         if alloc is not None:
             caches["paged"] = alloc

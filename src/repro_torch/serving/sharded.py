@@ -74,7 +74,7 @@ from repro_torch.core.scheduler import (FleetSlice, marginal_request_g,
 from repro_torch.models.costing import workload_of
 from repro_torch.models.model import Model
 from repro_torch.serving import paged as PG
-from repro_torch.serving import preempt, sampling
+from repro_torch.serving import graphs, preempt, sampling
 from repro_torch.serving.engine import (EngineConfig, ServingEngine,
                                         _prefill_phase_counts, pack_chunks)
 from repro_torch.serving.faults import FaultError, HealthMonitor, InjectedFault
@@ -170,6 +170,8 @@ class ShardedServingEngine:
         self.state = sampling.init_slot_state(S * B, self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        self.graphs = graphs.DecodeGraphs(model, params, self.cur_tokens,
+                                          self.state, self._gen)
 
         # ---- host mirrors, one entry per shard
         self.queue: deque = deque()
@@ -1478,10 +1480,8 @@ class ShardedServingEngine:
                    if self._slot_armed[s][b]]
         n = min(self.cfg.sync_every, max(max(budgets), 1),
                 max(max_steps - self._steps, 1))
-        tok_mat, emit_mat = sampling.fused_decode_steps(
-            self.model, self.params, self.caches, self.cur_tokens,
-            self.state, self._gen, n_steps=n,
-            temperature=self.cfg.temperature,
+        tok_mat, emit_mat = self.graphs.step(
+            self.caches, n_steps=n, temperature=self.cfg.temperature,
             page_size=self.cfg.page_size, freeze_inactive=True)
         # the chunk's one host sync: tokens and emission flags together
         both = torch.stack([tok_mat, emit_mat.to(torch.int32)]).cpu().numpy()

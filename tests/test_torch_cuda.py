@@ -16,6 +16,7 @@ the model's decay the state's terms reach ~100 while some outputs cancel
 to ~0.1)."""
 import functools
 import math
+import types
 
 import numpy as np
 import pytest
@@ -2717,3 +2718,230 @@ def test_moe_sharded_one_nccl_rank_matches_moe_ffn(cuda_device, tmp_path):
         assert all(torch.isfinite(w.grad).all() for w in leaves)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the fused decode step as one CUDA graph (serving/graphs.py): graph against
+# eager on the same state for every family the engines serve, launches
+# counted once a replay, one capture for each chunk length, sampling
+# --------------------------------------------------------------------------
+
+GRAPH_FAMILIES = {
+    "dense-contiguous": ("llama3.2-1b", {}),
+    "dense-paged-chunk-sharing": ("llama3.2-1b", dict(
+        paged=True, page_size=16, prefill_chunk=16, prefill_pack=2,
+        prefix_sharing=True)),
+    "zamba2-paged": ("zamba2-7b", dict(paged=True)),
+    "rwkv6-contiguous": ("rwkv6-1.6b", {}),
+    "maverick-contiguous": ("llama4-maverick-400b-a17b", {}),
+    "deepseek-contiguous": ("deepseek-v3-671b", {}),
+    "vlm-contiguous": ("llama-3.2-vision-90b", {}),
+    "fleet": ("llama3.2-1b", dict(
+        paged=True, page_size=16, prefill_chunk=16, prefill_pack=2,
+        prefix_sharing=True, shards=2)),
+}
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _graph_engine(family, dev, sync_every=4):
+    """A smoke engine of ``family`` on ``dev`` with decode under way: some
+    slots armed mid-decode and, on the paged rungs, some mid-prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import (EngineConfig, Request, ServingEngine,
+                                     ShardedServingEngine)
+    arch, kw = GRAPH_FAMILIES[family]
+    if arch == "llama-3.2-vision-90b":
+        cfg, params, _ = _memory_model(arch, torch.float32)
+        params = _to(params, dev)
+    else:
+        cfg = get_config(arch, "smoke")
+        params = _to(Model(cfg, "cpu").init(torch.Generator().manual_seed(1)),
+                     dev)
+    model = Model(cfg, dev)
+    ecfg = EngineConfig(max_batch=4, max_len=128 if kw else 64,
+                        sync_every=sync_every, **kw)
+    cls = ShardedServingEngine if kw.get("shards", 1) > 1 else ServingEngine
+    eng = cls(model, params, ecfg, device=dev)
+    rng = np.random.default_rng(10)
+    system = rng.integers(2, cfg.vocab, 32).tolist()
+    for rid, n in enumerate((5, 19, 30, 9, 3, 14, 27, 40)):
+        prompt = rng.integers(2, cfg.vocab, n).tolist()
+        if ecfg.prefix_sharing and rid % 2:
+            prompt = system + prompt
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=12 + rid))
+    while eng.decode_chunks < 2:
+        eng.step()
+    return model, params, eng
+
+
+@pytest.mark.parametrize("family", sorted(GRAPH_FAMILIES))
+def test_decode_graph_equals_eager(cuda_device, family):
+    """From one engine state, on clones: a chunk of ``sync_every`` greedy
+    micro-steps through a captured graph and through an eager call of
+    ``sampling.fused_decode_steps``: tok_mat, emit_mat, every cache leaf
+    (a pool's pages but its trash page) and the allocator equal bit for
+    bit."""
+    from repro_torch.serving import graphs, sampling
+    model, params, eng = _graph_engine(family, cuda_device)
+    assert eng.graphs.captured >= 1 and eng.graphs.replays >= 2
+    page_size = eng.cfg.page_size if eng.cfg.paged else 0
+    freeze = eng.cfg.prefill_chunk is not None
+    n = eng.cfg.sync_every
+    runs = []
+    for graphed in (False, True):
+        caches = _clone_tree(eng.caches)
+        cur, state = eng.cur_tokens.clone(), _clone_tree(eng.state)
+        if graphed:
+            step = graphs.DecodeGraphs(model, params, cur, state, None)
+            out = step.step(caches, n_steps=n, temperature=0.0,
+                            page_size=page_size, freeze_inactive=freeze)
+            assert step.captured == step.replays == 1
+        else:
+            out = sampling.fused_decode_steps(model, params, caches, cur,
+                                              state, None, n, 0.0, page_size,
+                                              freeze)
+        runs.append([t.clone() for t in out] + [cur] + list(
+            _leaves_of(state)) + list(_leaves_of(caches)))
+    assert bool(runs[0][1].any()), "no slot was decoding"
+    assert len(runs[0]) == len(runs[1])
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
+
+
+def _leaves_of(tree, name=None):
+    """A tree's tensors in a fixed order; a page pool without its trash
+    page (the last), which several writes of one call may hit (its winner
+    is undefined on CUDA) and no read sees unmasked."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_of(tree[k], k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves_of(v)
+    elif name in ("k_pages", "v_pages"):
+        yield tree[:, :-1]
+    else:
+        yield tree
+
+
+def test_decode_graph_counts_launches_once_per_replay(cuda_device):
+    """A capture counts nothing; each replay adds the launches it makes:
+    one paged decode a layer a micro-step, one RMSNorm a norm."""
+    from repro_torch.serving import graphs
+    model, params, eng = _graph_engine("dense-paged-chunk-sharing",
+                                       cuda_device)
+    L, n = model.cfg.n_layers, 4
+    step = graphs.DecodeGraphs(model, params, eng.cur_tokens.clone(),
+                               _clone_tree(eng.state), None)
+    caches = _clone_tree(eng.caches)
+    ops.reset_launches()
+    for replays in (1, 2, 3):
+        step.step(caches, n_steps=n, temperature=0.0, page_size=16,
+                  freeze_inactive=True)
+        counts = ops.launch_counts()
+        assert counts["paged_decode_attention"] == replays * L * n
+        assert counts["rmsnorm"] == replays * (2 * L + 1) * n
+        assert counts["flash_attention"] == 0
+    assert step.captured == 1 and step.replays == 3
+    (key, rec), = step.launches.items()
+    assert key == (n, 0.0, 16, True)
+    assert rec["paged_decode_attention"] == L * n
+
+
+@pytest.mark.parametrize("family", ["dense-contiguous",
+                                    "dense-paged-chunk-sharing", "fleet"])
+def test_decode_graph_one_capture_per_chunk_length(cuda_device, family,
+                                                   monkeypatch):
+    """Budgets of 12-19 at ``sync_every`` 8 make chunks of several lengths:
+    one graph is captured for each distinct length, and every chunk is a
+    replay."""
+    model, params, eng = _graph_engine(family, cuda_device, sync_every=8)
+    lengths = []
+    step = eng.graphs.step
+
+    def logged(caches, n_steps, *args, **kw):
+        lengths.append(n_steps)
+        return step(caches, n_steps, *args, **kw)
+
+    monkeypatch.setattr(eng.graphs, "step", logged)
+    eng.run()
+    keys = {k[0] for k in eng.graphs.launches}
+    assert len(set(lengths)) >= 2, lengths
+    assert set(lengths) <= keys and eng.graphs.captured == len(keys)
+    assert eng.graphs.replays == eng.decode_chunks
+
+
+# sampling at T > 0 through ``DecodeGraphs`` (also the CPU test's, in
+# tests/test_torch_decode_graph.py): the chi-square threshold is the
+# 1 - 1e-4 quantile of chi-square with V - 1 degrees of freedom
+V, T_SAMPLE, SLOTS, N_STEPS, CHUNKS = 16, 0.7, 64, 16, 20
+CHI2_Q = 1 - 1e-4
+
+
+class FixedLogits:
+    """A model whose every decode step gives every slot the same logits."""
+
+    def __init__(self, logits):
+        self.logits = logits
+        self.cfg = types.SimpleNamespace(vocab=logits.shape[-1])
+
+    def decode_step(self, params, caches, tokens):
+        caches["t"] += 1
+        return self.logits.expand(tokens.shape[0], -1), caches
+
+
+def sample_counts(device, generator):
+    """Draw ``CHUNKS`` chunks of ``N_STEPS`` tokens in ``SLOTS`` slots
+    through ``DecodeGraphs`` at ``T_SAMPLE``; returns (counts, the token
+    matrices of the first two chunks, the step wrapper)."""
+    from repro_torch.serving import graphs, sampling
+    logits = torch.linspace(-2.0, 2.0, V, device=device)
+    cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device=device)
+    state = sampling.init_slot_state(SLOTS, device)
+    state["active"].fill_(True)
+    state["budget"].fill_(2**30)
+    step = graphs.DecodeGraphs(FixedLogits(logits), None, cur, state,
+                               generator)
+    caches = {"t": torch.zeros((SLOTS,), dtype=torch.int32, device=device),
+              "layers": []}
+    counts = torch.zeros((V,), dtype=torch.int64, device=device)
+    firsts = []
+    for _ in range(CHUNKS):
+        tok, emit = step.step(caches, n_steps=N_STEPS, temperature=T_SAMPLE)
+        assert bool(emit.all())
+        counts += torch.bincount(tok.reshape(-1).long(), minlength=V)
+        if len(firsts) < 2:
+            firsts.append(tok.clone())
+    return counts.cpu().numpy(), firsts, step
+
+
+def chi_square(counts):
+    """(statistic, threshold) of the counts against softmax(logits / T)."""
+    import scipy.stats
+    logits = np.linspace(-2.0, 2.0, V)
+    p = np.exp(logits / T_SAMPLE)
+    p /= p.sum()
+    n = counts.sum()
+    stat = float(((counts - n * p) ** 2 / (n * p)).sum())
+    return stat, float(scipy.stats.chi2.ppf(CHI2_Q, V - 1))
+
+
+def test_decode_graph_samples_at_temperature(cuda_device):
+    """At T > 0 the engine's generator is registered with the graph: two
+    replays of one graph draw different tokens, and 20,480 draws pass the
+    CPU test's chi-square test against softmax(logits / T)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    counts, firsts, step = sample_counts(cuda_device, gen)
+    assert step.captured == 1 and step.replays == 20
+    assert not torch.equal(firsts[0], firsts[1])
+    stat, threshold = chi_square(counts)
+    assert stat < threshold, (stat, threshold, counts.tolist())

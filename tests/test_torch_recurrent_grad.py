@@ -175,11 +175,10 @@ def test_ssd_chunk_backward_in_blocks_of_heads():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
-def test_ssd_chunk_gradients_finite_over_a_long_chunk():
+def _long_chunk():
     """A 256-step chunk at the model's initial decay (dt ~ softplus(N(0, 1)
     - 4), A down to -16), where cum[t] - cum[s] above the diagonal passes
-    88.7: the backward formula and autograd of the plain version (which
-    masks before its exp) stay finite and agree."""
+    88.7; float32 inputs and cotangents."""
     rng = np.random.default_rng(3)
     B, H, nc, cl, P, N = 1, 4, 2, 256, 8, 8
     x = torch.from_numpy(_np(rng, (B, H, nc, cl, P)))
@@ -191,11 +190,41 @@ def test_ssd_chunk_gradients_finite_over_a_long_chunk():
     assert float((cum[..., :1] - cum[..., -1:]).max()) > 88.7
     cots = [torch.from_numpy(_np(rng, s)) for s in
             ((B, H, nc, cl, P), (B, H, nc, P, N), (B, H, nc))]
+    return [x, dt, A, Bm, Cm], cots
+
+
+def test_ssd_chunk_gradients_finite_over_a_long_chunk():
+    """At ``_long_chunk``: the backward formula and autograd of the plain
+    version (which masks before its exp) stay finite and agree."""
+    (x, dt, A, Bm, Cm), cots = _long_chunk()
     got = AG.ssd_chunk_backward(x, dt, A, Bm, Cm, *cots)
     want = _autograd(ref.ssd_chunk, [x, dt, A, Bm, Cm], cots)
     for name, g, w in zip(("x", "dt", "A", "Bm", "Cm"), got, want):
         assert torch.isfinite(g).all(), name
         _close(g, w, torch.float32, f"d{name}")
+
+
+def test_reference_ssd_oracle_gradient_overflows_on_a_long_chunk():
+    """The reference's fault on a run (ROADMAP Queue 3): at
+    ``_long_chunk``, ``jax.grad`` of ``repro.kernels.ref.ssd_chunk``, which
+    takes exp(cum[t] - cum[s]) before its mask, is non-finite, while the
+    port's gradients there (the ``SSDChunk`` backward formula and
+    autograd of the plain version) are finite."""
+    ins, cots = _long_chunk()
+
+    def loss(*args):
+        outs = jref.ssd_chunk(*args)
+        return sum(jnp.sum(o * jnp.asarray(c.numpy()))
+                   for o, c in zip(outs, cots))
+
+    want = jax.grad(loss, argnums=range(5))(
+        *[jnp.asarray(a.numpy()) for a in ins])
+    assert not all(bool(jnp.isfinite(g).all()) for g in want)
+    assert not bool(jnp.isfinite(want[1]).all())        # d dt
+    for got in (AG.ssd_chunk_backward(*ins, *cots),
+                _autograd(ref.ssd_chunk, ins, cots)):
+        for name, g in zip(("x", "dt", "A", "Bm", "Cm"), got):
+            assert torch.isfinite(g).all(), name
 
 
 # --------------------------------------------------------------------------

@@ -258,7 +258,22 @@ Phases (any failure raises and the script exits non-zero):
    capacity factor of 4 (both drop fractions printed, 0 or it fails;
    ``TOL[bf16]``); every gradient of a backward finite; the collective
    counts (``CommDebugMode``) and ms a call of both paths; the group
-   destroyed. Last, ``phase_dryrun_memory``: the dry-run's per-device
+   destroyed. Then ``phase_mesh``: the model as one DTensor program on
+   an NCCL group of one rank and a (1, 1) ("data", "model") mesh,
+   parameters from ``distribute_params`` (FSDP on), every step under
+   ``use_sharding(mesh, DEFAULT_RULES)`` and each kernel on the local
+   shards (``sharding.api.local_op``): ``llama-paper-1b`` in full, a
+   prefill of 4 x 1,024 and 16 decode steps, then one ``train_loss`` +
+   AdamW step, each against the plain model on the same parameters, bit
+   for bit or within ``TOL[bf16]`` with the first differing ``shard()``
+   site named; flash 22 a prefill, decode 22 a step, RMSNorm 45 a
+   forward; ``zamba2-7b`` and ``rwkv6-1.6b`` at full width cut to depth
+   2, a prefill and 4 decode steps through ``ssd_chunk`` and ``wkv6`` the
+   same way; the group destroyed; beside it, in a process of its own
+   (a ``fake`` group of 256), the dry-run of ``llama3.2-1b``
+   ``train_4k`` and ``decode_32k`` on 16x16: collectives a chip by op
+   (count, wire bytes) and ``t_collective``. Last,
+   ``phase_dryrun_memory``: the dry-run's per-device
    argument bytes on a (1, 1) mesh against the growth of
    ``torch.cuda.memory_allocated()`` over the same allocation:
    ``llama3.2-1b`` full at ``max_batch=8, max_len=2048`` (``Model.init``
@@ -274,6 +289,7 @@ It needs the card: with ``torch.cuda.is_available()`` false it exits 2
 and prints no result.
 """
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -5255,6 +5271,330 @@ def phase_moe_sharded(card):
     return dict(ms=ms, drops=drops, err=err, counts=counts)
 
 
+MESH_TOKENS = (4, 1024)              # phase_mesh: llama-paper-1b's batch
+MESH_STEPS = 16                      # its decode steps after the prefill
+MESH_RECURRENT = ("zamba2-7b", "rwkv6-1.6b")
+MESH_RECURRENT_DEPTH, MESH_RECURRENT_STEPS = 2, 4
+MESH_DRYRUN = ("train_4k", "decode_32k")     # llama3.2-1b on 16x16
+MESH_SITE_MODULES = ("attention", "blocks", "layers", "model", "moe",
+                     "moe_sharded", "rwkv", "ssm")
+
+
+class SiteLog:
+    """Within: each ``shard()`` site's output of the models, in order, as
+    (site, local tensor); a DTensor's local tensor is the whole one on a
+    one-rank mesh."""
+
+    def __init__(self):
+        self.sites = []
+
+    def __enter__(self):
+        import importlib
+        self.mods = [importlib.import_module(f"repro_torch.models.{m}")
+                     for m in MESH_SITE_MODULES]
+        self.saved = [m.shard for m in self.mods]
+        for mod, orig in zip(self.mods, self.saved):
+            mod.shard = self._wrap(mod.__name__.split(".")[-1], orig)
+        return self
+
+    def _wrap(self, where, orig):
+        def shard(x, *axes):
+            y = orig(x, *axes)
+            t = y.to_local() if hasattr(y, "to_local") else y
+            self.sites.append((f"{where}.shard{axes}", t.detach()))
+            return y
+        return shard
+
+    def __exit__(self, *exc):
+        for mod, orig in zip(self.mods, self.saved):
+            mod.shard = orig
+        return False
+
+
+def first_difference(plain, mesh):
+    """The first site whose outputs differ between two ``SiteLog``s: (its
+    index and name, the max abs difference), or None."""
+    for i, ((name, a), (_, b)) in enumerate(zip(plain.sites, mesh.sites)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            err = ((a.float() - b.float()).abs().max().item()
+                   if a.shape == b.shape else float("inf"))
+            return f"site {i} {name}", err
+    return None
+
+
+def mesh_agreement(label, plain, mesh, got, want, dtype, card):
+    """Bit for bit, or within ``TOL[dtype]`` with the first differing
+    site named; returns (ok, line)."""
+    if torch.equal(got, want):
+        line = f"  {label}: bit for bit ({card})"
+        print(line)
+        return True, line
+    err = (got.float() - want.float()).abs().max().item()
+    first = first_difference(plain, mesh)
+    ok = err <= TOL[dtype][0] + TOL[dtype][1] * want.float().abs().max(
+        ).item()
+    line = (f"  {label}: max abs err {err:.3e} (TOL[{dtype}] "
+            f"{TOL[dtype]}), first differing site {first} ({card})")
+    print(line)
+    return ok, line
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def phase_mesh(card):
+    """The model as one SPMD program on a DeviceMesh (module docstring):
+    one NCCL rank, a (1, 1) ("data", "model") mesh, the parameters placed
+    by ``distribute_params`` (FSDP on), every step under ``use_sharding(
+    mesh, DEFAULT_RULES)``, each against the plain model on the same
+    parameters; meanwhile the dry-run of ``llama3.2-1b`` on 16x16 in a
+    process of its own (a ``fake`` group of 256). Returns the launches
+    of its llama-paper-1b prefill."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.mesh import forget_groups, make_mesh
+    from repro_torch.models import Model
+    from repro_torch.sharding import distribute_params, use_sharding
+    from repro_torch.sharding.rules import DEFAULT_RULES
+    from repro_torch.training.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    dry = {}
+    for shape in MESH_DRYRUN:
+        path = os.path.join(out_dir, f"dryrun_{shape}.jsonl")
+        if os.path.exists(path):
+            os.remove(path)
+        dry[shape] = (path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "llama3.2-1b", "--shape", shape, "--out", path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(0)         # NCCL's communicator binds this card
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    checks, launches = [], {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config(TRAIN)
+        assert (cfg.n_layers, cfg.d_model, cfg.dtype) == (N_LAYERS, 2048,
+                                                          "bfloat16")
+        model, params, gen, _ = load_model(cfg, TRAIN_PARAMS, "mesh", card)
+        dp = distribute_params(cfg, params, mesh, fsdp=True,
+                               src_data_rank=None)
+        B, S = MESH_TOKENS
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        print(f"[mesh] NCCL, 1 rank, mesh (1, 1) (data, model), "
+              f"DEFAULT_RULES, FSDP on; prefill {B} x {S}, {MESH_STEPS} "
+              f"decode steps, one train_loss + AdamW step ({card})")
+        runs = {}
+        for tag in ("plain", "mesh"):
+            p = params if tag == "plain" else dp
+            ctx = (use_sharding(mesh, DEFAULT_RULES) if tag == "mesh"
+                   else contextlib.nullcontext())
+            with ctx, SiteLog() as log, torch.no_grad():
+                ops.reset_launches()
+                logits, caches = run_step(model, "prefill", p, tokens,
+                                          max_len=S + MESH_STEPS)
+                torch.cuda.synchronize()
+                pre = ops.launch_counts()
+                steps, step_launches = [logits], []
+                feed = runs["plain"]["feed"] if tag == "mesh" else []
+                for i in range(MESH_STEPS):
+                    if tag == "plain":
+                        feed.append(torch.argmax(
+                            logits[:, :cfg.vocab], -1)[:, None].int())
+                    ops.reset_launches()
+                    logits, caches = run_step(model, "decode", p, feed[i],
+                                              caches=caches)
+                    step_launches.append(ops.launch_counts())
+                    steps.append(logits)
+                torch.cuda.synchronize()
+            runs[tag] = dict(steps=[t.to_local() if hasattr(t, "to_local")
+                                    else t for t in steps],
+                             log=log, pre=pre, step_launches=step_launches,
+                             feed=feed)
+            caches = logits = None
+        launches = runs["mesh"]["pre"]
+        for tag in ("plain", "mesh"):
+            r = runs[tag]
+            print(f"  {tag}: prefill launches {r['pre']}; a decode step "
+                  f"{r['step_launches'][0]} ({len(r['log'].sites)} sites "
+                  f"recorded)")
+        m = runs["mesh"]
+        checks += [
+            (m["pre"]["flash_attention"] == N_LAYERS,
+             f"flash launches a prefill {m['pre']}"),
+            (m["pre"]["rmsnorm"] == 2 * N_LAYERS + 1,
+             f"RMSNorm launches a prefill {m['pre']}"),
+            (all(s["decode_attention"] == N_LAYERS
+                 and s["rmsnorm"] == 2 * N_LAYERS + 1
+                 for s in m["step_launches"]),
+             f"decode launches {m['step_launches']}"),
+            (len(runs["plain"]["log"].sites) == len(m["log"].sites),
+             "the runs reached different numbers of sites")]
+        for i, (got, want) in enumerate(zip(m["steps"],
+                                            runs["plain"]["steps"])):
+            checks.append(mesh_agreement(
+                "prefill logits" if i == 0 else f"decode step {i} logits",
+                runs["plain"]["log"], m["log"], got, want, torch.bfloat16,
+                card))
+        del runs, dp
+
+        # one train_loss + AdamW step on copies of the same parameters
+        labels = torch.roll(tokens, -1, 1)
+        opt = AdamWConfig(lr=TRAIN_LR)
+        trained = {}
+        for tag in ("plain", "mesh"):
+            p = _clone_tree(params)
+            if tag == "mesh":
+                p = distribute_params(cfg, p, mesh, fsdp=True,
+                                      src_data_rank=None)
+            ctx = (use_sharding(mesh, DEFAULT_RULES) if tag == "mesh"
+                   else contextlib.nullcontext())
+            gc.collect()
+            torch.cuda.empty_cache()
+            with ctx, SiteLog() as log:
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                loss, _ = run_step(model, "train", p, tokens, labels=labels,
+                                   opt_cfg=opt, remat=False)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                tl = ops.launch_counts()
+            loss = loss.to_local() if hasattr(loss, "to_local") else loss
+            flat = [t.to_local() if hasattr(t, "to_local") else t
+                    for t in _leaves(p)]
+            trained[tag] = dict(loss=loss.detach(), params=flat, log=log,
+                                launches=tl, ms=ms)
+            print(f"  train step ({tag}): loss {loss.item():.6f}, "
+                  f"launches {tl}, {ms:.1f} ms" + (
+                      " (the first on the mesh: DTensor's sharding "
+                      "propagation included)" if tag == "mesh" else "")
+                  + f" ({card})")
+            p = loss = None
+        t_p, t_m = trained["plain"], trained["mesh"]
+        checks.append(mesh_agreement("train loss", t_p["log"], t_m["log"],
+                                     t_m["loss"], t_p["loss"],
+                                     torch.bfloat16, card))
+        same = sum(torch.equal(a, b) for a, b in zip(t_m["params"],
+                                                     t_p["params"]))
+        worst = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(t_m["params"], t_p["params"]))
+        print(f"  updated parameters: {same} of {len(t_p['params'])} "
+              f"leaves bit for bit, max abs difference {worst:.3e} "
+              f"({card})")
+        checks += [
+            (worst <= TOL[torch.bfloat16][0],
+             f"updated parameters differ by {worst}"),
+            (t_m["launches"]["flash_attention"] == N_LAYERS
+             and t_m["launches"]["rmsnorm"] == 2 * N_LAYERS + 1,
+             f"train launches {t_m['launches']}")]
+        del trained, t_p, t_m, params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the recurrent families at full width, cut in depth
+        for arch in MESH_RECURRENT:
+            full = get_config(arch)
+            cut = dataclasses.replace(
+                full, n_layers=MESH_RECURRENT_DEPTH,
+                block_pattern=full.block_pattern[:MESH_RECURRENT_DEPTH])
+            model = Model(cut, "cuda")
+            g = torch.Generator(device="cuda")
+            g.manual_seed(0)
+            params = model.init(g)
+            dp = distribute_params(cut, params, mesh, fsdp=True,
+                                   src_data_rank=None)
+            toks = torch.randint(0, cut.vocab, MESH_TOKENS, generator=g,
+                                 device="cuda", dtype=torch.int32)
+            res = {}
+            for tag in ("plain", "mesh"):
+                p = params if tag == "plain" else dp
+                ctx = (use_sharding(mesh, DEFAULT_RULES) if tag == "mesh"
+                       else contextlib.nullcontext())
+                with ctx, SiteLog() as log, torch.no_grad():
+                    ops.reset_launches()
+                    logits, caches = run_step(
+                        model, "prefill", p, toks,
+                        max_len=MESH_TOKENS[1] + MESH_RECURRENT_STEPS)
+                    outs = [logits]
+                    feed = res["plain"]["feed"] if tag == "mesh" else []
+                    for i in range(MESH_RECURRENT_STEPS):
+                        if tag == "plain":
+                            feed.append(torch.argmax(
+                                logits[:, :cut.vocab], -1)[:, None].int())
+                        logits, caches = run_step(model, "decode", p,
+                                                  feed[i], caches=caches)
+                        outs.append(logits)
+                    torch.cuda.synchronize()
+                    counts = ops.launch_counts()
+                res[tag] = dict(outs=[t.to_local() if hasattr(
+                    t, "to_local") else t for t in outs], log=log,
+                    feed=feed, counts=counts)
+            kernel = "ssd_chunk" if arch.startswith("zamba") else "wkv6"
+            print(f"  {arch} depth {MESH_RECURRENT_DEPTH}, d_model "
+                  f"{cut.d_model}: prefill {MESH_TOKENS[0]} x "
+                  f"{MESH_TOKENS[1]} and {MESH_RECURRENT_STEPS} decode "
+                  f"steps; launches on the mesh {res['mesh']['counts']} "
+                  f"({card})")
+            checks.append((res["mesh"]["counts"][kernel] > 0,
+                           f"{arch}: {kernel} never launched on the mesh"))
+            for i, (got, want) in enumerate(zip(res["mesh"]["outs"],
+                                                res["plain"]["outs"])):
+                checks.append(mesh_agreement(
+                    f"{arch} " + ("prefill logits" if i == 0 else
+                                  f"decode step {i} logits"),
+                    res["plain"]["log"], res["mesh"]["log"], got, want,
+                    torch.bfloat16, card))
+            del res, dp, params, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        forget_groups()
+
+    for shape, (path, proc) in dry.items():
+        log, _ = proc.communicate(timeout=600)
+        checks.append((proc.returncode == 0,
+                       f"dry-run {shape}: {log[-2000:]}"))
+        if proc.returncode:
+            continue
+        with open(path) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        r = rec["roofline"]
+        print(f"  dry-run llama3.2-1b {shape} on {rec['mesh']} "
+              f"({rec['chips']} chips, FSDP {rec['fsdp']}): collectives a "
+              f"chip by op (count, wire bytes) "
+              f"{ {k: (r['coll_counts'][k], r['coll_bytes_by_op'][k]) for k in r['coll_counts']} }"
+              f"; ICI {r['coll_ici_bytes']:.6e} B, DCN "
+              f"{r['coll_dcn_bytes']:.6e} B; t_collective "
+              f"{r['t_collective_s']:.6e} s, t_compute "
+              f"{r['t_compute_s']:.6e} s, t_memory {r['t_memory_s']:.6e} "
+              f"s -> {r['dominant']}-bound (links: "
+              f"{r['link_assumption']}); counted in {rec['count_s']} s")
+        checks.append((r["t_collective_s"] is not None
+                       and r["coll_counts"].get("all-gather", 0) > 0,
+                       f"dry-run {shape}: no priced collectives"))
+    print(f"  phase_mesh took {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    expect("mesh", checks)
+    return launches
+
+
 def phase_dryrun_memory(card, train):
     """The dry-run's per-device argument bytes on a (1, 1) mesh against
     the card's own allocation, and ``phase_train``'s step counted on meta
@@ -5418,6 +5758,9 @@ def main() -> int:
               f"GB; probe's worst ratio {r['probe_worst']:.4f}")
     moe = phase_moe_sharded(card)
     print(f"\n[moe_sharded] ms a call {moe['ms']}; drops {moe['drops']}")
+    mesh = phase_mesh(card)
+    print(f"\n[mesh] launches of llama-paper-1b's prefill on the mesh: "
+          f"{mesh}")
     mem = phase_dryrun_memory(card, train)
     print(f"\n[dryrun_memory] counted {mem['flops']:.6e} FLOPs a train "
           f"step, model_flops {mem['model_flops']:.6e}")

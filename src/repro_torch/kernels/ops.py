@@ -22,6 +22,10 @@ backward); the serving kernels (``decode_attention``,
 never returning a tensor cut from the graph, as does ``wkv6`` asked to
 write its state into ``s_out`` (training keeps no state). On the CPU the
 plain versions go through autograd as they are.
+
+A DTensor is refused by every op here (``TypeError``): under a sharding
+context the models call an op through ``sharding.api.local_op``, which
+hands it the local shards and wraps its outputs back.
 """
 from __future__ import annotations
 
@@ -31,6 +35,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+try:                                    # torch >= 2.5: public module
+    from torch.distributed.tensor import DTensor
+except ImportError:                     # older torch
+    from torch.distributed._tensor import DTensor
 
 from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import chunked_prefill as _cp
@@ -49,6 +58,11 @@ _KERNELS = {"flash_attention": _fa, "decode_attention": _dec,
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    if isinstance(t, DTensor):
+        # a kernel reads raw pointers: a DTensor's storage is its local
+        # shard, so it goes through ``sharding.api.local_op``, never here
+        raise TypeError("a kernel op takes the local tensors of a DTensor "
+                        "(sharding.api.local_op), not the DTensor")
     if t.device.type == "cuda":
         return True
     if t.device.type in ("cpu", "meta"):      # meta: shapes only (dry-run)

@@ -12,16 +12,25 @@ reads XLA's memory and cost analyses. Here the model is built on the
     ``_CACHE_AXES``), plus the inputs; the reference's
     ``argument_size_in_bytes``. Temporaries are not counted (no compiler
     plans them), and the record says so.
-  * ``roofline``: FLOPs and bytes counted by ``launch.op_cost`` over the
-    whole step on meta tensors (``train``: the forward and backward of
+  * ``roofline``: one chip's FLOPs, bytes and collectives, counted by
+    ``launch.op_cost`` over the whole step run as the model's DTensor
+    program on meta tensors (``train``: the forward and backward of
     ``train_loss`` and the AdamW update; ``prefill``; ``decode``: one
-    decode step and its argmax), divided by the chips; beside them
-    ``model_flops`` (``models.costing``) and, for a MoE model, the
-    collectives of one ``moe_ffn_sharded`` call on rank 0 of the mesh,
-    times the model's MoE layers (and 2 for ``train``'s backward). The
-    weight and activation collectives that GSPMD inserts in the reference
-    have no counterpart until the model's ``shard()`` sites run on
-    DTensors, and are not modelled.
+    decode step on the contiguous cache and its argmax): the parameters
+    placed by ``sharding.rules.distribute_params``, the caches by their
+    rules, the step under ``use_sharding(mesh, rules)`` as the
+    reference's (``rules``: ``LONG_CONTEXT_RULES`` for ``long_500k``).
+    What one rank runs is counted: its local ops, and every collective
+    that the model's ``shard()`` sites, its kernels' ``local_op``s, the
+    FSDP weight gathers, DTensor's own propagation and the
+    expert-parallel MoE issue, by op, with per-chip ring wire bytes split
+    into ICI (within a pod) and DCN (across pods). Beside them
+    ``model_flops`` (``models.costing``). ``t_collective`` prices the
+    wire bytes with ``analysis.H100_LINKS`` (the record states the
+    assumption). A CPU mesh (this dry-run's ``fake`` group, and gloo)
+    moves a shard from one dim to another with an all-gather where NCCL
+    would take an all-to-all (DTensor's CPU path); the counts are of that
+    path.
 
 The mesh is ``init_device_mesh`` over a ``fake`` process group of the
 mesh's size, set up here in code (``launch.mesh.fake_group``).
@@ -49,13 +58,13 @@ from repro_torch.launch.mesh import (fake_group, make_production_mesh,
                                      make_test_mesh)
 from repro_torch.launch.op_cost import OpCounter, tensor_bytes
 from repro_torch.models import Model
-from repro_torch.models import moe as MOE
-from repro_torch.models import moe_sharded as MOES
 from repro_torch.models.costing import model_flops
-from repro_torch.sharding.api import ShardingContext, axis_sizes, local_shape
+from repro_torch.sharding.api import (ShardingContext, axis_sizes, local_op,
+                                      local_shape, use_sharding)
+from repro_torch.sharding.rules import CACHE_AXES as _CACHE_AXES  # noqa
 from repro_torch.sharding.rules import (DEFAULT_RULES, LONG_CONTEXT_RULES,
-                                        distribute_params, param_spec,
-                                        tree_map_with_path)
+                                        cache_axes, distribute_params,
+                                        param_spec, tree_map_with_path)
 from repro_torch.training.optim import AdamWConfig, adamw_init, adamw_update
 
 # The assigned input shapes.
@@ -68,7 +77,6 @@ INPUT_SHAPES = {
 
 I32 = torch.int32
 META = torch.device("meta")
-MOE_KINDS = ("moe", "mla_moe")
 TEMPORARIES = "not counted: no compiler plans the temporaries"
 
 
@@ -96,39 +104,6 @@ def extras_specs(cfg, batch: int, seq: int, kind: str) -> Dict:
         ex["image_embeds"] = meta((batch, n_img, cfg.d_model), dt)
         ex["image_positions"] = meta((batch, n_img), I32)
     return ex
-
-
-# --------------------------------------------------------------------------
-# cache placements by leaf name
-# --------------------------------------------------------------------------
-
-_CACHE_AXES = {
-    "k": ("batch", "kv_seq", "kv_heads", None),
-    "v": ("batch", "kv_seq", "kv_heads", None),
-    "xk": ("batch", None, "kv_heads", None),
-    "xv": ("batch", None, "kv_heads", None),
-    "ckv": ("batch", "kv_seq", None),
-    "k_rope": ("batch", "kv_seq", None),
-    "pos_ids": ("batch", "kv_seq"),
-    "length": ("batch",),
-    "t": ("batch",),
-    "conv": ("batch", None, None),
-    "state": ("batch", "heads", None, None),
-    "wkv": ("batch", "heads", None, None),
-    "att_shift": ("batch", None),
-    "ffn_shift": ("batch", None),
-}
-
-
-def cache_axes(name: str, ndim: int):
-    """Logical axes of a cache leaf by its name (replicated if unknown)."""
-    axes = _CACHE_AXES.get(name)
-    if axes is None:
-        return [None] * ndim
-    lead = ndim - len(axes)
-    if lead < 0:                      # scalar-ish leaf
-        return list(axes[-ndim:]) if ndim else []
-    return [None] * lead + list(axes)
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
@@ -198,49 +173,62 @@ def argument_bytes(model: Model, kind: str, batch: int, seq: int, mesh,
 # --------------------------------------------------------------------------
 
 
-def count_step(model: Model, kind: str, batch: int, seq: int,
-               opt_cfg: AdamWConfig, pod_size: int = 0, remat: bool = True):
-    """op_cost of one whole (global) step on meta tensors (``remat``:
-    ``train_loss``'s, on in the dry-run as in the reference)."""
+def run_step(model: Model, kind: str, params, tokens, *, labels=None,
+             extras=None, caches=None, max_len: int = 0,
+             opt_cfg: AdamWConfig = None, remat: bool = True):
+    """One step of ``kind`` as the dry-run counts it: ``train`` (the
+    forward and backward of ``train_loss``, then the AdamW update, the
+    parameters' ``.grad`` left in place), ``prefill`` (``max_len`` wide
+    caches made inside) or ``decode`` (one step on ``caches``, or on fresh
+    ``max_len`` wide ones, and the argmax). Returns (loss, metrics) or
+    (logits, caches)."""
     cfg = model.cfg
+    if kind == "train":
+        for _, x in _leaves(params):
+            x.requires_grad_(True)
+        loss, metrics = model.train_loss(params, {"tokens": tokens,
+                                            "labels": labels,
+                                            **(extras or {})}, remat=remat)
+        loss.backward()
+        grads = tree_map_with_path(lambda p, x: x.grad, params)
+        adamw_update(params, grads, adamw_init(params, opt_cfg), opt_cfg,
+                     1.0)
+        return loss, metrics
+    with torch.no_grad():
+        if kind == "prefill":
+            return model.prefill(params, tokens, max_len=max_len,
+                                 extras=extras or None)
+        if caches is None:
+            caches = model.placed_cache(params, tokens.shape[0], max_len)
+        logits, caches = model.decode_step(params, caches, tokens)
+        # the greedy token, over the whole vocab of each rank's rows
+        local_op(lambda t: torch.argmax(t[..., :cfg.vocab], dim=-1),
+                 [("batch", None)], ("batch",))(logits)
+        return logits, caches
+
+
+def count_step(model: Model, kind: str, batch: int, seq: int,
+               opt_cfg: AdamWConfig, pod_size: int = 0, remat: bool = True,
+               mesh=None, rules=None, fsdp: bool = True):
+    """op_cost of one step on meta tensors (``remat``: ``train_loss``'s,
+    on in the dry-run as in the reference). Without ``mesh``: the whole
+    step on one device; with one (over a ``fake`` group): rank 0's share
+    of the model's DTensor program under ``use_sharding(mesh, rules)``,
+    the parameters placed with ``fsdp``."""
+    ex = extras_specs(model.cfg, batch, seq, kind)
+    tokens = meta((batch, 1 if kind == "decode" else seq), I32)
+    labels = meta((batch, seq), I32)
     params = model.param_shapes()
-    ex = extras_specs(cfg, batch, seq, kind)
-    with OpCounter(pod_size) as oc:
-        if kind == "train":
-            for _, x in _leaves(params):
-                x.requires_grad_(True)
-            batch_t = {"tokens": meta((batch, seq), I32),
-                       "labels": meta((batch, seq), I32), **ex}
-            loss, _ = model.train_loss(params, batch_t, remat=remat)
-            loss.backward()
-            grads = tree_map_with_path(lambda p, x: x.grad, params)
-            adamw_update(params, grads, adamw_init(params, opt_cfg), opt_cfg,
-                         1.0)
-        else:
-            with torch.no_grad():
-                if kind == "prefill":
-                    model.prefill(params, meta((batch, seq), I32),
-                                  max_len=seq, extras=ex or None)
-                else:
-                    caches = model.init_cache(batch, seq)
-                    logits, _ = model.decode_step(params, caches,
-                                                  meta((batch, 1), I32))
-                    torch.argmax(logits[..., :cfg.vocab], dim=-1)
-    return oc.cost
-
-
-def count_moe_collectives(cfg, kind: str, batch: int, seq: int, mesh,
-                          fsdp: bool, pod_size: int):
-    """op_cost of one ``moe_ffn_sharded`` call on rank 0 of ``mesh`` (meta
-    tensors over the fake group), its expert weights placed by the rules."""
-    i = next(j for j, k in enumerate(cfg.block_pattern) if k in MOE_KINDS)
-    p = MOE.moe_init(None, cfg, META)
-    p = distribute_params(cfg, {"layers": {str(i): {"moe": p}}}, mesh,
-                          fsdp)["layers"][str(i)]["moe"]
-    x = meta((batch, 1 if kind == "decode" else seq, cfg.d_model),
-             getattr(torch, cfg.dtype))
-    with torch.no_grad(), OpCounter(pod_size) as oc:
-        MOES.moe_ffn_sharded(p, cfg, x, mesh=mesh)
+    if mesh is None:
+        with OpCounter(pod_size) as oc:
+            run_step(model, kind, params, tokens, labels=labels, extras=ex,
+                     max_len=seq, opt_cfg=opt_cfg, remat=remat)
+        return oc.cost
+    params = distribute_params(model.cfg, params, mesh, fsdp)
+    with use_sharding(mesh, rules):
+        with OpCounter(pod_size) as oc:
+            run_step(model, kind, params, tokens, labels=labels, extras=ex,
+                     max_len=seq, opt_cfg=opt_cfg, remat=remat)
     return oc.cost
 
 
@@ -282,7 +270,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         rec: Dict = {"arch": arch, "shape": shape_name, "kind": kind,
                      "mesh": ("2x16x16" if multi_pod else "16x16")
                      if not test_mesh else str(tuple(sizes.values())),
-                     "chips": chips, "fsdp": fsdp}
+                     "chips": chips, "fsdp": fsdp,
+                     "torch": torch.__version__}
         if tag:
             rec["tag"] = tag
         t0 = time.time()
@@ -295,29 +284,22 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
                               else "float32")
         rec["memory_s"] = round(time.time() - t0, 2)
         t1 = time.time()
-        step = count_step(model, kind, B, S, opt_cfg, pod_size)
+        step = count_step(model, kind, B, S, opt_cfg, pod_size, mesh=mesh,
+                          rules=rules, fsdp=fsdp)
         rec["count_s"] = round(time.time() - t1, 2)
         tokens = B * S if kind != "decode" else B
         mf = model_flops(cfg, tokens / chips, training=kind == "train")
-        n_moe = sum(k in MOE_KINDS for k in cfg.block_pattern)
-        coll = analysis.CollectiveStats({}, {}, 0.0, 0.0)
-        counted = "none (no MoE layer)"
-        if n_moe:
-            one = count_moe_collectives(cfg, kind, B, S, mesh, fsdp,
-                                        pod_size)
-            per_step = one.scaled(n_moe * (2 if kind == "train" else 1))
-            coll = analysis.CollectiveStats(
-                dict(per_step.collective_wire),
-                dict(per_step.collective_counts),
-                per_step.ici_bytes, per_step.dcn_bytes)
-            counted = (f"moe_ffn_sharded on rank 0: one call x {n_moe} "
-                       f"MoE layers" + (" x 2 (backward)"
-                                        if kind == "train" else ""))
-        rl = analysis.roofline(step.flops / chips, step.bytes / chips, coll,
-                               chips, model_flops=mf)
-        rec["roofline"] = dict(rl.row(), step_flops=step.flops,
-                               step_bytes=step.bytes,
-                               collectives_counted=counted)
+        coll = analysis.CollectiveStats(
+            dict(step.collective_wire), dict(step.collective_counts),
+            step.ici_bytes, step.dcn_bytes)
+        rl = analysis.roofline(step.flops, step.bytes, coll, chips,
+                               model_flops=mf, links=analysis.H100_LINKS)
+        rec["roofline"] = dict(
+            rl.row(), collectives_counted="rank 0 of the step's DTensor "
+            "program: the shard() sites, the kernels' local_op "
+            "redistributions, the FSDP weight gathers and their gradients' "
+            "reduce-scatters, DTensor's propagation and the expert-parallel "
+            "MoE; ring wire bytes a chip")
         rec["ok"] = True
 
     if verbose:

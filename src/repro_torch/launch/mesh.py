@@ -70,3 +70,25 @@ def fake_group(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+        forget_groups()
+
+
+def forget_groups() -> None:
+    """Clear DTensor's sharding-propagation caches. Call it after a group
+    is destroyed: they are keyed by meshes equal by shape and names, not by
+    process group, so a later group's mesh of the same shape would be
+    handed the dead group's collectives."""
+    import torch
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:                 # older torch
+        from torch.distributed._tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for name in ("propagate_op_sharding", "_propagate_tensor_meta_cached"):
+        cache = getattr(prop, name, None)
+        if hasattr(cache, "cache_clear"):
+            cache.cache_clear()
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                    None)
+    if clear is not None:
+        clear()

@@ -11,14 +11,24 @@ Inside ``OpCounter`` every op that reaches the dispatcher is counted:
     XLA's "bytes accessed" counts an op; views move nothing and are
     skipped (the reference's ``_SKIP_BYTES_OPS``), as are allocations
     that touch no memory (``empty``);
-  * collectives: per-op output bytes times the reference's
-    ``WIRE_FACTOR`` (all-reduce 2x) and counts by op, split into
-    intra-pod (ICI) and pod-crossing (DCN) bytes by the ranks of the op's
-    group (``pod_size`` ranks a pod).
+  * collectives: counts by op and per-chip wire bytes, the bytes one
+    rank sends over a ring of the op's n ranks: the whole buffer's bytes
+    (an all-gather's output, a reduce-scatter's input, an all-reduce's or
+    all-to-all's buffer) times (n - 1) / n, times the reference's
+    ``WIRE_FACTOR`` (all-reduce 2x: a reduce-scatter then an all-gather);
+    a send moves its buffer. Split into intra-pod (ICI) and pod-crossing
+    (DCN) bytes by the ranks of the op's group (``pod_size`` ranks a pod).
 
 An eager program runs each loop iteration, so a scan of n bodies counts n
 times with no trip-count reading. Run on ``meta`` tensors, nothing is
 allocated or computed: the shapes are the real ones.
+
+On DTensors the counter sees what one rank runs: it hands a DTensor op
+to DTensor (``NotImplemented``), which runs the op's local form on the
+rank's shards and the collectives its redistributions issue, and those
+come back through the counter. So FLOPs and bytes are one rank's, and
+every collective is counted, whether a ``shard()`` site, a kernel's
+``local_op`` or DTensor's own sharding propagation issued it.
 """
 from __future__ import annotations
 
@@ -30,6 +40,11 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
+
+try:                                    # torch >= 2.5: public module
+    from torch.distributed.tensor import DTensor
+except ImportError:                     # older torch
+    from torch.distributed._tensor import DTensor
 
 DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1,
@@ -111,17 +126,56 @@ class OpCost:
                       self.ici_bytes * n, self.dcn_bytes * n)
 
 
+# DTensor's shape inference (a private method of its sharding
+# propagator: the counts can move with DTensor's version, which each
+# dry-run record states)
+_INFER = "_propagate_tensor_meta_non_cached"
+
+
 class OpCounter(TorchDispatchMode):
-    """Counts the ops dispatched inside the ``with`` block (``.cost``)."""
+    """Counts the ops dispatched inside the ``with`` block (``.cost``).
+
+    DTensor infers an op's output shape by running it on global-shape
+    tensors once a new signature (its sharding propagation); those runs
+    compute nothing on the device and are not counted (``paused``).
+    Counters nest."""
 
     def __init__(self, pod_size: int = 0):
         super().__init__()
         self.pod_size = pod_size
         self.cost = OpCost()
+        self.paused = 0
+
+    def __enter__(self):
+        prop = DTensor._op_dispatcher.sharding_propagator
+        # the instance's own entry (an enclosing counter's), else None:
+        # put back on exit, so counters nest
+        self._prop, self._outer = prop, vars(prop).get(_INFER)
+        infer = getattr(prop, _INFER)
+
+        def uncounted(*args, **kwargs):
+            self.paused += 1
+            try:
+                return infer(*args, **kwargs)
+            finally:
+                self.paused -= 1
+        setattr(prop, _INFER, uncounted)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._outer is None:
+            delattr(self._prop, _INFER)           # the class's again
+        else:
+            setattr(self._prop, _INFER, self._outer)
+        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # its local ops come back here
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self.paused:
+            return out
         c = self.cost
         packet = func._overloadpacket
         if packet in flop_registry:
@@ -133,12 +187,17 @@ class OpCounter(TorchDispatchMode):
             # the op's result: c10d's in-place ops write their first
             # argument, the functional ones return it
             res = args[0] if func.namespace == "c10d" else out
-            b = sum(tensor_bytes(t) for t in _tensors(res)) * \
-                WIRE_FACTOR[coll]
+            ranks = _group_ranks(args)
+            n = max(len(ranks), 1)
+            b = sum(tensor_bytes(t) for t in _tensors(res))
+            if coll == "reduce-scatter":
+                b *= n                  # the input: n outputs
+            if coll != "collective-permute":
+                b *= WIRE_FACTOR[coll] * (n - 1) / n
             c.collective_wire[coll] = c.collective_wire.get(coll, 0.0) + b
             c.collective_counts[coll] = c.collective_counts.get(coll, 0) + 1
-            ranks = _group_ranks(args) if self.pod_size else []
-            if len({r // self.pod_size for r in ranks}) > 1:
+            if self.pod_size and len({r // self.pod_size
+                                      for r in ranks}) > 1:
                 c.dcn_bytes += b
             else:
                 c.ici_bytes += b

@@ -1,6 +1,8 @@
 """Re-price saved dry-run records on another hardware profile, without
 rerunning the dry-run: each record carries its counted terms (FLOPs,
-bytes, collective bytes a chip).
+bytes, collective bytes a chip). A profile without link bandwidths of
+its own (the H100's in ``core.hardware``) is priced with the links kept
+in ``launch.analysis`` (``links_for``), as the dry-run prices it.
 
     PYTHONPATH=src python -m repro_torch.launch.reanalyze \\
         --records results/dryrun_16x16.jsonl --profile tpu_v5e
@@ -13,12 +15,14 @@ from repro_torch.launch import analysis
 
 
 def reprice(recs, profile):
-    """The records with every ``ok`` one's roofline re-priced; returns
-    (records, number updated)."""
+    """The records with every ``ok`` one's roofline re-priced at
+    ``analysis.links_for(profile)``; returns (records, number updated)."""
+    links = analysis.links_for(profile)
     n = 0
     for rec in recs:
         if rec.get("ok"):
-            rl = analysis.from_row(rec["roofline"], rec["chips"], profile)
+            rl = analysis.from_row(rec["roofline"], rec["chips"], profile,
+                                   links)
             rec["roofline"] = dict(rec["roofline"], **rl.row())
             n += 1
     return recs, n

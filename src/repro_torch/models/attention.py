@@ -45,6 +45,10 @@ output): the port of ``repro.models.attention``.
   MLA's attention and cross-attention are plain PyTorch on every
   device, as the reference computes them outside any Pallas kernel (the
   MLA and cross-attention sections below).
+* Under a mesh (the model's DTensor program) the reference's ``shard()``
+  sites stand where its own do, the cache writes and the kernels run on
+  each rank's rows and heads (``sharding.api.local_op``), and no paged
+  pool runs (the comment above ``_kv_group``).
 """
 from __future__ import annotations
 
@@ -59,6 +63,8 @@ from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref as KREF
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import shard
 
 
 # --------------------------------------------------------------------------
@@ -390,6 +396,9 @@ def _qkv(p, cfg, x, positions):
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = L.apply_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -404,8 +413,106 @@ def _kv_index(cfg, device: str) -> torch.Tensor:
 
 
 def _expand_kv(cfg, k):
-    """k (B, S, Hkv, hd) -> (B, S, Hq, hd) through the reference's map."""
-    return k.index_select(2, _kv_index(cfg, str(k.device)))
+    """k (B, S, Hkv, hd) -> (B, S, Hq, hd) through the reference's map;
+    under a mesh on the local rows, the kv heads whole (the result's
+    heads replicated, for the site after it to split)."""
+    return SH.local_op(
+        lambda k: k.index_select(2, _kv_index(cfg, str(k.device))),
+        [("batch", "kv_seq", None, None)], ("batch", "kv_seq", None, None))(k)
+
+
+# -- the attention proper on local shards ------------------------------------
+#
+# Under a mesh the kernels run through ``sharding.api.local_op`` on each
+# rank's heads and rows. The rule for heads that the model axis does not
+# divide (``sharding.api.fit_spec``): such heads are replicated over it.
+# When the q heads are split and the kv heads are not (Llama-3.2-1B's 2 kv
+# heads over a model axis of 4), each rank slices the kv heads its q heads
+# read (``_kv_group``), so the kernel's GQA group comes from the local head
+# counts and no rank holds zero heads. The sequence is whole inside a
+# kernel (flash, decode and the scans are causal or recurrent): a
+# sequence split by the rule (``LONG_CONTEXT_RULES``) is all-gathered
+# before the kernel, as GSPMD gathers it; a split-KV combine across ranks
+# is not ported.
+
+
+def _kv_group(kk, vv, n_q_local: int, q0: int, group: int):
+    """The kv heads (dim 1 of (B, Hkv, S, hd)) that q heads q0 ..
+    q0 + n_q_local - 1 read at GQA ``group``, where the kv heads are whole
+    and the q heads split; as they are where the counts already agree."""
+    if kk.shape[1] * group == n_q_local:
+        return kk, vv
+    lo, hi = q0 // group, (q0 + n_q_local - 1) // group + 1
+    if n_q_local % (hi - lo):
+        raise ValueError(f"{n_q_local} local q heads from {q0} do not "
+                         f"split evenly over kv heads {lo}..{hi - 1}")
+    return kk[:, lo:hi], vv[:, lo:hi]
+
+
+def _prefill_local(cfg, direct: bool, step: int, group: int, q0: int,
+                   fill: bool, window, chunk, q, k, v, positions):
+    """Prefill / train attention on one rank's rows and heads: q (B, S,
+    Hq, hd), k / v (B, S, Hkv, hd) -> (B, S, Hq, hd_v)."""
+    if direct:
+        kk, vv = k[:, :, ::step], v[:, :, ::step]
+    else:
+        kk = k.index_select(2, _kv_index(cfg, str(k.device)))
+        vv = v.index_select(2, _kv_index(cfg, str(v.device)))
+        kk, vv = kk[:, :, q0:q0 + q.shape[2]], vv[:, :, q0:q0 + q.shape[2]]
+    kk, vv = _kv_group(kk.transpose(1, 2), vv.transpose(1, 2), q.shape[2],
+                       q0, group if direct else 1)
+    out = KOPS.flash_attention(q.transpose(1, 2), kk, vv, positions,
+                               positions, window=window,
+                               chunk=chunk).transpose(1, 2)   # (B,S,Hq,hd)
+    if fill:
+        # a real query sees its own key: only pad queries see none
+        out = _fill_dead_rows(out, vv, positions < 0)
+    return out
+
+
+def _decode_local(direct: bool, step: int, group: int, q0: int, fill: bool,
+                  window, chunk, q, ck, cv, q_pos, k_pos):
+    """Contiguous-cache decode on one rank's rows and heads: q (B, Hq,
+    hd), ck / cv (B, W, Hkv, hd) views of the cache (or the expanded
+    (B, W, Hq, hd)) -> (B, Hq, hd_v)."""
+    if direct:
+        ck, cv = ck[:, :, ::step], cv[:, :, ::step]
+    # (B, Hkv, W, hd) views of the (B, W, Hkv, hd) cache: the decode
+    # kernel reads through the strides, the cache is never copied
+    ck, cv = _kv_group(ck.transpose(1, 2), cv.transpose(1, 2), q.shape[1],
+                       q0, group if direct else 1)
+    out = KOPS.decode_attention(q, ck, cv, q_pos, k_pos, window=window,
+                                chunk=chunk)                  # (B,Hq,hd)
+    if fill:
+        dead = ~KREF.attention_mask(q_pos[:, None], k_pos, window,
+                                    chunk).any(-1)
+        out = _fill_dead_rows(out, cv, dead)
+    return out
+
+
+# a contiguous cache's leaves, the kv heads split where the rule splits
+# them and the ring whole (its writes index the whole ring)
+_KV_LEAVES = {"k": ("batch", None, "kv_heads", None),
+              "v": ("batch", None, "kv_heads", None),
+              "pos_ids": ("batch", None), "length": ("batch",)}
+_LATENT_LEAVES = {"ckv": ("batch", None, None),
+                  "k_rope": ("batch", None, None),
+                  "pos_ids": ("batch", None), "length": ("batch",)}
+
+
+def write_cache(write, cache: Dict, leaves: Dict, kv: Tuple, kv_axes: Tuple,
+                *rest) -> Dict:
+    """``write(cache, *kv, *rest)`` in place; under a mesh on the local
+    shards of the cache leaves named in ``leaves`` (their axes), the new
+    keys and values placed by ``kv_axes``, the positions (``rest``) by
+    rows (``sharding.api.local_update``)."""
+    def run(c, *a):
+        write(c, *a)
+
+    SH.local_update(run, cache, leaves,
+                    list(kv_axes) + [("batch", None)] * len(rest), None,
+                    *kv, *rest)
+    return cache
 
 
 def _fill_dead_rows(out: torch.Tensor, v: torch.Tensor,
@@ -467,7 +574,7 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     step = layout[1] if direct else 1
     if direct and layout[2] < q.shape[2]:
         q = q[:, :, :layout[2]]
-    moe_on_card = cfg.moe is not None and KOPS._on_cuda(q)
+    moe_on_card = cfg.moe is not None and q.device.type == "cuda"
     # a dead row matters only where it can take a real token's expert
     # slot: B*S is the token count of this forward's moe calls
     fill = moe_on_card and MOE.can_drop(cfg, x.shape[0] * x.shape[1])
@@ -484,6 +591,13 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             f"{cfg.name}: a moe model's paged attention on the card (the "
             "pad rows of the paged kernels, a pool of duplicated kv heads) "
             "is not ported yet (ROADMAP Queue 1)")
+    mesh = isinstance(q, SH.DTensor)       # the model's DTensor program
+    if mesh and paged:
+        raise NotImplementedError(
+            "no paged pool runs under a mesh: the reference's fleet runs "
+            "its shards without a sharding context")
+    group = layout[0] if direct else 1
+    q0 = SH.shard_offset("heads", q.shape[2]) if mesh else 0
     if mode == "chunk":
         paged_chunk_write(cache, page_tbl, k, v, positions)
         if direct:
@@ -513,37 +627,42 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 positions[:, 0], cache["pos_ids"], window=layer_window,
                 chunk=layer_chunk)[:, None]
     elif mode == "decode":
-        decode_write_cache(cache, k, v)
-        ck, cv = cache["k"], cache["v"]
-        ck, cv = ((ck[:, :, ::step], cv[:, :, ::step]) if direct
-                  else (_expand_kv(cfg, ck), _expand_kv(cfg, cv)))
-        # (B, Hkv, W, hd) views of the (B, W, Hkv, hd) cache: the decode
-        # kernel reads through the strides, the cache is never copied
-        ck, cv = ck.transpose(1, 2), cv.transpose(1, 2)
-        q_pos = positions[:, 0]
-        out = KOPS.decode_attention(
-            q[:, 0], ck, cv, q_pos, cache["pos_ids"],
-            window=layer_window, chunk=layer_chunk)          # (B,Hq,hd)
-        if fill:
-            dead = ~KREF.attention_mask(q_pos[:, None], cache["pos_ids"],
-                                        layer_window, layer_chunk).any(-1)
-            out = _fill_dead_rows(out, cv, dead)
+        write_cache(decode_write_cache, cache, _KV_LEAVES, (k, v),
+                    (("batch", None, "kv_heads", None),) * 2)
+        if direct:
+            ck = shard(cache["k"], "batch", "kv_seq", "kv_heads", None)
+            cv = shard(cache["v"], "batch", "kv_seq", "kv_heads", None)
+            kv_ax = ("batch", None, "kv_heads", None)
+        else:
+            ck = shard(_expand_kv(cfg, cache["k"]), "batch", "kv_seq",
+                       "heads", None)
+            cv = shard(_expand_kv(cfg, cache["v"]), "batch", "kv_seq",
+                       "heads", None)
+            kv_ax = ("batch", None, "heads", None)
+        out = SH.local_op(
+            functools.partial(_decode_local, direct, step, group, q0, fill,
+                              layer_window, layer_chunk),
+            [("batch", "heads", None), kv_ax, kv_ax, ("batch",),
+             ("batch", None)], ("batch", "heads", None))(
+                q[:, 0], ck, cv, positions[:, 0], cache["pos_ids"])
         out = out[:, None]                                   # (B,1,Hq,hd)
     else:
         if cache is not None:
-            prefill_write_cache(cache, k, v, positions)
-        kk, vv = ((k[:, :, ::step], v[:, :, ::step]) if direct
-                  else (_expand_kv(cfg, k), _expand_kv(cfg, v)))
-        vv = vv.transpose(1, 2)
-        out = KOPS.flash_attention(
-            q.transpose(1, 2), kk.transpose(1, 2), vv,
-            positions, positions, window=layer_window,
-            chunk=layer_chunk).transpose(1, 2)             # (B,S,Hq,hd)
-        if fill:
-            # a real query sees its own key: only pad queries see none
-            out = _fill_dead_rows(out, vv, positions < 0)
+            write_cache(prefill_write_cache, cache, _KV_LEAVES, (k, v),
+                        (("batch", None, "kv_heads", None),) * 2, positions)
+        kv_ax = (("batch", None, "kv_heads", None) if direct
+                 else ("batch", None, None, None))
+        out = SH.local_op(
+            functools.partial(_prefill_local, cfg, direct, step, group, q0,
+                              fill, layer_window, layer_chunk),
+            [("batch", None, "heads", None), kv_ax, kv_ax, ("batch", None)],
+            ("batch", None, "heads", None))(q, k, v, positions)
+    out = shard(out, "batch", "seq", "heads", None)
     flat = out.reshape(out.shape[:-2] + (-1,))
-    return flat @ p["wo"][:flat.shape[-1]], cache
+    wo = p["wo"]
+    if flat.shape[-1] < wo.shape[0]:
+        wo = wo[:flat.shape[-1]]
+    return flat @ wo, cache
 
 
 # --------------------------------------------------------------------------
@@ -628,7 +747,16 @@ def _bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
 def _direct_attention(q, k, v, bias):
     """q: (B,Sq,H,hd), k: (B,Sk,H,hd), v: (B,Sk,H,hd_v), bias:
     (B,1|H,Sq,Sk) -> (B,Sq,H,hd_v). Scores in the input type, then scaled
-    and masked in float32; the softmax's weights in the input type."""
+    and masked in float32; the softmax's weights in the input type. Under
+    a mesh on each rank's rows and heads (``sharding.api.local_op``), as
+    the kernels run."""
+    heads = ("batch", None, "heads", None)
+    return SH.local_op(_direct_local, [heads] * 3 + [(
+        "batch", "heads" if bias.shape[1] > 1 else None, None, None)],
+        heads)(q, k, v, bias)
+
+
+def _direct_local(q, k, v, bias):
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale + bias
     w = torch.softmax(s, dim=-1).to(q.dtype)
@@ -643,36 +771,57 @@ def _pad_seq(x: torch.Tensor, n: int, value=0) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+def _blkshard(t: torch.Tensor, n: int, c: int) -> torch.Tensor:
+    """The reference's ``blkshard`` site on (B, n*c, H, hd) as its
+    (n, B, c, H, hd) blocks; back in (B, n*c, H, hd)."""
+    blocks = t.reshape((t.shape[0], n, c) + t.shape[2:]).movedim(1, 0)
+    blocks = shard(blocks, None, "batch", None, "heads", None)
+    return blocks.movedim(0, 1).reshape(t.shape)
+
+
 def _scan(qs, ks, q_pos, k_pos, window, chunk, scores, values, hd_v,
-          dtype):
+          dtype, pinned: bool = False):
     """The reference's two-level running-softmax scan: queries in blocks
     of ``Q_CHUNK``, keys in blocks of ``KV_CHUNK`` (pad queries at
     position 0 are cut off, pad keys at -1 are masked). ``qs`` are (B,Sq,
     ...) query tensors and ``ks`` (B,Sk,...) key-side tensors; a block's
     float32 scores (B,H,Qc,Kc), already scaled, are ``scores(q blocks, k
     blocks)`` and its values (B,Kc,H,hd_v) ``values(k blocks)``. Returns
-    (B,Sq,H,hd_v) in ``dtype``."""
+    (B,Sq,H,hd_v) in ``dtype``. ``pinned``: the reference's sites of its
+    ``_flash_attention`` (the blocks, the carries, each block's scores and
+    accumulator, the output)."""
     B, Sq = qs[0].shape[:2]
     Sk = ks[0].shape[1]
     H = qs[0].shape[2]
     nq, nk = -(-Sq // Q_CHUNK), -(-Sk // KV_CHUNK)
     qs = [_pad_seq(t, nq * Q_CHUNK) for t in qs]
     ks = [_pad_seq(t, nk * KV_CHUNK) for t in ks]
+    if pinned:
+        qs = [_blkshard(t, nq, Q_CHUNK) for t in qs]
+        ks = [_blkshard(t, nk, KV_CHUNK) for t in ks]
     qpos = _pad_seq(q_pos, nq * Q_CHUNK, 0)
     kpos = _pad_seq(k_pos, nk * KV_CHUNK, -1)
     dev = qs[0].device
+    pin = shard if pinned else (lambda t, *axes: t)
+
+    def built(t):                  # a carry or a mask every rank builds
+        return SH.replicated_like(t, qs[0])
     out = []
     for i in range(nq):
         qsl = slice(i * Q_CHUNK, (i + 1) * Q_CHUNK)
         qb = [t[:, qsl] for t in qs]
-        m = torch.full((B, H, Q_CHUNK), -math.inf, device=dev)
-        den = torch.zeros((B, H, Q_CHUNK), device=dev)
-        acc = torch.zeros((B, H, Q_CHUNK, hd_v), device=dev)
+        m = pin(built(torch.full((B, H, Q_CHUNK), -math.inf, device=dev)),
+                "batch", "heads", None)
+        den = pin(built(torch.zeros((B, H, Q_CHUNK), device=dev)),
+                  "batch", "heads", None)
+        acc = pin(built(torch.zeros((B, H, Q_CHUNK, hd_v), device=dev)),
+                  "batch", "heads", None, None)
         for j in range(nk):
             ksl = slice(j * KV_CHUNK, (j + 1) * KV_CHUNK)
             kb = [t[:, ksl] for t in ks]
-            s = scores(qb, kb) + _bias(qpos[:, qsl], kpos[:, ksl], window,
-                                       chunk)[:, None]
+            s = pin(scores(qb, kb), "batch", "heads", None, None)
+            s = s + built(_bias(qpos[:, qsl], kpos[:, ksl], window,
+                                chunk)[:, None])
             m_new = torch.maximum(m, s.amax(dim=-1))
             pw = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -680,10 +829,11 @@ def _scan(qs, ks, q_pos, k_pos, window, chunk, scores, values, hd_v,
             vb = values(kb)
             acc = acc * corr[..., None] + torch.einsum(
                 "bhqk,bkhd->bhqd", pw.to(vb.dtype), vb).float()
+            acc = pin(acc, "batch", "heads", None, None)
             m = m_new
         o = acc / torch.clamp(den, min=1e-30)[..., None]
         out.append(o.transpose(1, 2).to(dtype))            # (B,Qc,H,hd_v)
-    return torch.cat(out, dim=1)[:, :Sq]
+    return pin(torch.cat(out, dim=1)[:, :Sq], "batch", "seq", "heads", None)
 
 
 def _flash_attention(q, k, v, q_pos, k_pos, window, chunk):
@@ -694,7 +844,7 @@ def _flash_attention(q, k, v, q_pos, k_pos, window, chunk):
         [q], [k, v], q_pos, k_pos, window, chunk,
         lambda qb, kb: torch.einsum("bqhd,bkhd->bhqk", qb[0],
                                     kb[0]).float() * scale,
-        lambda kb: kb[1], v.shape[-1], q.dtype)
+        lambda kb: kb[1], v.shape[-1], q.dtype, pinned=True)
 
 
 def attention_core(q, k, v, q_pos, k_pos, window=None, chunk=None):
@@ -715,6 +865,7 @@ def _mla_qkv_latent(p, cfg, x, positions):
     cq = L.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
     q = (cq @ p["w_uq"]).reshape(
         x.shape[:-1] + (H, m.qk_nope_head_dim + m.qk_rope_head_dim))
+    q = shard(q, "batch", "seq", "heads", None)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = L.apply_rope(q_rope, positions, 1.0, cfg.rope_theta)
     dkv = x @ p["w_dkv"]
@@ -731,14 +882,16 @@ def _mla_flash_fused(q_nope, q_rope, ckv, k_rope, w_uk, w_uv, q_pos, k_pos,
     q_rope: (B,Sq,H,r); ckv: (B,Sk,kvr); k_rope: (B,Sk,r); w_uk: (kvr,H,n);
     w_uv: (kvr,H,v)."""
     def scores(qb, kb):
-        k_nope = torch.einsum("bkr,rhn->bkhn", kb[0], w_uk)
+        k_nope = shard(torch.einsum("bkr,rhn->bkhn", kb[0], w_uk),
+                       "batch", "seq", "heads", None)
         return (torch.einsum("bqhn,bkhn->bhqk", qb[0], k_nope)
                 + torch.einsum("bqhr,bkr->bhqk", qb[1], kb[1])
                 ).float() * scale
 
     return _scan([q_nope, q_rope], [ckv, k_rope], q_pos, k_pos, window,
                  None, scores,
-                 lambda kb: torch.einsum("bkr,rhv->bkhv", kb[0], w_uv),
+                 lambda kb: shard(torch.einsum("bkr,rhv->bkhv", kb[0], w_uv),
+                                  "batch", "seq", "heads", None),
                  w_uv.shape[-1], q_nope.dtype)
 
 
@@ -766,30 +919,40 @@ def mla_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs a cache")
-        decode_write_cache(cache, ckv, k_rope, ("ckv", "k_rope"))
-        ckv_all, krope_all = cache["ckv"], cache["k_rope"]
+        write_cache(functools.partial(decode_write_cache,
+                                      names=("ckv", "k_rope")),
+                    cache, _LATENT_LEAVES, (ckv, k_rope),
+                    (("batch", None, None),) * 2)
+        ckv_all = shard(cache["ckv"], "batch", "kv_seq", None)
+        krope_all = shard(cache["k_rope"], "batch", "kv_seq", None)
         q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
         s = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_all)
              + torch.einsum("bqhn,bkn->bhqk", q_rope, krope_all)
              ).float() * scale
-        s = s + _bias(positions, cache["pos_ids"], layer_window,
-                      None)[:, None]
+        s = s + SH.replicated_like(_bias(positions, cache["pos_ids"],
+                                         layer_window, None)[:, None], s)
         w = torch.softmax(s, dim=-1).to(x.dtype)
         o_lat = torch.einsum("bhqk,bkr->bqhr", w, ckv_all)
         out = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
     else:
         if cache is not None:
-            prefill_write_cache(cache, ckv, k_rope, positions,
-                                ("ckv", "k_rope"))
+            write_cache(functools.partial(prefill_write_cache,
+                                          names=("ckv", "k_rope")),
+                        cache, _LATENT_LEAVES, (ckv, k_rope),
+                        (("batch", None, None),) * 2, positions)
         if cfg.mla_fused_prefill and x.shape[1] > DIRECT_ATTN_MAX_SEQ:
             out = _mla_flash_fused(q_nope, q_rope, ckv, k_rope, w_uk, w_uv,
                                    positions, positions, layer_window, scale)
         else:
-            k_nope = torch.einsum("bkr,rhn->bkhn", ckv, w_uk)
-            vv = torch.einsum("bkr,rhv->bkhv", ckv, w_uv)
-            kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-                k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
-            qq = torch.cat([q_nope, q_rope], dim=-1)
+            k_nope = shard(torch.einsum("bkr,rhn->bkhn", ckv, w_uk),
+                           "batch", "seq", "heads", None)
+            vv = shard(torch.einsum("bkr,rhv->bkhv", ckv, w_uv),
+                       "batch", "seq", "heads", None)
+            kk = shard(torch.cat([k_nope, k_rope[:, :, None, :].expand(
+                k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1),
+                "batch", "seq", "heads", None)
+            qq = shard(torch.cat([q_nope, q_rope], dim=-1),
+                       "batch", "seq", "heads", None)
             out = attention_core(qq, kk, vv, positions, positions,
                                  layer_window, None)
     flat = out.reshape(out.shape[:-2] + (-1,))

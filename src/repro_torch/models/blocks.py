@@ -14,7 +14,14 @@ channel-mix, attention-free), and the memory-conditioned kinds:
 ``cross`` (Llama-3.2-Vision: gated cross-attention to the image
 embeddings and a gated SwiGLU), ``enc`` (the encoder-decoder's
 bidirectional encoder layer) and ``dec`` (its decoder layer:
-self-attention, cross-attention to the encoder output, SwiGLU)."""
+self-attention, cross-attention to the encoder output, SwiGLU).
+
+Under a sharding context each block first all-gathers its FSDP-sharded
+weights (``sharding.api.gather_fsdp``; the expert-parallel MoE weights
+excepted), and the reference's ``shard()`` sites of this module pin the
+residual stream: its ``_res`` site on each residual delta, here where the
+pending delta is consumed (the norm that performs the add, ``_norm3``),
+and its ``_norm3`` site on each block norm's output."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,6 +36,8 @@ from repro_torch.models import moe_sharded as MOES
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import BLOCK_KINDS
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import shard
 
 
 @dataclasses.dataclass
@@ -146,12 +155,29 @@ def _res(cfg, delta):
     return delta
 
 
+def res_site(delta: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The reference's ``_res`` site on a (B, S, d) residual delta."""
+    if delta is not None and delta.ndim == 3:
+        delta = shard(delta, "batch", "seq", "embed")
+    return delta
+
+
+def _norm3(p: Dict, x: torch.Tensor, delta: Optional[torch.Tensor],
+           eps: float, cat: Optional[torch.Tensor] = None):
+    """``L.residual_rmsnorm`` between the reference's sites: ``_res`` on
+    the pending delta it adds, ``_norm3`` on the normalised rows."""
+    x, h = L.residual_rmsnorm(p, x, res_site(delta), eps, cat)
+    if h.ndim == 3:
+        h = shard(h, "batch", "seq", "embed")
+    return x, h
+
+
 def block_apply(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
                 cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One whole block: returns (x, cache) with its residual add done; the
     cache is updated in place."""
     x, delta, _ = block_apply_pending(p, cfg, kind, ctx, x, None, cache)
-    return (x if delta is None else x + delta), cache
+    return (x if delta is None else x + res_site(delta)), cache
 
 
 def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
@@ -167,10 +193,11 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
     FFN's aux-loss dict (``moe.moe_aux``) of a ``moe`` / ``mla_moe`` block
     in train mode, else empty."""
     _check_kind(kind)
+    p = SH.gather_fsdp(p, skip=("moe",))
     if kind in ("cross", "enc", "dec"):
         return (*_memory_block(p, cfg, kind, ctx, x, delta, cache), {})
     if kind == "mamba2":
-        x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps)
+        x, h = _norm3(p["ln1"], x, delta, cfg.norm_eps)
         y = SSM.mamba2_block(p["ssm"], cfg, h, cache, ctx.mode, ctx.mask)
         return x, _res(cfg, y), {}
     if kind == "rwkv6":
@@ -183,7 +210,7 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
         # the residual stream and the embedding output side by side; the
         # block's attention takes no chunked-local variant
         cat, chunk = ctx.emb_orig, None
-    x, h = L.residual_rmsnorm(p["ln1"], x, delta, cfg.norm_eps, cat)
+    x, h = _norm3(p["ln1"], x, delta, cfg.norm_eps, cat)
     if kind in ("mla", "mla_moe"):
         a, cache = A.mla_attention(p["attn"], cfg, h, ctx.positions, window,
                                    cache, ctx.mode)
@@ -194,21 +221,23 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
     if kind == "parallel":
         # the MLP reads the same x; the reference adds x + (a + f), a + f
         # first, so the next norm's pending add forms the same value
-        h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        h2 = shard(L.rmsnorm(p["ln2"], x, cfg.norm_eps), "batch", "seq",
+                   "embed")
         return x, _res(cfg, a + L.swiglu(p["mlp"], h2)), {}
-    x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
+    x, h2 = _norm3(p["ln2"], x, _res(cfg, a), cfg.norm_eps, cat)
     if kind in ("moe", "mla_moe"):
         if MOES.use_sharded_moe(cfg):
             # expert-parallel over the context's mesh (the reference's
             # ``_moe_dispatch``)
             f, aux = MOES.moe_ffn_sharded(p["moe"], cfg, h2)
             return x, _res(cfg, f), (aux if ctx.mode == "train" else {})
+        pm = SH.gather_fsdp(p["moe"])
         if ctx.mode == "train":
-            f, aux = MOE.moe_ffn(p["moe"], cfg, h2)
+            f, aux = MOE.moe_ffn(pm, cfg, h2)
             return x, _res(cfg, f), aux
-        f, _ = MOE.moe_apply(p["moe"], cfg, h2)    # no aux when serving
+        f, _ = MOE.moe_apply(pm, cfg, h2)           # no aux when serving
         return x, _res(cfg, f), {}
-    return x, _res(cfg, L.swiglu(p["mlp"], h2)), {}
+    return x, _res(cfg, L.swiglu(p["mlp"], h2, sites=kind != "shared")), {}
 
 
 def _memory_kv_of(p: Dict, cfg, ctx: LayerCtx, cache: Optional[Dict],
@@ -250,11 +279,11 @@ def _memory_block(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
       kernels on the card), ``ln_x``, unmasked cross-attention to the
       encoder output (``xk``/``xv``), ln2, SwiGLU."""
     eps = cfg.norm_eps
-    x, h = L.residual_rmsnorm(p["ln1"], x, delta, eps)
+    x, h = _norm3(p["ln1"], x, delta, eps)
     if kind == "cross":
         mem = _memory_kv_of(p["attn"], cfg, ctx, cache, ("k", "v"))
         a = A.cross_attention(p["attn"], cfg, h, mem)
-        x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), eps)
+        x, h2 = _norm3(p["ln2"], x, _res(cfg, a), eps)
         f = L.swiglu(p["mlp"], h2)
         f = f * torch.tanh(p["gate_mlp"].float()).to(f.dtype)
         return x, _res(cfg, f)
@@ -266,8 +295,8 @@ def _memory_block(p: Dict, cfg, kind: str, ctx: LayerCtx, x: torch.Tensor,
         # the layer's cache, in place; xk and xv ride beside them
         a, _ = A.self_attention(p["attn"], cfg, h, ctx.positions, window,
                                 None, cache, ctx.mode, page_tbl=ctx.page_tbl)
-        x, hx = L.residual_rmsnorm(p["ln_x"], x, _res(cfg, a), eps)
+        x, hx = _norm3(p["ln_x"], x, _res(cfg, a), eps)
         mem = _memory_kv_of(p["xattn"], cfg, ctx, cache, ("xk", "xv"))
         a = A.cross_attention(p["xattn"], cfg, hx, mem)
-    x, h2 = L.residual_rmsnorm(p["ln2"], x, _res(cfg, a), eps)
+    x, h2 = _norm3(p["ln2"], x, _res(cfg, a), eps)
     return x, _res(cfg, L.swiglu(p["mlp"], h2))

@@ -11,6 +11,13 @@ hand-written kernel on the card, which also forms the row it normalises
 (the residual add, Zamba2's concat, Mamba2's gate) in the same launch.
 LayerNorm (RWKV6's only) has no kernel in the reference and stays plain
 PyTorch.
+
+Under a sharding context the reference's ``shard()`` sites of this module
+place the FFN's hidden ``d_ff``, the flattened ``tokens`` tables, the
+embedding output and the logits' ``vocab`` (``sharding.api.shard``), and
+each RMSNorm form runs on the local rows of its DTensor operands
+(``sharding.api.local_op``: the rows as they are placed, the last dim
+whole, the scale replicated).
 """
 from __future__ import annotations
 
@@ -18,8 +25,11 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KOPS
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import DTensor, shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,8 +78,23 @@ def rmsnorm_init(dim: int, dtype, device) -> Dict:
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
+def on_rows(fn, rows, scale: torch.Tensor, n_out: int = 1, extra=()):
+    """``fn(*rows, scale, *extra)``, a norm over the last dim: under a
+    mesh on the local rows of the DTensors ``rows`` (each placed as the
+    first one's rows, ``sharding.api.row_placements``) with ``scale`` and
+    ``extra`` replicated; as it is otherwise."""
+    ref = next((t for t in rows if isinstance(t, DTensor)), None)
+    if ref is None:
+        return fn(*rows, scale, *extra)
+    pl = SH.row_placements(ref)
+    rep = SH.replicate_all(ref.device_mesh)
+    return SH.local_op(fn, [pl] * len(rows) + [rep] * (1 + len(extra)),
+                       pl if n_out == 1 else (pl,) * n_out)(
+                           *rows, scale, *extra)
+
+
 def rmsnorm(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
-    return KOPS.rmsnorm(x, p["scale"], eps)
+    return on_rows(lambda x, s: KOPS.rmsnorm(x, s, eps), (x,), p["scale"])
 
 
 def residual_rmsnorm(p: Dict, x: torch.Tensor, delta: Optional[torch.Tensor],
@@ -79,20 +104,25 @@ def residual_rmsnorm(p: Dict, x: torch.Tensor, delta: Optional[torch.Tensor],
     launch on the card: returns (x + delta, rmsnorm(x + delta)), or with
     ``cat`` (Zamba2's shared block) (x + delta, rmsnorm(concat([x + delta,
     cat], -1))). ``delta`` None: no add, x returned as it is."""
+    scale = p["scale"]
     if cat is not None:
         if delta is None:
-            return x, KOPS.cat_rmsnorm(x, cat, p["scale"], eps)
-        return KOPS.cat_rmsnorm(x, cat, p["scale"], eps, delta)
+            return x, on_rows(lambda x, e, s: KOPS.cat_rmsnorm(x, e, s, eps),
+                              (x, cat), scale)
+        return on_rows(lambda x, e, d, s: KOPS.cat_rmsnorm(x, e, s, eps, d),
+                       (x, cat, delta), scale, 2)
     if delta is None:
-        return x, KOPS.rmsnorm(x, p["scale"], eps)
-    return KOPS.add_rmsnorm(x, delta, p["scale"], eps)
+        return x, rmsnorm(p, x, eps)
+    return on_rows(lambda x, d, s: KOPS.add_rmsnorm(x, d, s, eps),
+                   (x, delta), scale, 2)
 
 
 def gated_rmsnorm(p: Dict, y: torch.Tensor, z: torch.Tensor, eps: float,
                   dtype: torch.dtype) -> torch.Tensor:
     """Mamba2's gated norm, rmsnorm((y * silu(z)).to(dtype)), in one kernel
     launch on the card."""
-    return KOPS.gated_rmsnorm(y, z, p["scale"], eps, dtype)
+    return on_rows(lambda y, z, s: KOPS.gated_rmsnorm(y, z, s, eps, dtype),
+                   (y, z), p["scale"])
 
 
 def layernorm_init(dim: int, dtype, device) -> Dict:
@@ -101,6 +131,10 @@ def layernorm_init(dim: int, dtype, device) -> Dict:
 
 
 def layernorm(p: Dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    if isinstance(x, DTensor):          # on the local rows (``on_rows``)
+        return on_rows(lambda x, s, b: layernorm({"scale": s, "bias": b},
+                                                 x, eps),
+                       (x,), p["scale"], extra=(p["bias"],))
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
@@ -122,7 +156,12 @@ def rope_frequencies(head_dim: int, rotary_pct: float, theta: float,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_pct: float,
                theta: float) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: broadcastable to (..., S) int32."""
+    """x: (..., S, H, hd); positions: broadcastable to (..., S) int32.
+    Under a mesh on the local shards of a DTensor x (B, S, H, hd): x as
+    it is placed, its head dim whole (a partial sum stays one: the
+    rotation is linear), the positions by x's batch and sequence."""
+    if isinstance(x, DTensor):
+        return _local_rope(x, positions, rotary_pct, theta)
     hd = x.shape[-1]
     rot, inv = rope_frequencies(hd, rotary_pct, theta, x.device)
     if rot == 0:
@@ -138,6 +177,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_pct: float,
     return torch.cat([roped, xp], dim=-1) if rot < hd else roped
 
 
+def _local_rope(x, positions, rotary_pct: float, theta: float):
+    last = x.ndim - 1
+    pl = [SH.Replicate() if isinstance(p, SH.Shard) and p.dim in (last, -1)
+          else p for p in x.placements]
+    pos = [p if isinstance(p, SH.Shard) and p.dim < positions.ndim
+           else SH.Replicate() for p in pl]
+    return SH.local_op(
+        lambda x, q: apply_rope(x, q, rotary_pct, theta), [pl, pos], pl)(
+            x, positions)
+
+
 # --- MLP -------------------------------------------------------------------
 
 
@@ -147,11 +197,22 @@ def swiglu_init(gen, d_model: int, d_ff: int, dtype, device) -> Dict:
             "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
 
 
-def swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: Dict, x: torch.Tensor, sites: bool = True) -> torch.Tensor:
+    """The SwiGLU MLP; ``sites`` False: without the reference's sites
+    (Zamba2's shared block computes it inline, unpinned)."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+    if not sites:
+        return h @ p["w_down"]
+    if h.ndim == 3:
+        h = shard(h, "batch", "seq", "d_ff")
+    elif h.ndim == 2:
+        h = shard(h, "tokens", "d_ff")
+    out = h @ p["w_down"]
+    if out.ndim == 2:
+        out = shard(out, "tokens", None)
+    return out
 
 
 # --- embeddings / logits ---------------------------------------------------
@@ -163,10 +224,19 @@ def embedding_init(gen, cfg, device) -> Dict:
 
 
 def embed(p: Dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["tok"][tokens]
+    # the gather as ``F.embedding``: the same rows, and DTensor's strategy
+    # for a vocab-split table (a masked lookup, summed at the site below);
+    # under a mesh the tokens are placed by the site's own ("batch", "seq")
+    # first, so the masked lookup is summed over the rows that hold it
+    # (DTensor cannot reduce it onto a split it was not made on); a plain
+    # table (a rank-local program) keeps them as they are
+    if isinstance(p["tok"], DTensor):
+        tokens = SH.place(SH.replicated(tokens, p["tok"].device_mesh),
+                          ("batch", "seq"))
+    x = F.embedding(tokens, p["tok"])
     if cfg.scale_emb != 1.0:
         x = x * torch.full((), cfg.scale_emb, dtype=x.dtype, device=x.device)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def lm_head_init(gen, cfg, device) -> Dict:
@@ -181,4 +251,6 @@ def logits(head_p: Dict, embed_p: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
     out = (x @ w).float()
     if cfg.logit_scale != 1.0:
         out = out * cfg.logit_scale
+    if out.ndim == 3:
+        out = shard(out, "batch", "seq", "vocab")
     return out

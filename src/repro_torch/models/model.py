@@ -22,6 +22,18 @@ Training (``train_loss``) runs the train mode of ``forward``: every
 position, no cache, the MoE FFN's aux losses summed over the layers, the
 MTP head's loss where the config has one; ``remat`` recomputes each
 layer in the backward pass (``torch.utils.checkpoint``).
+
+Under a sharding context on a ``DeviceMesh`` (``sharding.use_sharding``)
+the forward is one SPMD program on DTensors: the parameters are placed
+by ``sharding.rules.distribute_params``, ``placed_cache`` places the
+caches by their leaves' rules (``sharding.rules.distribute_cache``), the
+inputs are the same on every rank and join as replicated values
+(``sharding.api.use_sharding``), and the reference's ``shard()`` sites,
+the kernels on local shards (``sharding.api.local_op``) and the FSDP
+weight gathers (``sharding.api.gather_fsdp``) place everything else. The
+residual stream's sites at the scanned unit's boundaries (the
+reference's ``unit_body``) stand on ``x`` here, the stream with its last
+add still pending.
 """
 from __future__ import annotations
 
@@ -35,6 +47,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import shard
 
 
 # Block kinds safe under right-padded batched prefill (attention kinds mask
@@ -184,6 +198,18 @@ class Model:
                        for i, kind in enumerate(cfg.block_pattern)],
         }
 
+    def placed_cache(self, params, batch: int, max_len: int) -> Dict:
+        """``init_cache`` for ``params``: where they are DTensors (the
+        model's DTensor program under a mesh), each leaf placed by its
+        rule (``sharding.rules.distribute_cache``)."""
+        caches = self.init_cache(batch, max_len)
+        tok = params["embed"]["tok"]
+        if isinstance(tok, SH.DTensor) and SH.on_mesh():
+            from repro_torch.sharding.rules import distribute_cache
+            ctx = SH.current_context()
+            caches = distribute_cache(caches, tok.device_mesh, ctx.rules)
+        return caches
+
     # --------------------------------------------------------------- forward
     def _encode(self, params, frames: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -202,8 +228,8 @@ class Model:
         for p in params["encoder"]:
             x, delta, _ = B.block_apply_pending(p, cfg, "enc", ctx, x, delta,
                                                 None)
-        _, x = L.residual_rmsnorm(params["enc_norm"], x, delta,
-                                  cfg.norm_eps)
+        _, x = L.residual_rmsnorm(SH.gather_fsdp(params["enc_norm"]), x,
+                                  B.res_site(delta), cfg.norm_eps)
         return x
 
     def _memory(self, params, x: torch.Tensor, mode: str,
@@ -214,11 +240,15 @@ class Model:
         encoder-decoder's memory is the encoder's output over ``frames``
         (every mode but decode), a VLM's the ``image_embeds`` as given."""
         cfg = self.cfg
+        if SH.on_mesh():           # inputs every rank holds the same
+            mesh = SH.current_context().mesh
+            extras = {k: SH.replicated(v, mesh) for k, v in extras.items()}
         if "image_embeds" in extras and cfg.n_image_tokens == 0:
             img = extras["image_embeds"].to(x.dtype)
             pos = extras["image_positions"].long()
-            # x is the embedding gather's own tensor: written in place
-            x[torch.arange(x.shape[0], device=x.device)[:, None], pos] = img
+            x = SH.local_op(_fuse_images, [("batch", None, None)] * 2 +
+                            [("batch", None)], ("batch", None, None))(
+                                x, img, pos)
         if cfg.is_encdec and mode != "decode":
             if "frames" not in extras:
                 raise ValueError(
@@ -285,13 +315,18 @@ class Model:
             # ``serving.paged.model_table``'s pool page ids)
             page_tbl = caches["paged"]["tbl"].flatten(0, -2)
 
-        x = L.embed(params["embed"], cfg, tokens)
+        embed_p = SH.gather_fsdp(params["embed"])
+        x = L.embed(embed_p, cfg, tokens)
         x, memory = self._memory(params, x, mode, extras or {})
         emb_orig = x if "shared" in self.kinds else None
         layer_caches = caches["layers"] if caches is not None else None
         delta = None            # each block's last residual add, pending
         aux: Dict[str, torch.Tensor] = {}
+        prefix, unit, _ = cfg.grouping()
         for i, kind in enumerate(cfg.block_pattern):
+            j = i - len(prefix)          # position in the scanned units
+            if j >= 0 and j % len(unit) == 0:
+                x = shard(x, "batch", "seq", "embed")
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
                              mask=mask, memory=memory, emb_orig=emb_orig,
                              layer_idx=i, page_tbl=page_tbl)
@@ -299,24 +334,28 @@ class Model:
             layer = functools.partial(B.block_apply_pending,
                                       params["layers"][i], cfg, kind, ctx)
             if remat and train:
+                layer = _in_this_program(layer)
                 x, delta, a = checkpoint(layer, x, delta, None,
                                          use_reentrant=False)
             else:
                 x, delta, a = layer(x, delta, c)
+            if j >= 0 and (j + 1) % len(unit) == 0:
+                x = shard(x, "batch", "seq", "embed")
             for k, v in a.items():
                 aux[k] = aux[k] + v if k in aux else v
         # the final norm performs the last add over every row, then the
         # kept rows are gathered: one launch fewer than gathering x and
         # delta before the norm, and the same values (rows are independent)
-        _, x = L.residual_rmsnorm(params["final_norm"], x, delta,
-                                  cfg.norm_eps)
+        _, x = L.residual_rmsnorm(SH.gather_fsdp(params["final_norm"]), x,
+                                  B.res_site(delta), cfg.norm_eps)
+        head_p = SH.gather_fsdp(params["lm_head"])
         if train:
             if cfg.mtp:
                 aux["_hidden"] = x      # the MTP head's input (train_loss)
-            return L.logits(params["lm_head"], params["embed"], cfg, x), aux
+            return L.logits(head_p, embed_p, cfg, x), aux
         if last_index is not None:
-            x = x[torch.arange(Bsz, device=x.device), last_index][:, None]
-        logits = L.logits(params["lm_head"], params["embed"], cfg, x)
+            x = _rows_at(x, last_index)
+        logits = L.logits(head_p, embed_p, cfg, x)
         if caches is not None:
             if mode == "decode":
                 caches["t"] += 1
@@ -326,7 +365,11 @@ class Model:
                 lengths = (mask.sum(dim=1).to(torch.int32) if mask is not None
                            else torch.full((Bsz,), S, dtype=torch.int32,
                                            device=dev))
-                caches["t"].copy_(lengths)
+                if isinstance(caches["t"], SH.DTensor):
+                    caches["t"] = SH.place(SH.replicated(
+                        lengths, caches["t"].device_mesh), ("batch",))
+                else:
+                    caches["t"].copy_(lengths)
         return logits, caches
 
     # ---------------------------------------------------------------- train
@@ -358,19 +401,19 @@ class Model:
             metrics["moe_drop_frac"] = aux.get("moe_drop_frac", zero)
         if cfg.mtp and "_hidden" in aux:
             h = aux["_hidden"]
-            emb_next = L.embed(params["embed"], cfg,
-                               torch.roll(tokens, -1, dims=1))
-            hm = torch.cat([L.rmsnorm(params["mtp"]["norm"], h,
-                                      cfg.norm_eps), emb_next],
-                           dim=-1) @ params["mtp"]["proj"]
+            embed_p = SH.gather_fsdp(params["embed"])
+            mtp_p = SH.gather_fsdp(params["mtp"], skip=("block",))
+            emb_next = L.embed(embed_p, cfg, torch.roll(tokens, -1, dims=1))
+            hm = torch.cat([L.rmsnorm(mtp_p["norm"], h, cfg.norm_eps),
+                            emb_next], dim=-1) @ mtp_p["proj"]
             pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                                device=tokens.device)[None].expand(
                                    tokens.shape)
             ctx = B.LayerCtx(cfg=cfg, mode="train", positions=pos)
             hm, _ = B.block_apply(params["mtp"]["block"], cfg, "dense", ctx,
                                   hm, None)
-            mtp_logits = L.logits(params["lm_head"], params["embed"], cfg,
-                                  hm)
+            mtp_logits = L.logits(SH.gather_fsdp(params["lm_head"]), embed_p,
+                                  cfg, hm)
             mtp_labels = torch.roll(labels, -1, dims=1).clone()
             mtp_labels[:, -1] = -100
             mtp_loss, _ = _masked_ce(mtp_logits, mtp_labels, cfg.vocab)
@@ -388,7 +431,7 @@ class Model:
         ``extras``: the memory of a memory-conditioned model (``forward``)."""
         Bsz, S = tokens.shape
         if caches is None:
-            caches = self.init_cache(Bsz, max_len or S)
+            caches = self.placed_cache(params, Bsz, max_len or S)
         lengths = (mask.sum(dim=1) if mask is not None
                    else torch.full((Bsz,), S, device=tokens.device))
         last = torch.clamp(lengths - 1, min=0).long()
@@ -415,10 +458,61 @@ class Model:
         return logits[:, 0], caches
 
 
+def _in_this_program(fn):
+    """``fn`` run, whenever it runs (a checkpointed layer's recompute in
+    the backward), under the sharding context and program of this call."""
+    ctx = SH.current_context()
+    if ctx is None:
+        return fn
+
+    def run(*args):
+        with SH.use_sharding(ctx.mesh, ctx.rules):
+            return fn(*args)
+    return run
+
+
+def _fuse_images(x: torch.Tensor, img: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """Early fusion: the image embeddings written over the token slots
+    ``pos`` (B, n) of x, out of place (under a mesh x is a view of its
+    DTensor's local shard, which autograd does not let a write change)."""
+    return x.index_put((torch.arange(x.shape[0], device=x.device)[:, None],
+                        pos), img)
+
+
+def _rows_at(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """(B, 1, d): row ``index[b]`` of each batch row of x (B, S, d); under
+    a mesh on the local batch rows, the sequence whole."""
+    return SH.local_op(
+        lambda x, i: x[torch.arange(x.shape[0], device=x.device), i][:, None],
+        [("batch", None, None), ("batch",)], ("batch", None, None))(x, index)
+
+
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean cross-entropy over the labels >= 0, the padded vocab classes
-    excluded (scored at -1e9); returns (loss, number of labels)."""
+    excluded (scored at -1e9); returns (loss, number of labels). Under a
+    mesh each rank sums its rows' terms, the vocab whole, and the two
+    sums are all-reduced."""
+    if not isinstance(logits, SH.DTensor):
+        nll, n = _ce_sums(logits, labels, vocab)
+    else:
+        ctx = SH.current_context()
+        spec = ctx.fitted(("batch", "seq", None), logits.shape)
+        split = {a for e in spec for a in SH.axes_of(e)}
+        part = [SH.Partial() if a in split else SH.Replicate()
+                for a in SH.axis_sizes(ctx.mesh)]
+        nll, n = SH.local_op(functools.partial(_ce_sums, vocab=vocab),
+                             [("batch", "seq", None), ("batch", "seq")],
+                             (part, part))(logits, labels)
+        nll, n = SH.place(nll, ()), SH.place(n, ())
+    n = torch.clamp(n, min=1)
+    return nll / n, n
+
+
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor, vocab: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_masked_ce``'s sums: the masked NLL and the number of labels."""
     if logits.shape[-1] > vocab:
         pad = logits.new_full(logits.shape[:-1] + (logits.shape[-1] - vocab,),
                               -1e9)
@@ -428,5 +522,4 @@ def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (lse - gold) * mask
-    n = torch.clamp(mask.sum(), min=1)
-    return nll.sum() / n, n
+    return nll.sum(), mask.sum()

@@ -25,11 +25,14 @@ a fully masked query row the plain version's value on the card).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import shard
 
 
 def moe_init(gen, cfg, device) -> Dict:
@@ -114,25 +117,35 @@ def scatter(xt: torch.Tensor, slot: torch.Tensor, tok_idx: torch.Tensor,
     """The (E, C, d) capacity buffers of the tokens ``xt`` (T, d): each
     (token, choice) pair's row at its ``slot``. Dropped pairs all land on
     the scratch row E*C, which is cut off."""
+    return _scatter_into(xt.new_zeros((n_experts * cap + 1, xt.shape[-1])),
+                         xt, slot, tok_idx, n_experts, cap)
+
+
+def _scatter_into(buf: torch.Tensor, xt: torch.Tensor, slot: torch.Tensor,
+                  tok_idx: torch.Tensor, n_experts: int, cap: int
+                  ) -> torch.Tensor:
+    """``scatter`` into the zero buffer ``buf`` (E*C + 1, d) (a copy: under
+    a mesh ``buf`` is a DTensor's local view)."""
     d = xt.shape[-1]
-    buf = xt.new_zeros((n_experts * cap + 1, d))
-    buf.index_copy_(0, slot, xt.index_select(0, tok_idx))
+    buf = buf.index_copy(0, slot, xt.index_select(0, tok_idx))
     return buf[:n_experts * cap].view(n_experts, cap, d)
 
 
 def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor) -> torch.Tensor:
+               w_down: torch.Tensor, pin: bool = False) -> torch.Tensor:
     """SwiGLU of each expert's buffer rows: (E, C, d) x (E, d, f) ->
     (E, C, d), three ``bmm`` (the SiLU in float32)."""
     g = torch.bmm(buf, w_gate)
     u = torch.bmm(buf, w_up)
     h = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
+    if pin:                             # the dense dispatch's site
+        h = shard(h, "experts", None, None)
     return torch.bmm(h, w_down)
 
 
 def combine(out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
-            gates: torch.Tensor, order: torch.Tensor, tok_idx: torch.Tensor
-            ) -> torch.Tensor:
+            gates: torch.Tensor, order: torch.Tensor, tok_idx: torch.Tensor,
+            pin: bool = False) -> torch.Tensor:
     """Each token's (T, d) output from the experts' (E, C, d): its k rows
     gathered by ``slot``, weighted by their gates (0 where dropped), added
     one at a time in the reference's order."""
@@ -148,9 +161,12 @@ def combine(out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
     # expert: a token's experts in increasing id). Deterministic on the
     # card, where an index_add_ of k rows into one token's row is not
     by_tok = torch.argsort(tok_idx, stable=True)
-    contrib = (out.index_select(0, slot.index_select(0, by_tok))
-               * weight.index_select(0, by_tok)[:, None]).view(T, k, d)
-    y = contrib[:, 0]
+    pin_ = shard if pin else (lambda t, *axes: t)   # the dense dispatch's
+    gathered = pin_(out.index_select(0, slot.index_select(0, by_tok)),
+                    "expert_flat", None)
+    contrib = (gathered * weight.index_select(0, by_tok)[:, None]).view(
+        T, k, d)
+    y = pin_(contrib[:, 0], "tokens", None)
     for j in range(1, k):
         y = y + contrib[:, j]
     return y
@@ -169,21 +185,43 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
     """x: (B, S, d) -> (B, S, d) and the routing that ``moe_aux`` reads:
     (router logits (T, E) float32, expert ids (T, k), keep mask (T*k,)).
     Serving calls this and launches no aux loss; training adds
-    ``moe_aux`` of the routing (``moe_ffn``)."""
+    ``moe_aux`` of the routing (``moe_ffn``).
+
+    The reference's eleven sites of its dense dispatch stand at the same
+    points (the accumulator's first site on the first contribution, which
+    the combine starts from). Under a mesh whose expert axes are one rank
+    (the expert-parallel layer takes the others: ``models/moe_sharded``)
+    the index work (sort, counts, scatter, combine) runs on whole,
+    replicated tables (``sharding.api.local_op``), the expert products on
+    DTensors."""
     m = cfg.moe
     B, S, d = x.shape
     T, k, E = B * S, m.top_k, m.n_experts
     C = capacity(cfg, T)
+    rep = (None,)
 
-    xt = x.reshape(T, d)
-    rl = xt.float() @ p["router"]                                 # (T, E)
-    gates, ids = router_topk(rl, k)                               # (T, k)
+    xt = shard(x.reshape(T, d), "tokens", None)
+    rl = shard(xt.float() @ p["router"], "tokens", None)          # (T, E)
+    gates, ids = SH.local_op(lambda r: router_topk(r, k), [(None, None)],
+                             ((None, None), (None, None)))(rl)   # (T, k)
 
-    order, slot, keep, tok_idx = dispatch(ids, E, C)
-    expert_in = scatter(xt, slot, tok_idx, E, C)
+    order, slot, keep, tok_idx = SH.local_op(
+        lambda i: dispatch(i, E, C), [(None, None)], (rep,) * 4)(ids)
+    order = shard(order, "expert_flat")
+    slot = shard(slot, "expert_flat")
+    buf = shard(xt.new_zeros((E * C + 1, d)), "expert_flat", None)
+    expert_in = SH.local_op(
+        lambda b, x, s, t: _scatter_into(b, x, s, t, E, C),
+        [(None, None), (None, None), rep, rep], (None, None, None))(
+            buf, xt, slot, tok_idx)
+    expert_in = shard(expert_in, "experts", None, None)
     out = expert_ffn(expert_in, p["experts_gate"], p["experts_up"],
-                     p["experts_down"])
-    y = combine(out, slot, keep, gates, order, tok_idx)
+                     p["experts_down"], pin=True)
+    out = shard(out, "experts", None, None)
+    y = SH.local_op(functools.partial(combine, pin=True),
+                    [(None, None, None), rep, rep, (None, None), rep, rep],
+                    (None, None))(out, slot, keep, gates, order, tok_idx)
+    y = shard(y, "tokens", None)
     if m.n_shared_experts:
         y = y + L.swiglu(p["shared"], xt)
 
@@ -193,10 +231,15 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
 def moe_aux(cfg, rl: torch.Tensor, ids: torch.Tensor, keep: torch.Tensor
             ) -> Dict[str, torch.Tensor]:
     """The aux-loss dict of ``moe_apply``'s routing (``moe_aux``,
-    ``moe_z``, ``moe_drop_frac``: 0-d float32 tensors)."""
-    return {"moe_aux": load_balance_loss(rl, ids, cfg.moe.n_experts),
-            "moe_z": router_z_loss(rl),
-            "moe_drop_frac": 1.0 - keep.float().mean()}
+    ``moe_z``, ``moe_drop_frac``: 0-d float32 tensors); under a mesh on
+    the whole, replicated routing."""
+    def aux(rl, ids, keep):
+        return {"moe_aux": load_balance_loss(rl, ids, cfg.moe.n_experts),
+                "moe_z": router_z_loss(rl),
+                "moe_drop_frac": 1.0 - keep.float().mean()}
+    return SH.local_op(aux, [(None, None), (None, None), (None,)],
+                       dict.fromkeys(("moe_aux", "moe_z", "moe_drop_frac"),
+                                     ()))(rl, ids, keep)
 
 
 def moe_ffn(p: Dict, cfg, x: torch.Tensor

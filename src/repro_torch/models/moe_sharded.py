@@ -48,7 +48,8 @@ import torch.distributed as dist
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.sharding.api import (DTensor, axis_sizes, current_context,
-                                      placements_of)
+                                      gather_fsdp, placements_of, replicated,
+                                      shard)
 from repro_torch.sharding.rules import expert_axes, full_spec, spec_for_param
 
 
@@ -256,6 +257,12 @@ def moe_ffn_sharded(p: Dict, cfg, x: torch.Tensor,
     mesh."""
     if mesh is None:
         mesh = current_context().mesh
+    # in the model's DTensor program (x a DTensor): the routed experts run
+    # as below on the whole x, and the shared expert on DTensors between
+    # the reference's two sites of its plain-SPMD shared expert
+    x_dt = x if isinstance(x, DTensor) else None
+    if x_dt is not None:
+        x = x_dt.full_tensor()
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -301,7 +308,7 @@ def moe_ffn_sharded(p: Dict, cfg, x: torch.Tensor,
         out = AllToAll.apply(out, group[a], 1, 0)
     # out: (E, C, d), back at the sender
     y = MOE.combine(out, slot, keep, gates, order, tok_idx)     # (T_loc, d)
-    if m.n_shared_experts:
+    if m.n_shared_experts and x_dt is None:
         y = y + L.swiglu({n: _whole(w, world)
                           for n, w in p["shared"].items()}, xt_loc)
 
@@ -310,5 +317,13 @@ def moe_ffn_sharded(p: Dict, cfg, x: torch.Tensor,
                        1.0 - keep.float().mean()])
     aux = Mean.apply(aux, world)
     y = GatherReplicated.apply(y, world)[:T]
+    if x_dt is not None:
+        # DTensors out, so each gradient comes back as a local tensor
+        y, aux = replicated(y, mesh), replicated(aux, mesh)
+        if m.n_shared_experts:
+            xt2 = shard(x_dt.reshape(T, d), "tokens", None)
+            ys = shard(L.swiglu(gather_fsdp(p["shared"]), xt2), "tokens",
+                       None)
+            y = y + ys
     return y.reshape(B, S, d), {"moe_aux": aux[0], "moe_z": aux[1],
                                 "moe_drop_frac": aux[2]}

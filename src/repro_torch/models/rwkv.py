@@ -20,6 +20,11 @@ Copied from the reference as it is, though the published RWKV6 differs:
 ``channel_mix`` reads its weights from the layer's ``tmix`` dict, and
 there is no ``ln0`` after the embedding (the model's ``final_norm`` is
 an RMSNorm).
+
+Under a sharding context the reference's four sites stand where its own
+do (r's heads, the channel mix's hidden d_ff, both residual deltas), the
+WKV6 kernel runs on each rank's rows and heads (``sharding.api.local_op``;
+the state leaf advanced on its shards), and the LayerNorms on local rows.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import shard
 
 
 def rwkv_init(gen, cfg, device) -> Dict:
@@ -97,7 +104,9 @@ def _ddlerp(p: Dict, x: torch.Tensor, xprev: torch.Tensor):
     dxp = (xprev - x).float()
     xf = x.float()
     base = xf + dxp * p["mix_x"]
-    lo = torch.tanh(base @ p["mix_lora_A"])
+    # the five targets' LoRA rows whole before the split into them (under
+    # a mesh the product's columns may be split, 5 * r over the model axis)
+    lo = SH.place(torch.tanh(base @ p["mix_lora_A"]), ("batch", "seq", None))
     lo = lo.reshape(*lo.shape[:2], 5, -1)
     delta = torch.einsum("btim,imd->btid", lo, p["mix_lora_B"])
     mixed = xf[:, :, None, :] + dxp[:, :, None, :] * (p["mix_base"] + delta)
@@ -138,13 +147,24 @@ def time_mix(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict]
     wlog = p["w0"] + torch.tanh(xw.float() @ p["w_lora_A"]) @ p["w_lora_B"]
     w = torch.exp(-torch.exp(wlog)).reshape(B, T, H, hd)
 
-    S = (state["wkv"] if state is not None else
-         torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
-    # S advanced in place where the state is kept
-    out, _ = wkv6_scan(r, k, v, w, p["u"], S,
-                       S if state is not None else None)
+    r = shard(r, "batch", "seq", "heads", None)
+    heads = ("batch", None, "heads", None)
+    if state is not None:
+        # the state advanced in place (on its shards under a mesh)
+        out = SH.local_update(
+            lambda st, *a: wkv6_scan(*a, st["wkv"], st["wkv"])[0], state,
+            {"wkv": ("batch", "heads", None, None)},
+            [heads] * 4 + [("heads", None)], heads, r, k, v, w, p["u"])
+    else:
+        S = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                        device=x.device)
+        out = SH.local_op(lambda *a: wkv6_scan(*a)[0],
+                          [heads] * 4 + [("heads", None),
+                                         ("batch", "heads", None, None)],
+                          heads)(r, k, v, w, p["u"], S)
 
-    out = L.layernorm(p["ln_x"], out.reshape(B, T, d).to(x.dtype),
+    out = L.layernorm(p["ln_x"], SH.place(out.reshape(B, T, d).to(x.dtype),
+                                          ("batch", "seq", None)),
                       cfg.norm_eps)
     out = out * F.silu(g.float()).to(x.dtype)
     return out @ p["wo"], x[:, -1]
@@ -160,6 +180,7 @@ def channel_mix(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict]
     xr = (xf + (xpf - xf) * p["cmix_r"]).to(x.dtype)
     kk = xk @ p["cwk"]
     kk = torch.square(F.relu(kk.float())).to(x.dtype)
+    kk = shard(kk, "batch", "seq", "d_ff")
     vv = kk @ p["cwv"]
     rr = torch.sigmoid((xr @ p["cwr"]).float())
     return (rr * vv.float()).to(x.dtype), x[:, -1]
@@ -181,15 +202,26 @@ def rwkv_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
         state = None
     h = L.layernorm(p["ln1"], x, cfg.norm_eps)
     att, att_shift = time_mix(p["tmix"], cfg, h, state)
-    x = x + att
+    x = x + shard(att, "batch", "seq", "embed")
     h2 = L.layernorm(p["ln2"], x, cfg.norm_eps)
     ffn, ffn_shift = channel_mix(p["tmix"], cfg, h2, state)
-    x = x + ffn
+    x = x + shard(ffn, "batch", "seq", "embed")
     if state is not None:
-        state["att_shift"].copy_(att_shift)
-        state["ffn_shift"].copy_(ffn_shift)
+        _store(state, "att_shift", att_shift)
+        _store(state, "ffn_shift", ffn_shift)
         state["length"] += x.shape[1]
     return x
+
+
+def _store(state: Dict, name: str, value: torch.Tensor) -> None:
+    """``state[name] = value`` in place; under a mesh the leaf is replaced
+    by ``value`` placed by its cache rule."""
+    if isinstance(state[name], SH.DTensor):
+        from repro_torch.sharding.rules import cache_axes
+        state[name] = SH.place(value.to(state[name].dtype),
+                               cache_axes(name, value.ndim))
+    else:
+        state[name].copy_(value)
 
 
 def rwkv_layer_init(gen, cfg, device) -> Dict:

@@ -16,9 +16,19 @@ the padded tail ``xp[:, -(d_conv-1):]`` (``repro/models/ssm.py``
 ``_causal_conv``), which for a right-padded row holds pad tokens'
 projections, so its decode after a padded prefill starts from a wrong
 conv state; here padded prefill equals exact-length prefill.
+
+Under a sharding context the reference's one site (the heads of ``xh``
+before the SSD) splits the SSD scan over the model axis
+(``sharding.api.local_op``: the kernel on each rank's rows and heads, the
+sequence whole). The causal conv, which mixes the channels of x, B and C,
+runs on each rank's rows with the channels whole; the decode recurrence
+then takes the rank's heads of its inputs (``sharding.api.shard_offset``)
+and advances the SSM state on the shard that the cache rule gives it
+(``sharding.api.local_update``), so the state never moves.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -27,6 +37,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
+from repro_torch.sharding import api as SH
+from repro_torch.sharding.api import shard
+
+_STATE = {"conv": ("batch", None, None),
+          "state": ("batch", "heads", None, None), "length": ("batch",)}
+_ROWS3 = ("batch", None, None)
+_REP1 = (None,)
 
 
 def ssm_init(gen, cfg, device) -> Dict:
@@ -101,6 +118,66 @@ def _heads(s, m: torch.Tensor, H: int) -> torch.Tensor:
     return g.repeat_interleave(H // s.n_groups, dim=2)
 
 
+def _decode(s, cfg, h0: int, state: Dict, zxbcdt, conv_w, conv_b, dt_bias,
+            D, A):
+    """One decode step of the recurrence on ``state`` (in place), whose
+    SSM state holds the heads h0 .. h0 + Hl - 1 (all of them, or a rank's
+    share under a mesh): returns (y (B, 1, Hl * P) of those heads, z)."""
+    d = cfg.d_model
+    H, P = s.n_heads(d), s.head_dim
+    Hl = state["state"].shape[1]
+    hs = slice(h0, h0 + Hl)
+    z, xbc, dt_raw = _split_proj(s, cfg, zxbcdt)
+    xbc_a, xp = _causal_conv(s, xbc, conv_w, conv_b, state["conv"])
+    xx, Bm, Cm = _split_xbc(s, cfg, xbc_a)
+    dt0 = F.softplus(dt_raw + dt_bias)[:, 0, hs]              # (B,Hl)
+    xh = xx[:, 0].reshape(-1, H, P)[:, hs]
+    Bh = _heads(s, Bm, H)[:, 0, hs]
+    Ch = _heads(s, Cm, H)[:, 0, hs]
+    decay = torch.exp(dt0 * A[hs])
+    h = state["state"] * decay[..., None, None] + \
+        xh[..., None] * Bh[:, :, None, :] * dt0[..., None, None]
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h) + D[hs, None] * xh
+    state["conv"].copy_(xp[:, 1:])
+    state["state"].copy_(h)
+    state["length"] += 1
+    return y.reshape(-1, 1, Hl * P), z
+
+
+def _scan_inputs(s, cfg, zxbcdt, conv_w, conv_b, dt_bias, mask):
+    """The prefill's conv and splits over whole rows: (z, xh (B, T, H, P),
+    dt, Bh, Ch (B, T, H, N), xp (the conv's input))."""
+    d = cfg.d_model
+    H, P = s.n_heads(d), s.head_dim
+    z, xbc, dt_raw = _split_proj(s, cfg, zxbcdt)
+    if mask is not None:                                   # softplus -> 0
+        dt_raw = torch.where(mask[..., None] > 0, dt_raw,
+                             torch.full_like(dt_raw, -1e9))
+    xbc_a, xp = _causal_conv(s, xbc, conv_w, conv_b, None)
+    xx, Bm, Cm = _split_xbc(s, cfg, xbc_a)
+    dt = F.softplus(dt_raw + dt_bias)
+    Bsz, T = zxbcdt.shape[:2]
+    return (z, xx.reshape(Bsz, T, H, P), dt, _heads(s, Bm, H),
+            _heads(s, Cm, H), xp)
+
+
+def _write_prefill(s, state: Dict, xp, h_final, mask):
+    """The prefill's state, in place: each row's conv tail of real tokens,
+    the SSD state and the length."""
+    Bsz, T = xp.shape[0], xp.shape[1] - (s.d_conv - 1)
+    length = (mask.sum(dim=1).to(torch.int32) if mask is not None
+              else torch.full((Bsz,), T, dtype=torch.int32,
+                              device=xp.device))
+    # each row's last d_conv-1 real tokens: xp row length + i holds
+    # token length - (d_conv-1) + i (the leading zeros before 0)
+    idx = length[:, None].long() + torch.arange(
+        s.d_conv - 1, device=xp.device)[None]
+    state["conv"].copy_(torch.gather(
+        xp, 1, idx[..., None].expand(-1, -1, xp.shape[-1])))
+    state["state"].copy_(h_final)
+    state["length"].copy_(length)
+
+
 def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
                  mode: str = "prefill",
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -114,53 +191,38 @@ def mamba2_block(p: Dict, cfg, x: torch.Tensor, state: Optional[Dict] = None,
     d = cfg.d_model
     di, H, P = s.d_inner(d), s.n_heads(d), s.head_dim
     zxbcdt = (x @ p["in_proj"]).float()
-    z, xbc, dt_raw = _split_proj(s, cfg, zxbcdt)
     A = -torch.exp(p["A_log"])
+    small = (p["conv_w"], p["conv_b"], p["dt_bias"])
 
     if mode == "decode":
         if state is None:
             raise ValueError("decode needs a state")
-        xbc_a, xp = _causal_conv(s, xbc, p["conv_w"], p["conv_b"],
-                                 state["conv"])
-        xx, Bm, Cm = _split_xbc(s, cfg, xbc_a)
-        dt0 = F.softplus(dt_raw + p["dt_bias"])[:, 0]          # (B,H)
-        xh = xx[:, 0].reshape(-1, H, P)
-        Bh = _heads(s, Bm, H)[:, 0]
-        Ch = _heads(s, Cm, H)[:, 0]
-        decay = torch.exp(dt0 * A)
-        h = state["state"] * decay[..., None, None] + \
-            xh[..., None] * Bh[:, :, None, :] * dt0[..., None, None]
-        y = torch.einsum("bhn,bhpn->bhp", Ch, h) + p["D"][:, None] * xh
-        y = y.reshape(-1, 1, di)
-        state["conv"].copy_(xp[:, 1:])
-        state["state"].copy_(h)
-        state["length"] += 1
+        y, z = SH.local_update(
+            functools.partial(_decode, s, cfg, SH.shard_offset("heads", H)),
+            state, _STATE, [_ROWS3, (None, None), _REP1, _REP1, _REP1, _REP1],
+            (("batch", None, "heads"), _ROWS3), zxbcdt, *small, p["D"], A)
     elif mode in ("train", "prefill"):
         if mode == "train":
             state = None
-        if mask is not None:                               # softplus -> 0
-            dt_raw = torch.where(mask[..., None] > 0, dt_raw,
-                                 torch.full_like(dt_raw, -1e9))
-        xbc_a, xp = _causal_conv(s, xbc, p["conv_w"], p["conv_b"], None)
-        xx, Bm, Cm = _split_xbc(s, cfg, xbc_a)
-        dt = F.softplus(dt_raw + p["dt_bias"])
+        z, xh, dt, Bh, Ch, xp = SH.local_op(
+            functools.partial(_scan_inputs, s, cfg),
+            [_ROWS3, (None, None), _REP1, _REP1, ("batch", None)],
+            (_ROWS3, ("batch", None, None, None), _ROWS3,
+             ("batch", None, None, None), ("batch", None, None, None),
+             _ROWS3))(zxbcdt, *small, mask)
         Bsz, T = x.shape[:2]
-        xh = xx.reshape(Bsz, T, H, P)
-        y, h_final = KOPS.ssd_scan(xh, dt, A, _heads(s, Bm, H),
-                                   _heads(s, Cm, H), chunk=s.chunk)
+        xh = shard(xh, "batch", "seq", "heads", None)
+        heads = ("batch", None, "heads", None)
+        y, h_final = SH.local_op(
+            lambda *a: KOPS.ssd_scan(*a, chunk=s.chunk),
+            [heads, ("batch", None, "heads"), ("heads",), heads, heads],
+            (heads, ("batch", "heads", None, None)))(xh, dt, A, Bh, Ch)
         y = (y + p["D"][:, None] * xh).reshape(Bsz, T, di)
         if state is not None:
-            length = (mask.sum(dim=1).to(torch.int32) if mask is not None
-                      else torch.full((Bsz,), T, dtype=torch.int32,
-                                      device=x.device))
-            # each row's last d_conv-1 real tokens: xp row length + i holds
-            # token length - (d_conv-1) + i (the leading zeros before 0)
-            idx = length[:, None].long() + torch.arange(
-                s.d_conv - 1, device=x.device)[None]
-            state["conv"].copy_(torch.gather(
-                xp, 1, idx[..., None].expand(-1, -1, xp.shape[-1])))
-            state["state"].copy_(h_final)
-            state["length"].copy_(length)
+            SH.local_update(functools.partial(_write_prefill, s), state,
+                            _STATE, [_ROWS3, ("batch", "heads", None, None),
+                                     ("batch", None)], None,
+                            xp, h_final, mask)
     else:
         raise ValueError(f"mamba2 runs in train, prefill or decode mode, not "
                          f"{mode!r} (recurrent blocks do not chunk)")

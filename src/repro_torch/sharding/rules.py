@@ -229,16 +229,70 @@ def param_shardings(cfg, params, mesh, fsdp: bool = False):
             param_spec(cfg, p, tuple(x.shape), mesh, fsdp), mesh), params)
 
 
-def distribute_params(cfg, params, mesh, fsdp: bool = False):
+def distribute_params(cfg, params, mesh, fsdp: bool = False,
+                      src_data_rank: Optional[int] = 0):
     """``params`` as DTensors on ``mesh`` (a ``DeviceMesh``), each leaf
     placed by ``param_shardings`` with ``distribute_tensor``; a leaf shared
-    by several layers stays one DTensor."""
+    by several layers stays one DTensor. ``src_data_rank``: the rank whose
+    tensors are sent (``distribute_tensor``'s); None: every rank holds the
+    same tensors (one seed) and keeps its own shard, sending nothing."""
     return tree_map_with_path(
         lambda p, x: distribute_tensor(x, mesh, placements_of(
-            param_spec(cfg, p, tuple(x.shape), mesh, fsdp), mesh)), params)
+            param_spec(cfg, p, tuple(x.shape), mesh, fsdp), mesh),
+            src_data_rank=src_data_rank), params)
 
 
 FSDP_RULES = DEFAULT_RULES  # activations are unchanged under FSDP
+
+# --------------------------------------------------------------------------
+# cache placements by leaf name (the dry-run's argument bytes and the
+# model's caches under a mesh)
+# --------------------------------------------------------------------------
+
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "xk": ("batch", None, "kv_heads", None),
+    "xv": ("batch", None, "kv_heads", None),
+    "ckv": ("batch", "kv_seq", None),
+    "k_rope": ("batch", "kv_seq", None),
+    "pos_ids": ("batch", "kv_seq"),
+    "length": ("batch",),
+    "t": ("batch",),
+    "conv": ("batch", None, None),
+    "state": ("batch", "heads", None, None),
+    "wkv": ("batch", "heads", None, None),
+    "att_shift": ("batch", None),
+    "ffn_shift": ("batch", None),
+}
+
+
+def cache_axes(name: str, ndim: int):
+    """Logical axes of a cache leaf by its name (replicated if unknown)."""
+    axes = CACHE_AXES.get(name)
+    if axes is None:
+        return [None] * ndim
+    lead = ndim - len(axes)
+    if lead < 0:                      # scalar-ish leaf
+        return list(axes[-ndim:]) if ndim else []
+    return [None] * lead + list(axes)
+
+
+def distribute_cache(caches, mesh, rules):
+    """A cache tree (``Model.init_cache``) as DTensors on ``mesh``, each
+    leaf placed by its name's logical axes (``cache_axes``) under
+    ``rules``, a dim split only where its axes divide it
+    (``sharding.api.fit_spec``). Every rank holds the same fresh state,
+    so each keeps its own shard and nothing is sent."""
+    ctx = ShardingContext(mesh=mesh, rules=rules)
+
+    def one(path, x):
+        if x is None:
+            return None
+        spec = ctx.fitted(cache_axes(path[-1], x.ndim), x.shape)
+        return distribute_tensor(x, mesh, placements_of(spec, mesh),
+                                 src_data_rank=None)
+    return tree_map_with_path(one, caches)
 
 # --- serving rules ---------------------------------------------------------
 

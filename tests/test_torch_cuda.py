@@ -2945,3 +2945,177 @@ def test_decode_graph_samples_at_temperature(cuda_device):
     assert not torch.equal(firsts[0], firsts[1])
     stat, threshold = chi_square(counts)
     assert stat < threshold, (stat, threshold, counts.tolist())
+
+
+# --------------------------------------------------------------------------
+# the kernels on local shards (sharding.api.local_op) under a mesh: on a
+# one-rank NCCL (1, 1) mesh each kernel of the mesh path launches on the
+# DTensors' local tensors and equals the bare kernel bit for bit, forward
+# and under grad; the paged kernels refuse a DTensor
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """An NCCL group of one rank and its (1, 1) ("data", "model") mesh,
+    destroyed (and DTensor's caches cleared) after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the port's kernels run only on the card")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import forget_groups, make_mesh
+    forget_groups()
+    store = dist.FileStore(str(tmp_path_factory.mktemp("mesh") / "store"), 1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+        forget_groups()
+
+
+def _local_case(name, dev):
+    """(op, arguments, in_axes, out_axes, the kernel's launch count name,
+    whether a gradient is taken) for each kernel of the mesh path, at a
+    model's layout."""
+    rng = np.random.default_rng(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    ax4 = ("batch", "heads", None, None)
+    kv4 = ("batch", "kv_heads", None, None)
+    if name == "flash_attention":
+        B, H, Hkv, S, hd = 2, 4, 2, 128, 64
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(
+            B, 1)
+        args = [_normal(rng, (B, H, S, hd), bf16, dev),
+                _normal(rng, (B, Hkv, S, hd), bf16, dev),
+                _normal(rng, (B, Hkv, S, hd), bf16, dev), pos, pos]
+        return (ops.flash_attention, args,
+                [ax4, kv4, kv4, ("batch", None), ("batch", None)], ax4,
+                "flash_attention", True)
+    if name == "decode_attention":
+        B, H, Hkv, W, hd = 4, 8, 2, 96, 64
+        k_pos = torch.arange(W, dtype=torch.int32, device=dev)[None].repeat(
+            B, 1)
+        args = [_normal(rng, (B, H, hd), bf16, dev),
+                _normal(rng, (B, Hkv, W, hd), bf16, dev),
+                _normal(rng, (B, Hkv, W, hd), bf16, dev),
+                torch.full((B,), W - 1, dtype=torch.int32, device=dev),
+                k_pos]
+        return (ops.decode_attention, args,
+                [("batch", "heads", None), kv4, kv4, ("batch",),
+                 ("batch", None)], ("batch", "heads", None),
+                "decode_attention", False)
+    if name in ("rmsnorm", "add_rmsnorm"):
+        rows = ("batch", "seq", None)
+        x = _normal(rng, (2, 64, 256), bf16, dev)
+        scale = 1 + 0.1 * _normal(rng, (256,), bf16, dev)
+        if name == "rmsnorm":
+            return (lambda x, s: ops.rmsnorm(x, s, 1e-5), [x, scale],
+                    [rows, (None,)], rows, "rmsnorm", True)
+        d = _normal(rng, (2, 64, 256), bf16, dev)
+        return (lambda x, d, s: ops.add_rmsnorm(x, d, s, 1e-5),
+                [x, d, scale], [rows, rows, (None,)], (rows, rows),
+                "rmsnorm", True)
+    if name == "ssd_chunk":
+        B, H, nc, cl, P, N = 2, 4, 2, 64, 32, 16
+        x = _normal(rng, (B, H, nc, cl, P), f32, dev)
+        dt = torch.nn.functional.softplus(
+            _normal(rng, (B, H, nc, cl), f32, dev) - 4)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        bm = _normal(rng, (B, H, nc, cl, N), f32, dev)
+        cm = _normal(rng, (B, H, nc, cl, N), f32, dev)
+        h5 = ("batch", "heads", None, None, None)
+        return (ops.ssd_chunk, [x, dt, A, bm, cm],
+                [h5, ("batch", "heads", None, None), ("heads",), h5, h5],
+                (h5, h5, ("batch", "heads", None)), "ssd_chunk", True)
+    if name == "wkv6":
+        B, H, T, hd = 2, 4, 64, 32
+        r, k, v = (_normal(rng, (B, H, T, hd), bf16, dev) for _ in range(3))
+        w = torch.exp(-torch.exp(-6 + 0.1 * _normal(rng, (B, H, T, hd), f32,
+                                                    dev)))
+        u = 0.5 * _normal(rng, (H, hd), f32, dev)
+        s0 = torch.zeros(B, H, hd, hd, device=dev)
+        return (lambda *a: ops.wkv6(*a), [r, k, v, w, u, s0],
+                [ax4] * 4 + [("heads", None), ax4], (ax4, ax4), "wkv6",
+                True)
+    raise KeyError(name)
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "rmsnorm", "add_rmsnorm", "ssd_chunk",
+                                  "wkv6"])
+def test_local_op_runs_the_kernel_on_the_local_shard(cuda_device,
+                                                     one_rank_mesh, name):
+    """The kernel through ``sharding.api.local_op`` on (1, 1)-mesh
+    DTensors under ``use_sharding``: one launch a call, the DTensor
+    result's local tensor bit for bit the bare kernel's, and, where the
+    mesh path trains through it, each input's gradient bit for bit the
+    bare kernel Function's (the backward on the local shards)."""
+    from repro_torch.sharding.api import DTensor, local_op, use_sharding
+    from repro_torch.sharding.rules import DEFAULT_RULES
+    try:
+        from torch.distributed.tensor import Replicate, distribute_tensor
+    except ImportError:
+        from torch.distributed._tensor import Replicate, distribute_tensor
+    mesh = one_rank_mesh
+    op, args, in_axes, out_axes, kernel, grad = _local_case(name,
+                                                            cuda_device)
+    floats = [a.is_floating_point() for a in args]
+    bare = [a.detach().clone().requires_grad_(grad and f)
+            for a, f in zip(args, floats)]
+    dts = [distribute_tensor(a.detach().clone(), mesh,
+                             [Replicate(), Replicate()], src_data_rank=None)
+           .requires_grad_(grad and f) for a, f in zip(args, floats)]
+    with torch.set_grad_enabled(grad):
+        want = _outputs(_launched(kernel, lambda: op(*bare)))
+        with use_sharding(mesh, DEFAULT_RULES):
+            got = _outputs(_launched(
+                kernel, lambda: local_op(op, in_axes, out_axes)(*dts)))
+    assert all(isinstance(t, DTensor) for t in got)
+    for g, w in zip(got, want):
+        assert torch.equal(g.to_local(), w)
+    if not grad:
+        return
+    rng = np.random.default_rng(11)
+    cots = [_normal(rng, tuple(w.shape), torch.float32, cuda_device)
+            for w in want]
+    sum((w.float() * c).sum() for w, c in zip(want, cots)).backward()
+    with use_sharding(mesh, DEFAULT_RULES):
+        sum((g.to_local().float() * c).sum()
+            for g, c in zip(got, cots)).backward()
+    for a, d, f in zip(bare, dts, floats):
+        if f:
+            assert d.grad is not None and a.grad is not None
+            assert torch.equal(d.grad.to_local(), a.grad), name
+
+
+def test_paged_kernels_refuse_a_dtensor(cuda_device, one_rank_mesh):
+    """The paged decode and chunked prefill kernels (no paged pool runs
+    under a mesh) raise on a DTensor operand, as every kernel op does:
+    only a ``local_op`` hands a kernel its local tensors."""
+    try:
+        from torch.distributed.tensor import Replicate, distribute_tensor
+    except ImportError:
+        from torch.distributed._tensor import Replicate, distribute_tensor
+    dev, mesh = cuda_device, one_rank_mesh
+    B, H, Hkv, hd, P, ps, M = 2, 4, 2, 64, 8, 16, 4
+    q = distribute_tensor(torch.zeros(B, H, hd, dtype=torch.bfloat16,
+                                      device=dev), mesh,
+                          [Replicate(), Replicate()], src_data_rank=None)
+    pages = torch.zeros(Hkv, P + 1, ps, hd, dtype=torch.bfloat16, device=dev)
+    tbl = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, M * ps, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()
+    with pytest.raises(TypeError, match="local_op"):
+        ops.paged_decode_attention(q, pages, pages, tbl, pos[:, 0], pos)
+    q4 = distribute_tensor(torch.zeros(B, H, ps, hd, dtype=torch.bfloat16,
+                                       device=dev), mesh,
+                           [Replicate(), Replicate()], src_data_rank=None)
+    with pytest.raises(TypeError, match="local_op"):
+        ops.chunked_prefill_attention(q4, pages, pages, tbl, pos[:, :ps],
+                                      pos)
+    assert ops.launch_counts() == before

@@ -64,6 +64,25 @@ def records(tmp_path_factory):
     return recs
 
 
+def test_mamba2_decode_keeps_the_state_on_its_heads(records):
+    """Zamba2's decode step on (data 2, model 4): each rank advances its
+    heads' share of every Mamba2 layer's float32 state, as the cache rule
+    splits it, so the step's all-gathers move less than one gather of
+    those states over the model axis would (n_mamba x B / 2 x H x P x N x
+    4 bytes x 3 / 4), FSDP's weight gathers included."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import INPUT_SHAPES
+    rec = records["zamba2-7b", "decode_32k", False]
+    assert rec["ok"] and rec["torch"]
+    cfg = get_config("zamba2-7b")
+    s, d = cfg.ssm, cfg.d_model
+    n_mamba = sum(k == "mamba2" for k in cfg.block_pattern)
+    state = (INPUT_SHAPES["decode_32k"]["batch"] // 2 * s.n_heads(d)
+             * s.head_dim * s.state_dim * 4)
+    gathered = n_mamba * state * 3 / 4
+    assert rec["roofline"]["coll_bytes_by_op"]["all-gather"] < gathered
+
+
 def _jax_param_bytes(arch, shape, mesh):
     """One device's parameter bytes under the JAX rules on the JAX
     stacked tree, with any mesh axis on a scan axis dropped (the port's
@@ -103,7 +122,9 @@ def test_dryrun_small_mesh(records, case):
     assert rec["chips"] == 8 and rec["fsdp"]
     r = rec["roofline"]
     assert r["flops"] > 0 and r["bytes"] > 0
-    assert r["t_collective_s"] is None and r["profile"] == "h100_sxm"
+    # the collectives are priced with the H100's links (launch.analysis)
+    assert r["t_collective_s"] > 0 and r["profile"] == "h100_sxm"
+    assert "NVLink" in r["link_assumption"]
     mesh = FakeMesh(TEST_MESH[pods])
     want, scan_placed, jcfg = _jax_param_bytes(arch, shape, mesh)
     assert rec["memory"]["param_bytes"] == want
@@ -129,7 +150,13 @@ def test_dryrun_small_mesh(records, case):
         assert r["coll_counts"]["all-reduce"] >= 58
         assert r["coll_ici_bytes"] > 0
     else:
-        assert r["coll_counts"] == {}
+        # the model's shard() sites on DTensors: FSDP's weight gathers and
+        # the row-parallel products' reductions at least
+        assert r["coll_counts"]["all-gather"] > 0
+        assert r["coll_counts"].get("all-reduce", 0) + r["coll_counts"].get(
+            "reduce-scatter", 0) > 0
+        assert r["coll_ici_bytes"] > 0
+    assert (r["coll_dcn_bytes"] > 0) == pods
 
 
 def test_argument_bytes_equal_the_allocation():
@@ -229,8 +256,9 @@ def test_dtype_table():
 
 
 def test_collectives_counted_and_split_by_pod():
-    """On a fake group of 8 as 2 pods of 4: wire bytes by op (all-reduce
-    twice its output), and a group spanning both pods counted as DCN."""
+    """On a fake group of 8 as 2 pods of 4: ring wire bytes by op (a
+    rank sends (n - 1) / n of the buffer, an all-reduce twice that), and a
+    group spanning both pods counted as DCN."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import fake_group, make_test_mesh
     from repro_torch.launch.op_cost import OpCounter
@@ -243,8 +271,36 @@ def test_collectives_counted_and_split_by_pod():
             dist.all_reduce(x, group=mesh.get_group("pod"))
     c = oc.cost
     assert c.collective_counts == {"all-to-all": 1, "all-reduce": 1}
-    assert c.collective_wire == {"all-to-all": 512.0, "all-reduce": 1024.0}
-    assert (c.ici_bytes, c.dcn_bytes) == (512.0, 1024.0)
+    # groups of 2: an all-to-all sends half its 512 bytes, an all-reduce
+    # 2 x 512 x 1/2
+    assert c.collective_wire == {"all-to-all": 256.0, "all-reduce": 512.0}
+    assert (c.ici_bytes, c.dcn_bytes) == (256.0, 512.0)
+
+
+def test_op_counters_nest():
+    """A counter inside another: each counts one rank's local product
+    (DTensor's global-shape shape inference left out of both), the outer
+    also what ran outside the inner, and both leave DTensor's propagator
+    as they found it."""
+    from repro_torch.launch.mesh import fake_group, make_test_mesh
+    from repro_torch.launch.op_cost import _INFER, OpCounter
+    from repro_torch.sharding.api import DTensor, Replicate, Shard
+    prop = DTensor._op_dispatcher.sharding_propagator
+    with fake_group(8):
+        mesh = make_test_mesh()                    # (data 2, model 4)
+        a = DTensor.from_local(_meta(8, 16), mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        b = DTensor.from_local(_meta(16, 8), mesh,
+                               [Replicate(), Replicate()], run_check=False)
+        with OpCounter() as outer:
+            with OpCounter() as inner:
+                a @ b
+            assert _INFER in vars(prop)            # the outer's, put back
+            a @ b
+    assert _INFER not in vars(prop)
+    local = 2 * 8 * 16 * 8                         # one rank's (8, 16) x (16, 8)
+    assert inner.cost.flops == local
+    assert outer.cost.flops == 2 * local
 
 
 def test_roofline_collective_time_needs_a_link_bandwidth():
@@ -264,3 +320,83 @@ def test_roofline_collective_time_needs_a_link_bandwidth():
     assert recs[0]["roofline"]["t_collective_s"] == pytest.approx(
         t.t_collective)
     assert recs[0]["roofline"]["profile"] == "tpu_v5e"
+
+
+def test_fsdp_weight_gathers_of_a_forward_in_closed_form():
+    """llama-paper-1b smoke (untied) on the (2, 4) fake mesh under FSDP:
+    the all-gather wire bytes a chip of one train-mode forward are, in
+    closed form, sum over the FSDP-split leaves of B_p (n - 1) / n, B_p a
+    leaf's bytes once gathered over the n = 2 data ranks (its model-axis
+    split kept), plus sum over the norm scales split on the model axis of
+    B_s (m - 1) / m, m = 4 (each norm gathers its scale whole); each used
+    leaf is gathered once a forward. Nothing else all-gathers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import fake_group, make_test_mesh
+    from repro_torch.launch.op_cost import OpCounter, tensor_bytes
+    from repro_torch.models import Model
+    from repro_torch.sharding import distribute_params, use_sharding
+    from repro_torch.sharding.api import Shard, axis_sizes
+    from repro_torch.sharding.rules import DEFAULT_RULES
+    cfg = get_config("llama-paper-1b", "smoke")
+    assert not cfg.tie_embeddings
+    model = Model(cfg, "meta")
+    with fake_group(8):
+        mesh = make_test_mesh()
+        params = distribute_params(cfg, model.param_shapes(), mesh,
+                                   fsdp=True)
+        sizes, names = axis_sizes(mesh), list(mesh.mesh_dim_names)
+        n, m = sizes["data"], sizes["model"]
+        want, fsdp_leaves = 0.0, 0
+        for x in _dtensor_leaves(params):
+            on = {names[i] for i, p in enumerate(x.placements)
+                  if isinstance(p, Shard)}
+            local = tensor_bytes(x._local_tensor)
+            if "data" in on:
+                want += local * n * (n - 1) / n
+                fsdp_leaves += 1
+            elif x.ndim == 1 and "model" in on:
+                want += local * m * (m - 1) / m
+        tokens = torch.empty((4, 16), dtype=torch.int32, device="meta")
+        with use_sharding(mesh, DEFAULT_RULES), torch.no_grad(), \
+                OpCounter() as oc:
+            model.forward(params, tokens, mode="train")
+    assert fsdp_leaves == 1 + 7 * cfg.n_layers + 1   # embed, layers, head
+    assert oc.cost.collective_wire["all-gather"] == want
+
+
+def _dtensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _dtensor_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _dtensor_leaves(v)
+    else:
+        yield tree
+
+
+def test_t_collective_is_priced_for_the_h100():
+    """``roofline`` with the H100's links kept in ``launch.analysis``:
+    NVLink 4 within a pod, InfiniBand NDR across pods; ``reanalyze``
+    re-prices an H100 record the same way, and a TPU profile keeps its
+    own link bandwidths."""
+    from repro_torch.core.hardware import H100_SXM, TPU_V5E
+    from repro_torch.launch import analysis, reanalyze
+    assert analysis.H100_LINKS.ici_bw == 450e9
+    assert analysis.H100_LINKS.dci_bw == 50e9
+    assert analysis.links_for(H100_SXM) is analysis.H100_LINKS
+    assert analysis.links_for(TPU_V5E) is None
+    coll = analysis.CollectiveStats({"all-gather": 9e8}, {"all-gather": 4},
+                                    9e8, 1e8)
+    h = analysis.roofline(1e12, 1e9, coll, 8, H100_SXM, model_flops=5e11,
+                          links=analysis.H100_LINKS)
+    assert h.t_collective == pytest.approx(9e8 / 450e9 + 1e8 / 50e9)
+    assert "lower bound" in h.row()["link_assumption"]
+    bare = analysis.roofline(1e12, 1e9, coll, 8, H100_SXM)
+    rec = {"ok": True, "chips": 8, "roofline": bare.row()}
+    assert rec["roofline"]["t_collective_s"] is None
+    recs, n = reanalyze.reprice([rec], H100_SXM)
+    assert n == 1
+    assert recs[0]["roofline"]["t_collective_s"] == pytest.approx(
+        h.t_collective)

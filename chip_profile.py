@@ -4,7 +4,8 @@
     python3 chip_profile.py [contiguous] [paged] [zamba2] [rwkv]
                             [llama3b] [llama3b-paged] [llama7b]
                             [internlm2] [minicpm] [stablelm] [fleet]
-                            [maverick] [deepseek] [vlm] [seamless] [train]
+                            [maverick] [maverick-paged] [maverick-fleet]
+                            [deepseek] [vlm] [seamless] [train]
                             [train-rwkv6] [train-zamba2] [graph-floor]
 
 Serves ``chip_smoke.py``'s engine traces (16 requests of 64 new tokens
@@ -31,7 +32,13 @@ over three grid regions. The maverick path serves ``chip_smoke.py``'s
 Maverick trace (8 prompts of 64-512 tokens, then one of 8,176 alone, 32
 new tokens each) on ``llama4-maverick-400b-a17b`` cut to depth 4 at full
 width (chunk-local dense, moe, dense, the global moe layer; 70.2 GB) on
-the contiguous engine. The deepseek path serves ``chip_smoke.py``'s
+the contiguous engine. The maverick-paged path serves the same weights
+with full attention (``chip_smoke.maverick_full_attention``) on the paged
+main path (page 16, chunk 256 packed 2, prefix sharing) over the paged
+trace (16 requests, 32 new tokens each), and the maverick-fleet path
+``chip_smoke.py``'s fleet trace on it through ``ShardedServingEngine``
+(4 shards of 8 slots, each shard's own expert capacity). The deepseek
+path serves ``chip_smoke.py``'s
 DeepSeek trace (8 prompts of 64-512 tokens, then one of 3,000 alone on
 the scan path, 32 new tokens each) on ``deepseek-v3-671b`` cut to depth 5
 at full width (3 ``mla`` and 2 ``mla_moe`` blocks, 256 experts top-8;
@@ -66,6 +73,7 @@ that take the most time, and the device time of each of the port's
 kernels. Needs one NVIDIA card.
 """
 import collections
+import gc
 import re
 import sys
 import time
@@ -111,8 +119,15 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
         torch.cuda.synchronize()
         return engine, time.perf_counter() - t0
 
+    gc.collect()
+    torch.cuda.empty_cache()
     _, cold_wall = serve()
     _, warm_wall = serve()
+    waits, waiter_syncs = host_waits(serve)
+    # one engine (its pools and graphs) alive at a time: Maverick's fleet
+    # fills the card with two
+    gc.collect()
+    torch.cuda.empty_cache()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -128,31 +143,6 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
         raise RuntimeError("the profiler recorded no device events")
     busy_us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
     st = engine.stats()
-    # every synchronizing call warns once under the sync debug mode; each
-    # wait is keyed by the innermost frame outside torch, and by the
-    # frame inside torch that waited, if any
-    waits = []
-
-    def record(message, *_):
-        if "called a synchronizing CUDA operation" not in str(message):
-            return
-        stack = [f for f in traceback.extract_stack()[:-1]
-                 if not f.filename.endswith("warnings.py")]
-        ours = [f for f in stack if "/torch/" not in f.filename]
-        key = f"{ours[-1].filename}:{ours[-1].lineno}"
-        if stack[-1] is not ours[-1]:
-            key += (f" <- {stack[-1].filename}:{stack[-1].lineno} "
-                    f"{stack[-1].name}")
-        waits.append(key)
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            waiter, _ = serve()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
     print(f"\n[profile] {label} ({card})")
     print(f"  wall: cold {cold_wall:.3f} s, warm {warm_wall:.3f} s, warm "
           f"under the profiler {wall:.3f} s (its summary took "
@@ -160,7 +150,7 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
     print(f"  device busy {busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.1%}"
           f" of the profiled wall; idle share {1 - busy_us / 1e6 / wall:.1%}")
     print(f"  host waits for the device (sync debug mode) {len(waits)}; "
-          f"engine host_syncs {waiter.host_syncs}")
+          f"engine host_syncs {waiter_syncs}")
     for line, n in collections.Counter(waits).most_common(8):
         print(f"    {n:6d}  {line}")
     print(f"  prefill batches {engine.prefill_batches}, prefill chunks "
@@ -198,6 +188,36 @@ def profile(card, label, model, params, ecfg, requests, engine_cls=None,
     for e in host[:10]:
         print(f"    {e.self_cpu_time_total / 1e3:10.2f} ms  x{e.count:6d}  "
               f"{e.key[:90]}")
+
+
+def host_waits(serve):
+    """One more ``serve()`` under CUDA's sync debug mode: (the host's
+    waits for the device, each keyed by the innermost frame outside torch
+    and by the frame inside torch that waited, if any; the engine's
+    ``host_syncs``). The engine is not kept."""
+    waits = []
+
+    def record(message, *_):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack if "/torch/" not in f.filename]
+        key = f"{ours[-1].filename}:{ours[-1].lineno}"
+        if stack[-1] is not ours[-1]:
+            key += (f" <- {stack[-1].filename}:{stack[-1].lineno} "
+                    f"{stack[-1].name}")
+        waits.append(key)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            waiter, _ = serve()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return waits, waiter.host_syncs
 
 
 GAP_MAX_US = 1000.0        # a longer gap is the host's, not the chain's
@@ -318,7 +338,8 @@ def main() -> int:
     from repro_torch.models import Model
     from repro_torch.serving import EngineConfig
     known = ["contiguous", "paged", "zamba2", "rwkv", "fleet", "maverick",
-             "deepseek", "vlm", "seamless"]
+             "maverick-paged", "maverick-fleet", "deepseek", "vlm",
+             "seamless"]
     # train path -> its config
     trains = {"train": lambda: get_config(chip_smoke.TRAIN),
               "train-rwkv6": lambda: get_config(chip_smoke.RWKV),
@@ -392,6 +413,28 @@ def main() -> int:
                 params, EngineConfig(**dict(
                     base, max_len=chip_smoke.MAVERICK_MAX_LEN)),
                 lambda: chip_smoke.maverick_requests(cfg.vocab))
+        del model, params
+        torch.cuda.empty_cache()
+    if {"maverick-paged", "maverick-fleet"} & set(paths):
+        cfg = chip_smoke.maverick_full_attention()
+        model = Model(cfg, "cuda")
+        params = model.init(gen_of(0))
+        if "maverick-paged" in paths:
+            profile(card, f"{cfg.name} depth {cfg.n_layers} full attention "
+                    "paged", model, params,
+                    EngineConfig(**base, paged=True, page_size=16,
+                                 prefill_chunk=256, prefill_pack=2,
+                                 prefix_sharing=True),
+                    lambda: chip_smoke.paged_requests(
+                        cfg.vocab, chip_smoke.MAVERICK_NEW))
+        if "maverick-fleet" in paths:
+            from repro_torch.serving import ShardedServingEngine
+            profile(card, f"{cfg.name} depth {cfg.n_layers} full attention "
+                    "fleet (4 shards x 8 slots, carbon routing, deferral)",
+                    model, params, chip_smoke.fleet_config(),
+                    lambda: chip_smoke.fleet_requests(cfg.vocab),
+                    engine_cls=ShardedServingEngine,
+                    drive=chip_smoke.drive_fleet)
         del model, params
         torch.cuda.empty_cache()
     if "deepseek" in paths:

@@ -19,7 +19,11 @@ Phases (any failure raises and the script exits non-zero):
    heads, chunk-local, at its long prompt's S 8,192 and a wave's S 512,
    decode at group 5 on a chunk-local ring of 8,192 filled across a chunk
    boundary and on the global layer's cache of 8,448, each against SDPA
-   with the same mask; both paged kernels at the fleet's shapes,
+   with the same mask, and with full attention on the paged path: paged
+   decode at group 5 over the view ::2 of a pool of 16 duplicated kv
+   heads (B8, M128, hd 128) and the chunk kernel's group-5 instance over
+   it (a packed chunk of 2 x 256 after 1,024 and 300 tokens, bf16; one of
+   64 in float32); both paged kernels at the fleet's shapes,
    4 shards x 8 slots over one pool of 4 x 1,024 pages and its trash page
    through ``paged.model_table``'s table, idle -1 rows included, also
    against each shard's own call on its own pool; the SSD
@@ -69,6 +73,10 @@ Phases (any failure raises and the script exits non-zero):
    ``ops.mla_decode_attention`` runs the reference's MLA case (B2, H4 over
    one latent head, W24) through them against the plain version, timed
    beside its bound and SDPA at Ev 16 with the same mask;
+3b. examples: ``examples/quickstart_torch.py``, ``serve_e2e_torch.py``
+   and ``carbon_planner_torch.py`` as a user runs them (the first two on
+   the card, their default), the three at once, each to exit 0 with its
+   report's last line;
 4. engine: random weights from a seed, each path served through
    ``ServingEngine`` with the launch counts set to 0 just before its run
    and read just after. Every engine decodes through CUDA graphs of the
@@ -179,7 +187,16 @@ Phases (any failure raises and the script exits non-zero):
    tokens each, served twice with the same tokens; flash 4 a prefill
    launch, decode 4 a micro-step, RMSNorm 9 a forward, finite logits, the
    host's waits under CUDA's sync debug mode equal to ``host_syncs``, and
-   peak memory beside the weights and KV reckoning. Last,
+   peak memory beside the weights and KV reckoning; then the same weights
+   with full attention in every layer (what the reference's paged gate
+   admits): ``phase_maverick_paged``, a model-level probe (two prompts
+   through chunks of 256 and the first decode step, each kernel call
+   within TOL[bf16] of its plain version on the same inputs, the logits'
+   argmax the plain versions' and their relative error at most 2^-5) and
+   the paged trace (16 requests, prefix sharing,
+   chunk 256 packed 2) served twice on the graphed paged main path; and
+   ``phase_fleet`` on it, 4 shards of 8 slots, each shard routing its
+   tokens against its own expert capacity. Last,
    ``phase_deepseek``: DeepSeek-V3 at full width cut to depth 5 (3 ``mla``
    and 2 ``mla_moe`` blocks, 256 experts top-8 and a shared one, the MTP
    head held: 27,587,293,184 parameters, 55.2 GB) on the contiguous
@@ -337,6 +354,18 @@ MAVERICK_LONG = 8176       # a prompt of its own: decodes across 8,192
 MAVERICK_NEW = 32
 MAVERICK_MAX_LEN = 8448    # the global layer's cache; the rings hold 8,192
 MAVERICK_CHUNK = 8192
+# the paged path (full attention, as the reference's paged gate requires):
+# the paged main path's engine settings, 32 new tokens a request; the
+# probe's two prompts through chunks of 256 and one decode step. Its first
+# decode logits against the plain versions': each kernel call is held to
+# TOL[bf16] on its own inputs, and the logits, four bf16 layers of
+# rounding (and the moe routing it moves) later, to this relative error
+# (norm of the difference over the plain logits' norm): 4 ulps of bf16's
+# 8 significant bits, where a kernel reading a wrong key or head moves the
+# logits by their own size
+MAVERICK_PAGED_LEN = 2048
+MAVERICK_PROBE_LENS = (700, 300)
+MAVERICK_PROBE_REL = 2.0 ** -5
 DEEPSEEK = "deepseek-v3-671b"
 # its depth-5 cut: the 3 dense mla layers and 2 mla_moe layers, the least
 # depth that runs the reference's stacked unit (prefix 3 x mla, unit
@@ -1048,6 +1077,42 @@ def chunk_check(CP, REF, name, args):
                 bound_ms=bms, bound_by=by, wide=wide, eager_ms=eager)
 
 
+def dup_pool(pages):
+    """Maverick's pool of a (8, P+1, ps, hd) one: each kv head twice,
+    (16, P+1, ps, hd) as ``paginate_cache`` holds its duplicated heads;
+    returns the kernels' operand, the view ``::2`` (a stride, no copy)."""
+    H = pages.shape[0]
+    return pages[:, None].expand(H, 2, *pages.shape[1:]).reshape(
+        2 * H, *pages.shape[1:])[::2]
+
+
+def maverick_paged_case(PD, REF, fills, dtype, gen):
+    """Maverick's paged decode step: q heads :40 of 48 at group 5 over the
+    view ::2 of a pool of 16 duplicated kv heads (hd 128), the paged
+    cases' fills."""
+    q, kp, vp, tbl, q_pos, k_pos = paged_inputs(8, 40, 8, fills, dtype, gen,
+                                                hd=128)
+    q = torch.randn(8, 48, 128, generator=gen, device="cuda").to(
+        dtype)[:, :40]
+    return paged_check(PD, REF, f"paged B8 H40/8 (kv ::2 of 16) M128 "
+                       f"hd128 {dtype}", q, dup_pool(kp), dup_pool(vp), tbl,
+                       q_pos, k_pos)
+
+
+def maverick_chunk_case(CP, REF, lens, S, dtype, gen):
+    """Maverick's chunked prefill (group 5, the chunk kernel's instance
+    for it): q heads :40 of the (B, S, 48, 128) projection over the view
+    ::2 of a pool of 16 duplicated kv heads; slot b holds lens[b] tokens,
+    the last min(S, len) its chunk."""
+    _, kp, vp, tbl, q_pos, k_pos = chunk_inputs(40, 8, lens, S, dtype, gen,
+                                                hd=128)
+    q = torch.randn(len(lens), S, 48, 128, generator=gen,
+                    device="cuda").to(dtype)[:, :, :40].transpose(1, 2)
+    return chunk_check(CP, REF, f"chunk B{len(lens)} H40/8 (kv ::2 of 16) "
+                       f"S{S} hd128 {dtype}",
+                       (q, dup_pool(kp), dup_pool(vp), tbl, q_pos, k_pos))
+
+
 def fleet_inputs(Hq, Hkv, fills, dtype, gen, chunk=None, ps=16, M=128,
                  hd=64):
     """One launch of a paged kernel on the fleet's path, its operands built
@@ -1432,7 +1497,8 @@ def tensor_core_report(card):
 
 def decode_report(card):
     """Every instance of the two decode kernels (hd 8-160 x groups 1-5
-    and 8 x float32 / bf16, one split-KV core, hd_v == hd; and the
+    and 8 x float32 / bf16, and float32 hd 20, one split-KV core, hd_v ==
+    hd; and the
     contiguous kernel's MLA pair, hd 24 with hd_v 16 at group 4): ptxas'
     registers, the range per kernel and type, and each hd 100, hd 160,
     group 3, group 5 and MLA instance's; raises if an instance spills or is
@@ -1462,6 +1528,8 @@ def decode_report(card):
         want = {(t, hd, g) for t in ("bf16", "f32")
                 for hd in (8, 16, 32, 64, 100, 112, 128, 160)
                 for g in (1, 2, 3, 4, 5, 8)}
+        # float32 hd 20: examples/serve_e2e_torch.py's model
+        want |= {("f32", 20, g) for g in (1, 2, 3, 4, 5, 8)}
         if lib == "decode_attention":
             want |= {(t, 24, 4, 16) for t in ("bf16", "f32")}
         for t in ("f32", "bf16"):
@@ -1729,6 +1797,14 @@ def phase_kernels(card):
                     FLEET_B)
     chunk[name] = chunk_check(CP, REF, name, args)
     del args, local
+    # Llama-4 Maverick's paged path (full attention): q heads :40 at group
+    # 5 over the pool's kv heads ::2, a wave's packed chunk of two rows
+    paged["paged B8 H40/8 (kv ::2 of 16) M128 hd128 bf16"] = \
+        maverick_paged_case(PD, REF, fills, bf, gen)
+    chunk["chunk B2 H40/8 (kv ::2 of 16) S256 packed hd128 bf16"] = \
+        maverick_chunk_case(CP, REF, [1024, 300], 256, bf, gen)
+    chunk["chunk B1 H40/8 (kv ::2 of 16) S64 hd128 f32"] = \
+        maverick_chunk_case(CP, REF, [200], 64, f32, gen)
     from repro_torch.kernels import ssd as SSD
     ssd = {}
     for label, args in [
@@ -2139,8 +2215,9 @@ def engine_requests(vocab):
             for i, p in enumerate(prompts)]
 
 
-def paged_requests(vocab):
-    """16 requests of 64 new tokens: eight open with one 512-token system
+def paged_requests(vocab, new_tokens=64):
+    """16 requests of ``new_tokens`` new tokens: eight open with one
+    512-token system
     prompt (distinct 16-512-token suffixes; one IS the system prompt, the
     copy-on-write path), the rest are Alpaca-like prompts of 16-1024
     tokens. The donor follows a short request, so a slot frees while the
@@ -2161,7 +2238,7 @@ def paged_requests(vocab):
     order = ([other[0], shared[0], shared[1], other[1], shared[2],
               other[2], shared[3], other[3]]
              + shared[4:] + other[4:])
-    return [Request(rid=i, prompt=p, max_new_tokens=64)
+    return [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(order)]
 
 
@@ -2948,8 +3025,10 @@ def count_waits(run):
 
 
 def phase_fleet(card, model, params):
-    """The fleet at full width and depth: ``llama-paper-1b`` in bf16, 4
-    shards of 8 slots (32 on the card) and 1,024 pages of 16 tokens each,
+    """The fleet at full width: ``llama-paper-1b`` in bf16 at full depth,
+    and Llama-4 Maverick at depth 4 with full attention (each shard routing
+    its tokens against its own expert capacity), 4 shards of 8 slots (32
+    on the card) and 1,024 pages of 16 tokens each,
     the paged main path with chunked prefill (256, pack 2), prefix
     sharing and preemption, carbon routing over ``FLEET_REGIONS`` at the
     diurnal CI, and deferral of class 0 (``fleet_requests``, in two waves:
@@ -2991,7 +3070,7 @@ def phase_fleet(card, model, params):
     gen_tokens = sum(r.n_tokens for r in resp)
     placed = [st[f"shard{s}_requests"] for s in range(S)]
     grams = [st[f"shard{s}_carbon_g"] for s in range(S)]
-    print(f"\n[fleet] llama-paper-1b full width bf16, {L} layers, {S} "
+    print(f"\n[fleet] {cfg.name} full width bf16, {L} layers, {S} "
           f"shards x {engine.B} slots over {FLEET_REGIONS}, carbon routing "
           f"(diurnal CI), paged main path + sharing + preemption + "
           f"deferral: {len(reqs)} requests, {gen_tokens} generated ({card})")
@@ -3056,7 +3135,7 @@ def phase_fleet(card, model, params):
     ]
     for ok, what in checks:
         if not ok:
-            raise AssertionError(f"fleet run: {what}")
+            raise AssertionError(f"{cfg.name} fleet run: {what}")
     return counts
 
 
@@ -3671,10 +3750,235 @@ def phase_maverick(card):
     print(f"  a second run: the same tokens; host waits for the device "
           f"(sync debug mode) {waits} = host_syncs {engine.host_syncs}")
     del engine
+    model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same weights, full attention: the paged main path and the fleet
+    t0 = time.perf_counter()
+    model, paged = phase_maverick_paged(card, params)
+    t1 = time.perf_counter()
+    fleet = phase_fleet(card, model, params)
+    print(f"\n[maverick] paged phase {t1 - t0:.1f} s, fleet phase "
+          f"{time.perf_counter() - t1:.1f} s ({card})")
     model = params = None
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return {"contiguous": counts, "paged": paged, "fleet": fleet}
+
+
+# the port's examples as a user runs them, each with what its report must
+# end with: (script, its last line's opening)
+EXAMPLE_RUNS = (("quickstart_torch.py", "embodied share of total carbon:"),
+                ("serve_e2e_torch.py", "lowest-carbon deployment:"),
+                ("carbon_planner_torch.py", "  hourly choices:"))
+
+
+def phase_examples(card):
+    """``examples/quickstart_torch.py``, ``serve_e2e_torch.py`` and
+    ``carbon_planner_torch.py`` with no arguments, as a user runs them:
+    the serving two on the card (their default device), the planner on
+    the host. The three run at once, each in its own process; each must
+    exit 0 with its report's last line. Prints each one's last lines and
+    the seconds until it had ended."""
+    procs, t0 = {}, time.perf_counter()
+    for name, _ in EXAMPLE_RUNS:
+        procs[name] = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", name)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    done = {}
+    try:
+        for name, last in EXAMPLE_RUNS:
+            out, err = procs[name].communicate(timeout=600)
+            done[name] = time.perf_counter() - t0
+            lines = out.strip().splitlines()
+            if procs[name].returncode != 0 or not lines or \
+                    not lines[-1].startswith(last):
+                raise AssertionError(
+                    f"examples/{name}: exit {procs[name].returncode}, last "
+                    f"line {lines[-1:]!r}; stderr {err[-2000:]}")
+            print(f"\n[examples] {name}: ended within {done[name]:.1f} s "
+                  f"({card}); its last lines:")
+            for line in lines[-6:]:
+                print(f"  {line}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return done
+
+
+def maverick_full_attention():
+    """``maverick_cut`` with full attention in every layer (no chunk-local
+    layers): what the reference's paged gate (``supports_paged_decode``)
+    admits. The parameter tree does not depend on the attention span, so
+    the contiguous phase's weights serve it."""
+    return dataclasses.replace(maverick_cut(), attn_chunk=None,
+                               global_attn_every=0)
+
+
+def paged_chunks(model, params, prompts, chunk, page_size):
+    """Prompts (a list of token lists) through the paged pool at the model
+    level, as the engine's chunk launches run them (``alloc_chunk_pages``,
+    ``gather_slot_view``, ``prefill_chunk``, ``scatter_slot_view``), then
+    one decode step of each prompt's greedy next token. Returns the first
+    decode step's logits (B, padded vocab)."""
+    from repro_torch.serving import paged as PG
+    B = len(prompts)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    longest = int(lens.max())
+    max_len = -(-(longest + 1) // page_size) * page_size
+    caches = PG.paginate_cache(model.init_cache(B, max_len), B, page_size,
+                               B * max_len // page_size)
+    slots = torch.arange(B, dtype=torch.int32, device="cuda")
+    nxt = torch.zeros((B,), dtype=torch.int64)
+    for c0 in range(0, longest, chunk):
+        tokens = torch.zeros((B, chunk), dtype=torch.int32)
+        mask = torch.zeros((B, chunk), dtype=torch.int32)
+        for i, p in enumerate(prompts):
+            piece = p[c0:c0 + chunk]
+            tokens[i, :len(piece)] = torch.tensor(piece, dtype=torch.int32)
+            mask[i, :len(piece)] = 1
+        t0 = lens.clamp(max=c0)
+        nv = mask.sum(1, dtype=torch.int32)
+        caches["paged"] = PG.alloc_chunk_pages(
+            caches["paged"], slots, (-(-t0 // page_size)).to("cuda"),
+            (-(-(t0 + nv) // page_size)).to("cuda"))
+        view = PG.gather_slot_view(caches, slots)
+        out, view = model.prefill_chunk(params, view, tokens.to("cuda"),
+                                        mask.to("cuda"))
+        PG.scatter_slot_view(caches, view, slots)
+        # a prompt's next token: the logits of its last chunk
+        done = (t0 + nv == lens) & (nv > 0)
+        nxt = torch.where(done, out[:, :model.cfg.vocab].argmax(-1).cpu(),
+                          nxt)
+    PG.alloc_decode_pages(caches["paged"], caches["t"],
+                          torch.ones(B, dtype=torch.bool, device="cuda"),
+                          page_size)
+    logits, _ = model.decode_step(params, caches,
+                                  nxt[:, None].to(torch.int32).to("cuda"))
+    return logits
+
+
+PAGED_OPS = ("paged_decode_attention", "chunked_prefill_attention",
+             "rmsnorm", "add_rmsnorm")
+
+
+def maverick_paged_probe(card, model, params):
+    """``MAVERICK_PROBE_LENS`` prompts through chunks of 256 and the first
+    decode step (``paged_chunks``) three times on the same weights: with
+    the kernels (launches counted), with each kernel call held against its
+    plain version on the same inputs (``checked_run``), and on the plain
+    versions. Each kernel call must be within ``TOL[bf16]`` of its plain
+    version on the same inputs, the first decode logits the same with and
+    without the checks, their argmax the plain versions', and their
+    relative error from the plain versions' at most
+    ``MAVERICK_PROBE_REL``; the elements past ``TOL[bf16]`` are
+    printed."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(2, model.cfg.vocab, n).tolist()
+               for n in MAVERICK_PROBE_LENS]
+    run = functools.partial(paged_chunks, model, params, prompts, 256, 16)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    again, calls = checked_run(f"{model.cfg.name} paged probe", run,
+                               PAGED_OPS)
+    with ops.swapped(lambda name, op, plain: plain, PAGED_OPS):
+        want = run()
+    atol, rtol = TOL[torch.bfloat16]
+    rows = torch.ones_like(want, dtype=torch.bool)
+    err, bad = past_tol(got, want, rows, atol, rtol)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    n_chunks = -(-max(MAVERICK_PROBE_LENS) // 256)
+    L = model.cfg.n_layers
+    print(f"\n[maverick paged] probe: prompts {MAVERICK_PROBE_LENS} in "
+          f"{n_chunks} chunk launches of 256, then one decode step; each "
+          f"kernel call against its plain version on the same inputs (max "
+          f"abs err, past atol {atol} rtol {rtol}, calls, sums unequal): "
+          f"{calls}; first decode logits against the plain versions': "
+          f"relative error {rel:.4e} (bound {MAVERICK_PROBE_REL:.4e}), max "
+          f"abs err {err:.4e}, {bad} of {want.numel()} past atol {atol} "
+          f"rtol {rtol}, max |logit| {float(want.float().abs().max()):.3f};"
+          f" argmax agree {int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+          f"{got.shape[0]}; launches {launches} ({card})")
+    expect(f"{model.cfg.name} paged probe", [
+        (bool(torch.isfinite(got).all()), "non-finite logits"),
+        (torch.equal(again, got), "the checked run gave other logits"),
+        (torch.equal(got.argmax(-1), want.argmax(-1)),
+         "the first decode tokens are not the plain versions'"),
+        (rel <= MAVERICK_PROBE_REL,
+         f"first decode logits {rel:.4e} from the plain versions', over "
+         f"{MAVERICK_PROBE_REL:.4e}"),
+        (launches["chunked_prefill_attention"] == L * n_chunks
+         and launches["paged_decode_attention"] == L,
+         f"launches {launches}: not {L} x {n_chunks} chunk and {L} "
+         "paged decode")])
+
+
+def phase_maverick_paged(card, params):
+    """Llama-4 Maverick at full width and depth 4 with full attention
+    (``maverick_full_attention``) on the graphed paged main path: the
+    paged pool of 16 duplicated kv heads, chunked prefill (256, packed 2)
+    and prefix sharing, ``max_batch=8, max_len=2048``, on the contiguous
+    phase's weights. The paged kernels run q heads :40 at group 5 over the
+    pool's kv heads ::2, and a moe forward's dead query rows get the plain
+    version's value (``attention._fill_dead_rows_paged``). First
+    ``maverick_paged_probe``; then ``paged_requests`` (32 new tokens each)
+    served twice with the same tokens, the second run's host waits (sync
+    debug mode) equal to ``host_syncs``; the paged main path's launch
+    counts (``paged_checks``), and the pool's bytes and the peak beside
+    the weights. Returns (model, counts)."""
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = maverick_full_attention()
+    model = Model(cfg, "cuda")
+    maverick_paged_probe(card, model, params)
+    ecfg = EngineConfig(max_batch=8, max_len=MAVERICK_PAGED_LEN,
+                        profile="h100_sxm", region="QC", paged=True,
+                        page_size=16, prefill_chunk=256, prefill_pack=2,
+                        prefix_sharing=True)
+    label = f"{MAVERICK} depth {cfg.n_layers} paged"
+    engine, st, counts = serve(card, label, ecfg,
+                               paged_requests(cfg.vocab, MAVERICK_NEW),
+                               model, params, new_tokens=MAVERICK_NEW)
+    paged_checks(label, cfg, engine, st, counts)
+    tokens = {r: list(engine.responses[r].tokens) for r in engine.responses}
+    pool = sum(c[n].numel() * c[n].element_size()
+               for c in engine.caches["layers"]
+               for n in ("k_pages", "v_pages"))
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"allocated against the reckoning: weights {weights / 1e9:.2f} GB "
+          f"+ the pool {pool / 1e9:.3f} GB ({st['pages_total']} pages and "
+          f"the trash page of 16 tokens x 16 kv heads x 128 x k, v x bf16 "
+          f"x {cfg.n_layers} layers) ({card})")
+    del engine
+
+    def again():
+        eng = ServingEngine(model, params, ecfg)
+        for r in paged_requests(cfg.vocab, MAVERICK_NEW):
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        return eng
+
+    engine, waits = count_waits(again)
+    expect(label, [
+        ({r: list(engine.responses[r].tokens) for r in engine.responses}
+         == tokens, "a second run gave other tokens"),
+        (waits == engine.host_syncs,
+         f"the host waited {waits} times, host_syncs {engine.host_syncs}")])
+    print(f"  a second run: the same tokens; host waits for the device "
+          f"(sync debug mode) {waits} = host_syncs {engine.host_syncs}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model, counts
 
 
 def deepseek_requests(vocab):
@@ -3958,8 +4262,10 @@ def load_model(cfg, n_expected, tag, card):
     return model, params, gen, weights
 
 
-def checked_ops(record):
-    """Within: each flash, decode and RMSNorm op of the model runs its
+def checked_ops(record, names=None):
+    """Within: each flash, decode and RMSNorm op (or each of ``names``,
+    ``kernels/ops.py``'s op names; a chunk's pad query rows left out) of
+    the model runs its
     kernel and then its plain version on the same inputs on the card, and
     returns the kernel's output; ``record[name]`` gathers [max abs error,
     elements past ``TOL[bf16]``, calls, residual sum elements other than
@@ -3970,8 +4276,9 @@ def checked_ops(record):
     by the caller: no host wait a call."""
     from repro_torch.kernels import ops
     atol, rtol = TOL[torch.bfloat16]
+    names = names or ops.SWAPPABLE
 
-    for name in ops.SWAPPABLE:
+    for name in names:
         record[name] = [torch.zeros((), device="cuda")] + [
             torch.zeros((), dtype=torch.int64, device="cuda")
             for _ in range(3)]
@@ -3985,32 +4292,40 @@ def checked_ops(record):
                 r[3].add_((got[0] != want[0]).sum())
                 g, w = got[1], want[1]
             err = (g.float() - w.float()).abs()
+            if name == "chunked_prefill_attention":
+                # a pad query's row: 0 from the kernel, the plain mean
+                # written after it by the model (attention._fill_dead_rows)
+                err = err * (a[4] >= 0)[:, None, :, None]
             torch.maximum(r[0], err.max(), out=r[0])
             r[1].add_((err > atol + rtol * w.float().abs()).sum())
             r[2].add_(1)
             return got
         return run
-    return ops.swapped(check)
+    return ops.swapped(check, names)
 
 
-def checked_run(label, run):
+def checked_run(label, run, names=None):
     """``run()`` within ``checked_ops``, the launch counts set to 0 just
     before and read just after: raises unless every kernel call is within
     ``TOL[bf16]`` of its plain version on the same inputs, every residual
     sum equals the plain add's, and each kernel was checked as often as it
-    launched. Returns (run's result, the record)."""
+    launched (``names``: ``checked_ops``'s). Returns (run's result, the
+    record)."""
     from repro_torch.kernels import ops
     atol, rtol = TOL[torch.bfloat16]
     calls = {}
     torch.cuda.synchronize()
     ops.reset_launches()
-    with checked_ops(calls):
+    with checked_ops(calls, names):
         out = run()
     launches = ops.launch_counts()
     calls = {n: [float(r[0]), int(r[1]), int(r[2]), int(r[3])]
              for n, r in calls.items()}
-    checked = {k: sum(r[2] for n, r in calls.items() if n.endswith(k))
-               for k in ("flash_attention", "decode_attention", "rmsnorm")}
+    # the kernel each op launches: the RMSNorm forms launch ``rmsnorm``
+    checked = {}
+    for n, r in calls.items():
+        k = "rmsnorm" if n.endswith("rmsnorm") else n
+        checked[k] = checked.get(k, 0) + r[2]
     expect(label, [
         (all(r[1] == 0 for r in calls.values()),
          f"kernel calls past atol {atol} rtol {rtol} (max abs err, past, "
@@ -5715,6 +6030,9 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     measured = phase_kernels(card)
+    t0 = time.perf_counter()
+    phase_examples(card)
+    print(f"\n[examples] phase {time.perf_counter() - t0:.1f} s ({card})")
     gc.collect()                 # phase 3's graphs and their memory pools
     torch.cuda.empty_cache()
     print(f"\n[memory] allocated before the engines: "

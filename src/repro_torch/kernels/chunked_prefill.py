@@ -24,8 +24,9 @@ from repro_torch.kernels.paged_decode_attention import check_pool, pool_strides
 
 # 16: the reference's kernel sweep; 160: StableLM-2-12B
 HEAD_DIMS = (16, 32, 64, 100, 128, 160)
-# the GQA groups its C entry takes (the decode kernels also take 5)
-GROUPS = (1, 2, 3, 4, 8)
+# the GQA groups its C entry takes, those of the decode kernels (5:
+# Llama-4 Maverick's 40 real q heads over its kv heads ::2)
+GROUPS = (1, 2, 3, 4, 5, 8)
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0

@@ -326,7 +326,10 @@ extern "C" int chunked_prefill_attention_fwd(
   if (hd != hd_v || Hkv <= 0 || Hq % Hkv || ps <= 0 || P1 <= 0)
     return (int)cudaErrorInvalidValue;
   const int group = Hq / Hkv;
-  if (group != 1 && group != 2 && group != 3 && group != 4 && group != 8)
+  // group 5: Llama-4 Maverick's 40 real q heads over one copy of each of
+  // its 8 kv heads (the pool's kv heads ::2, through the head stride)
+  if (group != 1 && group != 2 && group != 3 && group != 4 && group != 5 &&
+      group != 8)
     return (int)cudaErrorInvalidValue;
   ChunkArgs a;
   a.q = q;

@@ -620,10 +620,11 @@ cudaError_t launch_cluster(const Args& a, int W, int Hkv, int B,
 }
 
 // The instances every decode kernel takes: hd {8, 16, 32, 64, 100, 112,
-// 128, 160} x group {1, 2, 3, 4, 5, 8} x {float32, bf16} (hd 100:
-// LLaMA-3B; group 3: InternLM2-20B's 48 query heads on 16 kv heads; hd
-// 160: StableLM-2-12B, group 2; group 5: Llama-4 Maverick's 40 real query
-// heads on one copy of each of its 8 kv heads). Launch<T, HD, G>::run(a, stream)
+// 128, 160} x group {1, 2, 3, 4, 5, 8} x {float32, bf16}, and hd 20 in
+// float32 (hd 100: LLaMA-3B; group 3: InternLM2-20B's 48 query heads on
+// 16 kv heads; hd 160: StableLM-2-12B, group 2; group 5: Llama-4
+// Maverick's 40 real query heads on one copy of each of its 8 kv heads;
+// hd 20: examples/serve_e2e_torch.py). Launch<T, HD, G>::run(a, stream)
 // is the file's launch of one instance.
 template <template <typename, int, int> class Launch, typename T, int HD,
           typename Args>
@@ -646,6 +647,10 @@ cudaError_t by_head_dim(const Args& a, int hd, int group,
   switch (hd) {
     case 8: return by_group<Launch, T, 8>(a, group, stream);
     case 16: return by_group<Launch, T, 16>(a, group, stream);
+    case 20:  // float32 only: examples/serve_e2e_torch.py's 8 heads of 20
+      if constexpr (std::is_same<T, float>::value)
+        return by_group<Launch, T, 20>(a, group, stream);
+      return cudaErrorInvalidValue;
     case 32: return by_group<Launch, T, 32>(a, group, stream);
     case 64: return by_group<Launch, T, 64>(a, group, stream);
     case 100: return by_group<Launch, T, 100>(a, group, stream);

@@ -329,6 +329,7 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && hd == 8) return (int)launch_f32<8>(a, st);
   if (dtype == 0 && hd == 16) return (int)launch_f32<16>(a, st);
+  if (dtype == 0 && hd == 20) return (int)launch_f32<20>(a, st);
   if (dtype == 0 && hd == 32) return (int)launch_f32<32>(a, st);
   if (dtype == 0 && hd == 64) return (int)launch_f32<64>(a, st);
   if (dtype == 0 && hd == 100) return (int)launch_f32<100>(a, st);

@@ -20,8 +20,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
-                                                 check_common, check_rows)
+from repro_torch.kernels.flash_attention import (DTYPES, check_common,
+                                                 check_rows, head_dims)
 
 # the groups of the split-KV core's instances (csrc/decode_tile.cuh
 # by_group), in both decode kernels: 3, InternLM2-20B (48 query heads on
@@ -53,11 +53,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Hq % Hkv or Hq // Hkv not in GROUPS:
         raise ValueError(f"GQA group {Hq}/{Hkv} not in {GROUPS}")
     group = Hq // Hkv
-    if not ((hd == hd_v and hd in HEAD_DIMS)
+    if not ((hd == hd_v and hd in head_dims(q.dtype))
             or group in PAIRS.get((hd, hd_v), ())):
         raise ValueError(f"head dims ({hd}, {hd_v}) at group {group} not "
                          f"supported; the kernel takes hd == hd_v in "
-                         f"{HEAD_DIMS}, or (hd, hd_v) -> groups {PAIRS}")
+                         f"{head_dims(q.dtype)} ({q.dtype}), or (hd, hd_v) "
+                         f"-> groups {PAIRS}")
     if q_pos.shape != (B,) or k_pos.shape != (B, W):
         raise ValueError("positions must be (B,) and (B, W)")
     if W < 1:

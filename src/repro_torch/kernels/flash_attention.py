@@ -25,6 +25,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # 100: LLaMA-3B; 112: Zamba2's shared attention; 160: StableLM-2-12B; 8
 # and 16: the reference's kernel sweeps
 HEAD_DIMS = (8, 16, 32, 64, 100, 112, 128, 160)
+# float32 also takes hd 20 (examples/serve_e2e_torch.py: d_model 160 over
+# 8 heads); the bf16 tensor-core tiles do not
+F32_HEAD_DIMS = HEAD_DIMS + (20,)
+
+
+def head_dims(dtype) -> tuple:
+    """The head dims of the flash and contiguous decode kernels' instances
+    of ``dtype``."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
 
 # kernel launches since the last reset (kernels/ops.py reset_launches)
 launches = 0
@@ -102,8 +111,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"match q {tuple(q.shape)}")
     if Hq % Hkv:
         raise ValueError("kernel requires uniform GQA grouping (Hq % Hkv)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if hd not in head_dims(q.dtype):
+        raise ValueError(f"head dim {hd} not in {head_dims(q.dtype)} "
+                         f"({q.dtype})")
     if q_pos.shape != (B, Sq) or k_pos.shape != (B, Sk):
         raise ValueError("positions must be (B, Sq) and (B, Sk)")
     check_bf16_rows(q=q, k=k, v=v)

@@ -281,11 +281,31 @@ def _assert_private_rows(rows: torch.Tensor, trash: int, ps: int) -> None:
                              "outside the trash page")
 
 
+def _last_writes(rows: torch.Tensor, trash: int, ps: int) -> torch.Tensor:
+    """(N,) for the N flat pool ``rows`` of one call's writes: the write
+    whose value each one stores. A real page's row has one write, its own;
+    the writes that share a row of the trash page all store the last
+    one's value, as a sequential write (the reference's) leaves that row,
+    whatever order the device commits them in (an index write with
+    repeated rows keeps an unspecified one, on the CPU too). A ``moe``
+    model's dead query rows average the trash page, so its contents must
+    not depend on that order."""
+    idx = torch.arange(rows.shape[0], device=rows.device)
+    local = rows - trash * ps
+    hit = (local >= 0) & (local < ps)
+    at = torch.where(hit, local, torch.zeros_like(local))
+    last = torch.full((ps,), -1, dtype=idx.dtype, device=rows.device)
+    last.scatter_reduce_(0, at, torch.where(hit, idx, -1), "amax")
+    return torch.where(hit, last[at], idx)
+
+
 def paged_decode_write(cache: Dict, tbl: torch.Tensor, k1: torch.Tensor,
-                       v1: torch.Tensor) -> Dict:
+                       v1: torch.Tensor, ordered: bool = False) -> Dict:
     """Append one token per slot through the (B, max_pages) block table,
     in place. k1/v1: (B, 1, Hkv, hd). A slot whose page is unmapped, or
-    whose cursor is past the table, writes into the trash page."""
+    whose cursor is past the table, writes into the trash page; with
+    ``ordered``, writes sharing a trash row store the last one's value
+    (``_last_writes``)."""
     t = cache["length"]
     kf, ps, trash = _flat_rows(cache["k_pages"])
     vf, _, _ = _flat_rows(cache["v_pages"])
@@ -297,22 +317,28 @@ def paged_decode_write(cache: Dict, tbl: torch.Tensor, k1: torch.Tensor,
     pg = torch.where((pg < 0) | (lp >= M), torch.full_like(pg, trash), pg)
     rows = (pg * ps + torch.remainder(t, ps)).long()   # physical flat rows
     _assert_private_rows(rows, trash, ps)
-    kf[:, rows] = k1[:, 0].transpose(0, 1).to(kf.dtype)
-    vf[:, rows] = v1[:, 0].transpose(0, 1).to(vf.dtype)
+    k1, v1 = k1[:, 0].transpose(0, 1), v1[:, 0].transpose(0, 1)
+    if ordered:
+        sel = _last_writes(rows, trash, ps)
+        k1, v1 = k1.index_select(1, sel), v1.index_select(1, sel)
+    kf[:, rows] = k1.to(kf.dtype)
+    vf[:, rows] = v1.to(vf.dtype)
     cache["pos_ids"][bidx, t.clamp(0, W - 1).long()] = t
     cache["length"] += 1
     return cache
 
 
 def paged_chunk_write(cache: Dict, tbl: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, positions: torch.Tensor) -> Dict:
+                      v: torch.Tensor, positions: torch.Tensor,
+                      ordered: bool = False) -> Dict:
     """Append one prompt chunk per slot through the block table, in place.
 
     k/v: (B, S, Hkv, hd); positions: (B, S) LOGICAL (-1 = pad). The pages
     covering the chunk must already be mapped (``alloc_chunk_pages``). Pad
     tokens and rows past the table land in the trash page, and ``pos_ids``
     is written only at valid positions (the others go to a scratch column
-    that is cut off), so pads never unmask."""
+    that is cut off), so pads never unmask. ``ordered``: as
+    ``paged_decode_write``'s."""
     t = positions
     kf, ps, trash = _flat_rows(cache["k_pages"])
     vf, _, _ = _flat_rows(cache["v_pages"])
@@ -330,10 +356,14 @@ def paged_chunk_write(cache: Dict, tbl: torch.Tensor, k: torch.Tensor,
                                   torch.zeros_like(t))).long()   # (B, S)
     _assert_private_rows(rows, trash, ps)
     H = kf.shape[0]
-    kf[:, rows.reshape(-1)] = k.permute(2, 0, 1, 3).reshape(
-        H, B * S, -1).to(kf.dtype)
-    vf[:, rows.reshape(-1)] = v.permute(2, 0, 1, 3).reshape(
-        H, B * S, -1).to(vf.dtype)
+    rows = rows.reshape(-1)
+    k = k.permute(2, 0, 1, 3).reshape(H, B * S, -1)
+    v = v.permute(2, 0, 1, 3).reshape(H, B * S, -1)
+    if ordered:
+        sel = _last_writes(rows, trash, ps)
+        k, v = k.index_select(1, sel), v.index_select(1, sel)
+    kf[:, rows] = k.to(kf.dtype)
+    vf[:, rows] = v.to(vf.dtype)
     col = torch.where(valid, t.clamp(0, W - 1), torch.full_like(t, W))
     pos = cache["pos_ids"]
     ext = torch.cat([pos, pos.new_zeros((B, 1))], dim=1)   # column W: scratch
@@ -530,6 +560,18 @@ def _fill_dead_rows(out: torch.Tensor, v: torch.Tensor,
                        mean.to(out.dtype), out)
 
 
+def _fill_dead_rows_paged(out: torch.Tensor, v_pages: torch.Tensor,
+                          page_tbl: torch.Tensor,
+                          dead: torch.Tensor) -> torch.Tensor:
+    """``_fill_dead_rows`` over a paged pool: the mean of V over each
+    slot's logical view, the (Hkv, P+1, ps, hd) pool ``v_pages`` (the
+    kernels' operand, kv heads ``::kv_step`` included) gathered through
+    its (B, M) table, -1 read as the trash page, as the plain versions
+    score it. A gather and a where on the device, no host sync (a decode
+    graph captures it)."""
+    return _fill_dead_rows(out, KREF.logical_view(v_pages, page_tbl), dead)
+
+
 def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                    layer_window: Optional[int], layer_chunk: Optional[int],
                    cache: Optional[Dict] = None, mode: str = "prefill",
@@ -554,10 +596,16 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     CPU, a map that is not the uniform divide; in 'train' mode on any
     device) the kv heads are expanded (a paged pool gathered first) and
     the kernel or the plain version runs with group 1.
+    A paged pool keeps the reference's (Hkv_padded, P+1, ps, hd) shape;
+    the paged kernels read its kv heads ``::kv_step`` through the head
+    stride, as the contiguous kernels read the cache's.
     On the card, a model with a ``moe`` block gets the plain version's
-    value in every fully masked query row (``_fill_dead_rows``) where the
-    forward can drop a token; its paged paths, and any paged path of a
-    duplicated-kv layout, are not ported to the card yet and raise.
+    value in every fully masked query row (``_fill_dead_rows``, over a
+    paged slot's gathered logical view ``_fill_dead_rows_paged``) where
+    the forward can drop a token: where ``moe.can_drop`` holds for its
+    tokens, and on a paged pool always (a fleet, whose shards each route
+    against their own expert capacity, is always paged). A ``moe`` model's paged writes are ``ordered`` on every
+    device, so the trash page such a row averages is the reference's.
     """
     if mode not in ("train", "prefill", "decode", "chunk"):
         raise ValueError(f"unknown attention mode {mode!r}")
@@ -575,10 +623,18 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if direct and layout[2] < q.shape[2]:
         q = q[:, :, :layout[2]]
     moe_on_card = cfg.moe is not None and q.device.type == "cuda"
-    # a dead row matters only where it can take a real token's expert
-    # slot: B*S is the token count of this forward's moe calls
-    fill = moe_on_card and MOE.can_drop(cfg, x.shape[0] * x.shape[1])
     paged = cache is not None and "k_pages" in cache
+    # a dead row matters where it can take a real token's expert slot (B*S
+    # tokens in this forward's moe calls), and on a paged pool always: its
+    # keys and values at the next layer land in the trash page, which
+    # later dead rows average
+    fill = moe_on_card and (paged or MOE.can_drop(
+        cfg, x.shape[0] * x.shape[1]))
+    # a moe model's writes sharing a trash row store the last one's value
+    # on every device (an index write with repeated rows keeps an
+    # unspecified one, on the CPU too): the trash page its dead rows
+    # average is then the reference's
+    ordered = cfg.moe is not None
     if mode in ("decode", "chunk"):
         if cache is None:
             raise ValueError(f"{mode} needs a cache")
@@ -586,11 +642,6 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             raise ValueError("a paged cache needs page_tbl")
         if mode == "chunk" and not paged:
             raise ValueError("chunked prefill needs a paged cache")
-    if paged and (moe_on_card or step > 1):
-        raise NotImplementedError(
-            f"{cfg.name}: a moe model's paged attention on the card (the "
-            "pad rows of the paged kernels, a pool of duplicated kv heads) "
-            "is not ported yet (ROADMAP Queue 1)")
     mesh = isinstance(q, SH.DTensor)       # the model's DTensor program
     if mesh and paged:
         raise NotImplementedError(
@@ -598,13 +649,20 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             "its shards without a sharding context")
     group = layout[0] if direct else 1
     q0 = SH.shard_offset("heads", q.shape[2]) if mesh else 0
+    if paged and direct:
+        # the kernels' kv heads: the pool's ::kv_step, a strided view
+        kp, vp = cache["k_pages"][::step], cache["v_pages"][::step]
     if mode == "chunk":
-        paged_chunk_write(cache, page_tbl, k, v, positions)
+        paged_chunk_write(cache, page_tbl, k, v, positions, ordered)
         if direct:
             out = KOPS.chunked_prefill_attention(
-                q.transpose(1, 2), cache["k_pages"], cache["v_pages"],
-                page_tbl, positions, cache["pos_ids"], window=layer_window,
+                q.transpose(1, 2), kp, vp, page_tbl, positions,
+                cache["pos_ids"], window=layer_window,
                 chunk=layer_chunk).transpose(1, 2)       # (B,S,Hq,hd)
+            if fill:
+                # a real query sees its own key, written first: only pad
+                # queries see none
+                out = _fill_dead_rows_paged(out, vp, page_tbl, positions < 0)
         else:
             kk = _expand_kv(cfg, gather_pages(cache["k_pages"], page_tbl))
             vv = _expand_kv(cfg, gather_pages(cache["v_pages"], page_tbl))
@@ -613,12 +671,18 @@ def self_attention(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 positions, cache["pos_ids"], window=layer_window,
                 chunk=layer_chunk).transpose(1, 2)
     elif mode == "decode" and paged:
-        paged_decode_write(cache, page_tbl, k, v)
+        paged_decode_write(cache, page_tbl, k, v, ordered)
         if direct:
             out = KOPS.paged_decode_attention(
-                q[:, 0], cache["k_pages"], cache["v_pages"], page_tbl,
-                positions[:, 0], cache["pos_ids"], window=layer_window,
-                chunk=layer_chunk)[:, None]               # (B,1,Hq,hd)
+                q[:, 0], kp, vp, page_tbl, positions[:, 0],
+                cache["pos_ids"], window=layer_window,
+                chunk=layer_chunk)                        # (B,Hq,hd)
+            if fill:
+                dead = ~KREF.attention_mask(
+                    positions[:, :1], cache["pos_ids"], layer_window,
+                    layer_chunk).any(-1)
+                out = _fill_dead_rows_paged(out, vp, page_tbl, dead)
+            out = out[:, None]                            # (B,1,Hq,hd)
         else:
             kk = _expand_kv(cfg, gather_pages(cache["k_pages"], page_tbl))
             vv = _expand_kv(cfg, gather_pages(cache["v_pages"], page_tbl))

@@ -50,6 +50,7 @@ class LayerCtx:
     emb_orig: Optional[torch.Tensor] = None  # Zamba2 concat input
     layer_idx: int = 0                  # absolute depth (chunk alternation)
     page_tbl: Optional[torch.Tensor] = None  # (B, max_pages) paged-KV table
+    moe_groups: int = 1                 # MoE capacity groups (moe.moe_apply)
 
 
 def _layer_window_chunk(cfg, layer_idx: int):
@@ -235,7 +236,7 @@ def block_apply_pending(p: Dict, cfg, kind: str, ctx: LayerCtx,
         if ctx.mode == "train":
             f, aux = MOE.moe_ffn(pm, cfg, h2)
             return x, _res(cfg, f), aux
-        f, _ = MOE.moe_apply(pm, cfg, h2)           # no aux when serving
+        f, _ = MOE.moe_apply(pm, cfg, h2, ctx.moe_groups)   # no aux
         return x, _res(cfg, f), {}
     return x, _res(cfg, L.swiglu(p["mlp"], h2, sites=kind != "shared")), {}
 

@@ -37,6 +37,7 @@ add still pending.
 """
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Dict, Optional, Tuple, Union
 
@@ -110,6 +111,18 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = set(cfg.block_pattern)
+        # a forward's rows as this many groups, each routing its tokens
+        # against its own expert capacity (``moe.moe_apply``)
+        self.moe_groups = 1
+
+    def grouped(self, groups: int) -> "Model":
+        """This model with its forward's rows taken as ``groups`` equal
+        groups for the MoE capacity: a fleet's shards, each routing against
+        its own capacity as the reference's ``shard_map`` body does. The
+        same config and device; ``self`` is unchanged."""
+        model = copy.copy(self)
+        model.moe_groups = groups
+        return model
 
     @property
     def supports_padded_prefill(self) -> bool:
@@ -329,7 +342,8 @@ class Model:
                 x = shard(x, "batch", "seq", "embed")
             ctx = B.LayerCtx(cfg=cfg, mode=mode, positions=positions,
                              mask=mask, memory=memory, emb_orig=emb_orig,
-                             layer_idx=i, page_tbl=page_tbl)
+                             layer_idx=i, page_tbl=page_tbl,
+                             moe_groups=self.moe_groups)
             c = layer_caches[i] if layer_caches is not None else None
             layer = functools.partial(B.block_apply_pending,
                                       params["layers"][i], cfg, kind, ctx)

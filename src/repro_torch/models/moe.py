@@ -22,6 +22,14 @@ tokens of a right-padded batch are routed and take capacity like real
 ones (as in the reference), so a batch's shape and its pad rows' values
 decide which real tokens are dropped (``attention.self_attention`` gives
 a fully masked query row the plain version's value on the card).
+
+A call may carry ``groups`` G > 1 groups of B/G rows each (a fleet's
+shards, as the reference's ``shard_map`` body runs ``moe_ffn`` on each
+shard's rows): each group routes against its own capacity ``C =
+capacity(cfg, T/G)`` with its own ``(E*C, d)`` buffers and drops, so a
+group's pad rows compete only inside it. The groups ride one dispatch
+(group g's expert e is buffer block g*E + e) and the same three ``bmm``,
+each expert's G buffers side by side.
 """
 from __future__ import annotations
 
@@ -180,12 +188,13 @@ def can_drop(cfg, tokens: int) -> bool:
     return tokens * cfg.moe.top_k > capacity(cfg, tokens)
 
 
-def moe_apply(p: Dict, cfg, x: torch.Tensor
+def moe_apply(p: Dict, cfg, x: torch.Tensor, groups: int = 1
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """x: (B, S, d) -> (B, S, d) and the routing that ``moe_aux`` reads:
     (router logits (T, E) float32, expert ids (T, k), keep mask (T*k,)).
     Serving calls this and launches no aux loss; training adds
-    ``moe_aux`` of the routing (``moe_ffn``).
+    ``moe_aux`` of the routing (``moe_ffn``). ``groups``: the module
+    docstring (rows [g*B/G, (g+1)*B/G) are group g).
 
     The reference's eleven sites of its dense dispatch stand at the same
     points (the accumulator's first site on the first contribution, which
@@ -196,8 +205,10 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
     DTensors."""
     m = cfg.moe
     B, S, d = x.shape
-    T, k, E = B * S, m.top_k, m.n_experts
-    C = capacity(cfg, T)
+    T, k, E, G = B * S, m.top_k, m.n_experts, groups
+    if B % G:
+        raise ValueError(f"{B} rows do not split into {G} groups")
+    C = capacity(cfg, T // G)
     rep = (None,)
 
     xt = shard(x.reshape(T, d), "tokens", None)
@@ -205,19 +216,28 @@ def moe_apply(p: Dict, cfg, x: torch.Tensor
     gates, ids = SH.local_op(lambda r: router_topk(r, k), [(None, None)],
                              ((None, None), (None, None)))(rl)   # (T, k)
 
+    # group g's expert e is expert g*E + e of one dispatch
+    gids = ids if G == 1 else ids + torch.div(
+        torch.arange(T, device=ids.device), T // G,
+        rounding_mode="floor")[:, None] * E
     order, slot, keep, tok_idx = SH.local_op(
-        lambda i: dispatch(i, E, C), [(None, None)], (rep,) * 4)(ids)
+        lambda i: dispatch(i, G * E, C), [(None, None)], (rep,) * 4)(gids)
     order = shard(order, "expert_flat")
     slot = shard(slot, "expert_flat")
-    buf = shard(xt.new_zeros((E * C + 1, d)), "expert_flat", None)
+    buf = shard(xt.new_zeros((G * E * C + 1, d)), "expert_flat", None)
     expert_in = SH.local_op(
-        lambda b, x, s, t: _scatter_into(b, x, s, t, E, C),
+        lambda b, x, s, t: _scatter_into(b, x, s, t, G * E, C),
         [(None, None), (None, None), rep, rep], (None, None, None))(
             buf, xt, slot, tok_idx)
+    if G > 1:       # (G*E, C, d) -> each expert's G buffers: (E, G*C, d)
+        expert_in = expert_in.view(G, E, C, d).transpose(0, 1).reshape(
+            E, G * C, d)
     expert_in = shard(expert_in, "experts", None, None)
     out = expert_ffn(expert_in, p["experts_gate"], p["experts_up"],
                      p["experts_down"], pin=True)
     out = shard(out, "experts", None, None)
+    if G > 1:
+        out = out.view(E, G, C, d).transpose(0, 1).reshape(G * E, C, d)
     y = SH.local_op(functools.partial(combine, pin=True),
                     [(None, None, None), rep, rep, (None, None), rep, rep],
                     (None, None))(out, slot, keep, gates, order, tok_idx)

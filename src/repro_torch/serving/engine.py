@@ -1234,7 +1234,7 @@ class ServingEngine:
     # ------------------------------------------------------ chunked prefill
     def _chunk_launch(self, tokens: np.ndarray, mask: np.ndarray,
                       lanes: np.ndarray, pos0: np.ndarray, n_tok: np.ndarray,
-                      rows: np.ndarray):
+                      rows: np.ndarray, keep: Optional[np.ndarray] = None):
         """One chunked-prefill launch on the device: allocate the chunk's
         pages, copy-on-write any shared page it writes (with sharing), run
         the chunk through the model against a gathered slot view (its KV
@@ -1244,9 +1244,12 @@ class ServingEngine:
         allocator's lanes — the slots, each one's first chunk token (its
         write cursor) and token count: (n,) here, (S, n) on the fleet,
         where a shard's idle lane is the sentinel slot B with 0 tokens;
-        ``rows`` are the per-slot tree rows of ``tokens``' rows. Returns
-        (tokens (n,), shard-local block-table rows (n, M)) on the device;
-        nothing here syncs with the host."""
+        ``rows`` are the per-slot tree rows of ``tokens``' rows. ``keep``,
+        if given, are the model rows whose slot state is written back and
+        sampled (a ``moe`` fleet also runs its idle lanes, for their share
+        of a shard's expert capacity). Returns (tokens (n,), shard-local
+        block-table rows (n, M)) of the kept rows on the device; nothing
+        here syncs with the host."""
         ps = self.cfg.page_size
         tok, msk = self._tensor(tokens), self._tensor(mask)
         self.caches["paged"] = PG.alloc_chunk_pages(
@@ -1260,6 +1263,10 @@ class ServingEngine:
         rows_t = self._tensor(rows)
         view = PG.gather_slot_view(self.caches, rows_t)
         last, view = self.model.prefill_chunk(self.params, view, tok, msk)
+        if keep is not None:
+            kt = self._tensor(keep).long()
+            last, rows_t = last[kt], rows_t[kt]
+            view = PG.slot_view_rows(view, kt)
         PG.scatter_slot_view(self.caches, view, rows_t)
         first = sampling.sample(last[:, :self.model.cfg.vocab], self._gen,
                                 self.cfg.temperature)

@@ -473,13 +473,14 @@ def model_table(alloc: Dict, active: Optional[torch.Tensor] = None,
     become pool ids ``s*P + p``, so one kernel launch serves every
     shard's rows, and -1 stays -1 (the kernels and writes send it to the
     trash page; every such row is masked). A single engine's table (S = 1)
-    is its own. With ``active``, inactive slots' rows are cleared: the
-    batch-shape-invariant decode write of a slot parked mid-prefill lands
-    in the trash page instead of its next unwritten row, which may lie in
-    a page it shares with another slot (an adopter of a whole shared
-    prompt, waiting for its copy-on-write chunk). Its attention output is
-    discarded. ``out``, if given, is an (S*B, M) int32 buffer that
-    receives the table and is returned."""
+    is its own. With ``active``, the rows of the other slots are cleared:
+    the fused step passes ``in_place_rows``, so only a slot parked with
+    its next row already holding history (an adopter of a whole shared
+    prompt, waiting for its copy-on-write chunk: that row lies in a page
+    the prefix index serves) has its batch-shape-invariant decode write
+    land in the trash page; its attention output is discarded. ``out``,
+    if given, is an (S*B, M) int32 buffer that receives the table and is
+    returned."""
     tbl = alloc["tbl"]
     S, B, M = tbl.shape
     keep = tbl >= 0
@@ -490,6 +491,23 @@ def model_table(alloc: Dict, active: Optional[torch.Tensor] = None,
     torch.where(keep, tbl + _page_base(alloc), torch.full_like(tbl, -1),
                 out=out.view(S, B, M))
     return out
+
+
+def in_place_rows(caches: Dict, active: torch.Tensor) -> torch.Tensor:
+    """(rows,) bool: the slots whose decode write may land in their own
+    pages, as the reference's does: the active ones, and a parked one
+    whose next row holds no history yet (its logical position there is
+    -1: its next chunk writes that row again). A parked slot whose next
+    row is already history, a whole-prompt adopter's last shared token,
+    is not: writing it would change a page that other slots and the
+    prefix index read (the reference's sharing fault). Keeping the rest
+    in place keeps the trash page what the reference's holds, which a
+    ``moe`` model's pad rows average."""
+    layer = next(c for c in caches["layers"] if "k_pages" in c)
+    pos, t = layer["pos_ids"], layer["length"]
+    W = pos.shape[1]
+    nxt = pos.gather(1, t.clamp(0, W - 1).long()[:, None])[:, 0]
+    return active | (t >= W) | (nxt < 0)
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
@@ -730,6 +748,17 @@ def gather_slot_view(pool: Dict, slots: torch.Tensor) -> Dict:
                    for layer in pool["layers"]],
         "paged": {"tbl": model_table(pool["paged"])[sl]},
     }
+
+
+def slot_view_rows(view: Dict, rows: torch.Tensor) -> Dict:
+    """The per-slot rows ``rows`` of a ``gather_slot_view`` tree (its
+    pools and table rows as they are): what ``scatter_slot_view`` writes
+    back."""
+    return {"t": view["t"][rows],
+            "layers": [{**layer, "pos_ids": layer["pos_ids"][rows],
+                        "length": layer["length"][rows]}
+                       for layer in view["layers"]],
+            "paged": view["paged"]}
 
 
 def scatter_slot_view(pool: Dict, view: Dict, slots: torch.Tensor) -> Dict:

@@ -72,8 +72,9 @@ def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
     ``freeze_inactive`` (chunked-prefill engines) keeps inactive slots'
     write cursors at their pre-step values (``paged.freeze_inactive_
     cursors``), so a slot parked mid-chunked-prefill keeps its logical
-    position exact while decode runs around it, and routes their garbage
-    writes of the step to the trash page (``paged.model_table``).
+    position exact while decode runs around it, and routes the garbage
+    write of a parked slot whose next row is already history to the trash
+    page (``paged.in_place_rows``, ``paged.model_table``).
 
     The fleet's tree (``ShardedServingEngine``) is S shards' B slots each:
     its per-slot rows and ``cur_tokens``/``state`` are flat (S*B, ...),
@@ -95,8 +96,9 @@ def fused_decode_steps(model, params, caches, cur_tokens: torch.Tensor,
             old = PG.snapshot_cursors(caches, old)
         alloc = caches.get("paged")
         if alloc is not None:
-            tbl = PG.model_table(alloc, active if freeze_inactive else None,
-                                 tbl)
+            tbl = PG.model_table(
+                alloc, PG.in_place_rows(caches, active) if freeze_inactive
+                else None, tbl)
             caches["paged"] = {"tbl": tbl}
         logits, caches = model.decode_step(params, caches, cur_tokens)
         if alloc is not None:

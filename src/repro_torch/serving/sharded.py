@@ -25,8 +25,17 @@ S shards are a leading axis of the device state on one device:
 A lane of a fleet-wide allocator call with nothing to do is the sentinel
 slot B (one past the shard's slots): the reference relies on JAX dropping
 out-of-range scatters and clamping gathers; here each such write lands in
-a scratch row that is cut off (``paged._put_rows``), and the model only
-ever sees real rows.
+a scratch row that is cut off (``paged._put_rows``), and the model sees
+only real rows, except on a ``moe`` model.
+
+A ``moe`` model routes each shard's tokens against that shard's own
+expert capacity, as the reference's ``shard_map`` body runs the
+single-device ``moe_ffn`` on each shard's rows: the fleet's forward takes
+its rows as S groups (``Model.grouped``, ``moe.moe_apply``), each with
+its own capacity, buffers and drops. A decode step's groups are the
+shards' B slot rows; a prefill chunk launch runs every shard's n lanes,
+an idle lane as the reference runs its sentinel: slot B read as slot B-1
+(JAX's clamped gather), no token, its state not written back.
 
 Host-side scheduling is shard-aware, as in the reference: admission
 places each request on one shard (``routing="free_pages"``: the longest
@@ -93,12 +102,6 @@ class ShardedServingEngine:
                  device: Union[str, torch.device] = "cuda"):
         if cfg.shards < 1:
             raise ValueError("shards must be >= 1")
-        if "moe" in model.kinds:
-            raise NotImplementedError(
-                f"{model.cfg.name}: the fleet does not serve moe blocks yet. "
-                "The reference computes expert capacity per shard (inside "
-                "its shard_map body), while the fleet's one forward over "
-                "S*B rows would pool it across shards (ROADMAP Queue 1)")
         if not cfg.paged or cfg.prefill_chunk is None:
             raise ValueError(
                 "sharded serving requires the paged pool + chunked "
@@ -109,6 +112,10 @@ class ShardedServingEngine:
         # model capability gates) on a throwaway instance, then discard its
         # device state — the fleet builds its own
         probe = ServingEngine(model, params, cfg, device=device)
+        # expert capacity per shard: the forward's rows as S groups
+        self.grouped = model.cfg.moe is not None
+        if self.grouped:
+            model = model.grouped(cfg.shards)
         self.model, self.params, self.cfg = model, params, cfg
         self.device = probe.device
         self.workload = workload_of(model.cfg)
@@ -1378,16 +1385,24 @@ class ShardedServingEngine:
             for i, (_, slot, p0, piece) in enumerate(pk):
                 lanes[s, i], pos0[s, i], n_tok[s, i] = slot, p0, len(piece)
                 real.append((s, i))
-        tokens = np.zeros((len(real), C), np.int32)
-        mask = np.zeros((len(real), C), np.int32)
-        for k, (s, i) in enumerate(real):
-            piece = packs[s][i][3]
-            tokens[k, :len(piece)] = piece
-            mask[k, :len(piece)] = 1
+        # a moe model runs every shard's n lanes, an idle one as slot B-1
+        # with no token (the module docstring); the others the real ones
+        lanes_run = ([(s, i) for s in range(self.S) for i in range(n)]
+                     if self.grouped else real)
+        tokens = np.zeros((len(lanes_run), C), np.int32)
+        mask = np.zeros((len(lanes_run), C), np.int32)
+        for k, (s, i) in enumerate(lanes_run):
+            if i < len(packs[s]):
+                piece = packs[s][i][3]
+                tokens[k, :len(piece)] = piece
+                mask[k, :len(piece)] = 1
+        keep = None
+        if self.grouped:
+            keep = np.array([s * n + i for s, i in real], np.int32)
         first, rows = self._chunk_launch(
             tokens, mask, lanes, pos0, n_tok,
-            np.array(self._rows((s, lanes[s, i]) for s, i in real),
-                     np.int32))
+            np.array(self._rows((s, min(lanes[s, i], self.B - 1))
+                                for s, i in lanes_run), np.int32), keep)
         self.prefill_chunks += 1
         finished: List[Tuple[int, int, int]] = []   # (shard, lane, row)
         for k, (s, i) in enumerate(real):

@@ -1823,7 +1823,8 @@ def test_flash_h40_over_a_strided_kv_view(cuda_device, dtype, B, Hkv, S, hd,
 
 
 def test_decode_and_chunk_kernels_refuse_groups_they_lack(cuda_device):
-    """Group 5 is a decode instance only; group 6 is none."""
+    """Group 5 is an instance of the decode and chunk kernels; group 6 is
+    none."""
     dev = cuda_device
     q6 = torch.randn(1, 12, 32, device=dev)
     kv = torch.randn(1, 2, 8, 32, device=dev)
@@ -1833,11 +1834,97 @@ def test_decode_and_chunk_kernels_refuse_groups_they_lack(cuda_device):
     pages = torch.randn(2, 3, 4, 32, device=dev)
     tbl = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     k_pos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
-    q5 = torch.randn(1, 10, 3, 32, device=dev)
+    q6 = torch.randn(1, 12, 3, 32, device=dev)
     with pytest.raises(ValueError, match="GQA group"):
-        ops.chunked_prefill_attention(q5, pages, pages, tbl,
+        ops.chunked_prefill_attention(q6, pages, pages, tbl,
                                       torch.zeros((1, 3), dtype=torch.int32,
                                                   device=dev), k_pos)
+
+
+@pytest.mark.parametrize("group", [1, 2, 5])
+def test_float32_head_dim_20_kernels_match_plain(cuda_device, group):
+    """Head dim 20 in float32 (``examples/serve_e2e_torch.py``: d_model
+    160 over 8 heads): flash over right-padded rows and decode over a
+    half-filled cache, against the plain versions; bf16 has no hd 20
+    instance and is refused."""
+    rng = np.random.default_rng(20 + group)
+    B, Hkv, S, hd, dev = 3, 4, 37, 20, cuda_device
+    f32 = torch.float32
+    q = _normal(rng, (B, S, group * Hkv, hd), f32, dev).transpose(1, 2)
+    k = _normal(rng, (B, S, Hkv, hd), f32, dev).transpose(1, 2)
+    v = _normal(rng, (B, S, Hkv, hd), f32, dev).transpose(1, 2)
+    pos = np.arange(S, dtype=np.int32)[None].repeat(B, 0)
+    pos = np.where(pos < np.array([[S], [11], [30]]), pos, -1).astype(
+        np.int32)
+    p = torch.from_numpy(pos).to(dev)
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, p, p))
+    rows = (p >= 0)[:, None, :, None].expand_as(got)
+    torch.testing.assert_close(got[rows], ref.flash_attention(
+        q, k, v, p, p)[rows], atol=TOL[f32], rtol=TOL[f32])
+    qd = _normal(rng, (B, group * Hkv, hd), f32, dev)
+    qp = torch.tensor([S - 1, 10, 29], dtype=torch.int32, device=dev)
+    got = _launched("decode_attention",
+                    lambda: ops.decode_attention(qd, k, v, qp, p))
+    torch.testing.assert_close(got, ref.decode_attention(qd, k, v, qp, p),
+                               atol=TOL[f32], rtol=TOL[f32])
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), p, p)
+
+
+def _dup_pool(x, dev, dtype):
+    """A (Hkv, P+1, ps, hd) numpy pool as the model's pool of duplicated
+    kv heads, (2 Hkv, P+1, ps, hd) with heads 2c and 2c + 1 equal, on the
+    card; returns the kernels' operand, its view ::2."""
+    t = torch.from_numpy(x).to(dtype).to(dev)
+    return t[:, None].expand(t.shape[0], 2, *t.shape[1:]).reshape(
+        2 * t.shape[0], *t.shape[1:])[::2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hkv,ps,M,S,hd,window", [
+    (2, 8, 12, 33, 32, None), (8, 16, 20, 256, 128, None),
+    (2, 16, 10, 48, 128, 40),
+])
+def test_paged_kernels_group5_over_a_strided_pool_view(cuda_device, dtype,
+                                                       Hkv, ps, M, S, hd,
+                                                       window):
+    """Maverick's paged path: 5 Hkv q heads cut from the padded projection
+    at group 5 over the view ::2 of a pool of duplicated kv heads, in the
+    chunk kernel (its group-5 instance: pad queries write 0) and in paged
+    decode, against the plain versions."""
+    rng = np.random.default_rng(Hkv * 1000 + S + hd)
+    B, dev = 3, cuda_device
+    kp, vp, tbl, q_pos, k_pos = _paged_case(rng, B, Hkv, ps, M, hd, S=S)
+    kv, vv = _dup_pool(kp, dev, dtype), _dup_pool(vp, dev, dtype)
+    assert kv.stride(0) == 2 * (B * M + 1) * ps * hd
+    tbl, qp, kpos = (torch.from_numpy(x).to(dev)
+                     for x in (tbl, q_pos, k_pos))
+    q = _normal(rng, (B, S, 6 * Hkv, hd), dtype, dev)[:, :, :5 * Hkv]
+    args = (q.transpose(1, 2), kv, vv, tbl, qp, kpos)
+    plain = functools.partial(ref.chunked_prefill_attention, window=window)
+    got = _launched("chunked_prefill_attention",
+                    lambda: ops.chunked_prefill_attention(*args,
+                                                          window=window))
+    rows = (qp >= 0)[:, None, :, None].expand_as(got)
+    if dtype == torch.bfloat16:
+        _check_bf16(got, plain, args, rows)
+    else:
+        torch.testing.assert_close(got[rows], plain(*args)[rows],
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert (got.float()[~rows] == 0).all()
+    qd = _normal(rng, (B, 6 * Hkv, hd), dtype, dev)[:, :5 * Hkv]
+    dpos = qp.max(dim=1).values.contiguous()
+    args = (qd, kv, vv, tbl, dpos, kpos)
+    plain = functools.partial(ref.paged_decode_attention, window=window)
+    got = _launched("paged_decode_attention",
+                    lambda: ops.paged_decode_attention(*args, window=window))
+    rows = torch.ones_like(got, dtype=torch.bool)
+    if dtype == torch.bfloat16:
+        _check_bf16(got, plain, args, rows)
+    else:
+        torch.testing.assert_close(got, plain(*args), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
 
 
 def _maverick_map(cf):
@@ -1893,6 +1980,62 @@ def test_pad_row_fill_on_card_matches_cpu(cuda_device, cf):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+def test_paged_moe_dead_rows_on_card_match_cpu(cuda_device, cf):
+    """The paged + chunked + prefix-sharing engine on a full-attention moe
+    model (Maverick's head map at small size, float32): every chunk
+    launch's attention output on the card (the chunk kernel at group 5
+    over the pool's kv heads ::2, the dead rows filled over the gathered
+    logical view) equals the CPU's plain path, dead rows included; the
+    same tokens, with every decode step graphed on the card."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.models import attention as A
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = dataclasses.replace(_maverick_map(cf), attn_chunk=None,
+                              global_attn_every=0)
+    assert A.kernel_head_group(cfg, "cuda") == (5, 2, 10)
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(11)
+    system = rng.integers(2, cfg.vocab, 16).tolist()
+    prompts = [system + rng.integers(2, cfg.vocab, n).tolist()
+               if i % 2 else rng.integers(2, cfg.vocab, n).tolist()
+               for i, n in enumerate((5, 19, 30, 9, 3, 14, 27, 40))]
+    ecfg = EngineConfig(max_batch=4, max_len=96, paged=True, page_size=8,
+                        prefill_chunk=16, prefill_pack=2,
+                        prefix_sharing=True)
+    outs, toks = {}, {}
+    attn = A.self_attention
+
+    def spy(*a, **kw):
+        out, cache = attn(*a, **kw)
+        if a[7] == "chunk":
+            outs.setdefault(out.device.type, []).append(out.cpu())
+        return out, cache
+
+    A.self_attention = spy
+    try:
+        for dev in ("cpu", cuda_device):
+            eng = ServingEngine(Model(cfg, dev), _to(cpu_params, dev), ecfg,
+                                device=dev)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=8))
+            ops.reset_launches()
+            toks[str(dev)] = {r.rid: r.tokens for r in eng.run()}
+            counts = ops.launch_counts()
+    finally:
+        A.self_attention = attn
+    assert toks["cpu"] == toks[str(cuda_device)]
+    assert len(outs["cpu"]) == len(outs["cuda"]) > 0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    L = cfg.n_layers
+    assert counts["chunked_prefill_attention"] == L * eng.prefill_chunks
+    assert counts["paged_decode_attention"] == L * eng.stats()["steps"]
+    assert eng.graphs.replays == eng.decode_chunks
 
 
 @pytest.mark.parametrize("arch", ["smoke", "map-cf2.0", "map-cf0.5"])

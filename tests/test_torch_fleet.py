@@ -35,6 +35,14 @@ PRNGKey(0))``, converted by ``models/convert.params_from_jax``. The
 reference tests draw prompts from a module-level generator shared across
 tests; each scenario here seeds its own.
 
+A ``moe`` model's fleet (``moe_per_shard``): Maverick smoke with full
+attention (the reference's paged gate excludes chunk-local attention) at
+capacity factor 1, 4 shards of 8 slots, where each shard's decode step
+(8 tokens) and chunk launch (one lane of 8) can drop no token while the
+32 rows of a step pooled over the fleet can. It must equal the JAX fleet,
+whose ``shard_map`` body runs ``moe_ffn`` on each shard's rows, and give
+other tokens with the port's capacity pooled across the shards.
+
 One trace is held to the unshared engine instead of the JAX fleet: whole-
 prompt adopters that wait through a decode chunk (``adopters``). The JAX
 fleet decodes with ``freeze_inactive=True``, which writes such a parked
@@ -613,6 +621,68 @@ def adopters(side):
             "single": side.single(reqs)}
 
 
+MOE_ARCH = "llama4-maverick-400b-a17b"
+MOE_CF = 1.0
+MOE_FLEET = dict(max_batch=8, max_len=64, sync_every=8, paged=True,
+                 page_size=PS, prefill_chunk=CH, shards=S)
+MOE_LENS = (5, 12, 3, 20, 9, 16, 7, 25, 4, 11, 14, 6, 18, 10, 8, 13, 22, 3,
+            15, 9)
+
+
+def moe_model(side):
+    """(model, params) of Maverick smoke with full attention at
+    ``MOE_CF``, made once a side: the JAX package's from PRNGKey(0), the
+    port's converted from the oracle's."""
+    if getattr(side, "_moe", None) is None:
+        import dataclasses
+        import jax
+        if side.name == "jax":
+            from repro.configs import get_config
+            from repro.models import Model
+        else:
+            from repro_torch.configs import get_config
+            from repro_torch.models import Model
+            from repro_torch.models.convert import params_from_jax
+        cfg = get_config(MOE_ARCH, "smoke")
+        cfg = dataclasses.replace(
+            cfg, attn_chunk=None, global_attn_every=0,
+            moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_CF))
+        if side.name == "jax":
+            model = Model(cfg)
+            params = model.init(jax.random.PRNGKey(0))
+        else:
+            model = Model(cfg, "cpu")
+            params = params_from_jax(jax.tree_util.tree_map(
+                np.asarray, moe_model(side.oracle)[1]), cfg, "cpu")
+        side._moe = (model, params)
+    return side._moe
+
+
+@scenario
+def moe_per_shard(side):
+    """20 requests over 4 shards of 8 slots, 10 new tokens each; on the
+    port also with the capacity pooled (the forward's rows one group)."""
+    model, params = moe_model(side)
+    reqs = _reqs(33, MOE_LENS, max_new=10)
+
+    def run():
+        eng = side.Fleet(model, params, side.Config(**MOE_FLEET), **side.kw)
+        side.submit(eng, reqs)
+        eng.run()
+        return eng
+
+    out = {"fleet": result(side, run())}
+    if side.name == "torch":
+        from repro_torch.models import Model
+        grouped = Model.grouped
+        Model.grouped = lambda self, groups: self        # one group
+        try:
+            out["pooled"] = result(side, run())["tokens"]
+        finally:
+            Model.grouped = grouped
+    return out
+
+
 # ----------------------------------------------------------------- fixtures
 
 
@@ -1107,6 +1177,18 @@ def test_waiting_whole_prompt_adopters_held_to_unshared_engine(runs):
     assert fleet["pool_clean"]
     for key in ("stats", "shard", "shard_j", "shard_g", "reason"):
         agree({key: want["fleet"][key]}, {key: fleet[key]})
+
+
+def test_moe_fleet_routes_each_shard_against_its_own_capacity(runs):
+    """A ``moe`` model's fleet equals the JAX fleet: tokens, placements,
+    per-shard gCO2 and every stats() key; pooled over the shards, the
+    port's capacity gives other tokens, so per-shard capacity is what
+    made them equal."""
+    want, got = pair(runs, "moe_per_shard")
+    agree(want["fleet"], got["fleet"])
+    assert sorted(set(got["fleet"]["shard"].values())) == list(range(S))
+    assert all(got["fleet"]["finished"].values())
+    assert got["pooled"] != got["fleet"]["tokens"]
 
 
 def test_one_forward_per_microstep_serves_every_shard(side, monkeypatch):

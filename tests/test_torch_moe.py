@@ -16,9 +16,15 @@ JAX package, on the CPU in float32.
   engine, with every non-wall-clock ``stats()`` key and each request's
   modeled J to 1e-12; also through the card's head layout (the strided kv
   view at group 5) on the CPU's plain kernels.
-* The card's pad-row fill, head layouts and parameter checks as pure
-  functions; ``workload_of`` for Maverick full, smoke and its depth-4 cut;
-  the fleet refusing a ``moe`` config; ``layers.normal``'s sliced draw.
+* Maverick smoke with full attention (the reference's paged gate
+  excludes chunk-local attention) on the paged pool with chunked prefill
+  and prefix sharing, at a capacity factor where chunk launches drop real
+  tokens and one where nothing drops, token for token against the JAX
+  engine (modeled J and gCO2 to 1e-12), expanded and through the card's
+  head layout.
+* The card's pad-row fill (contiguous and paged), head layouts and
+  parameter checks as pure functions; ``workload_of`` for Maverick full,
+  smoke and its depth-4 cut; ``layers.normal``'s sliced draw.
 """
 import dataclasses
 
@@ -44,14 +50,14 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import ref as KREF
 from repro_torch.models import Model
 from repro_torch.models import attention as TA
+from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import moe as TM
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.costing import param_counts, workload_of
 from repro_torch.models.model import check_head_padding
-from repro_torch.serving import (EngineConfig, Request, ServingEngine,
-                                 ShardedServingEngine)
+from repro_torch.serving import EngineConfig, Request, ServingEngine
 
 MAVERICK = "llama4-maverick-400b-a17b"
 T = torch.from_numpy
@@ -358,6 +364,77 @@ def test_maverick_head_map_engine_matches_jax_engine(cf, layout, monkeypatch):
     _engines_agree(jcfg, cfg, monkeypatch if layout == "card" else None)
 
 
+PAGED_MOE = dict(ECFG, max_len=128, paged=True, prefill_chunk=16,
+                 prefill_pack=2, prefix_sharing=True)
+
+
+def _full_attention(cfg, cf):
+    """``cfg`` with full attention (no chunk-local layers) at capacity
+    factor ``cf``: what the reference's paged gate admits."""
+    return dataclasses.replace(cfg, attn_chunk=None, global_attn_every=0,
+                               moe=dataclasses.replace(cfg.moe,
+                                                       capacity_factor=cf))
+
+
+def _count_drops(monkeypatch):
+    """Spy on every serving moe call: the real tokens (mask 1, or a decode
+    row) and the pad tokens each drops. Returns the (real, pad) list."""
+    seen, masks = [], []
+    block, apply = TB.block_apply_pending, TM.moe_apply
+
+    def block_spy(p, cfg, kind, ctx, *a):
+        masks.append(ctx.mask)
+        return block(p, cfg, kind, ctx, *a)
+
+    def moe_spy(p, cfg, x, *groups):
+        y, (rl, ids, keep) = apply(p, cfg, x, *groups)
+        k = ids.shape[-1]
+        order = torch.argsort(ids.reshape(-1), stable=True)
+        mask = masks[-1]
+        real = (torch.ones(x.shape[:2], dtype=torch.bool) if mask is None
+                else mask > 0).reshape(-1)[order // k]
+        seen.append((int((~keep & real).sum()), int((~keep & ~real).sum())))
+        return y, (rl, ids, keep)
+
+    monkeypatch.setattr(TB, "block_apply_pending", block_spy)
+    monkeypatch.setattr(TM, "moe_apply", moe_spy)
+    return seen
+
+
+@pytest.mark.parametrize("layout", ["expand", "card"])
+@pytest.mark.parametrize("cf", [4.0, 0.5])
+def test_paged_chunked_moe_engine_matches_jax_engine(cf, layout,
+                                                     monkeypatch):
+    """Maverick smoke with full attention on the paged pool, chunk 16
+    packed 2, prefix sharing (``test_torch_engine``'s shared-prefix trace),
+    against the JAX engine at cf 4 (no token dropped) and cf 0.5 (chunk
+    launches drop real tokens), through the CPU's map and the card's head
+    layout."""
+    from test_torch_engine import _assert_engines_agree, _run, _shared_trace
+    jcfg = _full_attention(jax_get_config(MAVERICK, "smoke"), cf)
+    cfg = _full_attention(get_config(MAVERICK, "smoke"), cf)
+    jmodel = JModel(jcfg)
+    np_tree = jax.tree_util.tree_map(
+        np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    jeng = JServingEngine(jmodel, jparams, JEngineConfig(**PAGED_MOE))
+    want = _run(jeng, JRequest, _shared_trace(), {})
+    if layout == "card":
+        _card_layout(monkeypatch)
+    drops = _count_drops(monkeypatch)
+    teng = ServingEngine(Model(cfg, "cpu"), params_from_jax(np_tree, cfg,
+                                                            "cpu"),
+                         EngineConfig(**PAGED_MOE), device="cpu")
+    got = _run(teng, Request, _shared_trace(), {})
+    _assert_engines_agree(jeng, teng, want, got)
+    st = teng.stats()
+    assert st["prefix_hit_tokens"] > 0 and teng.prefill_chunks > 0
+    real = sum(r for r, _ in drops)
+    assert (real > 0) == (cf < 1), drops
+    if cf > 1:
+        assert not any(p for _, p in drops)
+
+
 def test_tight_capacity_drops_real_prefill_tokens():
     """The head-map config at cf 0.5 on a padded batch of 19 and 30
     tokens in a bucket of 32: 64 tokens on 4 experts of 8 slots drop at
@@ -368,8 +445,8 @@ def test_tight_capacity_drops_real_prefill_tokens():
     seen = []
     apply = TM.moe_apply
 
-    def spy(p, c, x):
-        y, routing = apply(p, c, x)
+    def spy(p, c, x, *groups):
+        y, routing = apply(p, c, x, *groups)
         seen.append(float(TM.moe_aux(c, *routing)["moe_drop_frac"]))
         return y, routing
 
@@ -422,6 +499,91 @@ def test_pad_row_fill_matches_plain():
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
+def test_paged_pad_row_fill_matches_plain():
+    """The paged kernels also write 0 in a row that sees no key; the paged
+    fill gives it the plain versions' value: the mean of V over the slot's
+    logical view, unmapped pages read as the trash page. Maverick's
+    layout at small size: 10 q heads at group 5 over the pool's kv heads
+    ::2 (a strided view of 4 duplicated heads)."""
+    g = torch.Generator().manual_seed(5)
+    B, Hq, Hkv, ps, M, P, hd = 3, 10, 2, 4, 6, 9, 32
+    pool = torch.randn((2 * Hkv, P + 1, ps, hd), generator=g)
+    kp, vp = pool[::2], pool[1::2]                   # strided views
+    tbl = torch.tensor([[0, 3, 5, -1, -1, -1], [1, 2, -1, -1, -1, -1],
+                        [4, 6, 7, 8, -1, -1]], dtype=torch.int32)
+    lens = torch.tensor([11, 6, 15])
+    W = M * ps
+    k_pos = torch.arange(W, dtype=torch.int32)[None].expand(B, W)
+    k_pos = torch.where(k_pos < lens[:, None], k_pos,
+                        torch.full_like(k_pos, -1))
+    # chunk: S queries from each slot's cursor, the tail ones pads
+    S = 5
+    q = torch.randn((B, Hq, S, hd), generator=g)
+    start = torch.tensor([[8], [4], [11]])
+    q_pos = (start + torch.arange(S)).to(torch.int32)
+    q_pos = torch.where(q_pos < lens[:, None], q_pos,
+                        torch.full_like(q_pos, -1))
+    want = KREF.chunked_prefill_attention(q, kp, vp, tbl, q_pos, k_pos)
+    dead = q_pos < 0
+    assert dead.any() and not dead.all()
+    kernel_like = torch.where(dead[:, None, :, None], 0.0, want)
+    got = TA._fill_dead_rows_paged(kernel_like.transpose(1, 2), vp, tbl,
+                                   dead).transpose(1, 2)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    # decode: slot 1's query at -1 sees no key
+    qd = torch.randn((B, Hq, hd), generator=g)
+    qd_pos = torch.tensor([10, -1, 14], dtype=torch.int32)
+    want = KREF.paged_decode_attention(qd, kp, vp, tbl, qd_pos, k_pos)
+    dead = ~KREF.attention_mask(qd_pos[:, None], k_pos, None, None).any(-1)
+    assert dead.tolist() == [False, True, False]
+    got = TA._fill_dead_rows_paged(
+        torch.where(dead[:, None, None], 0.0, want), vp, tbl, dead)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_ordered_paged_writes_leave_the_last_value_in_the_trash_page():
+    """Writes sharing a trash row: ``ordered`` writes store the last one's
+    value in each, as a sequential write leaves it, whatever order the
+    device commits them in; every other row is the unordered write's."""
+    g = torch.Generator().manual_seed(6)
+    H, P, ps, hd, B, S = 2, 6, 4, 8, 3, 5
+    tbl = torch.tensor([[0, 2, -1], [1, -1, -1], [3, 4, -1]],
+                       dtype=torch.int32)
+    pos = torch.tensor([[4, 5, -1, -1, -1], [0, 1, 2, -1, -1],
+                        [6, 7, 8, 9, -1]], dtype=torch.int32)
+    k = torch.randn((B, S, H, hd), generator=g)
+    v = torch.randn((B, S, H, hd), generator=g)
+
+    def pool():
+        return {"k_pages": torch.zeros((H, P + 1, ps, hd)),
+                "v_pages": torch.zeros((H, P + 1, ps, hd)),
+                "pos_ids": torch.full((B, 3 * ps), -1, dtype=torch.int32),
+                "length": torch.zeros((B,), dtype=torch.int32)}
+
+    plain, ordered = pool(), pool()
+    TA.paged_chunk_write(plain, tbl, k, v, pos)
+    TA.paged_chunk_write(ordered, tbl, k, v, pos, ordered=True)
+    for name in ("k_pages", "v_pages"):
+        torch.testing.assert_close(ordered[name][:, :P], plain[name][:, :P],
+                                   rtol=0, atol=0)
+    for name in ("pos_ids", "length"):
+        torch.testing.assert_close(ordered[name], plain[name], rtol=0, atol=0)
+    # every pad wrote trash row 0; the last pad is row 2's position 4
+    assert torch.equal(ordered["k_pages"][:, P, 0], k[2, 4])
+    rows = torch.tensor([0, P * ps, 3, P * ps + 1, P * ps, 5, P * ps + 1])
+    assert TA._last_writes(rows, P, ps).tolist() == [0, 4, 2, 6, 4, 5, 6]
+    # decode: all three slots past their one-page tables, onto trash row 1
+    cache = pool()
+    cache["length"] = torch.tensor([5, 13, 13], dtype=torch.int32)
+    k1, v1 = torch.randn((B, 1, H, hd), generator=g), torch.randn(
+        (B, 1, H, hd), generator=g)
+    TA.paged_decode_write(cache, tbl[:, :1].contiguous(), k1, v1,
+                          ordered=True)
+    assert torch.equal(cache["k_pages"][:, P, 1], k1[2, 0])
+    assert torch.equal(cache["v_pages"][:, 0, 1], torch.zeros((H, hd))) \
+        and torch.equal(cache["v_pages"][:, P, 1], v1[2, 0])
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_kernel_head_layout_reads_the_reference_kv_head(arch):
     """For each real q head i the kernels' kv head (i // group) * kv_step
@@ -469,17 +631,6 @@ def test_head_padding_check_raises_on_unequal_kv_copies():
     params["layers"][1]["attn"]["wv"][3, 2 * hd + 5] += 1.0   # head 2
     with pytest.raises(ValueError, match="copies"):
         check_head_padding(params, cfg)
-
-
-def test_fleet_refuses_moe():
-    cfg = dataclasses.replace(get_config(MAVERICK, "smoke"), attn_chunk=None,
-                              global_attn_every=0)
-    model = Model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    ecfg = EngineConfig(max_batch=2, max_len=64, shards=2, paged=True,
-                        prefill_chunk=16)
-    with pytest.raises(NotImplementedError, match="capacity per shard"):
-        ShardedServingEngine(model, params, ecfg, device="cpu")
 
 
 # ---------------------------------------------------------------- costing
